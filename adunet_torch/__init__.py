@@ -1,0 +1,28 @@
+"""adunet_torch — the PyTorch / CUDA (Hopper) port of ``adunet``.
+
+A second package beside the JAX reference ``adunet``. It imports ``torch``
+and numpy only (never ``jax``, ``flax`` or ``adunet``), keeps the reference's
+NHWC layout at every public function, and runs the two Pallas TPU kernels of
+the reference as hand-written CUDA C++ kernels for ``sm_90a``
+(``adunet_torch/csrc``), built with ``nvcc`` at first use.
+
+Every entry point takes a ``device`` and defaults to CUDA; without a GPU it
+raises unless the caller passes ``device="cpu"``. On CPU tensors the kernel
+wrappers run their plain PyTorch versions; on CUDA tensors they launch the
+kernel or raise.
+
+Subpackages
+-----------
+- ``ops``      — fractional resize (matmul), LR degradation, luma, residual add
+- ``nn``       — depth policies and building blocks (ConvBlock)
+- ``kernels``  — CUDA kernels: fused LayerNorm+ReLU (K1), 64->64 3x3 conv (K2)
+- ``models``   — adaptive SR U-Net
+- ``losses``   — SR losses (charbonnier, l1, mse, SSIM) and the PSNR metric
+- ``export``   — loading int8 weight-file serving artifacts
+- ``metrics``  — PSNR / SSIM / MS-SSIM
+- ``evaluate`` — evaluation helpers
+- ``utils``    — device resolution and runtime switches
+- ``cli``      — HTTP model server
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,4 @@
+"""Command-line entry points of the port.
+
+- ``python -m adunet_torch.cli.serve`` ← ``adunet/cli/serve.py``
+"""

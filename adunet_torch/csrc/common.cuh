@@ -1,0 +1,85 @@
+// Element types and vector loads shared by the port's kernels.
+//
+// A kernel is written once over a type trait `Tr` (F32 or BF16): `storage` is
+// how the element lies in device memory, `to_f` / `from_f` convert it to and
+// from the float32 the kernels compute in. bf16 is kept as raw 16-bit words
+// (round-to-nearest-even on the way out, as torch's own cast does), so the
+// code needs no bf16 arithmetic operators.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace adunet {
+
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+struct F32 {
+  using storage = float;
+  __device__ __forceinline__ static float to_f(float v) { return v; }
+  __device__ __forceinline__ static float from_f(float v) { return v; }
+};
+
+struct BF16 {
+  using storage = unsigned short;
+  __device__ __forceinline__ static float to_f(unsigned short u) {
+    return __uint_as_float(static_cast<unsigned>(u) << 16);
+  }
+  __device__ __forceinline__ static unsigned short from_f(float f) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+  }
+};
+
+template <int kBytes> struct RawVec;
+template <> struct RawVec<4> { using type = unsigned int; };
+template <> struct RawVec<8> { using type = uint2; };
+template <> struct RawVec<16> { using type = uint4; };
+
+// Load N consecutive elements as float32, in vector loads of up to 16 bytes.
+// `p` must be aligned to min(16, N * sizeof(storage)) bytes.
+template <typename Tr, int N>
+__device__ __forceinline__ void load_vec(const typename Tr::storage* p, float (&out)[N]) {
+  using S = typename Tr::storage;
+  constexpr int kBytes = N * static_cast<int>(sizeof(S));
+  constexpr int kChunk = kBytes < 16 ? kBytes : 16;
+  constexpr int kPer = kChunk / static_cast<int>(sizeof(S));
+  using R = typename RawVec<kChunk>::type;
+#pragma unroll
+  for (int c = 0; c < N / kPer; ++c) {
+    union {
+      R raw;
+      S e[kPer];
+    } u;
+    u.raw = *reinterpret_cast<const R*>(p + c * kPer);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) out[c * kPer + i] = Tr::to_f(u.e[i]);
+  }
+}
+
+// Store N float32 values as N consecutive elements (same alignment rule).
+template <typename Tr, int N>
+__device__ __forceinline__ void store_vec(typename Tr::storage* p, const float (&in)[N]) {
+  using S = typename Tr::storage;
+  constexpr int kBytes = N * static_cast<int>(sizeof(S));
+  constexpr int kChunk = kBytes < 16 ? kBytes : 16;
+  constexpr int kPer = kChunk / static_cast<int>(sizeof(S));
+  using R = typename RawVec<kChunk>::type;
+#pragma unroll
+  for (int c = 0; c < N / kPer; ++c) {
+    union {
+      R raw;
+      S e[kPer];
+    } u;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) u.e[i] = Tr::from_f(in[c * kPer + i]);
+    *reinterpret_cast<R*>(p + c * kPer) = u.raw;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace adunet

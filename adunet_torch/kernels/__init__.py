@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
+PyTorch version: K1 fused LayerNorm+ReLU, K2 64->64 3x3 SAME conv."""
+
+from adunet_torch.kernels.conv64 import conv3x3_same, conv3x3_same_plain, supported
+from adunet_torch.kernels.fused_norm import layer_norm_relu, layer_norm_relu_plain
+
+__all__ = [
+    "layer_norm_relu",
+    "layer_norm_relu_plain",
+    "conv3x3_same",
+    "conv3x3_same_plain",
+    "supported",
+]

@@ -1,0 +1,130 @@
+"""Adaptive-depth super-resolution U-Net — the flagship model.
+
+Port of ``adunet/models/sr_adaptive.py`` (``AdaptiveSRUNet`` :38-105,
+``build_super_resolution_unet`` :108), with exactly the reference's
+parameter tree (names mirror flax: ``enc0.conv0.weight`` is flax's
+``enc0/conv0/kernel`` in OIHW, ``enc0.norm0.weight`` its ``scale``):
+
+- per encoder level: ConvBlock → fractional ``resize_by_scale`` (bilinear,
+  antialias); channels double;
+- bottleneck ConvBlock;
+- per decoder level: ``resize_to_match`` → ``dec{i}_smooth`` conv3x3 + ReLU
+  (no norm) → concat ``[h, skip]`` → ConvBlock;
+- head ConvBlock → zero-init 1x1 ``residual_rgb`` → ``clipped_residual_add``
+  in float32, so an untrained model is the identity.
+
+Input and output are NHWC. ``remat`` / ``remat_levels`` are training-only
+and not ported yet: anything but ``False`` / ``None`` raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from adunet_torch.nn.blocks import Conv, ConvBlock
+from adunet_torch.nn.depth_policy import custom_depth_from_scale, estimate_bottleneck_size
+from adunet_torch.ops import clipped_residual_add, resize_by_scale, resize_to_match
+from adunet_torch.utils.runtime import resolve_device
+
+__all__ = ["AdaptiveSRUNet", "build_super_resolution_unet"]
+
+
+class AdaptiveSRUNet(nn.Module):
+    def __init__(
+        self,
+        scale: float,
+        depth: int,
+        base_channels: int = 64,
+        residual_head_channels: int = 64,
+        dtype: torch.dtype = torch.float32,
+        remat: bool = False,
+        remat_levels: int | None = None,
+        device=None,
+        seed: int = 0,
+    ):
+        super().__init__()
+        if remat or remat_levels is not None:
+            raise NotImplementedError("remat / remat_levels are training-only and not ported yet")
+        self.scale = float(scale)
+        self.depth = int(depth)
+        self.dtype = dtype
+        nf, in_ch = base_channels, 3
+        for level in range(self.depth):
+            self.add_module(f"enc{level}", ConvBlock(in_ch, nf, device=device))
+            in_ch, nf = nf, nf * 2
+        self.bottleneck = ConvBlock(in_ch, nf, device=device)
+        for level in reversed(range(self.depth)):
+            nf //= 2
+            self.add_module(f"dec{level}_smooth", Conv(2 * nf, nf, 3, device=device))
+            self.add_module(f"dec{level}", ConvBlock(2 * nf, nf, device=device))
+        self.head = ConvBlock(base_channels, residual_head_channels, device=device)
+        self.residual_rgb = Conv(residual_head_channels, 3, 1, zero_init=True, device=device)
+        if torch.device(device if device is not None else "cpu").type != "meta":
+            generator = torch.Generator().manual_seed(int(seed))
+            for module in self.modules():
+                if hasattr(module, "reset_parameters"):
+                    module.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inputs = x
+        h = x.to(self.dtype)
+        skips = []
+        for level in range(self.depth):
+            skip = getattr(self, f"enc{level}")(h)
+            h = resize_by_scale(skip, self.scale)
+            skips.append(skip)
+        h = self.bottleneck(h)
+        for level in reversed(range(self.depth)):
+            skip = skips[level]
+            h = resize_to_match(h, skip)
+            h = torch.relu(getattr(self, f"dec{level}_smooth")(h))
+            h = torch.cat([h, skip], dim=-1)
+            h = getattr(self, f"dec{level}")(h)
+        h = self.head(h)
+        residual = self.residual_rgb(h)
+        return clipped_residual_add(inputs.to(torch.float32), residual.to(torch.float32))
+
+
+def build_super_resolution_unet(
+    scale: float,
+    base_channels: int = 64,
+    residual_head_channels: int = 64,
+    depth_override: int | None = None,
+    input_size: int = 256,
+    max_depth: int = 7,
+    dtype: torch.dtype = torch.float32,
+    remat: bool = False,
+    remat_levels: int | None = None,
+    device: str | torch.device = "cuda",
+    seed: int = 0,
+) -> Tuple[AdaptiveSRUNet, Dict[str, object]]:
+    """Resolve depth and build the model on ``device`` (CUDA by default; raises
+    without a GPU unless ``device="cpu"``; ``"meta"`` builds no storage)."""
+    dev = resolve_device(device)
+    depth = (
+        depth_override
+        if depth_override is not None
+        else custom_depth_from_scale(scale, max_depth=max_depth, base_resolution=input_size)
+    )
+    model = AdaptiveSRUNet(
+        scale=scale,
+        depth=depth,
+        base_channels=base_channels,
+        residual_head_channels=residual_head_channels,
+        dtype=dtype,
+        remat=remat,
+        remat_levels=remat_levels,
+        device=dev,
+        seed=seed,
+    ).eval()
+    info = {
+        "scale": scale,
+        "depth": depth,
+        "bottleneck_size": estimate_bottleneck_size(input_size, scale, depth),
+        "base_channels": base_channels,
+        "max_depth": max_depth,
+    }
+    return model, info

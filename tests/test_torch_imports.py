@@ -1,0 +1,49 @@
+"""Import hygiene of the port: ``adunet_torch`` and ``chip_smoke.py`` run on a
+GPU host that has no JAX, so they import no ``jax``, ``flax``, ``optax`` or
+``adunet`` (not even its JAX-free modules), and import no CUDA toolchain
+or GPU at import time."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_BLOCKED = ("jax", "jaxlib", "flax", "optax", "adunet")
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|adunet)(\.|\s|$)", re.MULTILINE
+)
+
+
+def _port_sources():
+    return sorted((ROOT / "adunet_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_sources_never_import_the_reference():
+    offenders = [
+        f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+        for p in _port_sources()
+        for m in _FORBIDDEN.finditer(p.read_text())
+    ]
+    assert not offenders, offenders
+
+
+def test_every_module_imports_with_jax_and_adunet_blocked():
+    code = "\n".join([
+        "import importlib, pkgutil, sys",
+        f"for name in {_BLOCKED!r}:",
+        "    sys.modules[name] = None  # any import of these now raises",
+        "import adunet_torch",
+        "for mod in pkgutil.walk_packages(adunet_torch.__path__, 'adunet_torch.'):",
+        "    importlib.import_module(mod.name)",
+        "import chip_smoke",
+        f"leaked = [m for m in sys.modules if m.split('.')[0] in {_BLOCKED!r} and sys.modules[m] is not None]",
+        "assert not leaked, leaked",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]

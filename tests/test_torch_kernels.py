@@ -1,0 +1,148 @@
+"""The port's kernel modules on the CPU: plain versions against the Pallas
+kernels they replace, the gate, and the raise-not-fallback rules.
+
+The CUDA kernels themselves run only on a GPU (``chip_smoke.py`` holds them
+against these plain versions on the card). Here the plain versions, which
+the CPU path runs, are held against the JAX reference:
+- K1 against ``layer_norm_relu_reference`` and against the Pallas kernel in
+  interpret mode, float32 at atol 1e-6 (same recipe, float32 rounding) and
+  bf16 at atol 1e-2 (one bf16 ulp near 1-4);
+- K2 against ``conv3x3_same_pallas`` (interpreted off the TPU) at
+  (1, 16, 128, 64), atol 1e-4 (576-term float32 sums in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from adunet.kernels import conv64 as jconv
+from adunet.kernels import fused_norm as jnorm
+from adunet_torch.kernels import conv64 as tconv
+from adunet_torch.kernels import fused_norm as tnorm
+
+torch.set_num_threads(2)
+
+
+def _norm_data(rows, c, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(rows, c)) * 2.0 + 0.3).astype(np.float32)
+    gamma = (rng.normal(size=(c,)) * 0.1 + 1.0).astype(np.float32)
+    beta = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
+    return x, gamma, beta
+
+
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_layer_norm_relu_plain_matches_reference_f32(c):
+    x, g, b = _norm_data(96, c, seed=c)
+    got = tnorm.layer_norm_relu(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b))
+    want = jnorm.layer_norm_relu_reference(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_layer_norm_relu_plain_matches_reference_bf16():
+    x, g, b = _norm_data(256, 128, seed=1)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = tnorm.layer_norm_relu(xb, torch.from_numpy(g), torch.from_numpy(b))
+    # identical bf16 input values on both sides
+    xj = jnp.asarray(xb.to(torch.float32).numpy()).astype(jnp.bfloat16)
+    want = jnorm.layer_norm_relu_reference(xj, jnp.asarray(g), jnp.asarray(b))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_relu_plain_matches_pallas_interpret(monkeypatch, dtype):
+    monkeypatch.setenv("ADUNET_FORCE_PALLAS", "1")
+    monkeypatch.setenv("ADUNET_PALLAS_INTERPRET", "1")
+    x, g, b = _norm_data(96, 64, seed=2)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.to(torch.float32).numpy()).astype(getattr(jnp, dtype))
+    # the Pallas kernel itself (no fallback wrapper), interpreted on the CPU
+    want = jnorm._pallas_forward(xj, jnp.asarray(g), jnp.asarray(b), 1e-3)
+    got = tnorm.layer_norm_relu(xt, torch.from_numpy(g), torch.from_numpy(b))
+    atol = 1e-6 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), atol=atol)
+
+
+@pytest.fixture(scope="module")
+def conv_data():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1, 16, 128, 64)).astype(np.float32)
+    w_hwio = (rng.normal(size=(3, 3, 64, 64)) * 0.05).astype(np.float32)
+    b = (rng.normal(size=(64,)) * 0.1).astype(np.float32)
+    return x, w_hwio, b
+
+
+def test_conv3x3_plain_matches_pallas(conv_data):
+    x, w_hwio, b = conv_data
+    want = np.asarray(jconv.conv3x3_same_pallas(jnp.asarray(x), jnp.asarray(w_hwio), jnp.asarray(b)))
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
+    got = tconv.conv3x3_same(torch.from_numpy(x), w_oihw, torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    # the plain version is a conv in its own right: F.conv2d agrees
+    ref = torch.nn.functional.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2), w_oihw,
+                                     torch.from_numpy(b), padding=1).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got, ref.numpy(), atol=1e-4)
+
+
+def test_pack_weights_tap_order(conv_data):
+    _, w_hwio, _ = conv_data
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
+    packed = tconv.pack_weights(w_oihw).numpy()
+    np.testing.assert_array_equal(packed, w_hwio.reshape(9, 64, 64))
+
+
+@pytest.mark.parametrize("x_shape, w_hwio", [
+    ((2, 16, 128, 64), (3, 3, 64, 64)),
+    ((8, 256, 256, 64), (3, 3, 64, 64)),
+    ((2, 16, 128, 32), (3, 3, 32, 32)),
+    ((2, 16, 128, 64), (3, 3, 128, 64)),
+    ((2, 16, 100, 64), (3, 3, 64, 64)),
+    ((2, 10, 128, 64), (3, 3, 64, 64)),
+    ((2, 8, 128, 64), (3, 3, 64, 64)),
+    ((2, 16, 128, 64), (5, 5, 64, 64)),
+    ((2, 16, 128, 64), (1, 1, 64, 64)),
+    ((16, 128, 64), (3, 3, 64, 64)),
+])
+def test_supported_parity(x_shape, w_hwio):
+    w_oihw = (w_hwio[3], w_hwio[2], w_hwio[0], w_hwio[1]) if len(w_hwio) == 4 else w_hwio
+    assert tconv.supported(x_shape, w_oihw) == jconv.supported(x_shape, w_hwio)
+
+
+def test_conv3x3_rejects_unsupported_shape():
+    with pytest.raises(ValueError, match="unsupported"):
+        tconv.conv3x3_same(torch.zeros(1, 16, 100, 64), torch.zeros(64, 64, 3, 3), None)
+
+
+def test_wrappers_raise_on_device_without_kernel():
+    """A tensor on neither the CPU nor CUDA gets no silent plain fallback."""
+    x = torch.empty(1, 16, 128, 64, device="meta")
+    w = torch.empty(64, 64, 3, 3, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tconv.conv3x3_same(x, w, None)
+    with pytest.raises(ValueError, match="no kernel"):
+        tnorm.layer_norm_relu(torch.empty(4, 64, device="meta"),
+                              torch.empty(64, device="meta"), torch.empty(64, device="meta"))
+
+
+def test_cpu_path_never_counts_launches():
+    before = (tnorm.layer_norm_relu.launches, tconv.conv3x3_same.launches)
+    tnorm.layer_norm_relu(torch.ones(4, 64), torch.ones(64), torch.zeros(64))
+    tconv.conv3x3_same(torch.ones(1, 16, 128, 64), torch.ones(64, 64, 3, 3), None)
+    assert (tnorm.layer_norm_relu.launches, tconv.conv3x3_same.launches) == before
+
+
+def test_kernel_sources_name_what_they_replace():
+    """Each CUDA source names the TPU kernel it replaces and its bound."""
+    from pathlib import Path
+
+    csrc = Path(tnorm.__file__).resolve().parents[1] / "csrc"
+    k1 = (csrc / "fused_norm.cu").read_text()
+    k2 = (csrc / "conv64.cu").read_text()
+    assert "adunet/kernels/fused_norm.py:48" in k1 and "Bound" in k1
+    assert "adunet/kernels/conv64.py:132" in k2 and "Bound" in k2
