@@ -1,0 +1,314 @@
+"""Train the adaptive-depth SR U-Net.
+
+Port of ``adunet/cli/train_sr.py`` with the same flags and the same run
+artifacts (``config.json`` in the run and checkpoint directories,
+``model_summary.txt``, ``epoch_metrics.csv``, best and latest checkpoints,
+the post-training Validation / Test PSNR(Y) lines), plus ``--device``
+(``cuda`` by default, which raises without a GPU; ``cpu`` runs the kernels'
+plain versions).
+
+This port trains from the device cache (``--device_cache``): the corpus sits
+on the device as uint8 and each step samples, degrades, runs forward, loss,
+backward and Adam there. Not ported yet, and refused with the ROADMAP item
+that ports it: the streamed patch pipeline (no ``--device_cache``) and the
+``--low_res_dir`` paired path (Queue 1 item 7), ``--loss combined`` (item 10),
+``--remat`` / ``--remat_levels`` (item 9), ``--model_shards`` and
+``--n_devices`` above 1 (item 13), ``--async_checkpoint`` (item 8).
+TensorBoard scalars and previews are not written.
+
+    python -m adunet_torch.cli.train_sr --scale 0.5 --depth_override 3 \\
+        --device_cache --mixed_precision --batch_size 32 --patch_size 256 \\
+        --high_res_dir DIR --image_suffix .npy [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+from datetime import datetime
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+
+from adunet_torch.configs import SRTrainConfig
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="Train adaptive-depth U-Net for super-resolution (PyTorch).")
+    parser.add_argument("--scale", type=float, required=True, help="Downscale factor (0 < scale < 1).")
+    parser.add_argument("--batch_size", type=int, default=4)
+    parser.add_argument("--epochs", type=int, default=100)
+    parser.add_argument("--learning_rate", type=float, default=1e-4)
+    parser.add_argument("--loss", type=str, default="charbonnier", choices=["charbonnier", "l1", "combined"])
+    parser.add_argument("--vgg19_npz", type=str, default=None)
+    parser.add_argument("--patience", type=int, default=10)
+    parser.add_argument("--val_split", type=float, default=0.1)
+    parser.add_argument("--test_split", type=float, default=0.1)
+    parser.add_argument("--limit", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--patch_size", type=int, default=256)
+    parser.add_argument("--patches_per_image", type=int, default=4)
+    parser.add_argument("--eval_stride", type=int, default=None)
+    parser.add_argument("--shuffle_buffer", type=int, default=1024)
+    parser.add_argument("--eval_shave", type=int, default=None)
+    parser.add_argument("--depth_override", type=int, default=None)
+    parser.add_argument("--max_depth", type=int, default=7)
+    parser.add_argument("--base_channels", type=int, default=64)
+    parser.add_argument("--residual_head_channels", type=int, default=64)
+    parser.add_argument("--mixed_precision", action="store_true", help="bf16 compute / f32 params.")
+    parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--remat_levels", type=int, default=None)
+    parser.add_argument("--grad_accum", type=int, default=1,
+                        help="Split each batch into N micro-batches and apply one update on "
+                             "the mean gradient (exact full-batch math at 1/N activation memory).")
+    parser.add_argument("--consistent_degradation", action="store_true",
+                        help="Train-time LR degradation at --scale instead of the reference's constant 0.5.")
+    parser.add_argument("--model_dir", type=str, default="runs/models")
+    parser.add_argument("--log_dir", type=str, default="runs/logs")
+    parser.add_argument("--run_name", type=str, default=None)
+    parser.add_argument("--high_res_dir", type=str, required=False, default=None)
+    parser.add_argument("--image_suffix", type=str, default=".png")
+    parser.add_argument("--low_res_dir", type=str, default=None)
+    parser.add_argument("--resume_from", type=str, default=None,
+                        help="Checkpoint directory to resume from.")
+    parser.add_argument("--initial_epoch", type=int, default=0)
+    parser.add_argument("--n_devices", type=int, default=None)
+    parser.add_argument("--model_shards", type=int, default=1)
+    parser.add_argument("--preview_patches", type=int, default=3)
+    parser.add_argument("--uint8_feed", action="store_true")
+    parser.add_argument("--cache_decoded", action="store_true")
+    parser.add_argument("--device_cache", action="store_true",
+                        help="Hold the (uniform-size) training corpus on the device as uint8 and "
+                             "sample patches inside the step.")
+    parser.add_argument("--profile", action="store_true",
+                        help="torch.profiler trace of the first epoch into <run_dir>/profile.")
+    parser.add_argument("--async_checkpoint", action="store_true")
+    parser.add_argument("--ckpt_every", type=int, default=1,
+                        help="Checkpoint cadence in epochs; the final/early-stop epoch always saves.")
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                        help="cuda (default; raises without a GPU) or cpu.")
+    return parser.parse_args(argv)
+
+
+def config_from_args(args: argparse.Namespace) -> SRTrainConfig:
+    fields = {f.name for f in dataclasses.fields(SRTrainConfig)}
+    cfg = SRTrainConfig(**{k: v for k, v in vars(args).items() if k in fields})
+    cfg.validate()
+    return cfg
+
+
+def _refuse_unported(cfg: SRTrainConfig) -> None:
+    unported = [
+        (not cfg.device_cache, "the streamed patch pipeline (train with --device_cache)",
+         "Queue 1 item 7"),
+        (bool(cfg.low_res_dir), "--low_res_dir (paired real-LR training)", "Queue 1 item 7"),
+        (cfg.loss == "combined", "--loss combined (perceptual term)", "Queue 1 item 10"),
+        (cfg.remat or cfg.remat_levels is not None, "--remat / --remat_levels", "Queue 1 item 9"),
+        (cfg.model_shards > 1 or (cfg.n_devices or 1) > 1, "--model_shards / --n_devices > 1",
+         "Queue 1 item 13"),
+        (cfg.async_checkpoint, "--async_checkpoint", "Queue 1 item 8"),
+    ]
+    for refused, what, item in unported:
+        if refused:
+            raise NotImplementedError(f"{what} is not ported to adunet_torch yet (ROADMAP {item}).")
+
+
+def train(cfg: SRTrainConfig) -> dict:
+    """Run the training and the post-training evaluation; returns the run's
+    directories, eval summaries, epoch count, best epoch and final state."""
+    from adunet_torch.data import find_images, load_device_cache, make_eval_patch_dataset
+    from adunet_torch.evaluate import evaluate_sr, infer_eval_shave
+    from adunet_torch.losses import build_losses_and_metrics
+    from adunet_torch.models import build_super_resolution_unet
+    from adunet_torch.train import (
+        CheckpointManager,
+        create_train_state,
+        fit,
+        make_optimizer,
+        make_sr_device_cache_train_step,
+        make_sr_val_step,
+    )
+    from adunet_torch.utils.misc import split_indices
+    from adunet_torch.utils.runtime import resolve_device
+
+    _refuse_unported(cfg)
+    if cfg.high_res_dir is None:
+        raise ValueError("--high_res_dir is required (no cluster default paths in this build).")
+    dev = resolve_device(cfg.device)
+
+    hr_paths = find_images(cfg.high_res_dir, cfg.image_suffix, cfg.limit)
+    train_split = 1.0 - (cfg.val_split + cfg.test_split)
+    train_idx, val_idx, test_idx = split_indices(
+        len(hr_paths), train_split, cfg.val_split, cfg.test_split, cfg.seed
+    )
+    train_paths = [hr_paths[i] for i in train_idx]
+    val_paths = [hr_paths[i] for i in val_idx]
+    test_paths = [hr_paths[i] for i in test_idx]
+    degrade_scale = cfg.train_degrade_scale()
+
+    # the epoch length of the reference's patch stream: patches_per_image
+    # random crops per training image
+    train_patch_count = len(train_paths) * cfg.patches_per_image
+    steps_per_epoch = math.ceil(train_patch_count / cfg.batch_size)
+    val_ds = None
+    if val_paths:
+        val_ds, _, _ = make_eval_patch_dataset(val_paths, patch_size=cfg.patch_size,
+                                               scale=degrade_scale, batch_size=cfg.batch_size,
+                                               stride=cfg.eval_stride)
+    dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
+    model, info = build_super_resolution_unet(
+        scale=cfg.scale,
+        base_channels=cfg.base_channels,
+        residual_head_channels=cfg.residual_head_channels,
+        depth_override=cfg.depth_override,
+        input_size=cfg.patch_size,
+        max_depth=cfg.max_depth,
+        dtype=dtype,
+        device=dev,
+        seed=cfg.seed,
+    )
+    loss_fn, _metrics = build_losses_and_metrics(cfg.loss)
+    state = create_train_state(model, make_optimizer(model.parameters(), cfg.learning_rate))
+    n_params = sum(p.numel() for p in model.parameters())
+
+    timestamp = datetime.now().strftime("%Y%m%d-%H%M%S")
+    inferred = f"scale{cfg.scale:.2f}_bs{cfg.batch_size}_lr{cfg.learning_rate:.0e}_{timestamp}"
+    run_name = cfg.run_name or inferred
+    run_dir = Path(cfg.log_dir).expanduser() / run_name
+    run_dir.mkdir(parents=True, exist_ok=True)
+    model_dir = Path(cfg.model_dir).expanduser()
+    model_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = model_dir / f"unet_adaptive_scale{cfg.scale:.2f}_depth{info['depth']}"
+
+    config_payload = {
+        **dataclasses.asdict(cfg),
+        "depth": info["depth"],
+        "bottleneck_size": info["bottleneck_size"],
+        "n_params": n_params,
+        "n_devices": 1,
+        "train_images": len(train_paths),
+        "val_images": len(val_paths),
+        "test_images": len(test_paths),
+        "train_patches_per_epoch": int(train_patch_count),
+        "steps_per_epoch": int(steps_per_epoch),
+        "low_res_mode": "synthetic_patches",
+        "created_at": timestamp,
+    }
+    (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
+    (run_dir / "model_summary.txt").write_text(
+        f"{model!r}\nTotal params: {n_params:,}\ndepth: {info['depth']}\n"
+        f"bottleneck: {info['bottleneck_size']}px\n"
+    )
+    print(f"Model: depth={info['depth']} params={n_params:,} device={dev}")
+
+    ckpt = CheckpointManager(ckpt_dir, monitor="val_loss", mode="min")
+    stored_cfg = {}
+    if (ckpt_dir / "config.json").exists():
+        stored_cfg = json.loads((ckpt_dir / "config.json").read_text())
+    ckpt.write_config(config_payload)
+
+    initial_epoch = cfg.initial_epoch
+    if cfg.resume_from:
+        resume_mngr = CheckpointManager(Path(cfg.resume_from).expanduser(), monitor="val_loss", mode="min")
+        if resume_mngr.restore_latest(state) is None:
+            raise FileNotFoundError(f"--resume_from {cfg.resume_from} contains no checkpoints.")
+        if initial_epoch == 0:
+            initial_epoch = int(resume_mngr.latest_step() or 0)
+            print(f"[info] resuming from epoch {initial_epoch} (checkpoint step).")
+    elif ckpt.latest_step() is not None:
+        # a restarted run with the same directories resumes (the reference's
+        # BackupAndRestore), warning when the stored flags differ
+        drift = {
+            key: (stored_cfg.get(key), config_payload.get(key))
+            for key in ("scale", "depth_override", "max_depth", "base_channels",
+                        "patch_size", "patches_per_image", "batch_size", "seed",
+                        "loss", "data_lr_shrink", "consistent_degradation",
+                        "high_res_dir", "low_res_dir")
+            if key in stored_cfg and stored_cfg.get(key) != config_payload.get(key)
+        }
+        if drift:
+            print("[warn] auto-resume checkpoints were trained under DIFFERENT "
+                  "flags; continuing mixes training regimes: "
+                  + ", ".join(f"{k}: {old!r} -> {new!r}" for k, (old, new) in sorted(drift.items())))
+        ckpt.restore_latest(state)
+        initial_epoch = int(ckpt.latest_step())
+        print(f"[info] auto-resume from existing checkpoints at epoch {initial_epoch}.")
+    elif initial_epoch > 0:
+        print("[warn] --initial_epoch was set without --resume_from; training will skip "
+              "the initial epochs but start from random weights.")
+
+    cache = load_device_cache(train_paths, dev)
+    print(f"[device_cache] {cache.shape[0]} images "
+          f"({cache.numel() / 1e6:.0f} MB uint8) resident on {dev}.")
+    train_step = make_sr_device_cache_train_step(
+        model, loss_fn, cache, patch_size=cfg.patch_size, batch_size=cfg.batch_size,
+        data_scale=degrade_scale, grad_accum=cfg.grad_accum,
+    )
+
+    def train_feed():
+        while True:
+            yield None  # the generator is the data source
+
+    val_step = make_sr_val_step(model, loss_fn, data_scale=degrade_scale, per_sample=True)
+    result = fit(
+        state,
+        train_feed(),
+        train_step,
+        steps_per_epoch=steps_per_epoch,
+        epochs=cfg.epochs,
+        initial_epoch=initial_epoch,
+        rng=torch.Generator(device=dev).manual_seed(cfg.seed),
+        val_data=val_ds,
+        val_step=val_step,
+        monitor="val_loss",
+        monitor_mode="min",
+        patience=cfg.patience,
+        restore_best_weights=True,
+        ckpt=ckpt,
+        ckpt_every=cfg.ckpt_every,
+        log_dir=run_dir,
+        samples_per_step=cfg.batch_size,
+        profile_dir=(run_dir / "profile") if cfg.profile else None,
+    )
+    state = result.state
+    print("Training complete.")
+    print(f"Model info: {info}")
+    print(f"Checkpoints at: {ckpt_dir}")
+
+    eval_shave = infer_eval_shave(cfg.scale, cfg.eval_shave)
+    if eval_shave * 2 >= cfg.patch_size and cfg.patch_size > 0:
+        adjusted = max(0, (cfg.patch_size // 2) - 1)
+        print(f"[warn] eval_shave={eval_shave} removes the full frame; reducing to {adjusted}.")
+        eval_shave = adjusted
+
+    final_metrics = {}
+    for name, paths in (("Validation", val_paths), ("Test", test_paths)):
+        if not paths:
+            continue
+        ds, _, _labels = make_eval_patch_dataset(paths, patch_size=cfg.patch_size,
+                                                 scale=degrade_scale, batch_size=cfg.batch_size,
+                                                 stride=cfg.eval_stride)
+        summary, _rows = evaluate_sr(state, ds, eval_scale=degrade_scale, eval_shave=eval_shave)
+        print(f"{name} patches evaluated: {summary.samples}")
+        print(f"  MSE(Y)     : {summary.mse_mean:.6f} +/- {summary.mse_std:.6f}")
+        print(f"  PSNR(Y)    : {summary.psnr_mean:.4f} +/- {summary.psnr_std:.4f} dB")
+        print(f"  SSIM(Y)    : {summary.ssim_mean:.4f} +/- {summary.ssim_std:.4f}")
+        print(f"  MS-SSIM(Y) : {summary.msssim_mean:.4f} +/- {summary.msssim_std:.4f}")
+        final_metrics[name.lower()] = dataclasses.asdict(summary)
+
+    return {"run_dir": str(run_dir), "ckpt_dir": str(ckpt_dir), "eval": final_metrics,
+            "history_epochs": len(result.history), "best_epoch": result.best_epoch,
+            "state": state}
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    args = parse_args(argv)
+    cfg = config_from_args(args)
+    return train(cfg)
+
+
+if __name__ == "__main__":
+    main()

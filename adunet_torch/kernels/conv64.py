@@ -9,6 +9,15 @@ accumulators per thread. Its bound on an H100 is operations: 73,728 FLOP per
 output pixel, in float32 at 67 TFLOP/s (no TF32), e.g. ~0.58 ms for one
 (8, 256, 256, 64) launch.
 
+``conv3x3_same`` is a ``torch.autograd.Function``, the counterpart of the
+reference's custom VJP (:191-227). It saves x and w. Its backward is the
+reference's ``_bwd`` (:203-227), which runs as XLA convolutions outside any
+Pallas kernel; here they are library convolutions on the NCHW views of the
+channels-last tensors (``aten.convolution_backward``): dx is the correlation
+of the cotangent with the flipped, io-swapped kernel, dw the contraction
+over batch and pixels, db the float32 sum over B, H and W. Each comes back
+in its input's dtype.
+
 The gate ``supported`` is the reference's (``adunet/kernels/conv64.py:49``)
 unchanged, so the same four convs of the flagship reach the kernel; callers
 send every other conv to ``F.conv2d``, as the reference sends them to XLA.
@@ -23,7 +32,13 @@ import torch.nn.functional as F
 
 from adunet_torch.kernels import _build
 
-__all__ = ["conv3x3_same", "conv3x3_same_plain", "pack_weights", "supported"]
+__all__ = [
+    "conv3x3_same",
+    "conv3x3_same_plain",
+    "conv3x3_same_backward",
+    "pack_weights",
+    "supported",
+]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -51,33 +66,52 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     return w.detach().to(torch.float32).permute(2, 3, 1, 0).reshape(9, 64, 64).contiguous()
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32, or float64 for float64 inputs (so gradcheck sees full precision)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """The plain version: the explicit sum of the 9 taps' matmuls in float32
     over a zero-padded NHWC input, plus bias, cast to x.dtype."""
+    acc = _acc_dtype(x.dtype)
     _, h, wd, _ = x.shape
-    xp = F.pad(x.to(torch.float32), (0, 0, 1, 1, 1, 1))
-    wt = w.to(torch.float32).permute(2, 3, 1, 0)  # (3, 3, C_in, C_out)
+    xp = F.pad(x.to(acc), (0, 0, 1, 1, 1, 1))
+    wt = w.to(acc).permute(2, 3, 1, 0)  # (3, 3, C_in, C_out)
     out = None
     for dy in range(3):
         for dx in range(3):
             term = torch.matmul(xp[:, dy : dy + h, dx : dx + wd, :], wt[dy, dx])
             out = term if out is None else out + term
     if bias is not None:
-        out = out + bias.to(torch.float32)
+        out = out + bias.to(acc)
     return out.to(x.dtype)
 
 
-def conv3x3_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
-    """3x3 SAME conv of NHWC ``x`` with OIHW ``w`` at a ``supported`` shape.
+def conv3x3_same_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                          need_dx: bool = True, need_dw: bool = True, need_db: bool = True,
+                          bias_dtype: torch.dtype | None = None):
+    """(dx, dw, db) of the 3x3 SAME conv of NHWC ``x`` with OIHW ``w`` for
+    the NHWC output cotangent ``g``; an entry not asked for is None. db is
+    summed in float32 and returned in ``bias_dtype`` (default w's dtype)."""
+    g = g.to(x.dtype)
+    dx = dw = db = None
+    if need_dx or need_dw:
+        gn = g.permute(0, 3, 1, 2)  # NCHW views of channels-last memory
+        xn = x.permute(0, 3, 1, 2)
+        dxn, dw, _ = torch.ops.aten.convolution_backward(
+            gn, xn, w.to(x.dtype), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [need_dx, need_dw, False],
+        )
+        dx = dxn.permute(0, 2, 3, 1) if need_dx else None
+        dw = dw.to(w.dtype) if need_dw else None
+    if need_db:
+        db = g.to(_acc_dtype(g.dtype)).sum(dim=(0, 1, 2)).to(bias_dtype or w.dtype)
+    return dx, dw, db
 
-    CUDA: float32 or bf16 ``x``, contiguous; anything else raises. CPU: the
-    plain version. ``conv3x3_same.launches`` counts kernel launches."""
-    if not supported(tuple(x.shape), tuple(w.shape)):
-        raise ValueError(f"conv3x3_same: unsupported shapes x={tuple(x.shape)} w={tuple(w.shape)}")
-    if x.device.type == "cpu":
-        return conv3x3_same_plain(x, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_same: no kernel for device {x.device}")
+
+def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """The CUDA kernel on a CUDA tensor; raises on what it does not take."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"conv3x3_same: kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -99,6 +133,36 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) ->
     _build.check(code, "conv3x3_same")
     conv3x3_same.launches += 1
     return y
+
+
+class _Conv3x3Same(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        if x.device.type == "cpu":
+            return conv3x3_same_plain(x, w, bias)
+        return _launch(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_dx, need_dw, need_db = ctx.needs_input_grad
+        return conv3x3_same_backward(x, w, g, need_dx, need_dw,
+                                     need_db and ctx.bias_dtype is not None, ctx.bias_dtype)
+
+
+def conv3x3_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """3x3 SAME conv of NHWC ``x`` with OIHW ``w`` at a ``supported`` shape;
+    differentiable in x, w and bias.
+
+    CUDA: float32 or bf16 ``x``, contiguous; anything else raises. CPU: the
+    plain version. ``conv3x3_same.launches`` counts kernel launches."""
+    if not supported(tuple(x.shape), tuple(w.shape)):
+        raise ValueError(f"conv3x3_same: unsupported shapes x={tuple(x.shape)} w={tuple(w.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3_same: no kernel for device {x.device}")
+    return _Conv3x3Same.apply(x, w, bias)
 
 
 conv3x3_same.launches = 0

@@ -7,6 +7,14 @@ the row held in registers between the two float32 reductions, so x is read
 once and y written once. Its bound on an H100 is bytes: (read x + write y) /
 3.35 TB/s, e.g. ~80 us for the 524,288 x 64 float32 level of the flagship.
 
+``layer_norm_relu`` is a ``torch.autograd.Function``, the counterpart of the
+reference's custom VJP (:86-136). Its forward is the kernel on a CUDA tensor
+and the plain version on a CPU tensor; it saves x, gamma and beta. Its
+backward is the reference's ``_bwd`` (:109-133), a recompute from the inputs
+in float32 written as torch ops: the reference's backward is jnp, not
+Pallas, so it has no kernel to port, and the same formula runs on the CPU
+and on the card.
+
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version below, a CUDA tensor launches the kernel or raises. There is no
 fallback from a failed launch.
@@ -18,10 +26,20 @@ import torch
 
 from adunet_torch.kernels import _build
 
-__all__ = ["layer_norm_relu", "layer_norm_relu_plain", "SUPPORTED_CHANNELS"]
+__all__ = [
+    "layer_norm_relu",
+    "layer_norm_relu_plain",
+    "layer_norm_relu_backward",
+    "SUPPORTED_CHANNELS",
+]
 
 SUPPORTED_CHANNELS = (64, 128, 256, 512, 1024, 2048)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32, or float64 for float64 inputs (so gradcheck sees full precision)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def layer_norm_relu_plain(
@@ -30,26 +48,44 @@ def layer_norm_relu_plain(
     """The plain version: float32 statistics over the last axis, affine,
     ReLU, cast back to x.dtype — the recipe of the reference's
     ``layer_norm_relu_reference`` (``adunet/kernels/fused_norm.py:26``)."""
-    xf = x.to(torch.float32)
+    acc = _acc_dtype(x.dtype)
+    xf = x.to(acc)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * gamma.to(torch.float32) + beta.to(torch.float32)
+    y = y * gamma.to(acc) + beta.to(acc)
     return torch.relu(y).to(x.dtype)
 
 
-def layer_norm_relu(
-    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-3
-) -> torch.Tensor:
-    """LayerNorm over the last axis of (..., C), then ReLU.
+def layer_norm_relu_backward(x, gamma, beta, g, eps: float = 1e-3):
+    """(dx, dgamma, dbeta) of ``layer_norm_relu`` at (x, gamma, beta) for the
+    output cotangent ``g``: the reference's ``_bwd``, recomputed in float32.
+    dgamma / dbeta are summed over every axis but the last. The statistics
+    and the ReLU mask use the plain forward's operations in its order, so
+    the mask is the forward's bit for bit (a value one rounding either side
+    of 0 would flip a whole element of dx); the rest reuses temporaries made
+    here in place to spare passes over the (rows, C) float32 tensors."""
+    acc = _acc_dtype(x.dtype)
+    xf = x.to(acc)
+    mean = xf.mean(dim=-1, keepdim=True)
+    xhat = xf - mean
+    inv = torch.rsqrt(xhat.square().mean(dim=-1, keepdim=True) + eps)
+    xhat.mul_(inv)
+    del xf
+    gamma_f = gamma.to(acc)
+    gm = torch.where(xhat * gamma_f + beta.to(acc) > 0, g.to(acc), 0.0)
+    reduce_axes = tuple(range(x.dim() - 1))
+    dgamma = torch.sum(gm * xhat, dim=reduce_axes).to(gamma.dtype)
+    dbeta = torch.sum(gm, dim=reduce_axes).to(beta.dtype)
+    gx_hat = gm.mul_(gamma_f)
+    mean_g = gx_hat.mean(dim=-1, keepdim=True)
+    mean_gx = (gx_hat * xhat).mean(dim=-1, keepdim=True)
+    dx = gx_hat.sub_(mean_g).addcmul_(xhat, mean_gx, value=-1.0).mul_(inv)
+    return dx.to(x.dtype), dgamma, dbeta
 
-    CUDA: float32 or bf16 ``x``, contiguous, C in ``SUPPORTED_CHANNELS``;
-    anything else raises. CPU: the plain version. ``layer_norm_relu.launches``
-    counts kernel launches."""
-    if x.device.type == "cpu":
-        return layer_norm_relu_plain(x, gamma, beta, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm_relu: no kernel for device {x.device}")
+
+def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
+    """The CUDA kernel on a CUDA tensor; raises on what it does not take."""
     c = x.shape[-1]
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"layer_norm_relu: kernel takes float32 or bfloat16, got {x.dtype}")
@@ -61,8 +97,8 @@ def layer_norm_relu(
         raise ValueError(f"layer_norm_relu: gamma/beta must be ({c},)")
     if gamma.device != x.device or beta.device != x.device:
         raise ValueError("layer_norm_relu: gamma/beta must be on x's device")
-    g = gamma.detach().to(torch.float32).contiguous()
-    b = beta.detach().to(torch.float32).contiguous()
+    g = gamma.to(torch.float32).contiguous()
+    b = beta.to(torch.float32).contiguous()
     y = torch.empty_like(x)
     rows = x.numel() // c
     if rows == 0:
@@ -79,6 +115,36 @@ def layer_norm_relu(
     _build.check(code, "layer_norm_relu")
     layer_norm_relu.launches += 1
     return y
+
+
+class _LayerNormReLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return layer_norm_relu_plain(x, gamma, beta, eps)
+        return _launch(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_relu_backward(x, gamma, beta, g, ctx.eps)
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm_relu(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-3
+) -> torch.Tensor:
+    """LayerNorm over the last axis of (..., C), then ReLU; differentiable in
+    x, gamma and beta.
+
+    CUDA: float32 or bf16 ``x``, contiguous, C in ``SUPPORTED_CHANNELS``;
+    anything else raises. CPU: the plain version. ``layer_norm_relu.launches``
+    counts kernel launches."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"layer_norm_relu: no kernel for device {x.device}")
+    return _LayerNormReLU.apply(x, gamma, beta, eps)
 
 
 layer_norm_relu.launches = 0

@@ -13,8 +13,10 @@ parameter tree (names mirror flax: ``enc0.conv0.weight`` is flax's
 - head ConvBlock → zero-init 1x1 ``residual_rgb`` → ``clipped_residual_add``
   in float32, so an untrained model is the identity.
 
-Input and output are NHWC. ``remat`` / ``remat_levels`` are training-only
-and not ported yet: anything but ``False`` / ``None`` raises.
+Input and output are NHWC; the output is float32. ``dtype`` is the compute
+dtype (``torch.bfloat16`` for mixed precision); parameters stay float32.
+``remat`` / ``remat_levels`` (ROADMAP Queue 1 item 9) are not ported yet:
+anything but ``False`` / ``None`` raises.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ class AdaptiveSRUNet(nn.Module):
     ):
         super().__init__()
         if remat or remat_levels is not None:
-            raise NotImplementedError("remat / remat_levels are training-only and not ported yet")
+            raise NotImplementedError(
+                "remat / remat_levels are not ported yet (ROADMAP Queue 1 item 9)")
         self.scale = float(scale)
         self.depth = int(depth)
         self.dtype = dtype
@@ -119,7 +122,7 @@ def build_super_resolution_unet(
         remat_levels=remat_levels,
         device=dev,
         seed=seed,
-    ).eval()
+    )
     info = {
         "scale": scale,
         "depth": depth,

@@ -3,12 +3,17 @@
 Port of ``adunet/nn/blocks.py``:
 - ``Conv``          ← ``conv3x3`` :59 / ``conv1x1`` :73 / ``PallasConv3x3`` :35.
   A SAME, stride-1 conv with bias and an OIHW ``weight``. A 3x3 conv at a
-  shape the K2 gate accepts runs the K2 kernel (``conv3x3_same``); every
-  other conv goes to ``F.conv2d`` on the NHWC tensor's NCHW view (a
-  contiguous NHWC tensor permuted is an NCHW tensor in channels_last memory
-  format, so no copy is made).
-- ``LayerNormReLU`` ← ``FusedLayerNormReLU`` :87 — K1 (``layer_norm_relu``),
-  eps 1e-3, with flax's ``scale``/``bias`` as ``weight``/``bias``.
+  shape the K2 gate accepts runs the K2 kernel (``conv3x3_same``, an
+  autograd Function); every other conv goes to ``F.conv2d`` on the NHWC
+  tensor's NCHW view (a contiguous NHWC tensor permuted is an NCHW tensor in
+  channels_last memory format, so no copy is made).
+- ``LayerNormReLU`` ← ``FusedLayerNormReLU`` :87 — K1 (``layer_norm_relu``,
+  an autograd Function), eps 1e-3, with flax's ``scale``/``bias`` as
+  ``weight``/``bias``.
+
+Parameters are float32 whatever the compute dtype. A conv casts its weight
+and bias to the activations' dtype (flax's ``kernel.astype(dtype)``), and the
+gradients reach the float32 parameters back through those casts.
 - ``ConvBlock``     ← :102 — (conv3x3 → norm → ReLU) x2. ``norm="layer"`` or
   ``"none"``; ``"batch"`` belongs to the segmentation models and raises.
 

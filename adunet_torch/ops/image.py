@@ -45,6 +45,14 @@ def rgb_to_luma_bt601(image: torch.Tensor) -> torch.Tensor:
 
 
 def clipped_residual_add(inp: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-    """clip(input + residual, 0, 1) computed in float32, cast to input dtype."""
+    """clip(input + residual, 0, 1) computed in float32, cast to input dtype.
+
+    The clip is ``minimum(maximum(x, 0), 1)``, as ``jnp.clip`` computes it,
+    so a value exactly at a bound passes half the gradient (both frameworks
+    split a tie of ``maximum`` / ``minimum`` evenly). ``torch.clamp`` would
+    pass all of it. An untrained model's output equals its input, so every
+    pixel of the input at exactly 0 or 1 is such a tie in the first step."""
     out = inp.to(torch.float32) + residual.to(torch.float32)
-    return torch.clamp(out, 0.0, 1.0).to(inp.dtype)
+    zero = torch.zeros((), dtype=out.dtype, device=out.device)
+    one = torch.ones((), dtype=out.dtype, device=out.device)
+    return torch.minimum(torch.maximum(out, zero), one).to(inp.dtype)

@@ -120,7 +120,10 @@ def resize_matrix(
 @functools.lru_cache(maxsize=None)
 def _device_matrix(in_size: int, out_size: int, method: str, antialias: bool,
                    device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(resize_matrix(in_size, out_size, method, antialias)).to(device)
+    # made outside inference mode even when first asked for while serving: an
+    # inference tensor cannot be saved for backward, and training reuses it
+    with torch.inference_mode(False):
+        return torch.from_numpy(resize_matrix(in_size, out_size, method, antialias)).to(device)
 
 
 def resize(

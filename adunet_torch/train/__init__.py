@@ -1,0 +1,37 @@
+"""Training: optimizer and schedule, train state, SR steps, checkpoints, fit."""
+
+from adunet_torch.train.checkpoint import CheckpointManager
+from adunet_torch.train.loop import EpochLog, FitResult, fit, make_plateau_state, plateau_update, repeat
+from adunet_torch.train.schedules import Adam, cosine_decay_schedule, make_optimizer
+from adunet_torch.train.sr import (
+    DATA_LR_SHRINK,
+    lift_per_sample,
+    make_sr_device_cache_train_step,
+    make_sr_eval_step,
+    make_sr_train_step,
+    make_sr_val_step,
+    sr_loss_and_metrics,
+)
+from adunet_torch.train.state import TrainState, create_train_state
+
+__all__ = [
+    "CheckpointManager",
+    "EpochLog",
+    "FitResult",
+    "fit",
+    "make_plateau_state",
+    "plateau_update",
+    "repeat",
+    "Adam",
+    "cosine_decay_schedule",
+    "make_optimizer",
+    "DATA_LR_SHRINK",
+    "lift_per_sample",
+    "make_sr_device_cache_train_step",
+    "make_sr_eval_step",
+    "make_sr_train_step",
+    "make_sr_val_step",
+    "sr_loss_and_metrics",
+    "TrainState",
+    "create_train_state",
+]

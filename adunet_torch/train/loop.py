@@ -1,0 +1,337 @@
+"""The fit loop: epochs of train steps, validation, early stopping,
+ReduceLROnPlateau, checkpoints and ``epoch_metrics.csv``.
+
+Port of ``adunet/train/loop.py`` for one process on one device: no mesh, so
+per-sample validation needs no padding masks, and batches go to the device
+inside the steps. The metrics of a train or val step stay on the device and
+are summed there; the host reads them once per epoch. ``epoch_metrics.csv``
+has the reference's columns (``epoch, steps, duration_s, ms_per_step``, the
+train metrics, then ``val_``-prefixed ones), so the analysis tools read a
+run of either package. Not ported: multi-device sharding (ROADMAP Queue 1
+item 13), TensorBoard scalars, and the segmentation hooks (pooled-metric
+finalizers, the pre-validation precise-BN hook; item 11).
+"""
+
+from __future__ import annotations
+
+import csv
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from adunet_torch.train.checkpoint import CheckpointManager
+from adunet_torch.train.state import TrainState
+
+__all__ = ["fit", "FitResult", "EpochLog", "make_plateau_state", "plateau_update", "repeat"]
+
+
+@dataclass
+class EpochLog:
+    epoch: int
+    steps: int
+    duration_s: float
+    ms_per_step: float
+    metrics: Dict[str, float]
+    val_metrics: Dict[str, float] = field(default_factory=dict)
+
+    def row(self) -> Dict[str, Any]:
+        row: Dict[str, Any] = {
+            "epoch": self.epoch,
+            "steps": self.steps,
+            "duration_s": round(self.duration_s, 3),
+            "ms_per_step": round(self.ms_per_step, 3),
+        }
+        row.update(self.metrics)
+        row.update({f"val_{k}": v for k, v in self.val_metrics.items()})
+        return row
+
+
+@dataclass
+class FitResult:
+    state: TrainState
+    history: List[EpochLog]
+    best_metric: Optional[float]
+    best_epoch: Optional[int]
+    stopped_early: bool
+
+
+def _improved(current: float, best: Optional[float], mode: str) -> bool:
+    # a NaN best is replaceable; an infinite best (val PSNR of identical
+    # shaved patches) is a real record
+    if np.isnan(current):
+        return False
+    if best is None or np.isnan(best):
+        return True
+    return current < best if mode == "min" else current > best
+
+
+def _scale_lr(state: TrainState, factor: float, min_lr: float) -> float:
+    """Rescale the optimizer's learning rate (an ``inject_lr`` optimizer)."""
+    if not getattr(state.optimizer, "inject_lr", False):
+        raise ValueError("reduce_lr_on_plateau requires make_optimizer(..., inject_lr=True).")
+    for group in state.optimizer.param_groups:
+        group["lr"] = max(group["lr"] * factor, min_lr)
+    return state.optimizer.param_groups[0]["lr"]
+
+
+def make_plateau_state(spec: Dict[str, Any]) -> Dict[str, Any]:
+    """ReduceLROnPlateau callback state with Keras's defaults and semantics
+    (min_delta 1e-4, cooldown)."""
+    return {
+        "monitor": spec.get("monitor", "val_loss"),
+        "mode": spec.get("mode", "min"),
+        "factor": spec.get("factor", 0.5),
+        "patience": spec.get("patience", 5),
+        "min_lr": spec.get("min_lr", 1e-6),
+        "min_delta": spec.get("min_delta", 1e-4),
+        "cooldown": spec.get("cooldown", 0),
+        "best": None,
+        "wait": 0,
+        "cooldown_counter": 0,
+    }
+
+
+def plateau_update(rlp: Dict[str, Any], current: float) -> bool:
+    """One epoch of ReduceLROnPlateau; True = reduce the LR now. Keras's
+    order: cooldown first, best updates on a min_delta improvement (even in
+    cooldown), the wait counter advances only outside cooldown."""
+    if rlp["cooldown_counter"] > 0:
+        rlp["cooldown_counter"] -= 1
+        rlp["wait"] = 0
+    in_cooldown = rlp["cooldown_counter"] > 0
+
+    best = rlp["best"]
+    if best is None or np.isnan(best):
+        best = np.inf if rlp["mode"] == "min" else -np.inf
+    if rlp["mode"] == "min":
+        improved = current < best - rlp["min_delta"]
+    else:
+        improved = current > best + rlp["min_delta"]
+
+    if improved:
+        rlp["best"] = current
+        rlp["wait"] = 0
+        return False
+    if in_cooldown:
+        return False
+    rlp["wait"] += 1
+    if rlp["wait"] >= rlp["patience"]:
+        rlp["wait"] = 0
+        rlp["cooldown_counter"] = rlp["cooldown"]
+        return True
+    return False
+
+
+def repeat(dataset):
+    """Endlessly re-iterate a finite dataset (``fit`` takes an infinite one)."""
+    while True:
+        yield from dataset
+
+
+def _batch_size_of(batch) -> int:
+    leaf = batch[0] if isinstance(batch, (tuple, list)) else batch
+    return int(leaf.shape[0])
+
+
+def _read(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Device sums to host floats in one transfer."""
+    keys = list(sums)
+    values = torch.stack([sums[k].to(torch.float64) for k in keys]).tolist()
+    return dict(zip(keys, values))
+
+
+def fit(
+    state: TrainState,
+    train_iter: Iterable,
+    train_step: Callable,
+    steps_per_epoch: int,
+    epochs: int,
+    *,
+    initial_epoch: int = 0,
+    rng: Optional[torch.Generator] = None,
+    val_data: Optional[Iterable] = None,
+    val_step: Optional[Callable] = None,
+    monitor: str = "val_loss",
+    monitor_mode: str = "min",
+    patience: Optional[int] = None,
+    restore_best_weights: bool = True,
+    ckpt: Optional[CheckpointManager] = None,
+    ckpt_every: int = 1,
+    log_dir: Optional[str | Path] = None,
+    samples_per_step: Optional[int] = None,
+    reduce_lr_on_plateau: Optional[Dict[str, Any]] = None,
+    profile_dir: Optional[str | Path] = None,
+    verbose: int = 1,
+    stop_on_nan: bool = True,
+) -> FitResult:
+    """Run the training loop.
+
+    - ``train_iter``: infinite iterator of host batches (or ``None`` items
+      for a device-cache step); ``train_step(state, batch, rng)``.
+    - ``rng``: the ``torch.Generator`` handed to every train step (it
+      advances itself); a device-cache step samples its patches from it.
+    - ``val_data``: re-iterable of batches; ``val_step(state, batch)``
+      returns batch means (0-d) or per-sample (B,) vectors; both pool to
+      the mean over every validation sample.
+    - ``ckpt`` / ``ckpt_every``: checkpoint cadence in epochs; the last and
+      the early-stop epoch always save, and a best epoch that fell between
+      saves is saved after the loop.
+    - ``profile_dir``: ``torch.profiler`` trace of the first epoch, written
+      there as ``trace.json``.
+    """
+    history: List[EpochLog] = []
+    best_metric: Optional[float] = None
+    best_epoch: Optional[int] = None
+    best_params: Optional[Dict[str, torch.Tensor]] = None
+    best_pool: Dict[str, float] = {}
+    best_on_disk = True
+    wait = 0
+    stopped_early = False
+    rlp = make_plateau_state(reduce_lr_on_plateau) if reduce_lr_on_plateau is not None else None
+
+    csv_writer = None
+    csv_file = None
+    if log_dir is not None:
+        log_dir = Path(log_dir)
+        log_dir.mkdir(parents=True, exist_ok=True)
+    train_it = iter(train_iter)
+
+    try:
+        for epoch in range(initial_epoch, epochs):
+            profiler = None
+            if profile_dir is not None and epoch == initial_epoch:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = torch.profiler.profile(activities=acts)
+                profiler.start()
+            t0 = time.perf_counter()
+            images_seen = 0
+            acc: Dict[str, torch.Tensor] = {}
+            for _ in range(steps_per_epoch):
+                batch = next(train_it)
+                images_seen += samples_per_step or _batch_size_of(batch)
+                state, metrics = train_step(state, batch, rng)
+                for k, v in metrics.items():
+                    acc[k] = v if k not in acc else acc[k] + v
+            raw_train = _read(acc)  # waits for the epoch's last step
+            duration = time.perf_counter() - t0
+            if profiler is not None:
+                profiler.stop()
+                Path(profile_dir).mkdir(parents=True, exist_ok=True)
+                profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+            train_metrics = {k: v / steps_per_epoch for k, v in raw_train.items()}
+
+            if stop_on_nan and not np.isfinite(train_metrics.get("loss", 0.0)):
+                print(f"[fit] non-finite training loss at epoch {epoch + 1}; "
+                      "stopping (set stop_on_nan=False to disable).", flush=True)
+                stopped_early = True
+                break
+
+            tail_t = {"val": 0.0, "ckpt": 0.0, "best": 0.0}
+            val_metrics: Dict[str, float] = {}
+            if val_data is not None and val_step is not None:
+                tv0 = time.perf_counter()
+                vacc: Dict[str, torch.Tensor] = {}
+                vcount = 0
+                for vbatch in val_data:
+                    n = _batch_size_of(vbatch)
+                    out = val_step(state, vbatch)
+                    for k, v in out.items():
+                        # per-sample vectors sum over the samples; batch means
+                        # weigh by the batch size
+                        s = v.sum(dim=0) if v.dim() else v * float(n)
+                        vacc[k] = s if k not in vacc else vacc[k] + s
+                    vcount += n
+                if vacc:
+                    val_metrics = {k: v / vcount for k, v in _read(vacc).items()}
+                tail_t["val"] = time.perf_counter() - tv0
+
+            log = EpochLog(
+                epoch=epoch + 1,
+                steps=steps_per_epoch,
+                duration_s=duration,
+                ms_per_step=1000.0 * duration / max(steps_per_epoch, 1),
+                metrics=train_metrics,
+                val_metrics=val_metrics,
+            )
+            history.append(log)
+
+            if verbose:
+                parts = [f"{k}: {v:.4f}" for k, v in train_metrics.items()]
+                parts += [f"val_{k}: {v:.4f}" for k, v in val_metrics.items()]
+                ips = images_seen / duration
+                print(f"Epoch {epoch + 1}/{epochs} - {duration:.1f}s - "
+                      f"{log.ms_per_step:.0f}ms/step - {ips:.1f} img/s - " + " - ".join(parts),
+                      flush=True)
+
+            if log_dir is not None:
+                row = log.row()
+                if csv_writer is None:
+                    csv_file = open(log_dir / "epoch_metrics.csv", "a", newline="")
+                    csv_writer = csv.DictWriter(csv_file, fieldnames=list(row.keys()))
+                    if csv_file.tell() == 0:
+                        csv_writer.writeheader()
+                csv_writer.writerow(row)
+                csv_file.flush()
+
+            monitored_pool = {**train_metrics, **{f"val_{k}": v for k, v in val_metrics.items()}}
+            current = monitored_pool.get(monitor)
+
+            if rlp is not None:
+                rlp_current = monitored_pool.get(rlp["monitor"])
+                if rlp_current is not None and plateau_update(rlp, rlp_current):
+                    new_lr = _scale_lr(state, rlp["factor"], rlp["min_lr"])
+                    if verbose:
+                        print(f"ReduceLROnPlateau: lr -> {new_lr:.2e}", flush=True)
+
+            saved_this_epoch = False
+            if ckpt is not None and ((epoch + 1) % max(1, ckpt_every) == 0 or (epoch + 1) == epochs):
+                tc0 = time.perf_counter()
+                ckpt.save(epoch + 1, state, metrics=monitored_pool)
+                tail_t["ckpt"] = time.perf_counter() - tc0
+                saved_this_epoch = True
+
+            if current is not None:
+                if _improved(current, best_metric, monitor_mode):
+                    best_metric = current
+                    best_epoch = epoch + 1
+                    best_pool = dict(monitored_pool)
+                    best_on_disk = saved_this_epoch
+                    wait = 0
+                    if restore_best_weights:
+                        tb0 = time.perf_counter()
+                        best_params = {k: v.detach().clone()
+                                       for k, v in state.model.state_dict().items()}
+                        tail_t["best"] = time.perf_counter() - tb0
+                else:
+                    wait += 1
+                    if patience is not None and patience > 0 and wait >= patience:
+                        stopped_early = True
+                        if ckpt is not None and not saved_this_epoch:
+                            ckpt.save(epoch + 1, state, metrics=monitored_pool)
+                        if verbose:
+                            best_str = f"{best_metric:.4f}" if best_metric is not None else "n/a"
+                            print(f"Early stopping at epoch {epoch + 1} "
+                                  f"(best {monitor}={best_str} @ epoch {best_epoch}).", flush=True)
+                        break
+            if verbose and max(tail_t.values()) >= 0.5:
+                print(f"  [epoch tail: val {tail_t['val']:.1f}s ckpt {tail_t['ckpt']:.1f}s "
+                      f"best-copy {tail_t['best']:.1f}s]", flush=True)
+
+        if restore_best_weights and best_params is not None:
+            state.model.load_state_dict(best_params)
+            if ckpt is not None and not best_on_disk and best_epoch is not None:
+                # the best epoch fell between saves: persist it once, keyed
+                # by its epoch (the optimizer moments are the last epoch's)
+                ckpt.save(best_epoch, state, metrics=best_pool, force=True)
+    finally:
+        if csv_file is not None:
+            csv_file.close()
+
+    return FitResult(state=state, history=history, best_metric=best_metric,
+                     best_epoch=best_epoch, stopped_early=stopped_early)

@@ -10,30 +10,45 @@ exits non-zero without one. Every phase raises on failure:
 
 1. builds the CUDA kernels from ``adunet_torch/csrc`` with ``nvcc``;
 2. prints the card's name and power limit (``nvidia-smi``);
-3. holds each kernel against its plain PyTorch version on the card, at every
-   shape the flagship serving forward gives it, in float32 and bf16, and
-   times the kernel, the plain version and one PyTorch library call that
-   computes the same function (a yardstick only: the port never calls it)
-   beside the least time the card could take (``bound``);
-4. serves the trained flagship artifact
-   (``experiments/round3_flagship/export_int8``, scale 0.5, depth 3,
-   batch 8 x 256 px) over HTTP through ``adunet_torch.cli.serve.make_server``
-   with the kernel launch counts set to 0 just before: one image, a stack
-   of 3 and 8 concurrent single-image requests, each answer equal to a
-   direct call, and 16 K1 + 4 K2 launches per device call;
-5. re-derives the flagship's pinned eval numbers
-   (``experiments/round3_flagship/evaluation/metrics.json``) on the 48-tile
-   seed-777 corpus: degrade on the card, restore, BT.601 luma, shave 4,
-   PSNR / SSIM / MS-SSIM; and times the forward at batch 8;
-6. prints one JSON line with each kernel's launches, error and times, the
-   card's identity line, and last ``{"ok": true, "device": {...}}``.
+3. holds each kernel's forward against its plain PyTorch version on the
+   card, at every shape the flagship's float32 serving forward (batch 8) and
+   bf16 training step (batch 32) give it, and times the kernel (CUDA events,
+   and for K1 also the profiler's device time per launch, since at its small
+   shapes the wrapper's host cost exceeds the kernel), the plain version and
+   one PyTorch library call that computes the same function (a yardstick
+   only: the port never calls it) beside the least time the card could take;
+4. holds each autograd Function's gradients (K1: dx, dgamma, dbeta; K2: dx,
+   dw, db) against autograd through the plain version on the same CUDA
+   tensors, at the training shapes in bf16 and the serving shapes in
+   float32, and times forward + backward of each;
+5. serves the trained flagship artifact over HTTP (launch counts set to 0
+   just before, read just after: 16 K1 + 4 K2 per device call);
+6. re-derives the flagship's pinned eval numbers on the 48-tile seed-777
+   corpus and times the serving forward;
+7. trains the flagship (scale 0.5, depth 3, base 64, bf16 compute, f32
+   params, Adam 1e-4; a seeded random 1x1 head in place of the zero one)
+   on a device cache of synthetic images for a few device-cache steps at
+   batch 32 x 256 px (counts set to 0 just before: 16 K1 + 4 K2 per step),
+   checks that every parameter gets a finite, nonzero gradient in the first
+   step and that the loss falls by a quarter over the steps, and times the
+   step;
+8. takes one float32 step of the flagship at batch 1 on the card and on the
+   CPU (plain paths) from the same params and tile, and compares the loss,
+   the gradients and the updated params;
+9. runs the ``adunet_torch.cli.train_sr`` entry point for 2 short epochs at
+   flagship width and checks its config, CSV, checkpoints and eval lines,
+   and that the best checkpoint restores the live weights;
+10. prints one JSON line with each kernel's launches, error and times, the
+    card's identity line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -59,12 +74,16 @@ PINNED = ROOT / "experiments" / "round3_flagship" / "evaluation" / "metrics.json
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
-# (rows, C) -> LN+ReLU pairs per serving forward of the flagship (B=8, 256 px, depth 3)
-K1_SHAPES = {(524_288, 64): 6, (131_072, 128): 4, (32_768, 256): 4, (8_192, 512): 2}
+# (rows, C) -> LN+ReLU pairs per forward of the flagship (depth 3, 256 px):
+# float32 serving at batch 8, bf16 training at batch 32
+K1_SERVE = {(524_288, 64): 6, (131_072, 128): 4, (32_768, 256): 4, (8_192, 512): 2}
+K1_TRAIN = {(2_097_152, 64): 6, (524_288, 128): 4, (131_072, 256): 4, (32_768, 512): 2}
 # x (B, H, W, C) -> 64->64 3x3 convs per forward (enc0.conv1, dec0.conv1, head.conv0/1)
-K2_SHAPES = {(8, 256, 256, 64): 4}
-K1_PER_CALL = sum(K1_SHAPES.values())  # 16
-K2_PER_CALL = sum(K2_SHAPES.values())  # 4
+K2_SERVE = {(8, 256, 256, 64): 4}
+K2_TRAIN = {(32, 256, 256, 64): 4}
+K1_PER_CALL = sum(K1_SERVE.values())  # 16
+K2_PER_CALL = sum(K2_SERVE.values())  # 4
+TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS, TIMED_STEPS = 32, 256, 6, 5
 
 
 def log(msg: str) -> None:
@@ -72,7 +91,7 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back runs (CUDA events)."""
+    """Mean time of ``fn`` over ``iters`` back-to-back runs (CUDA events)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -82,6 +101,35 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_us(evt) -> float:
+    """Self device microseconds of a profiler average (names vary by version)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profiled_device_ms(fn, kernel_name: str | None = None, iters: int = 20) -> float:
+    """Device time per run of ``fn`` over ``iters`` runs under
+    ``torch.profiler`` (no host cost included): of the kernel named
+    ``kernel_name``, which must launch once per run, or of every kernel."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and (kernel_name is None or kernel_name in e.key)]
+    count = sum(e.count for e in hits)
+    if kernel_name is not None and count != iters:
+        raise AssertionError(f"profiler saw {count} launches of {kernel_name}, expected {iters}")
+    if not hits:
+        raise AssertionError("the profiler recorded no device time")
+    return sum(_device_us(e) for e in hits) / iters / 1e3
 
 
 def close_enough(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype, atol_f32: float) -> float:
@@ -97,63 +145,170 @@ def close_enough(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype, atol
     return err.max().item()
 
 
+def grad_close(what: str, got: torch.Tensor, want: torch.Tensor, rel: float) -> float:
+    """Max |got - want| / max |want|; raises past ``rel`` or past one bf16 ulp
+    relative per element plus ``rel * max|want|`` for bf16 tensors."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    scale = w.abs().max().clamp_min(1e-30)
+    err = (g - w).abs()
+    ulp = (2.0**-7) * w.abs() if got.dtype == torch.bfloat16 else 0.0
+    if got.dtype != want.dtype or not bool(torch.all(err <= ulp + rel * scale)) \
+            or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: gradient disagrees with autograd through the plain "
+                             f"version: max |err| / max |want| {(err.max() / scale).item():.3e}")
+    return (err.max() / scale).item()
+
+
 def bound_ms(bytes_moved: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _dname(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def _k1_inputs(gen, rows, c, dtype):
+    x = torch.randn(rows, c, generator=gen, device="cuda").mul_(2.0).add_(0.3).to(dtype)
+    g = torch.randn(c, generator=gen, device="cuda").mul_(0.1).add_(1.0)
+    b = torch.randn(c, generator=gen, device="cuda").mul_(0.1)
+    return x, g, b
+
+
+def _k2_inputs(gen, shape, dtype):
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn(64, 64, 3, 3, generator=gen, device="cuda") * 0.05).to(dtype)
+    bias = (torch.randn(64, generator=gen, device="cuda") * 0.1).to(dtype)
+    return x, wt, bias
+
+
+def _k1_cases():
+    return ([(s, n, torch.float32, "serve") for s, n in K1_SERVE.items()]
+            + [(s, n, torch.bfloat16, "serve") for s, n in K1_SERVE.items()]
+            + [(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()])
+
+
+def _k2_cases():
+    return ([(s, n, torch.float32, "serve") for s, n in K2_SERVE.items()]
+            + [(s, n, torch.bfloat16, "serve") for s, n in K2_SERVE.items()]
+            + [(s, n, torch.bfloat16, "train") for s, n in K2_TRAIN.items()])
+
+
 def check_k1(gen: torch.Generator) -> list[dict]:
     rows_out = []
-    for (rows, c), per_call in K1_SHAPES.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(rows, c, generator=gen, device="cuda").mul_(2.0).add_(0.3).to(dtype)
-            g = torch.randn(c, generator=gen, device="cuda").mul_(0.1).add_(1.0)
-            b = torch.randn(c, generator=gen, device="cuda").mul_(0.1)
-            got = fused_norm.layer_norm_relu(x, g, b)
-            want = fused_norm.layer_norm_relu_plain(x, g, b)
-            torch.cuda.synchronize()
-            err = close_enough(got, want, dtype, 1e-5)
-            gl, bl = g.to(dtype), b.to(dtype)
-            ms = cuda_ms(lambda: fused_norm.layer_norm_relu(x, g, b), 50)
-            plain = cuda_ms(lambda: fused_norm.layer_norm_relu_plain(x, g, b), 10)
-            lib = cuda_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)), 50)
-            es = x.element_size()
-            bnd, by = bound_ms(2 * rows * c * es + 2 * c * 4, 9 * rows * c, dtype)
-            rows_out.append(dict(kernel="K1", shape=[rows, c], dtype=str(dtype).split(".")[1],
-                                 per_call=per_call, max_abs_err=err, ms=ms, plain_ms=plain,
-                                 library_ms=lib, bound_ms=bnd, bound_by=by))
-            log(f"[K1] rows={rows} C={c} {dtype}: max|err|={err:.2e} kernel {ms:.4f} ms, "
-                f"plain {plain:.4f} ms, F.layer_norm+relu {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+    for (rows, c), per_call, dtype, path in _k1_cases():
+        x, g, b = _k1_inputs(gen, rows, c, dtype)
+        got = fused_norm.layer_norm_relu(x, g, b)
+        want = fused_norm.layer_norm_relu_plain(x, g, b)
+        torch.cuda.synchronize()
+        err = close_enough(got, want, dtype, 1e-5)
+        gl, bl = g.to(dtype), b.to(dtype)
+        ms = cuda_ms(lambda: fused_norm.layer_norm_relu(x, g, b), 50)
+        dev_ms = profiled_device_ms(lambda: fused_norm.layer_norm_relu(x, g, b),
+                                    "layer_norm_relu_kernel")
+        plain = cuda_ms(lambda: fused_norm.layer_norm_relu_plain(x, g, b), 10)
+        lib = cuda_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)), 50)
+        lib_dev = profiled_device_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)))
+        es = x.element_size()
+        bnd, by = bound_ms(2 * rows * c * es + 2 * c * 4, 9 * rows * c, dtype)
+        rows_out.append(dict(kernel="K1", path=path, shape=[rows, c], dtype=_dname(dtype),
+                             per_call=per_call, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                             plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                             bound_ms=bnd, bound_by=by))
+        log(f"[K1] {path} rows={rows} C={c} {dtype}: max|err|={err:.2e} kernel {ms:.4f} ms "
+            f"(events; profiler device time {dev_ms:.4f} ms), plain {plain:.4f} ms, "
+            f"F.layer_norm+relu {lib:.4f} ms (device time {lib_dev:.4f} ms), "
+            f"bound {bnd:.4f} ms ({by})")
+        del x, got, want
     return rows_out
+
+
+def _k2_bound(shape, dtype) -> tuple[float, str]:
+    bsz, h, w, c = shape
+    pixels = bsz * h * w
+    es = torch.empty((), dtype=dtype).element_size()
+    return bound_ms(2 * pixels * c * es + 9 * 64 * 64 * 4 + 64 * 4,
+                    2 * pixels * 64 * 64 * 9 + pixels * 64, dtype)
 
 
 def check_k2(gen: torch.Generator) -> list[dict]:
     rows_out = []
-    for (bsz, h, w, c), per_call in K2_SHAPES.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(bsz, h, w, c, generator=gen, device="cuda").to(dtype)
-            wt = (torch.randn(64, 64, 3, 3, generator=gen, device="cuda") * 0.05).to(dtype)
-            bias = (torch.randn(64, generator=gen, device="cuda") * 0.1).to(dtype)
-            got = conv64.conv3x3_same(x, wt, bias)
-            want = conv64.conv3x3_same_plain(x, wt, bias)
-            torch.cuda.synchronize()
-            err = close_enough(got, want, dtype, 1e-4)
-            ms = cuda_ms(lambda: conv64.conv3x3_same(x, wt, bias), 20)
-            plain = cuda_ms(lambda: conv64.conv3x3_same_plain(x, wt, bias), 5)
-            xn = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-            lib = cuda_ms(lambda: F.conv2d(xn, wt, bias, padding=1), 20)
-            es = x.element_size()
-            pixels = bsz * h * w
-            bnd, by = bound_ms(2 * pixels * c * es + 9 * 64 * 64 * 4 + 64 * 4,
-                               2 * pixels * 64 * 64 * 9 + pixels * 64, dtype)
-            rows_out.append(dict(kernel="K2", shape=[bsz, h, w, c], dtype=str(dtype).split(".")[1],
-                                 per_call=per_call, max_abs_err=err, ms=ms, plain_ms=plain,
-                                 library_ms=lib, bound_ms=bnd, bound_by=by))
-            log(f"[K2] x={bsz}x{h}x{w}x{c} {dtype}: max|err|={err:.2e} kernel {ms:.4f} ms, "
-                f"plain {plain:.4f} ms, F.conv2d (cuDNN, TF32 off) {lib:.4f} ms, "
-                f"bound {bnd:.4f} ms ({by})")
+    for shape, per_call, dtype, path in _k2_cases():
+        x, wt, bias = _k2_inputs(gen, shape, dtype)
+        got = conv64.conv3x3_same(x, wt, bias)
+        want = conv64.conv3x3_same_plain(x, wt, bias)
+        torch.cuda.synchronize()
+        err = close_enough(got, want, dtype, 1e-4)
+        ms = cuda_ms(lambda: conv64.conv3x3_same(x, wt, bias), 20)
+        plain = cuda_ms(lambda: conv64.conv3x3_same_plain(x, wt, bias), 5)
+        xn = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        lib = cuda_ms(lambda: F.conv2d(xn, wt, bias, padding=1), 20)
+        bnd, by = _k2_bound(shape, dtype)
+        rows_out.append(dict(kernel="K2", path=path, shape=list(shape), dtype=_dname(dtype),
+                             per_call=per_call, max_abs_err=err, ms=ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=bnd, bound_by=by))
+        log(f"[K2] {path} x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e} kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, F.conv2d (cuDNN, TF32 off) {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by})")
+        del x, got, want
     return rows_out
+
+
+def _fwd_bwd(fn, inputs, cotangent):
+    return torch.autograd.grad(fn(*inputs), [t for t in inputs if t is not None], cotangent)
+
+
+def check_backward(gen: torch.Generator) -> list[dict]:
+    """Each Function's gradients against autograd through its plain version.
+
+    Tolerances, relative to the largest |gradient| of the tensor: dx 1e-5
+    (float32) / 1e-4 (bf16, plus one bf16 ulp per element: the two
+    formulas round to bf16 from float32 values that differ in the last
+    bits); parameter gradients 1e-3 (float32 sums over up to 2,097,152 rows
+    or pixels in another order, plus one bf16 ulp for K2's bf16 dw / db).
+    K2's float32 dx / dw come from cuDNN (TF32 off), whose FFT and Winograd
+    algorithms keep ~1e-5 relative, so dx is held at 1e-4 there."""
+    out = []
+    cases = [("K1", s, torch.bfloat16, "train") for s in K1_TRAIN] \
+        + [("K1", s, torch.float32, "serve") for s in K1_SERVE] \
+        + [("K2", s, torch.bfloat16, "train") for s in K2_TRAIN] \
+        + [("K2", s, torch.float32, "serve") for s in K2_SERVE]
+    for kid, shape, dtype, path in cases:
+        if kid == "K1":
+            x, a, b = _k1_inputs(gen, *shape, dtype)
+            fn, plain = fused_norm.layer_norm_relu, fused_norm.layer_norm_relu_plain
+            names, rels = ("dx", "dgamma", "dbeta"), (1e-5 if dtype == torch.float32 else 1e-4, 1e-3, 1e-3)
+
+            def lib_fn(x_, a_, b_, c=shape[1]):
+                return F.relu(F.layer_norm(x_, (c,), a_.to(x_.dtype), b_.to(x_.dtype), 1e-3))
+        else:
+            x, a, b = _k2_inputs(gen, shape, dtype)
+            fn, plain = conv64.conv3x3_same, conv64.conv3x3_same_plain
+            names, rels = ("dx", "dw", "db"), (1e-4, 1e-3, 1e-3)
+
+            def lib_fn(x_, a_, b_):
+                return F.conv2d(x_.permute(0, 3, 1, 2), a_, b_, padding=1).permute(0, 2, 3, 1)
+        inputs = [t.requires_grad_(True) for t in (x, a, b)]
+        gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        got = _fwd_bwd(fn, inputs, gy)
+        want = _fwd_bwd(plain, inputs, gy)
+        torch.cuda.synchronize()
+        errs = {n: grad_close(f"{kid} {path} {n}", g_, w_, r)
+                for n, g_, w_, r in zip(names, got, want, rels)}
+        del got, want
+        ms = cuda_ms(lambda: _fwd_bwd(fn, inputs, gy), 10)
+        plain_ms = cuda_ms(lambda: _fwd_bwd(plain, inputs, gy), 3)
+        lib_ms = cuda_ms(lambda: _fwd_bwd(lib_fn, inputs, gy), 10)
+        out.append(dict(kernel=kid, path=path, shape=list(shape), dtype=_dname(dtype),
+                        rel_err=errs, fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms,
+                        library_fwd_bwd_ms=lib_ms))
+        log(f"[{kid} grad] {path} {list(shape)} {dtype}: rel err "
+            + ", ".join(f"{n} {e:.1e}" for n, e in errs.items())
+            + f"; forward+backward {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms")
+        del inputs, x, a, b, gy
+        torch.cuda.empty_cache()
+    return out
 
 
 def _post_npy(url: str, arr: np.ndarray) -> np.ndarray:
@@ -165,10 +320,18 @@ def _post_npy(url: str, arr: np.ndarray) -> np.ndarray:
         return np.load(io.BytesIO(resp.read()))
 
 
-def serve_flagship(call) -> dict:
-    """The main path: the HTTP server over the flagship artifact on the card."""
+def _zero_counts() -> None:
     fused_norm.layer_norm_relu.launches = 0
     conv64.conv3x3_same.launches = 0
+
+
+def _counts() -> tuple[int, int]:
+    return fused_norm.layer_norm_relu.launches, conv64.conv3x3_same.launches
+
+
+def serve_flagship(call) -> dict:
+    """The serving path: the HTTP server over the flagship artifact on the card."""
+    _zero_counts()
     server = make_server(str(ARTIFACT), port=0, batch_window_ms=200.0, device="cuda")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -203,7 +366,7 @@ def serve_flagship(call) -> dict:
         server.batcher.close()
         server.server_close()
         thread.join(timeout=30)
-    k1, k2 = fused_norm.layer_norm_relu.launches, conv64.conv3x3_same.launches
+    k1, k2 = _counts()
     calls = stats["device_calls"]
     log(f"[serve] stats {stats}; K1 launches {k1}, K2 launches {k2}")
     if calls < 1 or k1 != K1_PER_CALL * calls or k2 != K2_PER_CALL * calls:
@@ -228,11 +391,16 @@ def serve_flagship(call) -> dict:
     return {"launches": {"K1": k1, "K2": k2}, "device_calls": calls}
 
 
-def golden(call) -> dict:
-    """The flagship's pinned eval numbers, re-derived on the card."""
+def _synth():
     sys.path.insert(0, str(ROOT / "scripts"))
     from make_synth_corpus import synth_image
 
+    return synth_image
+
+
+def golden(call) -> dict:
+    """The flagship's pinned eval numbers, re-derived on the card."""
+    synth_image = _synth()
     pinned = json.loads(PINNED.read_text())
     rng = np.random.default_rng(777)
     tiles = []
@@ -283,30 +451,235 @@ def forward_speed(call, ident: str) -> dict:
     return {"forward_ms": fwd, "img_per_s": 8e3 / fwd, "call_ms": e2e}
 
 
-def kernels_line(details: list[dict], launches: dict, build_s: float) -> dict:
-    """One entry per kernel; times are summed over one float32 serving
-    forward (per-shape time x launches per forward)."""
+def write_corpus(directory: Path, n: int, size: int, seed: int) -> list[str]:
+    """``n`` synthetic uint8 ``.npy`` images (``make_synth_corpus.synth_image``)."""
+    synth_image = _synth()
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        img = np.round(synth_image(rng, size) * 255).astype(np.uint8)
+        path = directory / f"synth{i:03d}.npy"
+        np.save(path, img)
+        paths.append(str(path))
+    return paths
+
+
+def train_flagship(tmp: Path, ident: str) -> dict:
+    """The training path: device-cache steps of the bf16 flagship at batch 32."""
+    from adunet_torch.data import load_device_cache
+    from adunet_torch.losses import charbonnier_loss
+    from adunet_torch.models import build_super_resolution_unet
+    from adunet_torch.train import create_train_state, make_optimizer, make_sr_device_cache_train_step
+
+    corpus_dir = tmp / "cache"
+    corpus_dir.mkdir()
+    cache = load_device_cache(write_corpus(corpus_dir, 16, 512, seed=5), "cuda")
+    model, info = build_super_resolution_unet(0.5, depth_override=3, dtype=torch.bfloat16,
+                                              device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != 8_637_379:
+        raise AssertionError(f"flagship has {n_params} params, expected 8,637,379")
+    # The zero-init 1x1 head makes a fresh model the identity: the first
+    # step then sends gradient to the head alone, and a few steps at lr 1e-4
+    # barely move the identity's loss. A seeded random head (std 0.01) starts
+    # from a residual that the step must learn to shrink, so a cut autograd
+    # edge or a wrong update shows within the first steps. The train_sr phase
+    # below trains from the zero head.
+    with torch.no_grad():
+        model.residual_rgb.weight.normal_(0.0, 0.01, generator=torch.Generator("cuda").manual_seed(1))
+    state = create_train_state(model, make_optimizer(model.parameters(), 1e-4))
+    step = make_sr_device_cache_train_step(model, charbonnier_loss, cache,
+                                           patch_size=TRAIN_PATCH, batch_size=TRAIN_BATCH)
+    gen = torch.Generator("cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+
+    _zero_counts()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        state, metrics = step(state, None, gen)
+        losses.append(metrics["loss"])
+        if i == 0:
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())
+                   or not bool(p.grad.abs().max() > 0)]
+            if bad:
+                raise AssertionError(f"parameters without a finite nonzero gradient: {bad}")
+    torch.cuda.synchronize()
+    k1, k2 = _counts()
+    if (k1, k2) != (16 * TRAIN_STEPS, 4 * TRAIN_STEPS):
+        raise AssertionError(f"expected {16 * TRAIN_STEPS} K1 and {4 * TRAIN_STEPS} K2 launches "
+                             f"over {TRAIN_STEPS} steps; got {k1} and {k2}")
+    losses = [float(v) for v in losses]
+    log(f"[train] {TRAIN_STEPS} steps, losses {', '.join(f'{v:.5f}' for v in losses)}; "
+        f"every parameter had a finite nonzero gradient after step 1; K1 {k1}, K2 {k2} launches")
+    # each step samples its own patches; the drop from the random head's
+    # residual is far larger than the spread between batches
+    if not all(np.isfinite(losses)) or not losses[-1] < 0.75 * losses[0]:
+        raise AssertionError(f"the training loss did not fall by a quarter: {losses}")
+    ms = cuda_ms(lambda: step(state, None, gen), TIMED_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] {ident}: flagship bf16 train step, batch {TRAIN_BATCH} x {TRAIN_PATCH} px, "
+        f"device cache: {ms:.3f} ms/step ({TRAIN_BATCH * 1e3 / ms:.1f} img/s); "
+        f"peak device memory {peak_gb:.2f} GB")
+    del cache, state, model
+    torch.cuda.empty_cache()
+    return {"launches": {"K1": k1, "K2": k2}, "steps": TRAIN_STEPS, "losses": losses,
+            "ms_per_step": ms,
+            "img_per_s": TRAIN_BATCH * 1e3 / ms, "peak_gb": peak_gb, "depth": info["depth"]}
+
+
+def card_vs_cpu_step() -> dict:
+    """One float32 step of the flagship at batch 1, on the card and on the CPU
+    (plain versions), from the same params and HR tile.
+
+    Tolerances: loss 1e-5 relative; each parameter's gradient 1e-3 in
+    relative L2 norm (float32 convolutions summed in other orders; cuDNN's
+    FFT / Winograd algorithms keep ~1e-5 relative); updated params within
+    2 x lr, with fewer than 0.1 % of elements apart by more than lr / 2
+    (Adam's first update is ~lr * sign(grad), so a near-zero gradient that
+    differs in sign costs up to 2 x lr)."""
+    from adunet_torch.losses import charbonnier_loss
+    from adunet_torch.models import build_super_resolution_unet
+    from adunet_torch.train import create_train_state, make_optimizer, make_sr_train_step
+
+    lr = 1e-4
+    cpu_model, _ = build_super_resolution_unet(0.5, depth_override=3, device="cpu", seed=3)
+    with torch.no_grad():  # break the identity start
+        pgen = torch.Generator().manual_seed(4)
+        for p in cpu_model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=pgen))
+    gpu_model, _ = build_super_resolution_unet(0.5, depth_override=3, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    img = _synth()(np.random.default_rng(21), 256)[None]
+    hr = np.round(img * 255).astype(np.uint8)
+    out = {}
+    for name, model in (("card", gpu_model), ("cpu", cpu_model)):
+        state = create_train_state(model, make_optimizer(model.parameters(), lr))
+        t0 = time.perf_counter()
+        _, metrics = make_sr_train_step(model, charbonnier_loss)(state, hr)
+        out[name] = {"loss": float(metrics["loss"]), "seconds": time.perf_counter() - t0,
+                     "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+    loss_rel = abs(out["card"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"])
+    grad_rel = max(float((out["card"]["grads"][n] - g).norm() / g.norm().clamp_min(1e-30))
+                   for n, g in out["cpu"]["grads"].items())
+    diffs = torch.cat([(out["card"]["params"][n] - p).abs().flatten()
+                       for n, p in out["cpu"]["params"].items()])
+    far = float((diffs > lr / 2).float().mean())
+    log(f"[f32 step] batch 1 x 256 px: loss card {out['card']['loss']:.7f} / CPU "
+        f"{out['cpu']['loss']:.7f} (rel {loss_rel:.1e}); worst gradient rel L2 {grad_rel:.1e}; "
+        f"updated params max |diff| {float(diffs.max()):.2e}, share > lr/2 {far:.2e}; "
+        f"CPU step {out['cpu']['seconds']:.1f} s")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-3 and float(diffs.max()) <= 2 * lr + 1e-6
+            and far < 1e-3):
+        raise AssertionError("the card's float32 step disagrees with the CPU's")
+    return {"loss_rel": loss_rel, "grad_rel_l2": grad_rel, "param_max_diff": float(diffs.max()),
+            "param_far_share": far}
+
+
+def train_entry_point(tmp: Path) -> dict:
+    """``adunet_torch.cli.train_sr.main`` for 2 short epochs at flagship width."""
+    from adunet_torch.cli.train_sr import main as train_main
+    from adunet_torch.train import CheckpointManager, create_train_state, make_optimizer
+    from adunet_torch.models import build_super_resolution_unet
+
+    corpus_dir = tmp / "cli_corpus"
+    corpus_dir.mkdir()
+    write_corpus(corpus_dir, 10, 512, seed=8)  # 8 train / 1 val / 1 test images
+    epochs, ppi = 2, 8  # 8 x 8 patches -> 2 steps of 32 per epoch
+    args = ["--scale", "0.5", "--depth_override", "3", "--device_cache", "--mixed_precision",
+            "--batch_size", "32", "--patch_size", "256", "--patches_per_image", str(ppi),
+            "--epochs", str(epochs), "--high_res_dir", str(corpus_dir), "--image_suffix", ".npy",
+            "--model_dir", str(tmp / "models"), "--log_dir", str(tmp / "logs"),
+            "--run_name", "smoke", "--seed", "11"]
+    _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = train_main(args)
+    seconds = time.perf_counter() - t0
+    k1, k2 = _counts()
+    printed = buf.getvalue()
+    for line in printed.splitlines():
+        log(f"[train_sr] {line}")
+    run_dir = tmp / "logs" / "smoke"
+    ckpt_dir = Path(result["ckpt_dir"])
+    cfg = json.loads((run_dir / "config.json").read_text())
+    rows = (run_dir / "epoch_metrics.csv").read_text().strip().splitlines()
+    forwards = epochs * cfg["steps_per_epoch"] + epochs * 1 + 2  # train, val (4 tiles), eval
+    if (k1, k2) != (16 * forwards, 4 * forwards):
+        raise AssertionError(f"train_sr: expected {16 * forwards} K1 / {4 * forwards} K2 "
+                             f"launches, got {k1} / {k2}")
+    if (cfg["steps_per_epoch"], cfg["n_params"], len(rows)) != (2, 8_637_379, epochs + 1):
+        raise AssertionError(f"train_sr wrote {cfg['steps_per_epoch']} steps/epoch, "
+                             f"{cfg['n_params']} params, {len(rows)} CSV lines")
+    if printed.count("PSNR(Y)") != 2 or "Validation patches evaluated: 4" not in printed \
+            or "Test patches evaluated: 4" not in printed:
+        raise AssertionError("train_sr did not print the Validation / Test PSNR(Y) lines")
+    ckpt = CheckpointManager(ckpt_dir)
+    best, latest = ckpt.best_step(), ckpt.latest_step()
+    if latest != epochs or best is None or not (ckpt_dir / "config.json").exists():
+        raise AssertionError(f"checkpoints: best {best}, latest {latest}")
+    live = result["state"].model.state_dict()
+    matches = {}
+    for which, restore in (("best", ckpt.restore_best), ("latest", ckpt.restore_latest)):
+        fresh_model, _ = build_super_resolution_unet(0.5, depth_override=3, dtype=torch.bfloat16,
+                                                     device="cuda", seed=99)
+        fresh = create_train_state(fresh_model, make_optimizer(fresh_model.parameters(), 1e-4))
+        restore(fresh)
+        matches[which] = all(torch.equal(fresh_model.state_dict()[n], v) for n, v in live.items())
+    # fit restores the best epoch's weights; the latest checkpoint holds them
+    # too exactly when the best epoch is the last
+    if not matches["best"] or matches["latest"] != (best == latest):
+        raise AssertionError(f"restored checkpoints vs live params: {matches} (best {best}, "
+                             f"latest {latest})")
+    log(f"[train_sr] {epochs} epochs in {seconds:.1f} s; K1 {k1}, K2 {k2} launches; best epoch "
+        f"{best}, latest {latest}; restored best == live params, latest == live: {matches['latest']}")
+    return {"launches": {"K1": k1, "K2": k2}, "seconds": seconds, "best": best, "latest": latest,
+            "eval": {k: v["psnr_mean"] for k, v in result["eval"].items()}}
+
+
+def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_launches: dict,
+                 build_s: float) -> dict:
+    """One entry per kernel. ``launches`` come from the training path (device-
+    cache steps); ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are
+    summed over the forward launches of one bf16 training step (per-shape
+    time x launches per step), ``ms`` from CUDA events; ``serve`` holds the
+    same sums over one float32 serving forward."""
     meta = {
         "K1": ("layer_norm_relu", "adunet_torch/csrc/fused_norm.cu", "adunet/kernels/fused_norm.py:48"),
         "K2": ("conv3x3_same_c64", "adunet_torch/csrc/conv64.cu", "adunet/kernels/conv64.py:132"),
     }
+
+    def summed(rows, key):
+        return sum(d[key] * d["per_call"] for d in rows)
+
     out = []
     for kid, (name, src, replaces) in meta.items():
-        rows = [d for d in details if d["kernel"] == kid and d["dtype"] == "float32"]
-
-        def per_forward(key: str) -> float:
-            return sum(d[key] * d["per_call"] for d in rows)
-
-        out.append({
+        train = [d for d in details if d["kernel"] == kid and d["path"] == "train"]
+        serve = [d for d in details if d["kernel"] == kid and d["path"] == "serve"
+                 and d["dtype"] == "float32"]
+        grad = [g for g in grads if g["kernel"] == kid and g["path"] == "train"]
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kid],
             "max_abs_err": max(d["max_abs_err"] for d in details if d["kernel"] == kid),
-            "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
-            "bound_ms": per_forward("bound_ms"),
-            "bound_by": max(rows, key=lambda d: d["bound_ms"] * d["per_call"])["bound_by"],
-            "library_ms": per_forward("library_ms"),
-            "per": "one float32 serving forward of the flagship (batch 8, 256 px)",
-        })
+            "ms": summed(train, "ms"), "plain_ms": summed(train, "plain_ms"),
+            "bound_ms": summed(train, "bound_ms"),
+            "bound_by": max(train, key=lambda d: d["bound_ms"] * d["per_call"])["bound_by"],
+            "library_ms": summed(train, "library_ms"),
+            "per": "forward launches of one bf16 training step of the flagship (batch 32, 256 px)",
+            "fwd_bwd_ms": sum(g["fwd_bwd_ms"] * (K1_TRAIN if kid == "K1" else K2_TRAIN)[tuple(g["shape"])]
+                              for g in grad),
+            "serve": {"launches": serve_launches[kid], "ms": summed(serve, "ms"),
+                      "plain_ms": summed(serve, "plain_ms"), "bound_ms": summed(serve, "bound_ms"),
+                      "library_ms": summed(serve, "library_ms")},
+        }
+        if kid == "K1":  # profiler device times beside the events' times
+            for key in ("device_ms", "library_device_ms"):
+                entry[key] = summed(train, key)
+                entry["serve"][key] = summed(serve, key)
+        out.append(entry)
     return {"kernels": out, "build_s": build_s}
 
 
@@ -329,17 +702,26 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(0)
     details = check_k1(gen) + check_k2(gen)
+    grads = check_backward(gen)
     torch.cuda.empty_cache()
 
     call, _ = load_artifact(ARTIFACT, device="cuda")
     served = serve_flagship(call)
     scores = golden(call)
     speed = forward_speed(call, ident)
+    del call
+    torch.cuda.empty_cache()
 
-    summary = {"gpu": ident, "details": details, "serve": served, "golden": scores,
-               "speed": speed, "seconds": time.perf_counter() - t_start}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        trained = train_flagship(Path(tmp), ident)
+        step_check = card_vs_cpu_step()
+        entry = train_entry_point(Path(tmp))
+
+    summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
+               "golden": scores, "speed": speed, "train": trained, "f32_step": step_check,
+               "train_sr": entry, "seconds": time.perf_counter() - t_start}
     log("[detail] " + json.dumps(summary))
-    print(json.dumps(kernels_line(details, served["launches"], build_s)))
+    print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"], build_s)))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

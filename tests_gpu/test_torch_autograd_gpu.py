@@ -1,0 +1,105 @@
+"""The port's autograd Functions and a train step on the card.
+
+``chip_smoke.py`` holds each Function's gradients against autograd through
+its plain version at the flagship's shapes; these tests add the edges: row
+counts that do not fill a K1 block, several K2 tiles per image and batch,
+bf16, a conv without bias, and the whole model's gradients and one Adam step
+on the card against the same model on the CPU. Every test needs a CUDA GPU
+and skips without one:
+
+    python -m pytest tests_gpu -q
+
+Tolerances, relative to the largest |value| of each tensor: K1 dx 1e-5
+(float32) and one bf16 ulp per element plus 1e-4 (bf16); K2 dx 1e-4 (cuDNN's
+float32 algorithms, TF32 off); parameter gradients 1e-3 (float32 sums in
+another order, plus one bf16 ulp for bf16 dw / db); model gradients 1e-3 in
+relative L2 norm.
+"""
+
+import pytest
+import torch
+
+from adunet_torch.kernels import conv64, fused_norm
+from adunet_torch.losses import charbonnier_loss
+from adunet_torch.models import build_super_resolution_unet
+from adunet_torch.train import create_train_state, make_optimizer, make_sr_train_step
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator("cuda").manual_seed(0)
+
+
+def _close(got, want, rel):
+    g, w = got.float(), want.float()
+    ulp = 2.0**-7 * w.abs() if got.dtype == torch.bfloat16 else 0.0
+    assert got.dtype == want.dtype
+    assert bool(((g - w).abs() <= ulp + rel * w.abs().max()).all()), \
+        ((g - w).abs().max() / w.abs().max()).item()
+
+
+def _grads(fn, inputs, gy):
+    return torch.autograd.grad(fn(*inputs), inputs, gy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 64), (37, 128), (3, 7, 11, 256), (5, 512), (77, 1024)])
+def test_layer_norm_relu_grads_match_plain(cuda, dtype, shape):
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=cuda, device="cuda") * 3 + 1).to(dtype).requires_grad_(True)
+    g = (torch.randn(c, generator=cuda, device="cuda") * 0.2 + 1).requires_grad_(True)
+    b = (torch.randn(c, generator=cuda, device="cuda") * 0.2).requires_grad_(True)
+    gy = torch.randn(*shape, generator=cuda, device="cuda").to(dtype)
+    before = fused_norm.layer_norm_relu.launches
+    got = _grads(fused_norm.layer_norm_relu, [x, g, b], gy)
+    assert fused_norm.layer_norm_relu.launches == before + 1
+    want = _grads(fused_norm.layer_norm_relu_plain, [x, g, b], gy)
+    for a, w, rel in zip(got, want, (1e-5 if dtype == torch.float32 else 1e-4, 1e-3, 1e-3)):
+        _close(a, w, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, bias", [((1, 16, 128, 64), True), ((3, 24, 384, 64), True),
+                                         ((2, 64, 256, 64), False)])
+def test_conv3x3_grads_match_plain(cuda, dtype, shape, bias):
+    x = torch.randn(*shape, generator=cuda, device="cuda").to(dtype).requires_grad_(True)
+    w = (torch.randn(64, 64, 3, 3, generator=cuda, device="cuda") * 0.05).to(dtype).requires_grad_(True)
+    b = (torch.randn(64, generator=cuda, device="cuda") * 0.1).to(dtype).requires_grad_(True) if bias else None
+    inputs = [t for t in (x, w, b) if t is not None]
+    gy = torch.randn(*shape, generator=cuda, device="cuda").to(dtype)
+    before = conv64.conv3x3_same.launches
+    got = torch.autograd.grad(conv64.conv3x3_same(x, w, b), inputs, gy)
+    assert conv64.conv3x3_same.launches == before + 1
+    want = torch.autograd.grad(conv64.conv3x3_same_plain(x, w, b), inputs, gy)
+    for a, ref, rel in zip(got, want, (1e-4, 1e-3, 1e-3)):
+        _close(a, ref, rel)
+
+
+def test_model_train_step_matches_cpu(cuda):
+    """A perturbed base-64 depth-1 model: one float32 Adam step on the card
+    (both kernels, forward and backward) against the same step on the CPU."""
+    cpu_model, _ = build_super_resolution_unet(0.5, depth_override=1, device="cpu", seed=3)
+    with torch.no_grad():  # break the identity start
+        for p in cpu_model.parameters():
+            p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())) * 0.02)
+    gpu_model, _ = build_super_resolution_unet(0.5, depth_override=1, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    hr = torch.rand(2, 16, 128, 3, generator=torch.Generator().manual_seed(1))
+    losses = []
+    before = (fused_norm.layer_norm_relu.launches, conv64.conv3x3_same.launches)
+    for model in (gpu_model, cpu_model):
+        state = create_train_state(model, make_optimizer(model.parameters(), 1e-4))
+        losses.append(float(make_sr_train_step(model, charbonnier_loss)(state, hr)[1]["loss"]))
+    assert (fused_norm.layer_norm_relu.launches - before[0],
+            conv64.conv3x3_same.launches - before[1]) == (8, 4)
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    for (name, pg), pc in zip(gpu_model.named_parameters(), cpu_model.parameters()):
+        rel = ((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm()).item()
+        assert rel <= 1e-3, (name, rel)
+        assert (pg.detach().cpu() - pc.detach()).abs().max() <= 2e-4 + 1e-6, name
