@@ -5,12 +5,15 @@
 // Same function: zero outside the image, float32 accumulation of the 9 taps,
 // bias added, output in the input type (float32 or bf16).
 //
-// Bound on an H100: operations. 2*9*64*64 = 73,728 FLOP per output pixel
-// against 2*64*sizeof(T) bytes. In float32 (computed as full-precision FMAs,
-// no TF32) the floor is FLOP / 67 TFLOP/s; for bf16 inputs the type's peak
-// is the tensor cores' 989 TFLOP/s, where bytes and operations tie.
+// Bound on an H100: 2*9*64*64 = 73,728 FLOP per output pixel against
+// 2*64*sizeof(T) bytes (x read once, y written once). float32 (full-precision
+// FMAs, no TF32, so the serving path computes what the CPU oracle computes):
+// operations, FLOP / 67 TFLOP/s. bf16: the tensor cores' 989 TFLOP/s, where
+// bytes / 3.35 TB/s and operations tie (0.16 ms at 32 x 256 x 256).
 //
-// Design (a direct implicit GEMM on CUDA cores, no tensor cores yet): a
+// Two kernels, one per type:
+//
+// float32, `conv3x3_c64_kernel` (a direct implicit GEMM on CUDA cores): a
 // block computes a 2-row x 128-column x 64-channel output tile. Per pass it
 // stages 8 input channels of the tile plus its 1-pixel halo in shared
 // memory, transposed to [channel][row][column] and zero outside the image,
@@ -20,12 +23,40 @@
 // reuses them for the three column taps, so each shared-memory load feeds
 // ~20 FMAs. The thread's channels are {4g..4g+3} and {32+4g..32+4g+3}, which
 // keeps the weight loads of a warp free of bank conflicts.
+//
+// bf16, `conv3x3_c64_wgmma_kernel` (an implicit GEMM on the tensor cores):
+// a persistent grid, one block per SM, walks 4-row x 64-column output tiles.
+// - Input by TMA: one 4-D tensor-map box {64 ch, 66 cols, 6 rows, 1 image}
+//   from (0, x0-1, y0-1, b) brings the tile and its halo; the copy engine
+//   fills the out-of-image part (negative coordinates included) with zeros,
+//   so SAME padding costs nothing. A row of 64 bf16 is 128 bytes, staged
+//   with the 128-byte swizzle. Two stages on mbarriers: the next tile's load
+//   runs under this tile's math. Each input pixel is read from device memory
+//   once per tile (the halo, 1.55x the tile, mostly from L2).
+// - Weights: the 9 taps' (64 co x 64 ci) bf16 matrices, 72 KB, copied to
+//   shared memory once per block, already in the 128B-swizzled K-major
+//   layout that wgmma's B descriptor reads (packed by pack_weights_bf16).
+// - A from registers: the tap (dy, dx) shifts the staged tile by whole
+//   pixels, which breaks the swizzle phase an A descriptor needs, so each
+//   lane computes its own swizzled row address and `ldmatrix` loads the
+//   m16n8k16 A fragments that `wgmma.mma_async ... m64n64k16` takes from
+//   registers. Two warpgroups each own 2 x 64 output pixels: 9 taps x 4
+//   K=16 steps x 2 = 72 wgmma per tile, float32 accumulators in registers.
+//   The next tap's fragments load while this tap's 8 wgmma run.
+// - Epilogue: bias added in float32, rounded to bf16 (nearest-even),
+//   staged through a swizzled shared buffer, stored 16 bytes per lane in
+//   contiguous rows.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from libcuda at run time
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace adunet {
 namespace {
 
 constexpr int kC = 64;            // input and output channels
+
+// ---------------------------------------------------------------- float32
 constexpr int kTH = 2;            // output rows per block
 constexpr int kTW = 128;          // output columns per block
 constexpr int kCK = 8;            // input channels staged per pass
@@ -33,13 +64,11 @@ constexpr int kRow = kTW + 4;     // staged row; index p holds column x0 + p - 1
 constexpr int kThreads = 256;
 static_assert((kTH * kTW / 8) * 8 == kThreads, "one thread per 8-pixel x 8-channel tile");
 
-template <typename Tr>
 __global__ void __launch_bounds__(kThreads, 2)
-conv3x3_c64_kernel(const typename Tr::storage* __restrict__ x,
+conv3x3_c64_kernel(const float* __restrict__ x,
                    const float* __restrict__ w,     // [9][64 ci][64 co], tap = 3*dy + dx
                    const float* __restrict__ bias,  // [64]
-                   typename Tr::storage* __restrict__ y, int H, int W) {
-  using S = typename Tr::storage;
+                   float* __restrict__ y, int H, int W) {
   __shared__ __align__(16) float s_in[kCK][kTH + 2][kRow];
   __shared__ __align__(16) float s_w[9][kCK][kC];
 
@@ -66,7 +95,7 @@ conv3x3_c64_kernel(const typename Tr::storage* __restrict__ x,
       const int xx = x0 + p - 1;
       float v[kCK];
       if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-        load_vec<Tr, kCK>(x + img + (static_cast<size_t>(yy) * W + xx) * kC + c0, v);
+        load_vec<F32, kCK>(x + img + (static_cast<size_t>(yy) * W + xx) * kC + c0, v);
       } else {
 #pragma unroll
         for (int c = 0; c < kCK; ++c) v[c] = 0.f;
@@ -116,45 +145,353 @@ conv3x3_c64_kernel(const typename Tr::storage* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int xx = x0 + 8 * tx + i;
-    S* out = y + img + (static_cast<size_t>(yy) * W + xx) * kC;
+    float* out = y + img + (static_cast<size_t>(yy) * W + xx) * kC;
     float lo[4], hi[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       lo[j] = acc[i][j] + blo[j];
       hi[j] = acc[i][4 + j] + bhi[j];
     }
-    store_vec<Tr, 4>(out + 4 * g, lo);
-    store_vec<Tr, 4>(out + 32 + 4 * g, hi);
+    store_vec<F32, 4>(out + 4 * g, lo);
+    store_vec<F32, 4>(out + 32 + 4 * g, hi);
   }
 }
 
-template <typename Tr>
-cudaError_t launch(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
-                   cudaStream_t stream) {
+cudaError_t launch_f32(const void* x, const void* w, const void* bias, void* y, int B, int H,
+                       int W, cudaStream_t stream) {
+  if (H % kTH != 0 || W % kTW != 0) return cudaErrorInvalidValue;
   const dim3 grid(W / kTW, H / kTH, B);
-  conv3x3_c64_kernel<Tr><<<grid, kThreads, 0, stream>>>(
-      static_cast<const typename Tr::storage*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<typename Tr::storage*>(y), H, W);
+  conv3x3_c64_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(y), H, W);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- bf16
+namespace tc {
+
+constexpr int kTH = 4;                                   // output rows per tile
+constexpr int kTW = 64;                                  // output columns per tile
+constexpr int kBoxW = kTW + 2;                           // staged columns (halo included)
+constexpr int kBoxH = kTH + 2;                           // staged rows
+constexpr int kPixBytes = kC * 2;                        // one staged pixel: 128 bytes
+constexpr int kBoxBytes = kBoxW * kBoxH * kPixBytes;     // 50,688
+constexpr int kStageBytes = (kBoxBytes + 1023) / 1024 * 1024;
+constexpr int kStages = 2;
+constexpr int kTapBytes = kC * kC * 2;                   // one tap's 64 x 64 bf16
+constexpr int kWBytes = 9 * kTapBytes;                   // 73,728
+constexpr int kThreads = 256;                            // two warpgroups
+constexpr int kOutBytes = kTH * kTW * kPixBytes;         // the tile's bf16 output
+constexpr int kSmemBytes = 1024 + kWBytes + kStages * kStageBytes + kOutBytes + kC * 4 + kStages * 8;
+static_assert(kSmemBytes <= 232448, "more shared memory than a Hopper block may use");
+static_assert(kTH == 2 * (kThreads / 128) && kTW == 64, "each warpgroup owns two 64-pixel rows");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row
+// groups 1024 bytes apart (the leading offset is unused in this layout).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma's issue and wait.
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 64, float32, in registers) += A (64 x 16 bf16, registers) x B (16 x 64 bf16, smem)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The A fragments of one tap for this lane: two 64-pixel rows x 4 K=16 steps.
+// Lane l addresses pixel column 16*warp + (l & 15) and 16-byte chunk
+// 2*ks + (l >> 4) of the staged pixel the tap reads; the swizzle XORs the
+// chunk with the staged pixel's index mod 8 (its 128-byte row mod 8).
+__device__ __forceinline__ void load_tap(uint32_t (&a)[2][4][4], uint32_t in_base, int row0,
+                                         int col, int hi, int tap) {
+  const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int p = (row0 + mt + dy) * kBoxW + col + dx;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint32_t chunk = static_cast<uint32_t>((2 * ks + hi) ^ (p & 7));
+      ldmatrix_x4(in_base + p * kPixBytes + (chunk << 4), a[mt][ks]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_c64_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const uint4* __restrict__ wpk,     // pack_weights_bf16, 72 KB
+                         const float* __restrict__ bias,    // [64]
+                         unsigned short* __restrict__ y, int H, int W, int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the buffers to it
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* s_w = smem;
+  unsigned char* s_in = s_w + kWBytes;
+  unsigned char* s_out = s_in + kStages * kStageBytes;
+  float* s_bias = reinterpret_cast<float*>(s_out + kOutBytes);
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(s_bias + kC);
+
+  const int tid = threadIdx.x;
+  const int tiles_x = W / kTW;
+  const int per_img = tiles_x * (H / kTH);
+
+  auto issue = [&](int stage, int tile) {
+    const int b = tile / per_img;
+    const int r = tile - b * per_img;
+    const int ty = r / tiles_x;
+    const int tx = r - ty * tiles_x;
+    const uint32_t bar = smem_u32(&s_bar[stage]);
+    mbar_expect_tx(bar, kBoxBytes);
+    tma_load_4d(smem_u32(s_in + stage * kStageBytes), &xmap, bar, 0, tx * kTW - 1, ty * kTH - 1, b);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(smem_u32(&s_bar[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      const int t = blockIdx.x + s * gridDim.x;
+      if (t < n_tiles) issue(s, t);
+    }
+  }
+  for (int i = tid; i < kWBytes / 16; i += kThreads) reinterpret_cast<uint4*>(s_w)[i] = wpk[i];
+  if (tid < kC) s_bias[tid] = bias[tid];
+  // the weights were written by ordinary stores; wgmma reads them through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  const int wg = tid >> 7;            // this warpgroup's output rows: 2*wg, 2*wg + 1
+  const int warp = (tid >> 5) & 3;    // its 16 pixels of each 64-pixel row
+  const int lane = tid & 31;
+  const int a_col = 16 * warp + (lane & 15);
+  const int a_hi = lane >> 4;
+  const uint64_t desc_w = make_desc(smem_u32(s_w));
+  unsigned char* out_buf = s_out + wg * (kOutBytes / 2);
+
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int stage = it % kStages;
+    mbar_wait(smem_u32(&s_bar[stage]), (it / kStages) & 1);
+    const uint32_t in_base = smem_u32(s_in + stage * kStageBytes);
+
+    float acc[2][32];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+    uint32_t a[2][2][4][4];
+    load_tap(a[0], in_base, 2 * wg, a_col, a_hi, 0);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      fence_operands(acc[0]);
+      fence_operands(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          wgmma_m64n64k16(acc[mt], a[tap & 1][mt][ks],
+                          desc_w + static_cast<uint64_t>((tap * kTapBytes + ks * 32) >> 4));
+      wgmma_commit();
+      if (tap < 8) {
+        wgmma_wait<1>();  // the previous tap's wgmma no longer read a[(tap + 1) & 1]
+        load_tap(a[(tap + 1) & 1], in_base, 2 * wg, a_col, a_hi, tap + 1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(acc[0]);
+    fence_operands(acc[1]);
+
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && tile + kStages * static_cast<int>(gridDim.x) < n_tiles)
+      issue(stage, tile + kStages * gridDim.x);
+
+    // epilogue: bias, bf16, through the swizzled staging buffer
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = mt * 64 + 16 * warp + (lane >> 2) + 8 * h;
+          const int col = 8 * j + 2 * (lane & 3);
+          const unsigned lo = BF16::from_f(acc[mt][4 * j + 2 * h] + s_bias[col]);
+          const unsigned hi = BF16::from_f(acc[mt][4 * j + 2 * h + 1] + s_bias[col + 1]);
+          *reinterpret_cast<uint32_t*>(out_buf + m * kPixBytes + ((j ^ (m & 7)) << 4) +
+                                       4 * (lane & 3)) = lo | (hi << 16);
+        }
+    bar_sync(1 + wg, 128);
+    const int b = tile / per_img;
+    const int r = tile - b * per_img;
+    const int y0 = (r / tiles_x) * kTH + 2 * wg;
+    const int x0 = (r % tiles_x) * kTW;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = i * 128 + (tid & 127);
+      const int m = q >> 3;
+      const int c = q & 7;
+      const uint4 v = *reinterpret_cast<const uint4*>(out_buf + m * kPixBytes + ((c ^ (m & 7)) << 4));
+      const size_t pix = (static_cast<size_t>(b) * H + y0 + (m >> 6)) * W + x0 + (m & 63);
+      *reinterpret_cast<uint4*>(y + pix * kC + c * 8) = v;
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda through the runtime, so the library
+// needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+cudaError_t launch_bf16(const void* x, const void* w, const void* bias, void* y, int B, int H,
+                        int W, cudaStream_t stream) {
+  if (H % kTH != 0 || W % kTW != 0) return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {kC, static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {kPixBytes, static_cast<cuuint64_t>(W) * kPixBytes,
+                                 static_cast<cuuint64_t>(H) * W * kPixBytes};
+  const cuuint32_t box[4] = {kC, kBoxW, kBoxH, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  // FLOAT_OOB_FILL_NONE fills what lies outside the tensor with zeros
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(conv3x3_c64_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const int n_tiles = B * (H / kTH) * (W / kTW);
+  const int grid = n_tiles < sms ? n_tiles : sms;
+  conv3x3_c64_wgmma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      map, static_cast<const uint4*>(w), static_cast<const float*>(bias),
+      static_cast<unsigned short*>(y), H, W, n_tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 }  // namespace
 }  // namespace adunet
 
-// x, y: contiguous NHWC (B, H, W, 64) of `dtype` (0 float32, 1 bf16); w:
-// float32 [9][64][64] packed as (tap, c_in, c_out); bias: float32 (64,). All
-// pointers 16-byte aligned; H % 2 == 0 and W % 128 == 0 (the Python gate
-// `supported` is stricter). Returns the launch's CUDA error.
+// x, y: contiguous NHWC (B, H, W, 64) of `dtype` (0 float32, 1 bf16); bias:
+// float32 (64,). w: for float32, float32 [9][64 ci][64 co] (`pack_weights`);
+// for bf16, bf16 [9][64 co][64 ci] with each 128-byte row's 16-byte chunks
+// swizzled (`pack_weights_bf16`). All pointers 16-byte aligned; H % 4 == 0
+// and W % 128 == 0 (the Python gate `supported` is stricter). Returns the
+// launch's CUDA error.
 extern "C" int adunet_conv3x3_c64(const void* x, const void* w, const void* bias, void* y, int B,
                                   int H, int W, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || H % adunet::kTH != 0 || W % adunet::kTW != 0)
-    return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case adunet::kFloat32:
-      return adunet::launch<adunet::F32>(x, w, bias, y, B, H, W, st);
+      return adunet::launch_f32(x, w, bias, y, B, H, W, st);
     case adunet::kBFloat16:
-      return adunet::launch<adunet::BF16>(x, w, bias, y, B, H, W, st);
+      return adunet::tc::launch_bf16(x, w, bias, y, B, H, W, st);
     default:
       return cudaErrorInvalidValue;
   }

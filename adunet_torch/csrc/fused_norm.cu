@@ -22,6 +22,32 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
+// Mean and rsqrt(biased variance + eps) of a row held by one warp, V x K
+// elements per lane: the mean first, then the mean of squared deviations,
+// as the reference computes them. The forward and the backward kernel both
+// call this, so the backward's ReLU mask is the forward's bit for bit.
+template <int V, int K>
+__device__ __forceinline__ void row_stats(const float (&v)[K][V], float eps, float& mean,
+                                          float& rstd) {
+  constexpr int C = 32 * V * K;
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < V; ++i) s += v[k][i];
+  mean = warp_sum(s) / C;
+
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float d = v[k][i] - mean;
+      q += d * d;
+    }
+  rstd = rsqrtf(warp_sum(q) / C + eps);
+}
+
 template <typename Tr, int V, int K>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 layer_norm_relu_kernel(const typename Tr::storage* __restrict__ x,
@@ -39,22 +65,8 @@ layer_norm_relu_kernel(const typename Tr::storage* __restrict__ x,
 #pragma unroll
   for (int k = 0; k < K; ++k) load_vec<Tr, V>(xr + (k * 32 + lane) * V, v[k]);
 
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int i = 0; i < V; ++i) s += v[k][i];
-  const float mean = warp_sum(s) / C;
-
-  float q = 0.f;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float d = v[k][i] - mean;
-      q += d * d;
-    }
-  const float rstd = rsqrtf(warp_sum(q) / C + eps);
+  float mean, rstd;
+  row_stats<V, K>(v, eps, mean, rstd);
 
   typename Tr::storage* yr = y + row * C;
 #pragma unroll
@@ -97,8 +109,240 @@ cudaError_t dispatch(const void* x, const void* gamma, const void* beta, void* y
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ backward
+//
+// Replaces the reference's custom-VJP backward adunet/kernels/fused_norm.py:109
+// `_bwd` (jnp ops around the Pallas forward): from x, gamma, beta and the
+// output cotangent g it recomputes mean and rstd, xhat and pre = xhat*gamma +
+// beta in float32, masks gm = g * (pre > 0), and writes
+//   dx     = rstd * (gm*gamma - mean(gm*gamma) - xhat * mean(gm*gamma*xhat)),
+//   dgamma = sum over rows of gm*xhat,   dbeta = sum over rows of gm.
+//
+// Bound on an H100: bytes. x and g are read once and dx written once, 3 *
+// sizeof(T) bytes per element (0.805 GB, 0.24 ms, at 2,097,152 x 64 bf16);
+// the (2, C) parameter sums are noise beside that.
+//
+// Design: the forward's layout, one warp per row in registers at the same
+// V / K split, with the statistics from `row_stats`, the forward's own code,
+// so the mask is the forward kernel's. The two row means are two more warp
+// sums. A warp loads R rows (R * K >= 4) before it reduces any of them, so
+// enough loads are in flight to cover the memory latency at small C.
+// dgamma / dbeta are a deterministic two-level sum without atomics: the
+// grid is capped at kBwdBlocksPerSm blocks per SM (the caller's scratch
+// holds one (2, C) float32 partial per block; `bwd_max_blocks` sizes both),
+// each lane keeps its columns' partial sums in registers over the
+// rows its warp walks, the block adds its 8 warps' partials in warp order in
+// shared memory and writes them out, and a second small kernel adds the
+// blocks' partials in a fixed order. (At C >= 1024 the per-lane partials
+// outgrow the registers and spill; the flagship's C is at most 512.)
+
+template <typename Tr, int V, int K, int R>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
+                                const typename Tr::storage* __restrict__ g,
+                                const float* __restrict__ gamma,
+                                const float* __restrict__ beta,
+                                typename Tr::storage* __restrict__ dx,
+                                float* __restrict__ partial,  // [gridDim.x][2][C]
+                                long long rows, float eps) {
+  constexpr int C = 32 * V * K;
+  __shared__ float s_part[2][C];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  float pg[K][V], pb[K][V];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < V; ++i) pg[k][i] = pb[k][i] = 0.f;
+
+  const long long stride = static_cast<long long>(gridDim.x) * kWarpsPerBlock * R;
+  for (long long row0 = (static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp) * R;
+       row0 < rows; row0 += stride) {
+    float v[R][K][V], gv[R][K][V];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (row0 + r >= rows) break;  // warp-uniform
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const long long off = (row0 + r) * C + (k * 32 + lane) * V;
+        load_vec<Tr, V>(x + off, v[r][k]);
+        load_vec<Tr, V>(g + off, gv[r][k]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (row0 + r >= rows) break;
+      float mean, rstd;
+      row_stats<V, K>(v[r], eps, mean, rstd);
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int c0 = (k * 32 + lane) * V;
+        float ga[V], be[V];
+        load_vec<F32, V>(gamma + c0, ga);
+        load_vec<F32, V>(beta + c0, be);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float xh = (v[r][k][i] - mean) * rstd;
+          const float pre = xh * ga[i] + be[i];  // the forward's expression
+          const float gm = pre > 0.f ? gv[r][k][i] : 0.f;
+          pg[k][i] += gm * xh;
+          pb[k][i] += gm;
+          const float gg = gm * ga[i];
+          s1 += gg;
+          s2 += gg * xh;
+          v[r][k][i] = xh;
+          gv[r][k][i] = gg;
+        }
+      }
+      const float mg = warp_sum(s1) / C;
+      const float mgx = warp_sum(s2) / C;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float o[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) o[i] = (gv[r][k][i] - mg - v[r][k][i] * mgx) * rstd;
+        store_vec<Tr, V>(dx + (row0 + r) * C + (k * 32 + lane) * V, o);
+      }
+    }
+  }
+
+  for (int w = 0; w < kWarpsPerBlock; ++w) {  // in warp order: the same sums every run
+    if (warp == w) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const int c = (k * 32 + lane) * V + i;
+          s_part[0][c] = w == 0 ? pg[k][i] : s_part[0][c] + pg[k][i];
+          s_part[1][c] = w == 0 ? pb[k][i] : s_part[1][c] + pb[k][i];
+        }
+    }
+    __syncthreads();
+  }
+  float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * C;
+  for (int j = threadIdx.x; j < 2 * C; j += kWarpsPerBlock * 32) out[j] = (&s_part[0][0])[j];
+}
+
+// out[j] = sum over p < n_parts of partial[p][j], in a fixed order: a block
+// of 32 x 32 threads owns 32 columns; thread (slice, lane) sums the partials
+// p = slice, slice + 32, ... of column lane in order of p, and slice 0 then
+// adds the 32 slices in order. (One thread per column walking every partial
+// in turn is a chain of dependent loads, ~50 us at ~1,000 partials.)
+constexpr int kColSlices = 32;
+
+__global__ void __launch_bounds__(32 * kColSlices)
+layer_norm_relu_bwd_cols_kernel(const float* __restrict__ partial, int n_parts, int width,
+                                float* __restrict__ out) {
+  __shared__ float s_sum[kColSlices][33];
+  const int lane = threadIdx.x & 31;
+  const int slice = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (j < width) {
+#pragma unroll 4
+    for (int p = slice; p < n_parts; p += kColSlices) s += partial[static_cast<size_t>(p) * width + j];
+  }
+  s_sum[slice][lane] = s;
+  __syncthreads();
+  if (slice == 0 && j < width) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kColSlices; ++i) t += s_sum[i][lane];
+    out[j] = t;
+  }
+}
+
+constexpr int kBwdBlocksPerSm = 8;
+
+// The backward's grid cap on the current device, which is also the number of
+// (2, C) partials its scratch must hold.
+cudaError_t bwd_max_blocks(int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *blocks = kBwdBlocksPerSm * sms;
+  return e;
+}
+
+template <typename Tr, int C>
+void launch_bwd(const void* x, const void* g, const void* gamma, const void* beta, void* dx,
+                void* dparams, void* partial, int max_blocks, long long rows, float eps,
+                cudaStream_t stream) {
+  using S = typename Tr::storage;
+  constexpr int kMaxV = 16 / static_cast<int>(sizeof(S));
+  constexpr int V = (C / 32) < kMaxV ? (C / 32) : kMaxV;
+  constexpr int K = C / (32 * V);
+  constexpr int R = K >= 4 ? 1 : 4 / K;
+  constexpr long long kRowsPerBlock = kWarpsPerBlock * R;
+  const long long want = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int blocks = static_cast<int>(want < max_blocks ? want : max_blocks);
+  layer_norm_relu_bwd_rows_kernel<Tr, V, K, R><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const S*>(x), static_cast<const S*>(g), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<S*>(dx), static_cast<float*>(partial), rows,
+      eps);
+  layer_norm_relu_bwd_cols_kernel<<<(2 * C + 31) / 32, 32 * kColSlices, 0, stream>>>(
+      static_cast<const float*>(partial), blocks, 2 * C, static_cast<float*>(dparams));
+}
+
+template <typename Tr>
+cudaError_t dispatch_bwd(const void* x, const void* g, const void* gamma, const void* beta,
+                         void* dx, void* dparams, void* partial, int max_blocks, long long rows,
+                         int C, float eps, cudaStream_t stream) {
+  switch (C) {
+#define ADUNET_BWD_CASE(c)                                                                    \
+  case c:                                                                                     \
+    launch_bwd<Tr, c>(x, g, gamma, beta, dx, dparams, partial, max_blocks, rows, eps, stream); \
+    break;
+    ADUNET_BWD_CASE(64)
+    ADUNET_BWD_CASE(128)
+    ADUNET_BWD_CASE(256)
+    ADUNET_BWD_CASE(512)
+    ADUNET_BWD_CASE(1024)
+    ADUNET_BWD_CASE(2048)
+#undef ADUNET_BWD_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace adunet
+
+// Writes to *n (an int) the number of (2, C) float32 partials that
+// adunet_layer_norm_relu_backward's scratch must hold on the current device.
+// Returns the CUDA error.
+extern "C" int adunet_layer_norm_relu_backward_partials(void* n) {
+  return adunet::bwd_max_blocks(static_cast<int*>(n));
+}
+
+// x, g (the output cotangent), dx: contiguous (rows, C) of `dtype` (0
+// float32, 1 bf16); gamma, beta: float32 (C,); dparams: float32 (2, C) out,
+// dgamma then dbeta; partial: float32 scratch of
+// (adunet_layer_norm_relu_backward_partials(), 2, C). All pointers 16-byte
+// aligned. Returns the launches' CUDA error.
+extern "C" int adunet_layer_norm_relu_backward(const void* x, const void* g, const void* gamma,
+                                               const void* beta, void* dx, void* dparams,
+                                               void* partial, long long rows, int C, float eps,
+                                               int dtype, void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
+  int max_blocks = 0;
+  const cudaError_t e = adunet::bwd_max_blocks(&max_blocks);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case adunet::kFloat32:
+      return adunet::dispatch_bwd<adunet::F32>(x, g, gamma, beta, dx, dparams, partial,
+                                               max_blocks, rows, C, eps, st);
+    case adunet::kBFloat16:
+      return adunet::dispatch_bwd<adunet::BF16>(x, g, gamma, beta, dx, dparams, partial,
+                                                max_blocks, rows, C, eps, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 // x, y: contiguous (rows, C) of `dtype` (0 float32, 1 bf16); gamma, beta:
 // float32 (C,). All pointers 16-byte aligned. Returns the launch's CUDA error.

@@ -11,7 +11,10 @@ first use (``library()``), never at import: importing this module needs no
 
 The C entry points take raw device pointers and the caller's CUDA stream and
 return ``cudaGetLastError()`` after the launch; the Python wrappers raise on
-a non-zero code (``check``).
+a non-zero code (``check``). The library links against the CUDA runtime
+only: K2's bf16 kernel gets ``cuTensorMapEncodeTiled`` from libcuda (for its
+TMA descriptor) at run time through ``cudaGetDriverEntryPoint``, so no
+``-lcuda`` is needed.
 """
 
 from __future__ import annotations
@@ -85,6 +88,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.adunet_layer_norm_relu.argtypes = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_int, _P]
     lib.adunet_layer_norm_relu.restype = ctypes.c_int
+    lib.adunet_layer_norm_relu_backward.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+                                                    ctypes.c_longlong, ctypes.c_int,
+                                                    ctypes.c_float, ctypes.c_int, _P]
+    lib.adunet_layer_norm_relu_backward.restype = ctypes.c_int
+    lib.adunet_layer_norm_relu_backward_partials.argtypes = [_P]
+    lib.adunet_layer_norm_relu_backward_partials.restype = ctypes.c_int
     lib.adunet_conv3x3_c64.argtypes = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, _P]
     lib.adunet_conv3x3_c64.restype = ctypes.c_int

@@ -1,13 +1,19 @@
-"""K2: 3x3 stride-1 SAME conv + bias for 64 -> 64 channels — a CUDA kernel.
+"""K2: 3x3 stride-1 SAME conv + bias for 64 -> 64 channels — CUDA kernels.
 
 Replaces the Pallas TPU kernel ``adunet/kernels/conv64.py:132``
 (``conv3x3_same_pallas``; ``pl.pallas_call`` at :154). The CUDA source is
-``adunet_torch/csrc/conv64.cu``: a direct implicit GEMM on CUDA cores with a
-2 x 128 x 64 output tile per block, 8 input channels (plus the 1-pixel halo,
-zero outside the image) staged in shared memory per pass, and 64 float32
-accumulators per thread. Its bound on an H100 is operations: 73,728 FLOP per
-output pixel, in float32 at 67 TFLOP/s (no TF32), e.g. ~0.58 ms for one
-(8, 256, 256, 64) launch.
+``adunet_torch/csrc/conv64.cu``, one kernel per type:
+
+- float32: a direct implicit GEMM on CUDA cores (full float32, no TF32),
+  with a 2 x 128 x 64 output tile per block, 8 input channels (plus the
+  1-pixel halo, zero outside the image) staged in shared memory per pass,
+  and 64 float32 accumulators per thread. Bound: operations, 73,728 FLOP per
+  output pixel at 67 TFLOP/s, e.g. ~0.58 ms for one (8, 256, 256, 64) launch.
+- bf16: an implicit GEMM on the tensor cores (``wgmma``, float32
+  accumulators), a persistent grid over 4 x 64-pixel tiles whose input and
+  halo arrive by TMA (zero-filled outside the image) and whose weights sit in
+  shared memory as ``pack_weights_bf16`` lays them out. Bound: bytes and
+  operations tie, ~0.16 ms for one (32, 256, 256, 64) launch.
 
 ``conv3x3_same`` is a ``torch.autograd.Function``, the counterpart of the
 reference's custom VJP (:191-227). It saves x and w. Its backward is the
@@ -37,6 +43,7 @@ __all__ = [
     "conv3x3_same_plain",
     "conv3x3_same_backward",
     "pack_weights",
+    "pack_weights_bf16",
     "supported",
 ]
 
@@ -64,6 +71,17 @@ def supported(x_shape, w_shape) -> bool:
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
     """OIHW (64, 64, 3, 3) -> float32 (9, C_in, C_out), tap index 3*dy + dx."""
     return w.detach().to(torch.float32).permute(2, 3, 1, 0).reshape(9, 64, 64).contiguous()
+
+
+def pack_weights_bf16(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (64, 64, 3, 3) -> bf16 (9, C_out, C_in), tap index 3*dy + dx, as
+    the bf16 kernel's ``wgmma`` reads B from shared memory: K-major (a row of
+    64 input channels, 128 bytes, per output channel) with the 128-byte
+    swizzle, i.e. the 16-byte chunk j of row n lies at chunk j ^ (n % 8)."""
+    taps = w.detach().to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, 64, 8, 8)
+    n = torch.arange(64, device=w.device)
+    src = torch.arange(8, device=w.device)[None, :] ^ (n[:, None] % 8)  # XOR is its own inverse
+    return torch.gather(taps, 2, src[None, :, :, None].expand(9, 64, 8, 8)).reshape(9, 64, 64)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -118,7 +136,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torc
         raise ValueError("conv3x3_same: kernel takes a contiguous, 16-byte aligned NHWC tensor")
     if w.device != x.device or (bias is not None and bias.device != x.device):
         raise ValueError("conv3x3_same: weights must be on x's device")
-    wp = pack_weights(w)
+    wp = pack_weights_bf16(w) if x.dtype == torch.bfloat16 else pack_weights(w)
     b = (torch.zeros(64, device=x.device) if bias is None
          else bias.detach().to(torch.float32).contiguous())
     y = torch.empty_like(x)

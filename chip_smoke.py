@@ -13,22 +13,29 @@ exits non-zero without one. Every phase raises on failure:
 3. holds each kernel's forward against its plain PyTorch version on the
    card, at every shape the flagship's float32 serving forward (batch 8) and
    bf16 training step (batch 32) give it, and times the kernel (CUDA events,
-   and for K1 also the profiler's device time per launch, since at its small
-   shapes the wrapper's host cost exceeds the kernel), the plain version and
-   one PyTorch library call that computes the same function (a yardstick
-   only: the port never calls it) beside the least time the card could take;
+   and the profiler's device time per launch, since at the small shapes the
+   wrapper's host cost exceeds the kernel), the plain version and one
+   PyTorch library call that computes the same function (a yardstick only:
+   the port never calls it; events and device time) beside the least time
+   the card could take;
 4. holds each autograd Function's gradients (K1: dx, dgamma, dbeta; K2: dx,
    dw, db) against autograd through the plain version on the same CUDA
    tensors, at the training shapes in bf16 and the serving shapes in
-   float32, and times forward + backward of each;
+   float32, and times forward + backward of each; then holds K1's backward
+   kernel alone against ``layer_norm_relu_backward`` at the same shapes
+   (counting the ReLU mask elements on which the two disagree), checks that
+   its dgamma / dbeta repeat bit for bit, and times it beside its bytes
+   bound, the plain backward and the library's backward;
 5. serves the trained flagship artifact over HTTP (launch counts set to 0
-   just before, read just after: 16 K1 + 4 K2 per device call);
+   just before, read just after: 16 K1 + 4 K2 per device call, no K1
+   backward);
 6. re-derives the flagship's pinned eval numbers on the 48-tile seed-777
    corpus and times the serving forward;
 7. trains the flagship (scale 0.5, depth 3, base 64, bf16 compute, f32
    params, Adam 1e-4; a seeded random 1x1 head in place of the zero one)
    on a device cache of synthetic images for a few device-cache steps at
-   batch 32 x 256 px (counts set to 0 just before: 16 K1 + 4 K2 per step),
+   batch 32 x 256 px (counts set to 0 just before: 16 K1 forward, 16 K1
+   backward and 4 K2 per step),
    checks that every parameter gets a finite, nonzero gradient in the first
    step and that the loss falls by a quarter over the steps, and times the
    step;
@@ -37,7 +44,8 @@ exits non-zero without one. Every phase raises on failure:
    the gradients and the updated params;
 9. runs the ``adunet_torch.cli.train_sr`` entry point for 2 short epochs at
    flagship width and checks its config, CSV, checkpoints and eval lines,
-   and that the best checkpoint restores the live weights;
+   its launches (16 K1 + 4 K2 per forward, 16 K1 backward per step), and
+   that the best checkpoint restores the live weights;
 10. prints one JSON line with each kernel's launches, error and times, the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -82,6 +90,13 @@ K1_TRAIN = {(2_097_152, 64): 6, (524_288, 128): 4, (131_072, 256): 4, (32_768, 5
 K2_SERVE = {(8, 256, 256, 64): 4}
 K2_TRAIN = {(32, 256, 256, 64): 4}
 K1_PER_CALL = sum(K1_SERVE.values())  # 16
+# the device kernel K2 launches for each type (a substring of its name)
+K2_KERNEL = {torch.float32: "conv3x3_c64_kernel", torch.bfloat16: "conv3x3_c64_wgmma_kernel"}
+K1_BWD_KERNEL = "layer_norm_relu_bwd"  # its rows kernel and its column-sum kernel
+# K2 bf16 against its plain version: the absolute term beside one bf16 ulp,
+# a few times the largest this script has read (its K2 lines print the term
+# each run needs; PERF.md, "K2, the bf16 tolerance"). K1's bf16 keeps 1e-6.
+K2_BF16_ATOL = 1e-5
 K2_PER_CALL = sum(K2_SERVE.values())  # 4
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS, TIMED_STEPS = 32, 256, 6, 5
 
@@ -111,35 +126,55 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profiled_device_ms(fn, kernel_name: str | None = None, iters: int = 20) -> float:
+def profiled_device_ms(fn, kernel_name: str | None = None, iters: int = 20,
+                       per_run: int = 1) -> tuple[float | None, int]:
     """Device time per run of ``fn`` over ``iters`` runs under
-    ``torch.profiler`` (no host cost included): of the kernel named
-    ``kernel_name``, which must launch once per run, or of every kernel."""
+    ``torch.profiler`` (no host cost included), and the number of kernel
+    launches the profiler recorded: of the kernels whose names contain
+    ``kernel_name``, which launch ``per_run`` times per run, or of every
+    kernel.
+
+    The tracer sometimes drops records, a few launches or a whole session.
+    Such a session is repeated, up to 3 times in all. A named kernel's time
+    comes only from a session that recorded each of its ``iters * per_run``
+    launches, the time of every kernel from a session that recorded any.
+    If none did, the time is None ("not measured"); no host-clock time ever
+    stands in for it."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and (kernel_name is None or kernel_name in e.key)]
-    count = sum(e.count for e in hits)
-    if kernel_name is not None and count != iters:
-        raise AssertionError(f"profiler saw {count} launches of {kernel_name}, expected {iters}")
-    if not hits:
-        raise AssertionError("the profiler recorded no device time")
-    return sum(_device_us(e) for e in hits) / iters / 1e3
+    want = iters * per_run
+    count = 0
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and (kernel_name is None or kernel_name in e.key)]
+        count = sum(e.count for e in hits)
+        if kernel_name is not None and count > want:
+            raise AssertionError(f"profiler saw {count} launches of {kernel_name}, expected {want}")
+        if hits and (kernel_name is None or count == want):
+            return sum(_device_us(e) for e in hits) / iters / 1e3, count
+    log(f"[profiler] 3 sessions recorded {count} launches of {kernel_name or 'any kernel'} "
+        f"(made {want if kernel_name else 'some'}): device time not measured")
+    return None, count
 
 
-def close_enough(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype, atol_f32: float) -> float:
+def _ms(v: float | None) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def close_enough(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype, atol_f32: float,
+                 atol_bf16: float = 1e-6) -> float:
     """Max |got - want|; raises past the tolerance. float32: ``atol_f32``
     (another summation / rsqrt order). bf16: one bf16 ulp relative (2^-7)
-    plus 1e-6, since an f32 difference in the last bit can flip the
-    rounding to bf16."""
+    plus ``atol_bf16``, since an f32 difference in the last bits can flip
+    the rounding to bf16."""
     g, w = got.to(torch.float32), want.to(torch.float32)
     err = (g - w).abs()
-    limit = atol_f32 if dtype == torch.float32 else (2.0**-7) * w.abs() + 1e-6
+    limit = atol_f32 if dtype == torch.float32 else (2.0**-7) * w.abs() + atol_bf16
     if not bool(torch.all(err <= limit)) or not bool(torch.isfinite(g).all()):
         raise AssertionError(f"kernel disagrees with its plain version: max |err| {err.max().item():.3e}")
     return err.max().item()
@@ -205,20 +240,21 @@ def check_k1(gen: torch.Generator) -> list[dict]:
         err = close_enough(got, want, dtype, 1e-5)
         gl, bl = g.to(dtype), b.to(dtype)
         ms = cuda_ms(lambda: fused_norm.layer_norm_relu(x, g, b), 50)
-        dev_ms = profiled_device_ms(lambda: fused_norm.layer_norm_relu(x, g, b),
-                                    "layer_norm_relu_kernel")
+        dev_ms, dev_n = profiled_device_ms(lambda: fused_norm.layer_norm_relu(x, g, b),
+                                           "layer_norm_relu_kernel")
         plain = cuda_ms(lambda: fused_norm.layer_norm_relu_plain(x, g, b), 10)
         lib = cuda_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)), 50)
-        lib_dev = profiled_device_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)))
+        lib_dev, lib_n = profiled_device_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)))
         es = x.element_size()
         bnd, by = bound_ms(2 * rows * c * es + 2 * c * 4, 9 * rows * c, dtype)
         rows_out.append(dict(kernel="K1", path=path, shape=[rows, c], dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=err, ms=ms, device_ms=dev_ms,
-                             plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                             device_launches_recorded=dev_n, plain_ms=plain, library_ms=lib,
+                             library_device_ms=lib_dev, library_kernels_recorded=lib_n,
                              bound_ms=bnd, bound_by=by))
         log(f"[K1] {path} rows={rows} C={c} {dtype}: max|err|={err:.2e} kernel {ms:.4f} ms "
-            f"(events; profiler device time {dev_ms:.4f} ms), plain {plain:.4f} ms, "
-            f"F.layer_norm+relu {lib:.4f} ms (device time {lib_dev:.4f} ms), "
+            f"(events; profiler device time {_ms(dev_ms)} over {dev_n} launches), plain "
+            f"{plain:.4f} ms, F.layer_norm+relu {lib:.4f} ms (device time {_ms(lib_dev)}), "
             f"bound {bnd:.4f} ms ({by})")
         del x, got, want
     return rows_out
@@ -239,19 +275,129 @@ def check_k2(gen: torch.Generator) -> list[dict]:
         got = conv64.conv3x3_same(x, wt, bias)
         want = conv64.conv3x3_same_plain(x, wt, bias)
         torch.cuda.synchronize()
-        err = close_enough(got, want, dtype, 1e-4)
+        # bf16: the tensor cores and cuBLAS add the 576 float32 products in
+        # other orders, so an output near 0, where one bf16 ulp is tiny,
+        # keeps their float32 difference: one bf16 ulp plus K2_BF16_ATOL
+        err = close_enough(got, want, dtype, 1e-4, atol_bf16=K2_BF16_ATOL)
+        extra = {}
+        if dtype == torch.bfloat16:  # the absolute term this comparison needs
+            excess = (got.float() - want.float()).abs() - (2.0**-7) * want.float().abs()
+            extra = {"abs_term_needed": max(float(excess.max()), 0.0),
+                     "past_1e-6": int((excess > 1e-6).sum()), "elements": excess.numel()}
+            del excess
         ms = cuda_ms(lambda: conv64.conv3x3_same(x, wt, bias), 20)
+        dev_ms, dev_n = profiled_device_ms(lambda: conv64.conv3x3_same(x, wt, bias),
+                                           K2_KERNEL[dtype])
         plain = cuda_ms(lambda: conv64.conv3x3_same_plain(x, wt, bias), 5)
         xn = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         lib = cuda_ms(lambda: F.conv2d(xn, wt, bias, padding=1), 20)
+        lib_dev, lib_n = profiled_device_ms(lambda: F.conv2d(xn, wt, bias, padding=1))
         bnd, by = _k2_bound(shape, dtype)
         rows_out.append(dict(kernel="K2", path=path, shape=list(shape), dtype=_dname(dtype),
-                             per_call=per_call, max_abs_err=err, ms=ms, plain_ms=plain,
-                             library_ms=lib, bound_ms=bnd, bound_by=by))
-        log(f"[K2] {path} x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e} kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, F.conv2d (cuDNN, TF32 off) {lib:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by})")
+                             per_call=per_call, max_abs_err=err, **extra, ms=ms,
+                             device_ms=dev_ms, device_launches_recorded=dev_n, plain_ms=plain,
+                             library_ms=lib, library_device_ms=lib_dev,
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
+        needed = (f" (absolute term needed {extra['abs_term_needed']:.3e}; {extra['past_1e-6']} "
+                  f"of {extra['elements']} past 1e-6)" if extra else "")
+        log(f"[K2] {path} x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e}{needed} "
+            f"kernel {ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} "
+            f"launches), plain {plain:.4f} ms, F.conv2d (cuDNN, TF32 off) {lib:.4f} ms (device "
+            f"time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
         del x, got, want
+    return rows_out
+
+
+def _k1_flips(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Where K1's ReLU mask on the card (the forward kernel's, which its
+    backward kernel shares) differs from the plain forward's."""
+    with torch.no_grad():
+        return ((fused_norm.layer_norm_relu(x, gamma, beta) > 0)
+                != (fused_norm.layer_norm_relu_plain(x, gamma, beta) > 0))
+
+
+def k1_dx_close(what: str, got: torch.Tensor, want: torch.Tensor, flips: torch.Tensor,
+                rel: float) -> tuple[float, float, int, int]:
+    """K1's dx against the plain backward's: (max |err| / max |want|, max
+    |err|, elements whose masks disagree, rows left out). The kernel's
+    float32 warp sums round otherwise than torch's ``mean``, so an element
+    within a rounding of 0 can be in one ReLU mask and not in the other. At
+    most 1e-5 of the elements may disagree. Such an element moves its row's
+    two means, and so every dx of the row: the rows that hold one are left
+    out of the tolerance (``grad_close``) and counted."""
+    c = got.shape[-1]
+    flat = flips.reshape(-1, c)
+    n_flip = int(flat.sum())
+    if n_flip > 1e-5 * flat.numel():
+        raise AssertionError(f"{what}: {n_flip} of {flat.numel()} ReLU mask elements disagree")
+    keep = ~flat.any(dim=1)
+    g, w = got.reshape(-1, c)[keep], want.reshape(-1, c)[keep]
+    err = grad_close(what, g, w, rel)
+    return err, float((g.float() - w.float()).abs().max()), n_flip, int((~keep).sum())
+
+
+def check_k1_backward(gen: torch.Generator) -> list[dict]:
+    """K1's backward kernel against ``layer_norm_relu_backward`` on the same
+    CUDA tensors, at every training (bf16) and serving (float32) shape, and
+    its time beside its bytes bound, the plain backward's and the library's
+    backward (autograd through ``F.layer_norm`` + ``relu``, graph kept).
+    Tolerances as ``check_backward``'s: dx 1e-5 (float32) / 1e-4 plus one
+    bf16 ulp (bf16) of max |dx| outside the rows with a mask disagreement;
+    dgamma / dbeta 1e-3 relative (float32 sums over up to 2,097,152 rows in
+    another order). dgamma / dbeta must be bit-identical over two runs."""
+    rows_out = []
+    cases = ([(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()]
+             + [(s, n, torch.float32, "serve") for s, n in K1_SERVE.items()])
+    for (rows, c), per_call, dtype, path in cases:
+        x, a, b = _k1_inputs(gen, rows, c, dtype)
+        gy = torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
+
+        def bwd():
+            return fused_norm._launch_backward(x, a, b, gy, 1e-3)
+
+        got = bwd()
+        want = fused_norm.layer_norm_relu_backward(x, a, b, gy)
+        flips = _k1_flips(x, a, b)
+        again = bwd()
+        torch.cuda.synchronize()
+        what = f"K1 backward {path} {rows}x{c} {dtype}"
+        dx_rel, dx_abs, n_flip, n_out = k1_dx_close(
+            what + " dx", got[0], want[0], flips, 1e-5 if dtype == torch.float32 else 1e-4)
+        dg_rel = grad_close(what + " dgamma", got[1], want[1], 1e-3)
+        db_rel = grad_close(what + " dbeta", got[2], want[2], 1e-3)
+        if not (torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])):
+            raise AssertionError(f"{what}: dgamma / dbeta differ between two runs")
+        del got, want, again, flips
+        ms = cuda_ms(bwd, 20)
+        dev_ms, dev_n = profiled_device_ms(bwd, K1_BWD_KERNEL, per_run=2)
+        plain = cuda_ms(lambda: fused_norm.layer_norm_relu_backward(x, a, b, gy), 3)
+        xl = x.detach().requires_grad_(True)
+        al, bl = (t.to(dtype).requires_grad_(True) for t in (a, b))
+        yl = F.relu(F.layer_norm(xl, (c,), al, bl, 1e-3))
+
+        def lib_bwd():
+            return torch.autograd.grad(yl, [xl, al, bl], gy, retain_graph=True)
+
+        lib = cuda_ms(lib_bwd, 20)
+        lib_dev, lib_n = profiled_device_ms(lib_bwd)
+        # read x and g, write dx, plus gamma / beta and their gradients; the
+        # arithmetic is float32 whatever the storage type
+        bnd, by = bound_ms(3 * rows * c * x.element_size() + 4 * c * 4, 20 * rows * c,
+                           torch.float32)
+        rows_out.append(dict(kernel="K1_bwd", path=path, shape=[rows, c], dtype=_dname(dtype),
+                             per_call=per_call, max_abs_err=dx_abs,
+                             rel_err={"dx": dx_rel, "dgamma": dg_rel, "dbeta": db_rel},
+                             mask_disagreements=n_flip, rows_left_out=n_out, ms=ms,
+                             device_ms=dev_ms, device_launches_recorded=dev_n, plain_ms=plain,
+                             library_ms=lib, library_device_ms=lib_dev,
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
+        log(f"[K1 bwd] {path} rows={rows} C={c} {dtype}: rel err dx {dx_rel:.1e} (max |err| "
+            f"{dx_abs:.2e}), dgamma {dg_rel:.1e}, dbeta {db_rel:.1e}; mask disagreements "
+            f"{n_flip} ({n_out} rows left out); kernel {ms:.4f} ms (events; profiler device "
+            f"time {_ms(dev_ms)} over {dev_n} launches), plain {plain:.4f} ms, library backward "
+            f"{lib:.4f} ms (device time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
+        del x, gy, xl, yl
+        torch.cuda.empty_cache()
     return rows_out
 
 
@@ -268,7 +414,9 @@ def check_backward(gen: torch.Generator) -> list[dict]:
     bits); parameter gradients 1e-3 (float32 sums over up to 2,097,152 rows
     or pixels in another order, plus one bf16 ulp for K2's bf16 dw / db).
     K2's float32 dx / dw come from cuDNN (TF32 off), whose FFT and Winograd
-    algorithms keep ~1e-5 relative, so dx is held at 1e-4 there."""
+    algorithms keep ~1e-5 relative, so dx is held at 1e-4 there. K1's dx is
+    compared outside the rows where the kernel's and the plain forward's ReLU
+    masks disagree (``k1_dx_close``)."""
     out = []
     cases = [("K1", s, torch.bfloat16, "train") for s in K1_TRAIN] \
         + [("K1", s, torch.float32, "serve") for s in K1_SERVE] \
@@ -294,8 +442,14 @@ def check_backward(gen: torch.Generator) -> list[dict]:
         got = _fwd_bwd(fn, inputs, gy)
         want = _fwd_bwd(plain, inputs, gy)
         torch.cuda.synchronize()
-        errs = {n: grad_close(f"{kid} {path} {n}", g_, w_, r)
-                for n, g_, w_, r in zip(names, got, want, rels)}
+        if kid == "K1":  # dx outside the rows where the two ReLU masks disagree
+            flips = _k1_flips(x.detach(), a.detach(), b.detach())
+            errs = {"dx": k1_dx_close(f"K1 {path} dx", got[0], want[0], flips, rels[0])[0]}
+            del flips
+        else:
+            errs = {"dx": grad_close(f"K2 {path} dx", got[0], want[0], rels[0])}
+        errs.update({n: grad_close(f"{kid} {path} {n}", g_, w_, r)
+                     for n, g_, w_, r in zip(names[1:], got[1:], want[1:], rels[1:])})
         del got, want
         ms = cuda_ms(lambda: _fwd_bwd(fn, inputs, gy), 10)
         plain_ms = cuda_ms(lambda: _fwd_bwd(plain, inputs, gy), 3)
@@ -322,11 +476,14 @@ def _post_npy(url: str, arr: np.ndarray) -> np.ndarray:
 
 def _zero_counts() -> None:
     fused_norm.layer_norm_relu.launches = 0
+    fused_norm.layer_norm_relu.backward_launches = 0
     conv64.conv3x3_same.launches = 0
 
 
-def _counts() -> tuple[int, int]:
-    return fused_norm.layer_norm_relu.launches, conv64.conv3x3_same.launches
+def _counts() -> tuple[int, int, int]:
+    """Launches of K1's forward, K1's backward and K2."""
+    return (fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches,
+            conv64.conv3x3_same.launches)
 
 
 def serve_flagship(call) -> dict:
@@ -366,10 +523,10 @@ def serve_flagship(call) -> dict:
         server.batcher.close()
         server.server_close()
         thread.join(timeout=30)
-    k1, k2 = _counts()
+    k1, k1b, k2 = _counts()
     calls = stats["device_calls"]
-    log(f"[serve] stats {stats}; K1 launches {k1}, K2 launches {k2}")
-    if calls < 1 or k1 != K1_PER_CALL * calls or k2 != K2_PER_CALL * calls:
+    log(f"[serve] stats {stats}; K1 launches {k1}, K2 launches {k2}, K1 backward {k1b}")
+    if calls < 1 or k1 != K1_PER_CALL * calls or k2 != K2_PER_CALL * calls or k1b:
         raise AssertionError(f"expected {K1_PER_CALL} K1 and {K2_PER_CALL} K2 launches per "
                              f"device call; got {k1} and {k2} over {calls} calls")
     if stats["images"] != 12 or stats["batched_rows"] != 12:
@@ -388,7 +545,7 @@ def serve_flagship(call) -> dict:
     if not worst <= 1e-5:
         raise AssertionError(f"served answers differ from the direct call by {worst:.3e}")
     log(f"[serve] 12 images over {calls} device calls; max |served - direct| {worst:.2e}")
-    return {"launches": {"K1": k1, "K2": k2}, "device_calls": calls}
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2}, "device_calls": calls}
 
 
 def _synth():
@@ -505,13 +662,15 @@ def train_flagship(tmp: Path, ident: str) -> dict:
             if bad:
                 raise AssertionError(f"parameters without a finite nonzero gradient: {bad}")
     torch.cuda.synchronize()
-    k1, k2 = _counts()
-    if (k1, k2) != (16 * TRAIN_STEPS, 4 * TRAIN_STEPS):
-        raise AssertionError(f"expected {16 * TRAIN_STEPS} K1 and {4 * TRAIN_STEPS} K2 launches "
-                             f"over {TRAIN_STEPS} steps; got {k1} and {k2}")
+    k1, k1b, k2 = _counts()
+    if (k1, k1b, k2) != (16 * TRAIN_STEPS, 16 * TRAIN_STEPS, 4 * TRAIN_STEPS):
+        raise AssertionError(f"expected {16 * TRAIN_STEPS} K1, {16 * TRAIN_STEPS} K1 backward "
+                             f"and {4 * TRAIN_STEPS} K2 launches over {TRAIN_STEPS} steps; "
+                             f"got {k1}, {k1b} and {k2}")
     losses = [float(v) for v in losses]
     log(f"[train] {TRAIN_STEPS} steps, losses {', '.join(f'{v:.5f}' for v in losses)}; "
-        f"every parameter had a finite nonzero gradient after step 1; K1 {k1}, K2 {k2} launches")
+        f"every parameter had a finite nonzero gradient after step 1; K1 {k1}, K1 backward "
+        f"{k1b}, K2 {k2} launches")
     # each step samples its own patches; the drop from the random head's
     # residual is far larger than the spread between batches
     if not all(np.isfinite(losses)) or not losses[-1] < 0.75 * losses[0]:
@@ -523,7 +682,8 @@ def train_flagship(tmp: Path, ident: str) -> dict:
         f"peak device memory {peak_gb:.2f} GB")
     del cache, state, model
     torch.cuda.empty_cache()
-    return {"launches": {"K1": k1, "K2": k2}, "steps": TRAIN_STEPS, "losses": losses,
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2}, "steps": TRAIN_STEPS,
+            "losses": losses,
             "ms_per_step": ms,
             "img_per_s": TRAIN_BATCH * 1e3 / ms, "peak_gb": peak_gb, "depth": info["depth"]}
 
@@ -598,7 +758,7 @@ def train_entry_point(tmp: Path) -> dict:
     with contextlib.redirect_stdout(buf):
         result = train_main(args)
     seconds = time.perf_counter() - t0
-    k1, k2 = _counts()
+    k1, k1b, k2 = _counts()
     printed = buf.getvalue()
     for line in printed.splitlines():
         log(f"[train_sr] {line}")
@@ -606,10 +766,11 @@ def train_entry_point(tmp: Path) -> dict:
     ckpt_dir = Path(result["ckpt_dir"])
     cfg = json.loads((run_dir / "config.json").read_text())
     rows = (run_dir / "epoch_metrics.csv").read_text().strip().splitlines()
-    forwards = epochs * cfg["steps_per_epoch"] + epochs * 1 + 2  # train, val (4 tiles), eval
-    if (k1, k2) != (16 * forwards, 4 * forwards):
-        raise AssertionError(f"train_sr: expected {16 * forwards} K1 / {4 * forwards} K2 "
-                             f"launches, got {k1} / {k2}")
+    steps = epochs * cfg["steps_per_epoch"]
+    forwards = steps + epochs * 1 + 2  # train, val (4 tiles), eval
+    if (k1, k1b, k2) != (16 * forwards, 16 * steps, 4 * forwards):
+        raise AssertionError(f"train_sr: expected {16 * forwards} K1 / {16 * steps} K1 backward "
+                             f"/ {4 * forwards} K2 launches, got {k1} / {k1b} / {k2}")
     if (cfg["steps_per_epoch"], cfg["n_params"], len(rows)) != (2, 8_637_379, epochs + 1):
         raise AssertionError(f"train_sr wrote {cfg['steps_per_epoch']} steps/epoch, "
                              f"{cfg['n_params']} params, {len(rows)} CSV lines")
@@ -633,26 +794,35 @@ def train_entry_point(tmp: Path) -> dict:
     if not matches["best"] or matches["latest"] != (best == latest):
         raise AssertionError(f"restored checkpoints vs live params: {matches} (best {best}, "
                              f"latest {latest})")
-    log(f"[train_sr] {epochs} epochs in {seconds:.1f} s; K1 {k1}, K2 {k2} launches; best epoch "
+    log(f"[train_sr] {epochs} epochs in {seconds:.1f} s; K1 {k1}, K1 backward {k1b}, K2 {k2} "
+        f"launches; best epoch "
         f"{best}, latest {latest}; restored best == live params, latest == live: {matches['latest']}")
-    return {"launches": {"K1": k1, "K2": k2}, "seconds": seconds, "best": best, "latest": latest,
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2}, "seconds": seconds, "best": best,
+            "latest": latest,
             "eval": {k: v["psnr_mean"] for k, v in result["eval"].items()}}
 
 
 def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_launches: dict,
                  build_s: float) -> dict:
     """One entry per kernel. ``launches`` come from the training path (device-
-    cache steps); ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are
-    summed over the forward launches of one bf16 training step (per-shape
-    time x launches per step), ``ms`` from CUDA events; ``serve`` holds the
-    same sums over one float32 serving forward."""
+    cache steps); ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
+    ``library_ms`` and ``library_device_ms`` are summed over the kernel's
+    launches in one bf16 training step (per-shape time x launches per step),
+    ``ms`` from CUDA events and ``device_ms`` from the profiler (null where
+    it recorded no full session at some shape); ``serve``
+    holds the same sums at the float32 serving shapes (one forward; serving
+    runs no backward, so K1_bwd's serving launches are 0)."""
     meta = {
         "K1": ("layer_norm_relu", "adunet_torch/csrc/fused_norm.cu", "adunet/kernels/fused_norm.py:48"),
+        "K1_bwd": ("layer_norm_relu_backward", "adunet_torch/csrc/fused_norm.cu",
+                   "adunet/kernels/fused_norm.py:109"),
         "K2": ("conv3x3_same_c64", "adunet_torch/csrc/conv64.cu", "adunet/kernels/conv64.py:132"),
     }
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms")
 
-    def summed(rows, key):
-        return sum(d[key] * d["per_call"] for d in rows)
+    def summed(rows, key):  # None where the profiler measured no device time
+        vals = [d[key] for d in rows]
+        return None if None in vals else sum(v * d["per_call"] for v, d in zip(vals, rows))
 
     out = []
     for kid, (name, src, replaces) in meta.items():
@@ -664,21 +834,14 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kid],
             "max_abs_err": max(d["max_abs_err"] for d in details if d["kernel"] == kid),
-            "ms": summed(train, "ms"), "plain_ms": summed(train, "plain_ms"),
-            "bound_ms": summed(train, "bound_ms"),
+            **{k: summed(train, k) for k in keys},
             "bound_by": max(train, key=lambda d: d["bound_ms"] * d["per_call"])["bound_by"],
-            "library_ms": summed(train, "library_ms"),
-            "per": "forward launches of one bf16 training step of the flagship (batch 32, 256 px)",
-            "fwd_bwd_ms": sum(g["fwd_bwd_ms"] * (K1_TRAIN if kid == "K1" else K2_TRAIN)[tuple(g["shape"])]
-                              for g in grad),
-            "serve": {"launches": serve_launches[kid], "ms": summed(serve, "ms"),
-                      "plain_ms": summed(serve, "plain_ms"), "bound_ms": summed(serve, "bound_ms"),
-                      "library_ms": summed(serve, "library_ms")},
+            "per": "launches of one bf16 training step of the flagship (batch 32, 256 px)",
+            "serve": {"launches": serve_launches[kid], **{k: summed(serve, k) for k in keys}},
         }
-        if kid == "K1":  # profiler device times beside the events' times
-            for key in ("device_ms", "library_device_ms"):
-                entry[key] = summed(train, key)
-                entry["serve"][key] = summed(serve, key)
+        if grad:  # the autograd Function's forward + backward
+            per_step = K1_TRAIN if kid == "K1" else K2_TRAIN
+            entry["fwd_bwd_ms"] = sum(g["fwd_bwd_ms"] * per_step[tuple(g["shape"])] for g in grad)
         out.append(entry)
     return {"kernels": out, "build_s": build_s}
 
@@ -703,6 +866,7 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     details = check_k1(gen) + check_k2(gen)
     grads = check_backward(gen)
+    details += check_k1_backward(gen)
     torch.cuda.empty_cache()
 
     call, _ = load_artifact(ARTIFACT, device="cuda")

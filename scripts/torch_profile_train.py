@@ -8,8 +8,9 @@ the card as uint8, and runs the device-cache train step at batch 32 x
 256 px: sample, degrade, forward, Charbonnier loss, backward, Adam. It times
 steps with CUDA events after a warm-up, then traces a few steps with
 ``torch.profiler`` and prints the device time per step of the kernels'
-forward (K1, K2), of their autograd backward (``_LayerNormReLUBackward``,
-``_Conv3x3SameBackward``), of cuDNN's convolutions forward and backward, of
+forward (K1, K2) and of K1's backward kernels by their device kernels'
+names, of K2's autograd backward (``_Conv3x3SameBackward``, cuDNN), of
+cuDNN's convolutions forward and backward, of
 the other operators, the device's busy and idle share, and the card's name
 and power limit. ``--json PATH`` also writes the full result as JSON.
 
@@ -49,8 +50,8 @@ from adunet_torch.utils import gpu_identity  # noqa: E402
 # of an operator whose device time, its children's included, is reported)
 GROUPS = {
     "K1 forward (kernel)": ("kernel", "layer_norm_relu_kernel"),
-    "K2 forward (kernel)": ("kernel", "conv3x3_c64_kernel"),
-    "K1 backward (torch ops)": ("op", "autograd::engine::evaluate_function: _LayerNormReLUBackward"),
+    "K1 backward (kernels: rows, column sums)": ("kernel", "layer_norm_relu_bwd"),
+    "K2 forward (bf16 tensor-core kernel)": ("kernel", "conv3x3_c64_wgmma_kernel"),
     "K2 backward (cuDNN)": ("op", "autograd::engine::evaluate_function: _Conv3x3SameBackward"),
     "cuDNN conv forward (other convs)": ("op", "aten::cudnn_convolution"),
     "conv backward (all convs)": ("op", "aten::convolution_backward"),

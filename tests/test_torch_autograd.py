@@ -48,7 +48,7 @@ def _torch_grads(fn, args, g):
     return out, grads
 
 
-@pytest.mark.parametrize("shape", [(96, 64), (2, 3, 5, 128)])
+@pytest.mark.parametrize("shape", [(96, 64), (2, 3, 5, 128), (40, 256), (3, 8, 512)])
 def test_layer_norm_relu_grads_match_jax_f32(monkeypatch, shape):
     monkeypatch.setenv("ADUNET_FORCE_PALLAS", "1")
     monkeypatch.setenv("ADUNET_PALLAS_INTERPRET", "1")

@@ -97,6 +97,66 @@ def test_pack_weights_tap_order(conv_data):
     np.testing.assert_array_equal(packed, w_hwio.reshape(9, 64, 64))
 
 
+def test_pack_weights_bf16_is_the_swizzled_k_major_layout(conv_data):
+    """The bf16 kernel copies the packed weights byte for byte into shared
+    memory, where wgmma reads B through a K-major, 128-byte-swizzle
+    descriptor. A numpy model of that descriptor: tap t, output channel n,
+    input channel k lies at byte a = 8192 t + 128 n + 2 k before the swizzle,
+    and the swizzle moves a to a ^ (((a >> 7) & 7) << 4)."""
+    _, w_hwio, _ = conv_data
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
+    packed = tconv.pack_weights_bf16(w_oihw)
+    assert packed.dtype == torch.bfloat16 and tuple(packed.shape) == (9, 64, 64)
+    words = packed.contiguous().view(torch.int16).numpy().reshape(-1)
+    t, n, k = np.meshgrid(np.arange(9), np.arange(64), np.arange(64), indexing="ij")
+    logical = 8192 * t + 128 * n + 2 * k
+    physical = logical ^ (((logical >> 7) & 7) << 4)
+    unpacked = words[physical // 2]  # (9, C_out, C_in) bf16 bits
+    want = w_oihw.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, 64, 64)
+    np.testing.assert_array_equal(unpacked, want.contiguous().view(torch.int16).numpy())
+    # back to OIHW: the same weights as the caller's, rounded to bf16 once
+    oihw = torch.from_numpy(unpacked.copy()).view(torch.bfloat16).reshape(3, 3, 64, 64)
+    assert torch.equal(oihw.permute(2, 3, 0, 1), w_oihw.to(torch.bfloat16))
+
+
+def test_build_declares_every_entry_point_as_its_c_signature():
+    """Every ``extern "C"`` function of the CUDA sources gets argtypes that
+    match its C parameters (``c_void_p`` for each pointer and the stream, so
+    ctypes never cuts a pointer to 32 bits) and an int result, checked on a
+    stand-in for the loaded library."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from adunet_torch.kernels import _build
+
+    ctype = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong, "float": ctypes.c_float}
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    lib = FakeLib()
+    _build._declare(lib)
+    csrc = Path(_build.__file__).resolve().parents[1] / "csrc"
+    seen = set()
+    for src in _build._SOURCES:
+        text = (csrc / src).read_text()
+        for ret, name, params in re.findall(r'extern "C" ([\w ]+?\*?) (adunet_\w+)\(([^)]*)\)', text):
+            seen.add(name)
+            fn = getattr(lib, name)
+            want = [ctype[" ".join(p.split()[:-1])] for p in params.split(",")] if params.strip() \
+                else []
+            assert fn.argtypes == want, name
+            assert fn.restype == (ctypes.c_int if ret == "int" else ctypes.c_char_p), name
+    assert {"adunet_layer_norm_relu", "adunet_layer_norm_relu_backward",
+            "adunet_layer_norm_relu_backward_partials", "adunet_conv3x3_c64",
+            "adunet_error_string"} <= seen
+
+
 @pytest.mark.parametrize("x_shape, w_hwio", [
     ((2, 16, 128, 64), (3, 3, 64, 64)),
     ((8, 256, 256, 64), (3, 3, 64, 64)),
@@ -146,3 +206,9 @@ def test_kernel_sources_name_what_they_replace():
     k2 = (csrc / "conv64.cu").read_text()
     assert "adunet/kernels/fused_norm.py:48" in k1 and "Bound" in k1
     assert "adunet/kernels/conv64.py:132" in k2 and "Bound" in k2
+    # the backward kernel and its entry point, beside the forward's
+    bwd = k1[k1.index("// ----"):]
+    assert "adunet/kernels/fused_norm.py:109" in bwd and "Bound" in bwd
+    assert 'extern "C" int adunet_layer_norm_relu_backward(' in k1
+    # the bf16 path says how it reaches its bound: TMA and wgmma
+    assert "TMA" in k2 and "wgmma" in k2

@@ -13,7 +13,11 @@ Tolerances, relative to the largest |value| of each tensor: K1 dx 1e-5
 (float32) and one bf16 ulp per element plus 1e-4 (bf16); K2 dx 1e-4 (cuDNN's
 float32 algorithms, TF32 off); parameter gradients 1e-3 (float32 sums in
 another order, plus one bf16 ulp for bf16 dw / db); model gradients 1e-3 in
-relative L2 norm.
+relative L2 norm. K1's backward kernel shares the forward kernel's ReLU mask,
+whose float32 warp sums round otherwise than the plain version's ``mean``: an
+element within a rounding of 0 can be in one mask and not in the other, and
+it moves its whole row's dx. Such rows (at most 1e-5 of the elements may
+disagree) are left out of the dx comparison.
 """
 
 import pytest
@@ -44,6 +48,18 @@ def _close(got, want, rel):
         ((g - w).abs().max() / w.abs().max()).item()
 
 
+def _k1_dx_close(x, g, b, got, want, rel):
+    """``_close`` on K1's dx outside the rows where the kernel's and the plain
+    forward's ReLU masks disagree."""
+    c = x.shape[-1]
+    with torch.no_grad():
+        flips = ((fused_norm.layer_norm_relu(x, g, b) > 0)
+                 != (fused_norm.layer_norm_relu_plain(x, g, b) > 0)).reshape(-1, c)
+    assert int(flips.sum()) <= 1e-5 * flips.numel() + 1
+    keep = ~flips.any(dim=1)
+    _close(got.reshape(-1, c)[keep], want.reshape(-1, c)[keep], rel)
+
+
 def _grads(fn, inputs, gy):
     return torch.autograd.grad(fn(*inputs), inputs, gy)
 
@@ -56,12 +72,64 @@ def test_layer_norm_relu_grads_match_plain(cuda, dtype, shape):
     g = (torch.randn(c, generator=cuda, device="cuda") * 0.2 + 1).requires_grad_(True)
     b = (torch.randn(c, generator=cuda, device="cuda") * 0.2).requires_grad_(True)
     gy = torch.randn(*shape, generator=cuda, device="cuda").to(dtype)
-    before = fused_norm.layer_norm_relu.launches
+    before = (fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches)
     got = _grads(fused_norm.layer_norm_relu, [x, g, b], gy)
-    assert fused_norm.layer_norm_relu.launches == before + 1
+    assert (fused_norm.layer_norm_relu.launches,
+            fused_norm.layer_norm_relu.backward_launches) == (before[0] + 1, before[1] + 1)
     want = _grads(fused_norm.layer_norm_relu_plain, [x, g, b], gy)
-    for a, w, rel in zip(got, want, (1e-5 if dtype == torch.float32 else 1e-4, 1e-3, 1e-3)):
-        _close(a, w, rel)
+    _k1_dx_close(x, g, b, got[0], want[0], 1e-5 if dtype == torch.float32 else 1e-4)
+    for a, w in zip(got[1:], want[1:]):
+        _close(a, w, 1e-3)
+
+
+def _k1_bwd_inputs(gen, rows, c, dtype):
+    x = (torch.randn(rows, c, generator=gen, device="cuda") * 3 + 1).to(dtype)
+    g = torch.randn(c, generator=gen, device="cuda") * 0.2 + 1
+    b = torch.randn(c, generator=gen, device="cuda") * 0.2
+    gy = torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
+    return x, g, b, gy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", fused_norm.SUPPORTED_CHANNELS)
+@pytest.mark.parametrize("rows", [1, 8 * 4 * 3 + 5])
+def test_layer_norm_relu_backward_kernel_matches_plain(cuda, dtype, c, rows):
+    """The backward kernel alone against ``layer_norm_relu_backward``, at
+    every C, at one row and at a row count that fills no block evenly."""
+    x, g, b, gy = _k1_bwd_inputs(cuda, rows, c, dtype)
+    before = fused_norm.layer_norm_relu.backward_launches
+    dx, dg, db = fused_norm._launch_backward(x, g, b, gy, 1e-3)
+    assert fused_norm.layer_norm_relu.backward_launches == before + 1
+    want = fused_norm.layer_norm_relu_backward(x, g, b, gy)
+    assert (dx.dtype, dg.dtype, db.dtype) == (dtype, torch.float32, torch.float32)
+    _k1_dx_close(x, g, b, dx, want[0], 1e-5 if dtype == torch.float32 else 1e-4)
+    _close(dg, want[1], 1e-3)
+    _close(db, want[2], 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_relu_backward_dead_row_is_zero(cuda, dtype):
+    """A constant row normalises to 0, so with beta < 0 its pre-activation
+    is negative everywhere: no gradient passes the ReLU and dx is exactly 0
+    there, while the other rows match the plain version."""
+    x, g, b, gy = _k1_bwd_inputs(cuda, 37, 64, dtype)
+    b = -b.abs() - 0.1
+    x[5] = 0.75
+    dx, dg, db = fused_norm._launch_backward(x, g, b, gy, 1e-3)
+    assert bool((dx[5] == 0).all())
+    want = fused_norm.layer_norm_relu_backward(x, g, b, gy)
+    _k1_dx_close(x, g, b, dx, want[0], 1e-5 if dtype == torch.float32 else 1e-4)
+    _close(dg, want[1], 1e-3)
+    _close(db, want[2], 1e-3)
+
+
+def test_layer_norm_relu_backward_parameter_sums_are_deterministic(cuda):
+    """dgamma / dbeta come from a two-level sum in a fixed order, no atomics:
+    two runs on the same inputs agree bit for bit."""
+    x, g, b, gy = _k1_bwd_inputs(cuda, 300_001, 64, torch.bfloat16)
+    first = fused_norm._launch_backward(x, g, b, gy, 1e-3)
+    second = fused_norm._launch_backward(x, g, b, gy, 1e-3)
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -92,12 +160,14 @@ def test_model_train_step_matches_cpu(cuda):
     gpu_model.load_state_dict(cpu_model.state_dict())
     hr = torch.rand(2, 16, 128, 3, generator=torch.Generator().manual_seed(1))
     losses = []
-    before = (fused_norm.layer_norm_relu.launches, conv64.conv3x3_same.launches)
+    before = (fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches,
+              conv64.conv3x3_same.launches)
     for model in (gpu_model, cpu_model):
         state = create_train_state(model, make_optimizer(model.parameters(), 1e-4))
         losses.append(float(make_sr_train_step(model, charbonnier_loss)(state, hr)[1]["loss"]))
     assert (fused_norm.layer_norm_relu.launches - before[0],
-            conv64.conv3x3_same.launches - before[1]) == (8, 4)
+            fused_norm.layer_norm_relu.backward_launches - before[1],
+            conv64.conv3x3_same.launches - before[2]) == (8, 8, 4)
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     for (name, pg), pc in zip(gpu_model.named_parameters(), cpu_model.parameters()):
         rel = ((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm()).item()
