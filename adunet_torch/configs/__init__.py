@@ -1,5 +1,5 @@
 """Run configuration."""
 
-from adunet_torch.configs.config import SRTrainConfig
+from adunet_torch.configs.config import PROTOCOLS, ProtocolConfig, SegTrainConfig, SRTrainConfig
 
-__all__ = ["SRTrainConfig"]
+__all__ = ["SRTrainConfig", "ProtocolConfig", "PROTOCOLS", "SegTrainConfig"]

@@ -1,14 +1,16 @@
-"""The SR trainer's config: the port's copy of
-``adunet/configs/config.py::SRTrainConfig`` (same fields, defaults and
-checks, so a run writes the reference's ``config.json`` payload), plus the
-port's ``device``."""
+"""The trainers' configs: the port's copies of
+``adunet/configs/config.py``'s ``SRTrainConfig``, ``ProtocolConfig``,
+``PROTOCOLS`` and ``SegTrainConfig`` (same fields, defaults and checks, so a
+run writes the reference's ``config.json`` payload), plus the port's
+``device``."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
-__all__ = ["SRTrainConfig"]
+__all__ = ["SRTrainConfig", "ProtocolConfig", "PROTOCOLS", "SegTrainConfig"]
 
 
 @dataclass
@@ -93,3 +95,89 @@ class SRTrainConfig:
             )
         if 1.0 - (self.val_split + self.test_split) <= 0:
             raise ValueError("val_split + test_split consume the whole corpus; nothing left to train on.")
+
+
+@dataclass
+class ProtocolConfig:
+    """A segmentation training protocol preset."""
+
+    key: str
+    description: str
+    loss: str  # "hybrid_ce_dice" | "bce_dice", weighted by loss_alpha / loss_beta
+    loss_alpha: float
+    loss_beta: float
+    initial_lr: float
+    epochs: int
+    batch_size: int
+    cosine_schedule: bool
+    early_stopping_patience: Optional[int]
+
+
+PROTOCOLS: Dict[str, ProtocolConfig] = {
+    "A": ProtocolConfig(
+        key="A",
+        description="MSCA-UNet hybrid loss (0.4*CE + 0.6*Dice) with cosine annealing",
+        loss="hybrid_ce_dice",
+        loss_alpha=0.4,
+        loss_beta=0.6,
+        initial_lr=1e-3,
+        epochs=100,
+        batch_size=8,
+        cosine_schedule=True,
+        early_stopping_patience=15,
+    ),
+    "B": ProtocolConfig(
+        key="B",
+        description="D2HU-Net BCE+Dice loss (0.5*BCE + 1.0*Dice)",
+        loss="bce_dice",
+        loss_alpha=0.5,
+        loss_beta=1.0,
+        initial_lr=3e-4,
+        epochs=200,
+        batch_size=16,
+        cosine_schedule=False,
+        early_stopping_patience=None,
+    ),
+}
+
+
+@dataclass
+class SegTrainConfig:
+    protocol: str = "A"
+    epochs: int = 0  # 0 keeps the protocol's
+    batch_size: int = 0  # 0 keeps the protocol's
+    base_channels: int = 64
+    depth: int = 4
+    image_size: int = 256
+    seed: int = 42
+    patience: Optional[int] = None  # None keeps the protocol's
+    mixed_precision: bool = False
+    model_dir: str = "runs/models"
+    log_dir: str = "runs/logs"
+    run_name: Optional[str] = None
+    train_images: Optional[str] = None
+    train_masks: Optional[str] = None
+    val_images: Optional[str] = None
+    val_masks: Optional[str] = None
+    limit: Optional[int] = None
+    threshold: float = 0.5
+    augment: bool = True
+    n_devices: Optional[int] = None
+    # precise-BN: before each validation, population BatchNorm statistics
+    # from this many un-augmented training batches (0 keeps the EMA)
+    precise_bn: int = 0
+    async_checkpoint: bool = False
+    cache_decoded: bool = False
+    # keep the validation batches on the device between epochs
+    val_device_cache: bool = True
+    device: str = "cuda"
+
+    def resolved(self) -> "SegTrainConfig":
+        """Zero / None fields filled from the protocol's preset."""
+        proto = PROTOCOLS[self.protocol]
+        return dataclasses.replace(
+            self,
+            epochs=self.epochs or proto.epochs,
+            batch_size=self.batch_size or proto.batch_size,
+            patience=self.patience if self.patience is not None else proto.early_stopping_patience,
+        )

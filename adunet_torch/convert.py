@@ -1,9 +1,15 @@
 """Reference (flax) parameter trees ↔ the port's state_dict.
 
-- ``state_dict_from_flax(params)``: a nested dict of numpy arrays, as
-  ``jax.device_get(state.params)`` gives it, to a torch state_dict. Names
-  join with ``.``; a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW), a
-  LayerNorm ``scale`` becomes ``weight``, ``bias`` stays ``bias``.
+- ``state_dict_from_flax(params, batch_stats=None)``: nested dicts of numpy
+  arrays, as ``jax.device_get(state.params)`` / ``state.batch_stats`` give
+  them, to a torch state_dict. Names join with ``.``; a conv ``kernel``
+  (HWIO) becomes ``weight`` (OIHW), a norm ``scale`` becomes ``weight``,
+  ``bias`` stays ``bias``; a BatchNorm's ``mean`` / ``var`` become the
+  buffers ``running_mean`` / ``running_var``. The kernel of a ``dec{i}_up``
+  ConvTranspose (HWIO) becomes torch's (in, out, kh, kw) flipped in both
+  spatial axes: flax correlates the dilated input with the kernel
+  unflipped, torch's transposed conv scatters it unflipped
+  (``adunet_torch/nn/blocks.py::ConvTranspose``).
 - ``flax_leaf_paths(depth, quantized)``: the flat leaf order of the SR
   model's param tree, i.e. recursively sorted dict keys, the order in which
   ``jax.tree_util`` flattens dicts and in which an exported artifact stores
@@ -21,7 +27,11 @@ import torch
 __all__ = ["state_dict_from_flax", "flax_leaf_paths"]
 
 
-def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+_STATS_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def state_dict_from_flax(params: Mapping[str, Any],
+                         batch_stats: Mapping[str, Any] | None = None) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], prefix: Tuple[str, ...]) -> None:
@@ -36,7 +46,10 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if key == "kernel":
                 if arr.ndim != 4:
                     raise ValueError(f"{'/'.join(prefix)}/kernel: expected HWIO, got {arr.shape}")
-                arr, name = arr.transpose(3, 2, 0, 1), "weight"
+                if prefix and prefix[-1].endswith("_up"):  # ConvTranspose: flipped, IOHW
+                    arr, name = arr[::-1, ::-1].transpose(2, 3, 0, 1), "weight"
+                else:
+                    arr, name = arr.transpose(3, 2, 0, 1), "weight"
             elif key == "scale":
                 name = "weight"
             elif key == "bias":
@@ -46,6 +59,18 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             out[".".join(prefix + (name,))] = torch.tensor(np.ascontiguousarray(arr))
 
     walk(params, ())
+
+    def walk_stats(node: Mapping[str, Any], prefix: Tuple[str, ...]) -> None:
+        for key in sorted(node):
+            if isinstance(node[key], Mapping):
+                walk_stats(node[key], prefix + (key,))
+            elif key in _STATS_NAMES:
+                arr = np.ascontiguousarray(np.asarray(node[key], dtype=np.float32))
+                out[".".join(prefix + (_STATS_NAMES[key],))] = torch.tensor(arr)
+            else:
+                raise ValueError(f"unexpected batch_stats leaf {'/'.join(prefix + (key,))}")
+
+    walk_stats(batch_stats or {}, ())
     return out
 
 

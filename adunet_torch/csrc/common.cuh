@@ -76,10 +76,4 @@ __device__ __forceinline__ void store_vec(typename Tr::storage* p, const float (
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 }  // namespace adunet

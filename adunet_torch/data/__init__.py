@@ -1,21 +1,48 @@
-"""Data: image IO, discovery, grid tiling, the eval patch stream and the
-device-resident training corpus."""
+"""Data: image IO, discovery and pairing, grid tiling, the eval patch stream,
+the device-resident training corpus, the segmentation pipeline and its
+on-device augmentation."""
 
+from adunet_torch.data.augment import augment_pair_batch, flip_pair_batch
 from adunet_torch.data.device_cache import load_device_cache, sample_patch_batch
-from adunet_torch.data.discovery import find_images
-from adunet_torch.data.io import load_rgb_image_full, load_rgb_image_full_u8, read_image_size
+from adunet_torch.data.discovery import (
+    canonical_key,
+    collect_isic_pairs,
+    discover_pairs,
+    find_images,
+    normalise_isic_key,
+)
+from adunet_torch.data.io import (
+    load_label_mask,
+    load_mask,
+    load_rgb_image,
+    load_rgb_image_full,
+    load_rgb_image_full_u8,
+    read_image_size,
+)
 from adunet_torch.data.patches import grid_patch_count, grid_patches
+from adunet_torch.data.seg_pipeline import SegPairDataset, build_isic_dataset
 from adunet_torch.data.sr_pipeline import GridPatchDataset, make_eval_patch_dataset
 
 __all__ = [
+    "augment_pair_batch",
+    "flip_pair_batch",
     "load_device_cache",
     "sample_patch_batch",
     "find_images",
+    "collect_isic_pairs",
+    "normalise_isic_key",
+    "canonical_key",
+    "discover_pairs",
+    "load_rgb_image",
     "load_rgb_image_full",
     "load_rgb_image_full_u8",
+    "load_mask",
+    "load_label_mask",
     "read_image_size",
     "grid_patches",
     "grid_patch_count",
     "GridPatchDataset",
     "make_eval_patch_dataset",
+    "SegPairDataset",
+    "build_isic_dataset",
 ]

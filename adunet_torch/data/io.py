@@ -1,9 +1,15 @@
 """Host-side image IO.
 
-Port of ``adunet/data/io.py:45-110`` (``read_image_size``, ``_read_rgb``,
-``load_rgb_image_full``, ``load_rgb_image_full_u8``). ``.npy`` arrays are
+Port of ``adunet/data/io.py`` (``read_image_size``, ``_read_rgb``,
+``load_rgb_image_full``, ``load_rgb_image_full_u8``, and for segmentation
+``load_rgb_image`` with its square resize, ``_read_gray``,
+``_nearest_resize``, ``load_mask``, ``load_label_mask``). ``.npy`` arrays are
 always read; PNG / JPEG need cv2 (BGR→RGB) or, without it, PIL, each
-imported at first use. Without either a PNG / JPEG raises.
+imported at first use. Without either a PNG / JPEG raises. Resizes go
+through cv2 where it is importable, as in the reference, and otherwise
+through the same sampling matrices the reference falls back to
+(``adunet_torch.ops.resize.resize_matrix``), so a batch is byte for byte the
+reference's on the same host.
 """
 
 from __future__ import annotations
@@ -13,7 +19,14 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["read_image_size", "load_rgb_image_full", "load_rgb_image_full_u8"]
+__all__ = [
+    "read_image_size",
+    "load_rgb_image",
+    "load_rgb_image_full",
+    "load_rgb_image_full_u8",
+    "load_mask",
+    "load_label_mask",
+]
 
 
 def _have(module: str) -> bool:
@@ -80,3 +93,74 @@ def load_rgb_image_full_u8(path: str | Path) -> np.ndarray:
     if arr.dtype == np.uint16:
         return (arr // 257).astype(np.uint8)
     return np.clip(np.round(arr.astype(np.float32) * 255.0), 0, 255).astype(np.uint8)
+
+
+def load_rgb_image(path: str | Path, size: int, interp: str = "area") -> np.ndarray:
+    """RGB float32 in [0, 1], resized to (size, size): ``interp="area"``
+    (cv2 INTER_AREA, the protocol trainer's) or ``"linear"`` (INTER_LINEAR,
+    the vanilla trainer's)."""
+    img = _read_rgb(Path(path))
+    cv2_interp = {"area": "INTER_AREA", "linear": "INTER_LINEAR"}
+    if interp not in cv2_interp:
+        raise ValueError(f"unknown interp {interp!r} (expected area|linear)")
+    if _have("cv2"):
+        import cv2
+
+        img = cv2.resize(img, (size, size), interpolation=getattr(cv2, cv2_interp[interp]))
+        return _to_float01(img)
+    img = _to_float01(img)
+    from adunet_torch.ops.resize import resize_matrix
+
+    method = "area" if interp == "area" else "bilinear"
+    wh = resize_matrix(img.shape[0], size, method)
+    ww = resize_matrix(img.shape[1], size, method)
+    return np.einsum("ih,hwc->iwc", wh, np.einsum("jw,hwc->hjc", ww, img)).astype(np.float32)
+
+
+def _read_gray(path: Path) -> np.ndarray:
+    """Decode a mask file to a 2-D array, no resize."""
+    path = Path(path)
+    if path.suffix == ".npy":
+        arr = np.load(str(path))
+    elif _have("cv2"):
+        import cv2
+
+        arr = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+        if arr is None:
+            raise FileNotFoundError(f"mask failed to decode: {path}")
+    elif _have("PIL"):
+        from PIL import Image
+
+        with Image.open(path) as im:
+            arr = np.asarray(im.convert("L"))
+    else:
+        raise RuntimeError(f"no image decoder for {path} (need cv2 or PIL; .npy needs neither)")
+    if arr.ndim == 3:
+        arr = arr[..., 0]
+    return arr
+
+
+def _nearest_resize(arr: np.ndarray, size: int) -> np.ndarray:
+    if arr.shape[:2] == (size, size):
+        return arr
+    if _have("cv2") and arr.dtype != np.int64:
+        import cv2
+
+        return cv2.resize(arr, (size, size), interpolation=cv2.INTER_NEAREST)
+    ys = (np.arange(size) * arr.shape[0] // size).clip(0, arr.shape[0] - 1)
+    xs = (np.arange(size) * arr.shape[1] // size).clip(0, arr.shape[1] - 1)
+    return arr[np.ix_(ys, xs)]
+
+
+def load_label_mask(path: str | Path, size: int, num_classes: int) -> np.ndarray:
+    """Integer class ids (nearest resize) → one-hot float32 (size, size,
+    num_classes); ids at or above ``num_classes`` go to the last class."""
+    arr = _nearest_resize(_read_gray(Path(path)), size)
+    labels = np.clip(arr.astype(np.int64), 0, num_classes - 1)
+    return np.eye(num_classes, dtype=np.float32)[labels]
+
+
+def load_mask(path: str | Path, size: int, threshold: float = 0.5) -> np.ndarray:
+    """Binary mask float32 (size, size, 1): nearest resize, binarised at 0.5."""
+    mask = _to_float01(_nearest_resize(_read_gray(Path(path)), size))
+    return (mask > threshold).astype(np.float32)[..., None]

@@ -2,9 +2,10 @@
 
 Replaces the Pallas TPU kernel ``adunet/kernels/fused_norm.py:48``
 (``_pallas_forward``; ``pl.pallas_call`` at :59). The CUDA source is
-``adunet_torch/csrc/fused_norm.cu``: one warp per row of the (rows, C) view,
-the row held in registers between the two float32 reductions, so x is read
-once and y written once. Its bound on an H100 is bytes: (read x + write y) /
+``adunet_torch/csrc/fused_norm.cu``: one warp per row of the (rows, C) view
+(at C = 16 and 32, 32 / L rows per warp, L = C / (16-byte vector) lanes
+each), the row held in registers between the two float32 reductions, so x
+is read once and y written once. Its bound on an H100 is bytes: (read x + write y) /
 3.35 TB/s, e.g. ~80 us for the 524,288 x 64 float32 level of the flagship.
 
 ``layer_norm_relu`` is a ``torch.autograd.Function``, the counterpart of the
@@ -37,7 +38,7 @@ __all__ = [
     "SUPPORTED_CHANNELS",
 ]
 
-SUPPORTED_CHANNELS = (64, 128, 256, 512, 1024, 2048)
+SUPPORTED_CHANNELS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,5 +1,14 @@
-"""SR losses and the training PSNR metric."""
+"""Losses: SR (charbonnier, l1, mse, SSIM, the PSNR metric) and segmentation
+(BCE, categorical CE, Dice, the protocol hybrids)."""
 
+from adunet_torch.losses.seg import (
+    binary_crossentropy,
+    categorical_crossentropy,
+    dice_loss,
+    make_bce_dice_loss,
+    make_hybrid_ce_dice_loss,
+    make_weighted_ce_loss,
+)
 from adunet_torch.losses.sr import (
     build_losses_and_metrics,
     charbonnier_loss,
@@ -16,4 +25,10 @@ __all__ = [
     "ssim_loss",
     "psnr_metric",
     "build_losses_and_metrics",
+    "binary_crossentropy",
+    "categorical_crossentropy",
+    "make_weighted_ce_loss",
+    "dice_loss",
+    "make_hybrid_ce_dice_loss",
+    "make_bce_dice_loss",
 ]

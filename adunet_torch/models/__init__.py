@@ -1,5 +1,14 @@
-"""Model families: the adaptive SR U-Net."""
+"""Model families: the adaptive SR U-Net and the two segmentation U-Nets."""
 
+from adunet_torch.models.seg_adaptive import AdaptiveSegUNet, build_adaptive_depth_unet
+from adunet_torch.models.seg_vanilla import VanillaSegUNet, build_unet
 from adunet_torch.models.sr_adaptive import AdaptiveSRUNet, build_super_resolution_unet
 
-__all__ = ["AdaptiveSRUNet", "build_super_resolution_unet"]
+__all__ = [
+    "AdaptiveSRUNet",
+    "build_super_resolution_unet",
+    "AdaptiveSegUNet",
+    "build_adaptive_depth_unet",
+    "VanillaSegUNet",
+    "build_unet",
+]

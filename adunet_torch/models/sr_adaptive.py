@@ -26,7 +26,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from adunet_torch.nn.blocks import Conv, ConvBlock
+from adunet_torch.nn.blocks import Conv, ConvBlock, init_parameters
 from adunet_torch.nn.depth_policy import custom_depth_from_scale, estimate_bottleneck_size
 from adunet_torch.ops import clipped_residual_add, resize_by_scale, resize_to_match
 from adunet_torch.utils.runtime import resolve_device
@@ -65,11 +65,7 @@ class AdaptiveSRUNet(nn.Module):
             self.add_module(f"dec{level}", ConvBlock(2 * nf, nf, device=device))
         self.head = ConvBlock(base_channels, residual_head_channels, device=device)
         self.residual_rgb = Conv(residual_head_channels, 3, 1, zero_init=True, device=device)
-        if torch.device(device if device is not None else "cpu").type != "meta":
-            generator = torch.Generator().manual_seed(int(seed))
-            for module in self.modules():
-                if hasattr(module, "reset_parameters"):
-                    module.reset_parameters(generator)
+        init_parameters(self, seed)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inputs = x

@@ -1,6 +1,14 @@
 """Depth policies and building blocks."""
 
-from adunet_torch.nn.blocks import Conv, ConvBlock, LayerNormReLU
+from adunet_torch.nn.blocks import (
+    BN_MOMENTUM,
+    BatchNorm,
+    Conv,
+    ConvBlock,
+    ConvTranspose,
+    LayerNormReLU,
+    max_pool2x2,
+)
 from adunet_torch.nn.depth_policy import (
     custom_depth_from_scale,
     encoder_sizes,
@@ -8,6 +16,10 @@ from adunet_torch.nn.depth_policy import (
 )
 
 __all__ = [
+    "BN_MOMENTUM",
+    "BatchNorm",
+    "ConvTranspose",
+    "max_pool2x2",
     "Conv",
     "ConvBlock",
     "LayerNormReLU",

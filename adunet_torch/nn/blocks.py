@@ -1,4 +1,4 @@
-"""Building blocks of the SR U-Net, NHWC in and out.
+"""Building blocks of the U-Nets, NHWC in and out.
 
 Port of ``adunet/nn/blocks.py``:
 - ``Conv``          ← ``conv3x3`` :59 / ``conv1x1`` :73 / ``PallasConv3x3`` :35.
@@ -14,12 +14,27 @@ Port of ``adunet/nn/blocks.py``:
 Parameters are float32 whatever the compute dtype. A conv casts its weight
 and bias to the activations' dtype (flax's ``kernel.astype(dtype)``), and the
 gradients reach the float32 parameters back through those casts.
-- ``ConvBlock``     ← :102 — (conv3x3 → norm → ReLU) x2. ``norm="layer"`` or
-  ``"none"``; ``"batch"`` belongs to the segmentation models and raises.
+- ``BatchNorm``     ← flax's ``nn.BatchNorm`` as ``ConvBlock`` configures it
+  (:143-149), written out (not ``nn.BatchNorm2d``) because flax's semantics
+  differ from torch's: statistics over (N, H, W) in float32 with the fast
+  variance ``max(0, E[x^2] - E[x]^2)``, eps 1e-3, output float32, and the
+  running update ``new = 0.99 old + 0.01 batch`` with the *biased* batch
+  variance (torch's ``running_var`` takes the unbiased one). The buffers
+  ``running_mean`` / ``running_var`` are flax's ``batch_stats/.../mean|var``;
+  ``train()`` / ``eval()`` pick batch or running statistics.
+- ``ConvBlock``     ← :102 — (conv3x3 → norm → ReLU) x2. ``norm="layer"``
+  (K1), ``"batch"`` (BatchNorm in float32, ReLU, cast back to the compute
+  dtype, :142-150) or ``"none"``.
+- ``ConvTranspose`` ← flax ``nn.ConvTranspose(kernel (2, 2), strides 2,
+  "SAME")`` of ``adunet/models/seg_vanilla.py:43``: out[2i + a, 2j + b] =
+  x[i, j] @ k[1 - a, 1 - b], since flax correlates the dilated input with the
+  kernel unflipped. The weight is torch's (in, out, 2, 2), i.e. the flax
+  kernel flipped in both spatial axes (``adunet_torch.convert``).
+- ``max_pool2x2``   ← ``nn.max_pool(x, (2, 2), strides=(2, 2))``, VALID.
 
 Init follows the reference (Keras defaults): glorot-uniform kernels, zero
-biases, LayerNorm scale 1 and bias 0; every random draw comes from the
-``torch.Generator`` handed to ``reset_parameters``.
+biases, norm scale 1 and bias 0, running mean 0 and variance 1; every random
+draw comes from the ``torch.Generator`` handed to ``reset_parameters``.
 """
 
 from __future__ import annotations
@@ -32,7 +47,16 @@ from torch import nn
 
 from adunet_torch.kernels import conv3x3_same, layer_norm_relu, supported
 
-__all__ = ["Conv", "LayerNormReLU", "ConvBlock"]
+__all__ = ["BN_MOMENTUM", "Conv", "LayerNormReLU", "BatchNorm", "ConvBlock", "ConvTranspose",
+           "max_pool2x2", "init_parameters"]
+
+# Keras' BatchNormalization default, as ``adunet/nn/blocks.py:30``.
+BN_MOMENTUM = 0.99
+
+
+def _glorot_(weight: torch.Tensor, fan_in: int, fan_out: int, generator: torch.Generator) -> None:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    weight.copy_(torch.empty(weight.shape).uniform_(-limit, limit, generator=generator))
 
 
 class Conv(nn.Module):
@@ -52,9 +76,7 @@ class Conv(nn.Module):
                 self.weight.zero_()
             else:
                 o, i, kh, kw = self.weight.shape
-                limit = math.sqrt(6.0 / ((i + o) * kh * kw))
-                draw = torch.empty(self.weight.shape).uniform_(-limit, limit, generator=generator)
-                self.weight.copy_(draw)
+                _glorot_(self.weight, i * kh * kw, o * kh * kw, generator)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,27 +105,111 @@ class LayerNormReLU(nn.Module):
         return layer_norm_relu(x.contiguous(), self.weight, self.bias, 1e-3)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.99, epsilon=1e-3, dtype=float32)`` over
+    the channels of an NHWC tensor; returns float32.
+
+    In training mode the statistics are the batch's and the running buffers
+    take ``momentum * old + (1 - momentum) * batch`` (no gradient). When
+    ``stats_sink`` is a list, a training-mode forward appends its batch
+    (mean, variance) there instead and leaves the buffers alone (precise-BN,
+    ``adunet_torch.train.seg``)."""
+
+    def __init__(self, features: int, momentum: float = BN_MOMENTUM, eps: float = 1e-3,
+                 device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+        self.stats_sink: list | None = None
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        if self.training:
+            axes = tuple(range(xf.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
+            if self.stats_sink is not None:
+                self.stats_sink.append((mean.detach(), var.detach()))
+            else:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 class ConvBlock(nn.Module):
     """(Conv3x3 → Norm → ReLU) x2 at constant spatial size."""
 
     def __init__(self, in_channels: int, features: int, norm: str = "layer", device=None):
         super().__init__()
-        if norm == "batch":
-            raise NotImplementedError(
-                "ConvBlock(norm='batch') belongs to the segmentation models, "
-                "which are not ported yet."
-            )
-        if norm not in ("layer", "none"):
-            raise ValueError(f"unknown norm {norm!r} (expected layer|none)")
+        if norm not in ("layer", "batch", "none"):
+            raise ValueError(f"unknown norm {norm!r} (expected layer|batch|none)")
         self.norm = norm
         self.conv0 = Conv(in_channels, features, 3, device=device)
         self.conv1 = Conv(features, features, 3, device=device)
-        if norm == "layer":
-            self.norm0 = LayerNormReLU(features, device=device)
-            self.norm1 = LayerNormReLU(features, device=device)
+        if norm != "none":
+            norm_cls = LayerNormReLU if norm == "layer" else BatchNorm
+            self.norm0 = norm_cls(features, device=device)
+            self.norm1 = norm_cls(features, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(2):
             x = getattr(self, f"conv{i}")(x)
-            x = getattr(self, f"norm{i}")(x) if self.norm == "layer" else torch.relu(x)
+            if self.norm == "layer":
+                x = getattr(self, f"norm{i}")(x)
+            elif self.norm == "batch":  # float32 statistics, ReLU, then the compute dtype
+                x = torch.relu(getattr(self, f"norm{i}")(x)).to(x.dtype)
+            else:
+                x = torch.relu(x)
         return x
+
+
+class ConvTranspose(nn.Module):
+    """flax's 2x2, stride-2, SAME ``ConvTranspose`` over NHWC (doubles H and W),
+    with torch's (in, out, 2, 2) weight: the flax kernel flipped."""
+
+    def __init__(self, in_channels: int, out_channels: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, 2, 2, device=device))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            i, o, kh, kw = self.weight.shape
+            _glorot_(self.weight, i * kh * kw, o * kh * kw, generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                               self.bias.to(x.dtype), stride=2)
+        return y.permute(0, 2, 3, 1)
+
+
+def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max-pool, stride 2, VALID, over NHWC."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+def init_parameters(model: nn.Module, seed: int) -> None:
+    """Draw every parameter of ``model`` from one seeded ``torch.Generator``,
+    module by module in registration order (nothing on the meta device)."""
+    if next(model.parameters()).device.type == "meta":
+        return
+    generator = torch.Generator().manual_seed(int(seed))
+    for module in model.modules():
+        if hasattr(module, "reset_parameters"):
+            module.reset_parameters(generator)

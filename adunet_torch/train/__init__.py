@@ -1,8 +1,18 @@
-"""Training: optimizer and schedule, train state, SR steps, checkpoints, fit."""
+"""Training: optimizer and schedule, train state, SR and segmentation steps,
+precise-BN, checkpoints, fit."""
 
 from adunet_torch.train.checkpoint import CheckpointManager
 from adunet_torch.train.loop import EpochLog, FitResult, fit, make_plateau_state, plateau_update, repeat
 from adunet_torch.train.schedules import Adam, cosine_decay_schedule, make_optimizer
+from adunet_torch.train.seg import (
+    make_bn_refresh_step,
+    make_precise_bn_program,
+    make_seg_eval_step,
+    make_seg_train_step,
+    metric_finalizers_of,
+    precise_batch_stats,
+    snapshot_refresh_batches,
+)
 from adunet_torch.train.sr import (
     DATA_LR_SHRINK,
     lift_per_sample,
@@ -32,6 +42,13 @@ __all__ = [
     "make_sr_train_step",
     "make_sr_val_step",
     "sr_loss_and_metrics",
+    "make_seg_train_step",
+    "make_seg_eval_step",
+    "metric_finalizers_of",
+    "make_bn_refresh_step",
+    "precise_batch_stats",
+    "snapshot_refresh_batches",
+    "make_precise_bn_program",
     "TrainState",
     "create_train_state",
 ]

@@ -7,9 +7,12 @@ inside the steps. The metrics of a train or val step stay on the device and
 are summed there; the host reads them once per epoch. ``epoch_metrics.csv``
 has the reference's columns (``epoch, steps, duration_s, ms_per_step``, the
 train metrics, then ``val_``-prefixed ones), so the analysis tools read a
-run of either package. Not ported: multi-device sharding (ROADMAP Queue 1
-item 13), TensorBoard scalars, and the segmentation hooks (pooled-metric
-finalizers, the pre-validation precise-BN hook; item 11).
+run of either package. The segmentation trainers' hooks are here too: a
+``pre_val_hook`` run before each validation (precise-BN), pooled metrics
+finalized from their component sums over the whole epoch
+(``metric_finalizers``), and validation batches kept on the device after
+their first pass (``cache_val_on_device``). Not ported: multi-device
+sharding (ROADMAP Queue 1 item 13) and TensorBoard scalars.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from adunet_torch.train.checkpoint import CheckpointManager
+from adunet_torch.train.sr import _to_device
 from adunet_torch.train.state import TrainState
 
 __all__ = ["fit", "FitResult", "EpochLog", "make_plateau_state", "plateau_update", "repeat"]
@@ -137,11 +141,38 @@ def _batch_size_of(batch) -> int:
     return int(leaf.shape[0])
 
 
-def _read(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """Device sums to host floats in one transfer."""
+def _read(sums: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Device sums to the host in one transfer: 0-d sums as floats, pooled
+    metrics' component vectors as float64 arrays."""
     keys = list(sums)
-    values = torch.stack([sums[k].to(torch.float64) for k in keys]).tolist()
-    return dict(zip(keys, values))
+    flat = torch.cat([sums[k].to(torch.float64).reshape(-1) for k in keys]).cpu().numpy()
+    out: Dict[str, Any] = {}
+    at = 0
+    for k in keys:
+        n = sums[k].numel()
+        out[k] = float(flat[at]) if sums[k].dim() == 0 else flat[at : at + n]
+        at += n
+    return out
+
+
+def _finalize(raw: Dict[str, Any], count: float,
+              metric_finalizers: Optional[Dict[str, Callable]]) -> Dict[str, float]:
+    """Epoch metrics from epoch sums: plain metrics divided by ``count`` (in
+    sorted order, as the reference's metric pytrees come), then each pooled
+    metric finalized from its ``name#component`` sums."""
+    out = {k: float(raw[k]) / count for k in sorted(raw) if "#" not in k}
+    for name, fin in (metric_finalizers or {}).items():
+        comps = {k.split("#", 1)[1]: v for k, v in raw.items() if k.startswith(name + "#")}
+        if comps:
+            out[name] = float(fin(comps))
+    return out
+
+
+def _to_device_tree(batch, device: torch.device):
+    """A host batch (array, tensor or tuple of them) moved to ``device``."""
+    if isinstance(batch, (tuple, list)):
+        return tuple(_to_device_tree(b, device) for b in batch)
+    return _to_device(batch, device)
 
 
 def fit(
@@ -167,6 +198,9 @@ def fit(
     profile_dir: Optional[str | Path] = None,
     verbose: int = 1,
     stop_on_nan: bool = True,
+    pre_val_hook: Optional[Callable[[TrainState], TrainState]] = None,
+    metric_finalizers: Optional[Dict[str, Callable]] = None,
+    cache_val_on_device: bool = False,
 ) -> FitResult:
     """Run the training loop.
 
@@ -182,6 +216,16 @@ def fit(
       saves is saved after the loop.
     - ``profile_dir``: ``torch.profiler`` trace of the first epoch, written
       there as ``trace.json``.
+    - ``pre_val_hook(state) -> state``: run before each validation (e.g.
+      precise-BN); the state it returns is validated and kept.
+    - ``metric_finalizers``: for each pooled metric, a function of its
+      ``{component: epoch sum}``; steps emit the components under
+      ``"name#component"`` keys (summed over the epoch's train steps, or over
+      every validation sample), and ``metrics[name]`` is the finalizer's
+      value. Component keys are not logged.
+    - ``cache_val_on_device``: keep the validation batches on the model's
+      device after their first pass, so later epochs neither decode nor copy
+      them again.
     """
     history: List[EpochLog] = []
     best_metric: Optional[float] = None
@@ -199,6 +243,7 @@ def fit(
         log_dir = Path(log_dir)
         log_dir.mkdir(parents=True, exist_ok=True)
     train_it = iter(train_iter)
+    val_cache: Optional[List[Any]] = [] if cache_val_on_device and val_data is not None else None
 
     try:
         for epoch in range(initial_epoch, epochs):
@@ -224,7 +269,7 @@ def fit(
                 profiler.stop()
                 Path(profile_dir).mkdir(parents=True, exist_ok=True)
                 profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
-            train_metrics = {k: v / steps_per_epoch for k, v in raw_train.items()}
+            train_metrics = _finalize(raw_train, steps_per_epoch, metric_finalizers)
 
             if stop_on_nan and not np.isfinite(train_metrics.get("loss", 0.0)):
                 print(f"[fit] non-finite training loss at epoch {epoch + 1}; "
@@ -236,9 +281,15 @@ def fit(
             val_metrics: Dict[str, float] = {}
             if val_data is not None and val_step is not None:
                 tv0 = time.perf_counter()
+                if pre_val_hook is not None:
+                    state = pre_val_hook(state)
                 vacc: Dict[str, torch.Tensor] = {}
                 vcount = 0
-                for vbatch in val_data:
+                cached = bool(val_cache)
+                for vbatch in (val_cache if cached else val_data):
+                    if val_cache is not None and not cached:
+                        vbatch = _to_device_tree(vbatch, next(state.model.parameters()).device)
+                        val_cache.append(vbatch)
                     n = _batch_size_of(vbatch)
                     out = val_step(state, vbatch)
                     for k, v in out.items():
@@ -248,7 +299,7 @@ def fit(
                         vacc[k] = s if k not in vacc else vacc[k] + s
                     vcount += n
                 if vacc:
-                    val_metrics = {k: v / vcount for k, v in _read(vacc).items()}
+                    val_metrics = _finalize(_read(vacc), vcount, metric_finalizers)
                 tail_t["val"] = time.perf_counter() - tv0
 
             log = EpochLog(

@@ -46,8 +46,28 @@ exits non-zero without one. Every phase raises on failure:
    flagship width and checks its config, CSV, checkpoints and eval lines,
    its launches (16 K1 + 4 K2 per forward, 16 K1 backward per step), and
    that the best checkpoint restores the live weights;
-10. prints one JSON line with each kernel's launches, error and times, the
+10. trains the two segmentation U-Nets at full width on synthetic lesion
+    pairs (``scripts/make_synth_isic.py::synth_pair``) at batch 8 x 256 px:
+    the protocol model (base 64, depth 4, BatchNorm; augmentation on the
+    card) in bf16 and in float32, and the vanilla model (base 32, depth 4,
+    LayerNorm, ConvTranspose; flips) in bf16. Counts set to 0 just before
+    each: 2 K2 and no K1 per protocol step; 18 K1, 18 K1 backward and 2 K2
+    per vanilla step. Every parameter gets a finite nonzero gradient in the
+    first step, the BatchNorm buffers move, the loss falls; the step is
+    timed;
+11. takes one float32 step of the protocol model at batch 2 on the card and
+    on the CPU from the same weights and batch and compares the loss, the
+    gradients, the updated params and the running statistics;
+12. runs ``adunet_torch.cli.train_seg`` (protocol A, bf16, precise-BN over 2
+    batches) and ``adunet_torch.cli.train_seg_vanilla`` (float32, flips) for
+    2 epochs at full width on ``.npy`` ISIC-style pairs and checks their
+    ``config.json`` keys, ``epoch_metrics.csv``, checkpoints and launches;
+13. prints one JSON line with each kernel's launches, error and times, the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
+
+Phases 3 and 4 also hold K1 at C = 16 and 32 (forward and backward kernels,
+float32 and bf16, full and ragged row counts) and K2 at the vanilla model's
+(8, 128, 128, 64), at every shape the segmentation steps give them.
 """
 
 from __future__ import annotations
@@ -99,6 +119,25 @@ K1_BWD_KERNEL = "layer_norm_relu_bwd"  # its rows kernel and its column-sum kern
 K2_BF16_ATOL = 1e-5
 K2_PER_CALL = sum(K2_SERVE.values())  # 4
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS, TIMED_STEPS = 32, 256, 6, 5
+
+# The segmentation U-Nets at batch 8 x 256 px. The vanilla model (base 32,
+# depth 4): (rows, C) -> LN+ReLU pairs per forward, and its 64->64 convs at
+# 128 px (enc1.conv1, dec1.conv1). The protocol model (base 64, depth 4) has
+# no LayerNorm; its enc0.conv1 and dec0.conv1 are K2's (8, 256, 256, 64).
+K1_VANILLA = {(524_288, 32): 4, (131_072, 64): 4, (32_768, 128): 4, (8_192, 256): 4,
+              (2_048, 512): 2}
+K2_VANILLA = {(8, 128, 128, 64): 2}
+K2_PROTOCOL = {(8, 256, 256, 64): 2}
+# K1's narrow rows beside the vanilla path's bf16 ones: float32 at its C = 32
+# level, C = 16 (a base-16 model's first level) and ragged row counts
+K1_NARROW = [((524_288, 32), torch.float32), ((524_288, 16), torch.float32),
+             ((524_288, 16), torch.bfloat16), ((524_283, 32), torch.float32),
+             ((524_283, 32), torch.bfloat16), ((524_283, 16), torch.bfloat16)]
+SEG_BATCH, SEG_SIZE, SEG_STEPS, SEG_LR = 8, 256, 8, 1e-3
+# launches per step (K1, K1 backward, K2)
+SEG_PER_STEP = {"protocol": (0, 0, sum(K2_PROTOCOL.values())),
+                "vanilla": (sum(K1_VANILLA.values()), sum(K1_VANILLA.values()),
+                            sum(K2_VANILLA.values()))}
 
 
 def log(msg: str) -> None:
@@ -221,13 +260,17 @@ def _k2_inputs(gen, shape, dtype):
 def _k1_cases():
     return ([(s, n, torch.float32, "serve") for s, n in K1_SERVE.items()]
             + [(s, n, torch.bfloat16, "serve") for s, n in K1_SERVE.items()]
-            + [(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()])
+            + [(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()]
+            + [(s, n, torch.bfloat16, "vanilla") for s, n in K1_VANILLA.items()]
+            + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW])
 
 
 def _k2_cases():
     return ([(s, n, torch.float32, "serve") for s, n in K2_SERVE.items()]
             + [(s, n, torch.bfloat16, "serve") for s, n in K2_SERVE.items()]
-            + [(s, n, torch.bfloat16, "train") for s, n in K2_TRAIN.items()])
+            + [(s, n, torch.bfloat16, "train") for s, n in K2_TRAIN.items()]
+            + [(s, n, dtype, "vanilla") for s, n in K2_VANILLA.items()
+               for dtype in (torch.bfloat16, torch.float32)])
 
 
 def check_k1(gen: torch.Generator) -> list[dict]:
@@ -238,6 +281,8 @@ def check_k1(gen: torch.Generator) -> list[dict]:
         want = fused_norm.layer_norm_relu_plain(x, g, b)
         torch.cuda.synchronize()
         err = close_enough(got, want, dtype, 1e-5)
+        # elements within a rounding of 0 that one ReLU keeps and the other zeroes
+        n_flip = int(((got > 0) != (want > 0)).sum())
         gl, bl = g.to(dtype), b.to(dtype)
         ms = cuda_ms(lambda: fused_norm.layer_norm_relu(x, g, b), 50)
         dev_ms, dev_n = profiled_device_ms(lambda: fused_norm.layer_norm_relu(x, g, b),
@@ -248,11 +293,13 @@ def check_k1(gen: torch.Generator) -> list[dict]:
         es = x.element_size()
         bnd, by = bound_ms(2 * rows * c * es + 2 * c * 4, 9 * rows * c, dtype)
         rows_out.append(dict(kernel="K1", path=path, shape=[rows, c], dtype=_dname(dtype),
-                             per_call=per_call, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                             per_call=per_call, max_abs_err=err, mask_disagreements=n_flip,
+                             ms=ms, device_ms=dev_ms,
                              device_launches_recorded=dev_n, plain_ms=plain, library_ms=lib,
                              library_device_ms=lib_dev, library_kernels_recorded=lib_n,
                              bound_ms=bnd, bound_by=by))
-        log(f"[K1] {path} rows={rows} C={c} {dtype}: max|err|={err:.2e} kernel {ms:.4f} ms "
+        log(f"[K1] {path} rows={rows} C={c} {dtype}: max|err|={err:.2e}, mask disagreements "
+            f"{n_flip}; kernel {ms:.4f} ms "
             f"(events; profiler device time {_ms(dev_ms)} over {dev_n} launches), plain "
             f"{plain:.4f} ms, F.layer_norm+relu {lib:.4f} ms (device time {_ms(lib_dev)}), "
             f"bound {bnd:.4f} ms ({by})")
@@ -347,7 +394,9 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
     another order). dgamma / dbeta must be bit-identical over two runs."""
     rows_out = []
     cases = ([(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()]
-             + [(s, n, torch.float32, "serve") for s, n in K1_SERVE.items()])
+             + [(s, n, torch.float32, "serve") for s, n in K1_SERVE.items()]
+             + [(s, n, torch.bfloat16, "vanilla") for s, n in K1_VANILLA.items()]
+             + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW])
     for (rows, c), per_call, dtype, path in cases:
         x, a, b = _k1_inputs(gen, rows, c, dtype)
         gy = torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
@@ -420,8 +469,10 @@ def check_backward(gen: torch.Generator) -> list[dict]:
     out = []
     cases = [("K1", s, torch.bfloat16, "train") for s in K1_TRAIN] \
         + [("K1", s, torch.float32, "serve") for s in K1_SERVE] \
+        + [("K1", (524_288, 32), torch.bfloat16, "vanilla")] \
         + [("K2", s, torch.bfloat16, "train") for s in K2_TRAIN] \
-        + [("K2", s, torch.float32, "serve") for s in K2_SERVE]
+        + [("K2", s, torch.float32, "serve") for s in K2_SERVE] \
+        + [("K2", s, torch.bfloat16, "vanilla") for s in K2_VANILLA]
     for kid, shape, dtype, path in cases:
         if kid == "K1":
             x, a, b = _k1_inputs(gen, *shape, dtype)
@@ -802,8 +853,260 @@ def train_entry_point(tmp: Path) -> dict:
             "eval": {k: v["psnr_mean"] for k, v in result["eval"].items()}}
 
 
+def _synth_isic():
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from make_synth_isic import synth_pair
+
+    return synth_pair
+
+
+def seg_pairs(n: int, size: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` synthetic lesion images (n, size, size, 3) and masks (n, size, size, 1)."""
+    synth_pair = _synth_isic()
+    rng = np.random.default_rng(seed)
+    pairs = [synth_pair(rng, size) for _ in range(n)]
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])[..., None]
+
+
+def _seg_setup(kind: str, dtype: torch.dtype, device: str, seed: int = 0):
+    """(model, loss, augment mode, extra metrics) of a segmentation trainer at
+    full width: the protocol model with protocol A's loss and augmentation,
+    or the vanilla model with BCE, flips and the vanilla trainer's metrics."""
+    from adunet_torch.losses import binary_crossentropy, make_hybrid_ce_dice_loss
+    from adunet_torch.metrics import (binary_accuracy, pooled_global_dice, pooled_precision,
+                                      pooled_recall)
+    from adunet_torch.models import build_adaptive_depth_unet, build_unet
+
+    if kind == "protocol":
+        model = build_adaptive_depth_unet(SEG_SIZE, 64, 4, dtype=dtype, device=device, seed=seed)
+        return model, make_hybrid_ce_dice_loss(0.4, 0.6), "full", None
+    model = build_unet(SEG_SIZE, base_channels=32, depth=4, dtype=dtype, device=device, seed=seed)
+    extra = {"accuracy": binary_accuracy, "precision": pooled_precision(),
+             "recall": pooled_recall(), "dice_coefficient": pooled_global_dice()}
+    return model, binary_crossentropy, "flips", extra
+
+
+def train_seg(kind: str, dtype: torch.dtype, ident: str) -> dict:
+    """``SEG_STEPS`` training steps of a segmentation U-Net at full width on the
+    card (Adam at ``SEG_LR``, augmentation drawn on the card), alternating two
+    batches of 8 synthetic lesion pairs; the launch counts, gradients, BatchNorm
+    buffers and loss are checked, then the step is timed."""
+    from adunet_torch.train import create_train_state, make_optimizer, make_seg_train_step
+
+    images, masks = seg_pairs(2 * SEG_BATCH, SEG_SIZE, seed=31)
+    batches = [(torch.from_numpy(images[i : i + SEG_BATCH]).cuda(),
+                torch.from_numpy(masks[i : i + SEG_BATCH]).cuda()) for i in (0, SEG_BATCH)]
+    model, loss_fn, augment, extra = _seg_setup(kind, dtype, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    state = create_train_state(model, make_optimizer(model.parameters(), SEG_LR))
+    step = make_seg_train_step(model, loss_fn, augment=augment, extra_metrics=extra)
+    gen = torch.Generator("cuda").manual_seed(0)
+    buffers0 = {n: b.clone() for n, b in model.named_buffers()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _zero_counts()
+    losses = []
+    for i in range(SEG_STEPS):
+        state, metrics = step(state, batches[i % 2], gen)
+        losses.append(metrics["loss"])
+        if i == 0:
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())
+                   or not bool(p.grad.abs().max() > 0)]
+            if bad:
+                raise AssertionError(f"{kind}: parameters without a finite nonzero gradient: {bad}")
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = tuple(SEG_PER_STEP[kind][j] * SEG_STEPS for j in range(3))
+    if counts != want:
+        raise AssertionError(f"{kind} {dtype}: expected {want} K1 / K1 backward / K2 launches "
+                             f"over {SEG_STEPS} steps, got {counts}")
+    still = [n for n, b in model.named_buffers() if torch.equal(b, buffers0[n])]
+    if still or (kind == "protocol") != bool(buffers0):
+        raise AssertionError(f"{kind}: BatchNorm buffers that did not move: {still}")
+    losses = [float(v) for v in losses]
+    log(f"[seg {kind}] {dtype}, {n_params:,} params, {SEG_STEPS} steps at batch {SEG_BATCH} x "
+        f"{SEG_SIZE} px: losses {', '.join(f'{v:.4f}' for v in losses)}; finite nonzero gradients "
+        f"after step 1; {len(buffers0)} BatchNorm buffers moved; K1 {counts[0]}, K1 backward "
+        f"{counts[1]}, K2 {counts[2]} launches")
+    # two alternating batches, augmented anew each step: compare the means of
+    # the first and last two steps
+    if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"{kind}: the training loss did not fall: {losses}")
+    ms = cuda_ms(lambda: step(state, batches[0], gen), TIMED_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[seg {kind}] {ident}: {dtype} train step, batch {SEG_BATCH} x {SEG_SIZE} px: "
+        f"{ms:.3f} ms/step ({SEG_BATCH * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB")
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "steps": SEG_STEPS,
+            "losses": losses, "ms_per_step": ms, "img_per_s": SEG_BATCH * 1e3 / ms,
+            "peak_gb": peak_gb, "n_params": n_params}
+
+
+def seg_card_vs_cpu_step() -> dict:
+    """One float32 step of the protocol model (full width, training mode) at
+    batch 2 on the card and on the CPU (plain versions) from the same weights
+    and batch, no augmentation.
+
+    Tolerances: loss 1e-5 relative; each gradient 2e-2 in relative L2 norm:
+    float32 itself keeps this BatchNorm model's gradients only to ~5e-3
+    against float64 (``scripts/torch_seg_grad_precision.py``; the fast
+    variance E[x^2] - E[x]^2 cancels where mean^2 >> var, as in the
+    reference), and the two sides round independently. The biases of the
+    convs that feed a BatchNorm have a true gradient of 0 (the norm removes
+    any per-channel shift; both sides give float32 noise): each within 2e-4
+    of the largest gradient norm. Updated params within 2 x lr with fewer
+    than 0.1 % of elements apart by more than lr / 2 (Adam's first update is
+    ~lr * sign(grad)); running statistics rtol 1e-4 / atol 1e-5 (means over
+    131,072 positions summed in another order)."""
+    from adunet_torch.train import create_train_state, make_optimizer, make_seg_train_step
+
+    lr = 1e-4
+    cpu_model, loss_fn, _, _ = _seg_setup("protocol", torch.float32, "cpu", seed=3)
+    gpu_model, _, _, _ = _seg_setup("protocol", torch.float32, "cuda", seed=4)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    images, masks = seg_pairs(2, SEG_SIZE, seed=41)
+    out = {}
+    for name, model in (("card", gpu_model), ("cpu", cpu_model)):
+        state = create_train_state(model, make_optimizer(model.parameters(), lr))
+        t0 = time.perf_counter()
+        _, metrics = make_seg_train_step(model, loss_fn, augment="none")(state, (images, masks))
+        out[name] = {"loss": float(metrics["loss"]), "seconds": time.perf_counter() - t0,
+                     "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     "state": {n: v.detach().cpu() for n, v in model.state_dict().items()}}
+    card, cpu = out["card"], out["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    top = max(float(g.norm()) for g in cpu["grads"].values())
+    pre_bn = {n.replace("norm", "conv").replace("running_mean", "bias")
+              for n in cpu["state"] if n.endswith(".running_mean")}
+    grad_rel = max(float((card["grads"][n] - g).norm() / g.norm().clamp_min(1e-30))
+                   for n, g in cpu["grads"].items() if n not in pre_bn)
+    bias_abs = max(max(float(card["grads"][n].norm()), float(cpu["grads"][n].norm()))
+                   for n in pre_bn) / top
+    params = [n for n in cpu["grads"]]
+    diffs = torch.cat([(card["state"][n] - cpu["state"][n]).abs().flatten() for n in params])
+    far = float((diffs > lr / 2).float().mean())
+    stats_ok = all(torch.allclose(card["state"][n], v, rtol=1e-4, atol=1e-5)
+                   for n, v in cpu["state"].items() if "running" in n)
+    stats_err = max(float((card["state"][n] - v).abs().max())
+                    for n, v in cpu["state"].items() if "running" in n)
+    log(f"[seg f32 step] protocol model, batch 2 x {SEG_SIZE} px: loss card {card['loss']:.7f} / "
+        f"CPU {cpu['loss']:.7f} (rel {loss_rel:.1e}); worst gradient rel L2 {grad_rel:.1e} "
+        f"(pre-BatchNorm biases {bias_abs:.1e} of the largest gradient norm); updated params max "
+        f"|diff| {float(diffs.max()):.2e}, share > lr/2 {far:.2e}; running statistics max |diff| "
+        f"{stats_err:.2e}; CPU step {cpu['seconds']:.1f} s")
+    if not (loss_rel <= 1e-5 and grad_rel <= 2e-2 and bias_abs <= 2e-4 and stats_ok
+            and float(diffs.max()) <= 2 * lr + 1e-6 and far < 1e-3):
+        raise AssertionError("the card's float32 segmentation step disagrees with the CPU's")
+    return {"loss_rel": loss_rel, "grad_rel_l2": grad_rel, "pre_bn_bias_abs": bias_abs,
+            "param_max_diff": float(diffs.max()), "param_far_share": far,
+            "running_stats_max_diff": stats_err}
+
+
+# config.json keys of the reference's segmentation CLIs
+# (adunet/cli/train_seg.py:274-299, adunet/cli/train_seg_vanilla.py:219-231)
+PROTOCOL_CONFIG_KEYS = [
+    "protocol", "description", "epochs_requested", "epochs_ran", "initial_lr", "batch_size",
+    "image_size", "depth", "base_channels", "n_params", "n_devices", "train_samples",
+    "val_samples", "train_steps_per_epoch", "seed", "mixed_precision", "threshold",
+    "model_checkpoint", "train_images", "train_masks", "val_images", "val_masks", "metrics",
+    "created_at"]
+VANILLA_CONFIG_KEYS = [
+    "run_name", "n_params", "num_classes", "monitor", "epochs_ran", "best_epoch",
+    "best_val_metric", "best_val_dice", "checkpoint", "final_checkpoint", "created_at"]
+
+
+def write_isic_corpus(directory: Path, n_train: int, n_val: int, size: int, seed: int) -> None:
+    """ISIC-style ``.npy`` pairs (``ISIC_0000123.npy`` +
+    ``ISIC_0000123_segmentation.npy``) under train_img / train_mask / val_img / val_mask."""
+    images, masks = seg_pairs(n_train + n_val, size, seed)
+    for i in range(n_train + n_val):
+        split = "train" if i < n_train else "val"
+        for sub in ("img", "mask"):
+            (directory / f"{split}_{sub}").mkdir(parents=True, exist_ok=True)
+        np.save(directory / f"{split}_img" / f"ISIC_{i:07d}.npy", images[i])
+        np.save(directory / f"{split}_mask" / f"ISIC_{i:07d}_segmentation.npy", masks[i, ..., 0])
+
+
+def seg_entry_points(tmp: Path) -> dict:
+    """Both segmentation CLIs for 2 epochs at full width: ``train_seg``
+    (protocol A, bf16, precise-BN over 2 batches) and ``train_seg_vanilla``
+    (float32, flips), on 16 train / 8 val pairs of 288 px resized to 256."""
+    from adunet_torch.cli.train_seg import main as protocol_main
+    from adunet_torch.cli.train_seg_vanilla import main as vanilla_main
+    from adunet_torch.train import CheckpointManager
+
+    corpus = tmp / "isic"
+    write_isic_corpus(corpus, 16, 8, 288, seed=51)
+    epochs, steps = 2, 2  # 16 pairs at batch 8
+    runs = {
+        "protocol": (protocol_main, [
+            "--protocol", "A", "--epochs", str(epochs), "--batch_size", "8", "--mixed_precision",
+            "--precise_bn", "2", "--train_images", str(corpus / "train_img"),
+            "--train_masks", str(corpus / "train_mask"), "--val_images", str(corpus / "val_img"),
+            "--val_masks", str(corpus / "val_mask"), "--model_dir", str(tmp / "seg_models"),
+            "--log_dir", str(tmp / "seg_logs"), "--run_name", "protocol", "--seed", "7"]),
+        "vanilla": (vanilla_main, [
+            "--train_image_dir", str(corpus / "train_img"),
+            "--train_mask_dir", str(corpus / "train_mask"),
+            "--val_image_dir", str(corpus / "val_img"), "--val_mask_dir", str(corpus / "val_mask"),
+            "--image_suffix", ".npy", "--mask_suffix", "_segmentation.npy",
+            "--epochs", str(epochs), "--augment", "--model_dir", str(tmp / "seg_models"),
+            "--log_dir", str(tmp / "seg_logs"), "--run_name", "vanilla"]),
+    }
+    # forwards per run: train steps, then per epoch precise-BN's refresh
+    # batches and the one val batch, and the protocol CLI's final eval batch
+    forwards = {"protocol": epochs * steps + epochs * 2 + epochs + 1,
+                "vanilla": epochs * steps + epochs}
+    out = {}
+    for kind, (main_fn, args) in runs.items():
+        _zero_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = main_fn(args)
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        for line in buf.getvalue().splitlines():
+            log(f"[{kind} cli] {line}")
+        k1, k1b, k2 = SEG_PER_STEP[kind]
+        want = (k1 * forwards[kind], k1b * epochs * steps, k2 * forwards[kind])
+        if counts != want:
+            raise AssertionError(f"{kind} CLI: expected {want} K1 / K1 backward / K2 launches, "
+                                 f"got {counts}")
+        run_dir = Path(result["run_dir"])
+        cfg = json.loads((run_dir / "config.json").read_text())
+        rows = (run_dir / "epoch_metrics.csv").read_text().strip().splitlines()
+        keys = PROTOCOL_CONFIG_KEYS if kind == "protocol" else VANILLA_CONFIG_KEYS
+        if list(cfg) != keys or len(rows) != epochs + 1 or cfg["epochs_ran"] != epochs:
+            raise AssertionError(f"{kind} CLI wrote keys {list(cfg)} and {len(rows)} CSV lines")
+        if kind == "protocol":
+            ckpts = [CheckpointManager(Path(result["ckpt_dir"]))]
+            if not (cfg["train_steps_per_epoch"] == steps and cfg["n_params"] == 31_390_721
+                    and 0.0 <= cfg["metrics"]["dice"] <= 1.0):
+                raise AssertionError(f"protocol CLI config: {cfg}")
+        else:
+            ckpts = [CheckpointManager(Path(cfg["checkpoint"])),
+                     CheckpointManager(Path(cfg["final_checkpoint"]))]
+            if not (cfg["n_params"] == 7_765_985 and cfg["best_val_dice"] is not None):
+                raise AssertionError(f"vanilla CLI config: {cfg}")
+        latest = [c.latest_step() for c in ckpts]
+        if latest != [epochs] * len(ckpts):
+            raise AssertionError(f"{kind} CLI checkpoints: latest steps {latest}")
+        log(f"[{kind} cli] {epochs} epochs in {seconds:.1f} s; K1 {counts[0]}, K1 backward "
+            f"{counts[1]}, K2 {counts[2]} launches; config.json keys and CSV as the reference's; "
+            f"checkpoints at epoch {epochs}")
+        out[kind] = {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "seconds": seconds,
+                     "csv_header": rows[0].split(",")}
+        del result
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_launches: dict,
-                 build_s: float) -> dict:
+                 seg_launches: dict, build_s: float) -> dict:
     """One entry per kernel. ``launches`` come from the training path (device-
     cache steps); ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
     ``library_ms`` and ``library_device_ms`` are summed over the kernel's
@@ -811,7 +1114,11 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
     ``ms`` from CUDA events and ``device_ms`` from the profiler (null where
     it recorded no full session at some shape); ``serve``
     holds the same sums at the float32 serving shapes (one forward; serving
-    runs no backward, so K1_bwd's serving launches are 0)."""
+    runs no backward, so K1_bwd's serving launches are 0); ``seg`` holds, for
+    the bf16 protocol and vanilla segmentation phases, their launches, the
+    shapes and the same sums over one step at batch 8 x 256 px (the protocol
+    model's K2 shape is the serving one); ``narrow`` lists K1's other C = 16
+    and 32 checks, per launch."""
     meta = {
         "K1": ("layer_norm_relu", "adunet_torch/csrc/fused_norm.cu", "adunet/kernels/fused_norm.py:48"),
         "K1_bwd": ("layer_norm_relu_backward", "adunet_torch/csrc/fused_norm.cu",
@@ -823,6 +1130,17 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
     def summed(rows, key):  # None where the profiler measured no device time
         vals = [d[key] for d in rows]
         return None if None in vals else sum(v * d["per_call"] for v, d in zip(vals, rows))
+
+    def summed_at(rows, key, per_step):  # the same, with another path's launches per step
+        rows = [d for d in rows if tuple(d["shape"]) in per_step]
+        vals = [d[key] for d in rows]
+        return None if None in vals else sum(v * per_step[tuple(d["shape"])]
+                                             for v, d in zip(vals, rows))
+
+    # (rows' path, launches per step of each kernel) of the bf16 segmentation steps
+    seg_paths = {"protocol": ("serve", {"K2": K2_PROTOCOL}),
+                 "vanilla": ("vanilla", {"K1": K1_VANILLA, "K1_bwd": K1_VANILLA,
+                                         "K2": K2_VANILLA})}
 
     out = []
     for kid, (name, src, replaces) in meta.items():
@@ -838,7 +1156,19 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             "bound_by": max(train, key=lambda d: d["bound_ms"] * d["per_call"])["bound_by"],
             "per": "launches of one bf16 training step of the flagship (batch 32, 256 px)",
             "serve": {"launches": serve_launches[kid], **{k: summed(serve, k) for k in keys}},
+            "seg": {},
         }
+        for path, (rows_path, per) in seg_paths.items():
+            rows = [d for d in details if d["kernel"] == kid and d["path"] == rows_path
+                    and d["dtype"] == "bfloat16"]
+            sums = {k: summed_at(rows, k, per[kid]) for k in keys} if kid in per else {}
+            shapes = [d["shape"] for d in rows if tuple(d["shape"]) in per.get(kid, {})]
+            entry["seg"][path] = {"launches": seg_launches[path][kid], "shapes": shapes, **sums}
+        narrow = [d for d in details if d["kernel"] == kid and d["path"] == "narrow"]
+        if narrow:  # K1's C = 16 / 32 beside the paths: float32, C = 16, ragged rows
+            entry["narrow"] = [{k: d[k] for k in ("shape", "dtype", "max_abs_err", "ms",
+                                                  "device_ms", "bound_ms", "library_ms")}
+                               for d in narrow]
         if grad:  # the autograd Function's forward + backward
             per_step = K1_TRAIN if kid == "K1" else K2_TRAIN
             entry["fwd_bwd_ms"] = sum(g["fwd_bwd_ms"] * per_step[tuple(g["shape"])] for g in grad)
@@ -880,12 +1210,22 @@ def main() -> int:
         trained = train_flagship(Path(tmp), ident)
         step_check = card_vs_cpu_step()
         entry = train_entry_point(Path(tmp))
+        seg = {f"{kind}_{_dname(dtype)}": train_seg(kind, dtype, ident)
+               for kind, dtype in (("protocol", torch.bfloat16), ("protocol", torch.float32),
+                                   ("vanilla", torch.bfloat16))}
+        seg_step = seg_card_vs_cpu_step()
+        seg_cli = seg_entry_points(Path(tmp))
 
+    seconds = time.perf_counter() - t_start
     summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
                "golden": scores, "speed": speed, "train": trained, "f32_step": step_check,
-               "train_sr": entry, "seconds": time.perf_counter() - t_start}
+               "train_sr": entry, "seg_train": seg, "seg_f32_step": seg_step,
+               "seg_cli": seg_cli, "seconds": seconds}
     log("[detail] " + json.dumps(summary))
-    print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"], build_s)))
+    log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
+    seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}
+    print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"],
+                                  seg_launches, build_s)))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,8 @@ def _torch_grads(fn, args, g):
     return out, grads
 
 
-@pytest.mark.parametrize("shape", [(96, 64), (2, 3, 5, 128), (40, 256), (3, 8, 512)])
+@pytest.mark.parametrize("shape", [(96, 64), (2, 3, 5, 128), (40, 256), (3, 8, 512),
+                                   (72, 16), (2, 3, 7, 32)])
 def test_layer_norm_relu_grads_match_jax_f32(monkeypatch, shape):
     monkeypatch.setenv("ADUNET_FORCE_PALLAS", "1")
     monkeypatch.setenv("ADUNET_PALLAS_INTERPRET", "1")
@@ -64,9 +65,19 @@ def test_layer_norm_relu_grads_match_jax_f32(monkeypatch, shape):
 
 
 def test_layer_norm_relu_grads_match_jax_bf16(monkeypatch):
+    _bf16_grads_match_jax(monkeypatch, 64)
+
+
+@pytest.mark.parametrize("c", [16, 32])
+def test_narrow_layer_norm_relu_grads_match_jax_bf16(monkeypatch, c):
+    """C = 16 and 32, the vanilla segmentation U-Net's first level."""
+    _bf16_grads_match_jax(monkeypatch, c)
+
+
+def _bf16_grads_match_jax(monkeypatch, c):
     monkeypatch.setenv("ADUNET_FORCE_PALLAS", "1")
     monkeypatch.setenv("ADUNET_PALLAS_INTERPRET", "1")
-    x, gamma, beta, g = _norm_inputs((4, 8, 64), seed=3)
+    x, gamma, beta, g = _norm_inputs((4, 8, c), seed=3)
     xb = torch.from_numpy(x).to(torch.bfloat16)
     gb = torch.from_numpy(g).to(torch.bfloat16)
     # identical bf16 input values on both sides

@@ -17,6 +17,11 @@ _TRAINING_MODULES = (
     "adunet_torch.train.sr", "adunet_torch.train.loop", "adunet_torch.train.checkpoint",
     "adunet_torch.data.device_cache", "adunet_torch.data.sr_pipeline",
     "adunet_torch.evaluate.evaluator", "adunet_torch.cli.train_sr",
+    # the segmentation slice
+    "adunet_torch.models.seg_adaptive", "adunet_torch.models.seg_vanilla",
+    "adunet_torch.metrics.seg", "adunet_torch.losses.seg", "adunet_torch.data.augment",
+    "adunet_torch.data.seg_pipeline", "adunet_torch.train.seg", "adunet_torch.cli.train_seg",
+    "adunet_torch.cli.train_seg_vanilla",
 )
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|adunet)(\.|\s|$)", re.MULTILINE

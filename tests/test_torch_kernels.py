@@ -33,7 +33,7 @@ def _norm_data(rows, c, seed=0):
     return x, gamma, beta
 
 
-@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 512])
 def test_layer_norm_relu_plain_matches_reference_f32(c):
     x, g, b = _norm_data(96, c, seed=c)
     got = tnorm.layer_norm_relu(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b))
@@ -67,6 +67,26 @@ def test_layer_norm_relu_plain_matches_pallas_interpret(monkeypatch, dtype):
     atol = 1e-6 if dtype == "float32" else 1e-2
     np.testing.assert_allclose(got.to(torch.float32).numpy(),
                                np.asarray(want, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [16, 32])
+def test_narrow_layer_norm_relu_plain_matches_pallas_interpret(monkeypatch, dtype, c):
+    """C = 16 and 32 (the vanilla segmentation U-Net's first level), which
+    the CUDA kernel takes since its narrow-row split: the plain version
+    against the Pallas kernel interpreted on the CPU, at a row count that
+    fills no 1024-row block."""
+    monkeypatch.setenv("ADUNET_FORCE_PALLAS", "1")
+    monkeypatch.setenv("ADUNET_PALLAS_INTERPRET", "1")
+    x, g, b = _norm_data(72, c, seed=c)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.to(torch.float32).numpy()).astype(getattr(jnp, dtype))
+    want = jnorm._pallas_forward(xj, jnp.asarray(g), jnp.asarray(b), 1e-3)
+    got = tnorm.layer_norm_relu(xt, torch.from_numpy(g), torch.from_numpy(b))
+    atol = 1e-6 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), atol=atol)
+    assert c in tnorm.SUPPORTED_CHANNELS
 
 
 @pytest.fixture(scope="module")

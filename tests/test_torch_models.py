@@ -64,8 +64,8 @@ def test_untrainable_options_raise():
         build_torch(0.5, depth_override=1, remat=True, device="meta")
     with pytest.raises(NotImplementedError):
         build_torch(0.5, depth_override=1, remat_levels=2, device="meta")
-    with pytest.raises(NotImplementedError):
-        ConvBlock(3, 8, norm="batch")
+    # norm="batch" is trainable since the segmentation models were ported
+    assert type(ConvBlock(3, 8, norm="batch").norm0).__name__ == "BatchNorm"
     with pytest.raises(ValueError, match="unknown norm"):
         ConvBlock(3, 8, norm="Layer")
 

@@ -173,3 +173,105 @@ def test_model_train_step_matches_cpu(cuda):
         rel = ((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm()).item()
         assert rel <= 1e-3, (name, rel)
         assert (pg.detach().cpu() - pc.detach()).abs().max() <= 2e-4 + 1e-6, name
+
+
+def _k1_forward_close(x, g, b, dtype):
+    """K1's forward against its plain version: float32 1e-5, bf16 one bf16
+    ulp plus 1e-6 (as ``test_torch_kernels_gpu``)."""
+    got = fused_norm.layer_norm_relu(x, g, b)
+    want = fused_norm.layer_norm_relu_plain(x, g, b)
+    limit = 1e-5 if dtype == torch.float32 else 2.0**-7 * want.float().abs() + 1e-6
+    assert got.dtype == want.dtype
+    assert bool(((got.float() - want.float()).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 32])
+@pytest.mark.parametrize("rows", [1, 5, 8 * 16 + 3, 524_288])
+def test_narrow_rows_forward_and_backward_match_plain(cuda, dtype, c, rows):
+    """C = 16 and 32, where several rows share a warp: one row, a warp that
+    is partly past the last row, a block that is, and the vanilla
+    segmentation U-Net's first level at batch 8 (524,288 rows)."""
+    x, g, b, gy = _k1_bwd_inputs(cuda, rows, c, dtype)
+    before = (fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches)
+    _k1_forward_close(x, g, b, dtype)
+    dx, dg, db = fused_norm._launch_backward(x, g, b, gy, 1e-3)
+    assert (fused_norm.layer_norm_relu.launches,
+            fused_norm.layer_norm_relu.backward_launches) == (before[0] + 1, before[1] + 1)
+    want = fused_norm.layer_norm_relu_backward(x, g, b, gy)
+    _k1_dx_close(x, g, b, dx, want[0], 1e-5 if dtype == torch.float32 else 1e-4)
+    _close(dg, want[1], 1e-3)
+    _close(db, want[2], 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 32])
+def test_narrow_rows_dead_row_is_zero(cuda, dtype, c):
+    """A dead row (constant, beta < 0) in the middle of a warp and as the last
+    row of a part-filled warp: its dx is exactly 0, the other rows match."""
+    x, g, b, gy = _k1_bwd_inputs(cuda, 37, c, dtype)
+    b = -b.abs() - 0.1
+    x[5] = 0.75
+    x[36] = -0.5
+    dx, dg, db = fused_norm._launch_backward(x, g, b, gy, 1e-3)
+    assert bool((dx[5] == 0).all()) and bool((dx[36] == 0).all())
+    assert bool((fused_norm.layer_norm_relu(x, g, b)[[5, 36]] == 0).all())
+    want = fused_norm.layer_norm_relu_backward(x, g, b, gy)
+    _k1_dx_close(x, g, b, dx, want[0], 1e-5 if dtype == torch.float32 else 1e-4)
+    _close(dg, want[1], 1e-3)
+    _close(db, want[2], 1e-3)
+
+
+@pytest.mark.parametrize("c", [16, 32])
+def test_narrow_rows_parameter_sums_are_deterministic(cuda, c):
+    """The row groups of a warp add their dgamma / dbeta partials in a fixed
+    order: two runs agree bit for bit."""
+    x, g, b, gy = _k1_bwd_inputs(cuda, 300_001, c, torch.bfloat16)
+    first = fused_norm._launch_backward(x, g, b, gy, 1e-3)
+    second = fused_norm._launch_backward(x, g, b, gy, 1e-3)
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.parametrize("kind", ["protocol", "vanilla"])
+def test_seg_train_step_matches_cpu(cuda, kind):
+    """One float32 step of each segmentation model on the card (BatchNorm or
+    K1 at C = 32, ConvTranspose, K2 at its gated shapes) against the CPU.
+    Gradients 1e-3 in relative L2 norm for the vanilla model and 2e-2 for
+    the BatchNorm model, whose float32 gradients hold only ~5e-3 against
+    float64 (``scripts/torch_seg_grad_precision.py``). The biases of convs
+    that feed a BatchNorm have a true gradient of 0 (the norm removes any
+    per-channel shift), so they are held in absolute terms, within 2e-4 of
+    the largest gradient norm."""
+    from adunet_torch.losses import binary_crossentropy
+    from adunet_torch.models import build_adaptive_depth_unet, build_unet
+    from adunet_torch.train import make_seg_train_step
+
+    def build(device):
+        if kind == "protocol":
+            return build_adaptive_depth_unet(128, 64, 2, device=device, seed=5)
+        return build_unet(256, base_channels=32, depth=2, device=device, seed=5)
+
+    cpu_model, gpu_model = build("cpu"), build("cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    size = 128 if kind == "protocol" else 256
+    gen = torch.Generator().manual_seed(2)
+    images = torch.rand(2, size, size, 3, generator=gen)
+    masks = (images.mean(-1, keepdim=True) > 0.5).float()
+    before = (fused_norm.layer_norm_relu.launches, conv64.conv3x3_same.launches)
+    losses = []
+    for model in (gpu_model, cpu_model):
+        state = create_train_state(model, make_optimizer(model.parameters(), 1e-4))
+        losses.append(float(make_seg_train_step(model, binary_crossentropy, augment="none")(
+            state, (images, masks))[1]["loss"]))
+    assert (fused_norm.layer_norm_relu.launches - before[0],
+            conv64.conv3x3_same.launches - before[1]) == ((0, 2) if kind == "protocol" else (10, 2))
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    pre_bn = {n.replace("norm", "conv").replace("running_mean", "bias")
+              for n, _ in cpu_model.named_buffers() if n.endswith("running_mean")}
+    top = max(p.grad.norm() for p in cpu_model.parameters())
+    for (name, pg), pc in zip(gpu_model.named_parameters(), cpu_model.parameters()):
+        err = (pg.grad.cpu() - pc.grad).norm()
+        rel = 2e-2 if kind == "protocol" else 1e-3
+        assert err <= (2e-4 * top if name in pre_bn else rel * pc.grad.norm()), name
+    for (name, bg), bc in zip(gpu_model.named_buffers(), cpu_model.buffers()):
+        assert torch.allclose(bg.cpu(), bc, rtol=1e-4, atol=1e-5), name
