@@ -8,9 +8,10 @@ checkpoints monitored on ``val_dice``, and the final "Validation metrics"
 lines. ``--device`` is ``cuda`` by default, which raises without a GPU;
 ``cpu`` runs the kernels' plain versions. ISIC pairs (images beside
 ``*_segmentation`` masks, ``.jpg`` / ``.png`` / ``.npy``) are decoded on the
-host and augmented on the device inside the train step. ``--n_devices``
-above 1 (ROADMAP Queue 1 item 13) and ``--async_checkpoint`` (item 8) are not
-ported and raise; TensorBoard scalars are not written.
+host and augmented on the device inside the train step.
+``--async_checkpoint`` writes the checkpoints on a background thread.
+``--n_devices`` above 1 (ROADMAP Queue 1 item 13) is not ported and raises;
+TensorBoard scalars are not written.
 
     python -m adunet_torch.cli.train_seg --protocol A --train_images DIR \\
         --train_masks DIR --val_images DIR --val_masks DIR [--device cpu]
@@ -73,14 +74,11 @@ def config_from_args(args: argparse.Namespace) -> SegTrainConfig:
     return SegTrainConfig(**kwargs).resolved()
 
 
-def refuse_unported(n_devices: Optional[int], async_checkpoint: bool) -> None:
+def refuse_unported(n_devices: Optional[int]) -> None:
     """Raise for the options the port does not have yet, naming their item."""
     if (n_devices or 1) > 1:
         raise NotImplementedError(
             "--n_devices > 1 is not ported to adunet_torch yet (ROADMAP Queue 1 item 13).")
-    if async_checkpoint:
-        raise NotImplementedError(
-            "--async_checkpoint is not ported to adunet_torch yet (ROADMAP Queue 1 item 8).")
 
 
 def weighted_eval(eval_step, state, dataset) -> dict:
@@ -114,7 +112,7 @@ def train(cfg: SegTrainConfig) -> dict:
     )
     from adunet_torch.utils.runtime import resolve_device
 
-    refuse_unported(cfg.n_devices, cfg.async_checkpoint)
+    refuse_unported(cfg.n_devices)
     dev = resolve_device(cfg.device)
     protocol = PROTOCOLS[cfg.protocol]
 
@@ -153,7 +151,8 @@ def train(cfg: SegTrainConfig) -> dict:
     print(f"Model: depth={cfg.depth} params={n_params:,} devices=1 protocol={protocol.key} "
           f"device={dev}")
     (run_dir / "model_summary.txt").write_text(f"{model!r}\nTotal params: {n_params:,}\n")
-    ckpt = CheckpointManager(ckpt_dir, monitor="val_dice", mode="max")
+    ckpt = CheckpointManager(ckpt_dir, monitor="val_dice", mode="max",
+                             async_save=cfg.async_checkpoint)
 
     train_step = make_seg_train_step(model, loss_fn, augment=cfg.augment)
     eval_step = make_seg_eval_step(model, loss_fn, per_sample=True)
@@ -220,6 +219,7 @@ def train(cfg: SegTrainConfig) -> dict:
     }
     (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
     ckpt.write_config(config_payload)
+    ckpt.close()
 
     print("Validation metrics:")
     for key, value in eval_metrics.items():

@@ -9,8 +9,9 @@ global Dice on one-hot labels), best checkpoints on the monitored metric,
 early stopping (patience 10), ReduceLROnPlateau on ``val_loss`` (factor 0.5,
 patience 5, min 1e-6), a ``<run_name>_final`` checkpoint and ``config.json``
 with the reference's keys. ``--device`` is ``cuda`` by default, which raises
-without a GPU; ``cpu`` runs the kernels' plain versions. ``--n_devices``
-above 1 and ``--async_checkpoint`` raise, naming their ROADMAP item.
+without a GPU; ``cpu`` runs the kernels' plain versions.
+``--async_checkpoint`` writes the best checkpoints on a background thread;
+``--n_devices`` above 1 raises, naming its ROADMAP item.
 
     python -m adunet_torch.cli.train_seg_vanilla --train_image_dir DIR \\
         --train_mask_dir DIR --val_image_dir DIR --val_mask_dir DIR [--device cpu]
@@ -89,7 +90,7 @@ def train(args: argparse.Namespace) -> dict:
     )
     from adunet_torch.utils.runtime import resolve_device
 
-    refuse_unported(args.n_devices, args.async_checkpoint)
+    refuse_unported(args.n_devices)
     dev = resolve_device(args.device)
     train_pairs = discover_pairs(args.train_image_dir.expanduser(), args.train_mask_dir.expanduser(),
                                  args.image_suffix, args.mask_suffix, args.limit_train)
@@ -144,7 +145,8 @@ def train(args: argparse.Namespace) -> dict:
     run_dir.mkdir(parents=True, exist_ok=True)
     ckpt_dir = Path(args.model_dir).expanduser() / f"{args.run_name}_best"
     print(f"Checkpoints will be written to {ckpt_dir}")
-    ckpt = CheckpointManager(ckpt_dir, monitor=monitor, mode="max")
+    ckpt = CheckpointManager(ckpt_dir, monitor=monitor, mode="max",
+                             async_save=args.async_checkpoint)
 
     train_step = make_seg_train_step(model, loss_fn, augment="flips" if args.augment else "none",
                                      extra_metrics=extra)
@@ -169,6 +171,7 @@ def train(args: argparse.Namespace) -> dict:
         metric_finalizers=metric_finalizers_of(extra),
     )
     state = result.state
+    ckpt.close()
 
     final_dir = Path(args.model_dir).expanduser() / f"{args.run_name}_final"
     CheckpointManager(final_dir, monitor=monitor, mode="max").save(len(result.history), state)

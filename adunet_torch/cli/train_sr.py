@@ -7,18 +7,28 @@ the post-training Validation / Test PSNR(Y) lines), plus ``--device``
 (``cuda`` by default, which raises without a GPU; ``cpu`` runs the kernels'
 plain versions).
 
-This port trains from the device cache (``--device_cache``): the corpus sits
-on the device as uint8 and each step samples, degrades, runs forward, loss,
-backward and Adam there. Not ported yet, and refused with the ROADMAP item
-that ports it: the streamed patch pipeline (no ``--device_cache``) and the
-``--low_res_dir`` paired path (Queue 1 item 7), ``--loss combined`` (item 10),
-``--remat`` / ``--remat_levels`` (item 9), ``--model_shards`` and
-``--n_devices`` above 1 (item 13), ``--async_checkpoint`` (item 8).
-TensorBoard scalars and previews are not written.
+Three data paths, as in the reference:
+
+- the streamed patch pipeline (the default): random HR crops decoded and cut
+  on the host (``--uint8_feed`` ships them as uint8, ``--cache_decoded``
+  keeps the decoded corpus in host memory, ``--shuffle_buffer``), copied to
+  the card one batch ahead from pinned memory (``device_feed``); the step
+  degrades them on the card;
+- ``--device_cache``: the whole corpus on the card as uint8, each step
+  sampling its own patches there;
+- ``--low_res_dir``: whole images of a paired directory, area-resized to
+  ``--patch_size``, as an ``ArrayDataset`` of ``(lr, hr)`` batches.
+
+``--loss combined`` adds the VGG19 perceptual term (``--vgg19_npz`` weights,
+else seeded random ones), ``--remat`` / ``--remat_levels`` checkpoint the
+ConvBlocks, ``--async_checkpoint`` writes checkpoints on a background thread.
+Refused with the ROADMAP item that ports it: ``--model_shards`` and
+``--n_devices`` above 1 (Queue 1 item 13). TensorBoard scalars and previews
+are not written.
 
     python -m adunet_torch.cli.train_sr --scale 0.5 --depth_override 3 \\
-        --device_cache --mixed_precision --batch_size 32 --patch_size 256 \\
-        --high_res_dir DIR --image_suffix .npy [--device cpu]
+        --mixed_precision --uint8_feed --cache_decoded --batch_size 32 \\
+        --patch_size 256 --high_res_dir DIR --image_suffix .npy [--device cpu]
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from datetime import datetime
 from pathlib import Path
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from adunet_torch.configs import SRTrainConfig
@@ -101,27 +112,26 @@ def config_from_args(args: argparse.Namespace) -> SRTrainConfig:
 
 
 def _refuse_unported(cfg: SRTrainConfig) -> None:
-    unported = [
-        (not cfg.device_cache, "the streamed patch pipeline (train with --device_cache)",
-         "Queue 1 item 7"),
-        (bool(cfg.low_res_dir), "--low_res_dir (paired real-LR training)", "Queue 1 item 7"),
-        (cfg.loss == "combined", "--loss combined (perceptual term)", "Queue 1 item 10"),
-        (cfg.remat or cfg.remat_levels is not None, "--remat / --remat_levels", "Queue 1 item 9"),
-        (cfg.model_shards > 1 or (cfg.n_devices or 1) > 1, "--model_shards / --n_devices > 1",
-         "Queue 1 item 13"),
-        (cfg.async_checkpoint, "--async_checkpoint", "Queue 1 item 8"),
-    ]
-    for refused, what, item in unported:
-        if refused:
-            raise NotImplementedError(f"{what} is not ported to adunet_torch yet (ROADMAP {item}).")
+    if cfg.model_shards > 1 or (cfg.n_devices or 1) > 1:
+        raise NotImplementedError("--model_shards / --n_devices > 1 is not ported to adunet_torch "
+                                  "yet (ROADMAP Queue 1 item 13).")
 
 
 def train(cfg: SRTrainConfig) -> dict:
     """Run the training and the post-training evaluation; returns the run's
     directories, eval summaries, epoch count, best epoch and final state."""
-    from adunet_torch.data import find_images, load_device_cache, make_eval_patch_dataset
+    from adunet_torch.data import (
+        ArrayDataset,
+        device_feed,
+        find_images,
+        load_device_cache,
+        load_rgb_image,
+        make_eval_patch_dataset,
+        make_training_patch_dataset,
+        pair_lr_files,
+    )
     from adunet_torch.evaluate import evaluate_sr, infer_eval_shave
-    from adunet_torch.losses import build_losses_and_metrics
+    from adunet_torch.losses import build_losses_and_metrics, make_perceptual_fn
     from adunet_torch.models import build_super_resolution_unet
     from adunet_torch.train import (
         CheckpointManager,
@@ -129,7 +139,9 @@ def train(cfg: SRTrainConfig) -> dict:
         fit,
         make_optimizer,
         make_sr_device_cache_train_step,
+        make_sr_train_step,
         make_sr_val_step,
+        repeat,
     )
     from adunet_torch.utils.misc import split_indices
     from adunet_torch.utils.runtime import resolve_device
@@ -148,16 +160,36 @@ def train(cfg: SRTrainConfig) -> dict:
     val_paths = [hr_paths[i] for i in val_idx]
     test_paths = [hr_paths[i] for i in test_idx]
     degrade_scale = cfg.train_degrade_scale()
+    paired = bool(cfg.low_res_dir)
 
-    # the epoch length of the reference's patch stream: patches_per_image
-    # random crops per training image
-    train_patch_count = len(train_paths) * cfg.patches_per_image
-    steps_per_epoch = math.ceil(train_patch_count / cfg.batch_size)
-    val_ds = None
-    if val_paths:
-        val_ds, _, _ = make_eval_patch_dataset(val_paths, patch_size=cfg.patch_size,
-                                               scale=degrade_scale, batch_size=cfg.batch_size,
-                                               stride=cfg.eval_stride)
+    if paired:
+        # whole images area-resized to patch_size, paired by file name
+        lr_paths_all = pair_lr_files(hr_paths, cfg.low_res_dir)
+
+        def paired_dataset(idx, shuffle: bool, drop_remainder: bool):
+            if not len(idx):
+                return None
+            hr_stack = np.stack([load_rgb_image(hr_paths[i], cfg.patch_size) for i in idx])
+            lr_stack = np.stack([load_rgb_image(lr_paths_all[i], cfg.patch_size) for i in idx])
+            return ArrayDataset(lr_stack, hr_stack, batch_size=cfg.batch_size, shuffle=shuffle,
+                                seed=cfg.seed, drop_remainder=drop_remainder)
+
+        train_ds = paired_dataset(train_idx, shuffle=True, drop_remainder=True)
+        if train_ds is None:
+            raise ValueError("Paired mode requires at least one training image.")
+        train_patch_count = len(train_idx)
+        steps_per_epoch = train_ds.steps_per_epoch
+        val_ds = paired_dataset(val_idx, shuffle=False, drop_remainder=False)
+    else:
+        # the epoch length of the patch stream: patches_per_image random
+        # crops per training image
+        train_patch_count = len(train_paths) * cfg.patches_per_image
+        steps_per_epoch = math.ceil(train_patch_count / cfg.batch_size)
+        val_ds = None
+        if val_paths:
+            val_ds, _, _ = make_eval_patch_dataset(val_paths, patch_size=cfg.patch_size,
+                                                   scale=degrade_scale, batch_size=cfg.batch_size,
+                                                   stride=cfg.eval_stride)
     dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
     model, info = build_super_resolution_unet(
         scale=cfg.scale,
@@ -167,10 +199,16 @@ def train(cfg: SRTrainConfig) -> dict:
         input_size=cfg.patch_size,
         max_depth=cfg.max_depth,
         dtype=dtype,
+        remat=cfg.remat,
+        remat_levels=cfg.remat_levels,
         device=dev,
         seed=cfg.seed,
     )
-    loss_fn, _metrics = build_losses_and_metrics(cfg.loss)
+    perceptual_fn = None
+    if cfg.loss == "combined":
+        perceptual_fn = make_perceptual_fn(cfg.vgg19_npz, input_size=cfg.patch_size, dtype=dtype,
+                                           device=dev)
+    loss_fn, _metrics = build_losses_and_metrics(cfg.loss, perceptual_fn=perceptual_fn)
     state = create_train_state(model, make_optimizer(model.parameters(), cfg.learning_rate))
     n_params = sum(p.numel() for p in model.parameters())
 
@@ -194,7 +232,7 @@ def train(cfg: SRTrainConfig) -> dict:
         "test_images": len(test_paths),
         "train_patches_per_epoch": int(train_patch_count),
         "steps_per_epoch": int(steps_per_epoch),
-        "low_res_mode": "synthetic_patches",
+        "low_res_mode": "paired_directory" if paired else "synthetic_patches",
         "created_at": timestamp,
     }
     (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
@@ -204,7 +242,8 @@ def train(cfg: SRTrainConfig) -> dict:
     )
     print(f"Model: depth={info['depth']} params={n_params:,} device={dev}")
 
-    ckpt = CheckpointManager(ckpt_dir, monitor="val_loss", mode="min")
+    ckpt = CheckpointManager(ckpt_dir, monitor="val_loss", mode="min",
+                             async_save=cfg.async_checkpoint)
     stored_cfg = {}
     if (ckpt_dir / "config.json").exists():
         stored_cfg = json.loads((ckpt_dir / "config.json").read_text())
@@ -240,39 +279,59 @@ def train(cfg: SRTrainConfig) -> dict:
         print("[warn] --initial_epoch was set without --resume_from; training will skip "
               "the initial epochs but start from random weights.")
 
-    cache = load_device_cache(train_paths, dev)
-    print(f"[device_cache] {cache.shape[0]} images "
-          f"({cache.numel() / 1e6:.0f} MB uint8) resident on {dev}.")
-    train_step = make_sr_device_cache_train_step(
-        model, loss_fn, cache, patch_size=cfg.patch_size, batch_size=cfg.batch_size,
-        data_scale=degrade_scale, grad_accum=cfg.grad_accum,
-    )
+    samples_per_step = None
+    if cfg.device_cache and not paired:
+        cache = load_device_cache(train_paths, dev)
+        print(f"[device_cache] {cache.shape[0]} images "
+              f"({cache.numel() / 1e6:.0f} MB uint8) resident on {dev}.")
+        train_step = make_sr_device_cache_train_step(
+            model, loss_fn, cache, patch_size=cfg.patch_size, batch_size=cfg.batch_size,
+            data_scale=degrade_scale, grad_accum=cfg.grad_accum,
+        )
+        samples_per_step = cfg.batch_size
 
-    def train_feed():
-        while True:
-            yield None  # the generator is the data source
+        def device_cache_feed():
+            while True:
+                yield None  # the generator is the data source
+
+        train_iter = device_cache_feed()
+    else:
+        if not paired:
+            train_ds, _ = make_training_patch_dataset(
+                train_paths, patch_size=cfg.patch_size, patches_per_image=cfg.patches_per_image,
+                scale=degrade_scale, batch_size=cfg.batch_size, seed=cfg.seed,
+                shuffle_buffer=cfg.shuffle_buffer,
+                output_dtype="uint8" if cfg.uint8_feed else "float32",
+                cache_decoded=cfg.cache_decoded,
+            )
+        train_step = make_sr_train_step(model, loss_fn, data_scale=degrade_scale,
+                                        grad_accum=cfg.grad_accum)
+        train_iter = device_feed(repeat(train_ds) if paired else train_ds, dev)
 
     val_step = make_sr_val_step(model, loss_fn, data_scale=degrade_scale, per_sample=True)
-    result = fit(
-        state,
-        train_feed(),
-        train_step,
-        steps_per_epoch=steps_per_epoch,
-        epochs=cfg.epochs,
-        initial_epoch=initial_epoch,
-        rng=torch.Generator(device=dev).manual_seed(cfg.seed),
-        val_data=val_ds,
-        val_step=val_step,
-        monitor="val_loss",
-        monitor_mode="min",
-        patience=cfg.patience,
-        restore_best_weights=True,
-        ckpt=ckpt,
-        ckpt_every=cfg.ckpt_every,
-        log_dir=run_dir,
-        samples_per_step=cfg.batch_size,
-        profile_dir=(run_dir / "profile") if cfg.profile else None,
-    )
+    try:
+        result = fit(
+            state,
+            train_iter,
+            train_step,
+            steps_per_epoch=steps_per_epoch,
+            epochs=cfg.epochs,
+            initial_epoch=initial_epoch,
+            rng=torch.Generator(device=dev).manual_seed(cfg.seed),
+            val_data=val_ds,
+            val_step=val_step,
+            monitor="val_loss",
+            monitor_mode="min",
+            patience=cfg.patience,
+            restore_best_weights=True,
+            ckpt=ckpt,
+            ckpt_every=cfg.ckpt_every,
+            log_dir=run_dir,
+            samples_per_step=samples_per_step,
+            profile_dir=(run_dir / "profile") if cfg.profile else None,
+        )
+    finally:
+        train_iter.close()  # stops the patch producer thread
     state = result.state
     print("Training complete.")
     print(f"Model info: {info}")
@@ -285,12 +344,16 @@ def train(cfg: SRTrainConfig) -> dict:
         eval_shave = adjusted
 
     final_metrics = {}
-    for name, paths in (("Validation", val_paths), ("Test", test_paths)):
+    for name, paths, idx in (("Validation", val_paths, val_idx), ("Test", test_paths, test_idx)):
         if not paths:
             continue
-        ds, _, _labels = make_eval_patch_dataset(paths, patch_size=cfg.patch_size,
-                                                 scale=degrade_scale, batch_size=cfg.batch_size,
-                                                 stride=cfg.eval_stride)
+        if paired:
+            ds = paired_dataset(idx, shuffle=False, drop_remainder=False)
+        else:
+            ds, _, _labels = make_eval_patch_dataset(paths, patch_size=cfg.patch_size,
+                                                     scale=degrade_scale,
+                                                     batch_size=cfg.batch_size,
+                                                     stride=cfg.eval_stride)
         summary, _rows = evaluate_sr(state, ds, eval_scale=degrade_scale, eval_shave=eval_shave)
         print(f"{name} patches evaluated: {summary.samples}")
         print(f"  MSE(Y)     : {summary.mse_mean:.6f} +/- {summary.mse_std:.6f}")
@@ -299,6 +362,7 @@ def train(cfg: SRTrainConfig) -> dict:
         print(f"  MS-SSIM(Y) : {summary.msssim_mean:.4f} +/- {summary.msssim_std:.4f}")
         final_metrics[name.lower()] = dataclasses.asdict(summary)
 
+    ckpt.close()
     return {"run_dir": str(run_dir), "ckpt_dir": str(ckpt_dir), "eval": final_metrics,
             "history_epochs": len(result.history), "best_epoch": result.best_epoch,
             "state": state}

@@ -5,7 +5,11 @@
   them, to a torch state_dict. Names join with ``.``; a conv ``kernel``
   (HWIO) becomes ``weight`` (OIHW), a norm ``scale`` becomes ``weight``,
   ``bias`` stays ``bias``; a BatchNorm's ``mean`` / ``var`` become the
-  buffers ``running_mean`` / ``running_var``. The kernel of a ``dec{i}_up``
+  buffers ``running_mean`` / ``running_var``. This covers every model of the
+  port by its flax names: the adaptive and vanilla SR U-Nets (``enc{i}``,
+  ``dec{i}``, ``dec{i}_smooth``, ``bottleneck``, ``head``, ``residual_rgb``
+  or ``enhanced_rgb``), the segmentation U-Nets and the VGG19 tower
+  (``block{i}_conv{j}``). The kernel of a ``dec{i}_up``
   ConvTranspose (HWIO) becomes torch's (in, out, kh, kw) flipped in both
   spatial axes: flax correlates the dilated input with the kernel
   unflipped, torch's transposed conv scatters it unflipped

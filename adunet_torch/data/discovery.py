@@ -1,7 +1,8 @@
 """File discovery and image / mask pairing.
 
 The port's copy of ``adunet/data/discovery.py``: ``find_images`` (glob +
-natural sort, :55), ``collect_isic_pairs`` with its superpixel filter and
+natural sort, :55), ``pair_lr_files`` (:28, the ``--low_res_dir`` pairing by
+file name), ``collect_isic_pairs`` with its superpixel filter and
 hard errors (:74-134), ``normalise_isic_key``, and ``canonical_key`` /
 ``discover_pairs`` (:137-189), the generic pairing of the vanilla trainer.
 """
@@ -14,8 +15,28 @@ from typing import Dict, List, Optional, Tuple
 
 from adunet_torch.utils.misc import sorted_alphanumeric
 
-__all__ = ["find_images", "collect_isic_pairs", "normalise_isic_key", "canonical_key",
+__all__ = ["find_images", "pair_lr_files", "collect_isic_pairs", "normalise_isic_key", "canonical_key",
            "discover_pairs"]
+
+
+def pair_lr_files(hr_paths: List[str], low_res_dir: str | Path) -> List[str]:
+    """Each HR file's LR counterpart: the file of the same name in
+    ``low_res_dir``. Any missing counterpart raises, naming up to five."""
+    low_res_dir = Path(low_res_dir).expanduser()
+    if not low_res_dir.is_dir():
+        raise FileNotFoundError(f"Low-res directory not found: {low_res_dir}")
+    lr_paths: List[str] = []
+    missing: List[str] = []
+    for hr in hr_paths:
+        candidate = low_res_dir / Path(hr).name
+        if candidate.is_file():
+            lr_paths.append(str(candidate))
+        else:
+            missing.append(Path(hr).name)
+    if missing:
+        shown = ", ".join(missing[:5]) + ("…" if len(missing) > 5 else "")
+        raise ValueError(f"Missing {len(missing)} LR counterparts in {low_res_dir}; examples: {shown}")
+    return lr_paths
 
 
 def find_images(directory: str | Path, suffix: str = ".png", limit: Optional[int] = None) -> List[str]:

@@ -1,8 +1,9 @@
 """Host-side image IO.
 
 Port of ``adunet/data/io.py`` (``read_image_size``, ``_read_rgb``,
-``load_rgb_image_full``, ``load_rgb_image_full_u8``, and for segmentation
-``load_rgb_image`` with its square resize, ``_read_gray``,
+``load_rgb_image_full``, ``load_rgb_image_full_u8``, ``load_rgb_image`` with
+its square resize, ``load_image_stack`` (a directory of square-resized
+images, the vanilla SR trainer's), and for segmentation ``_read_gray``,
 ``_nearest_resize``, ``load_mask``, ``load_label_mask``). ``.npy`` arrays are
 always read; PNG / JPEG need cv2 (BGR→RGB) or, without it, PIL, each
 imported at first use. Without either a PNG / JPEG raises. Resizes go
@@ -16,12 +17,16 @@ from __future__ import annotations
 
 import importlib.util
 from pathlib import Path
+from typing import List, Optional
 
 import numpy as np
+
+from adunet_torch.utils.misc import sorted_alphanumeric
 
 __all__ = [
     "read_image_size",
     "load_rgb_image",
+    "load_image_stack",
     "load_rgb_image_full",
     "load_rgb_image_full_u8",
     "load_mask",
@@ -115,6 +120,19 @@ def load_rgb_image(path: str | Path, size: int, interp: str = "area") -> np.ndar
     wh = resize_matrix(img.shape[0], size, method)
     ww = resize_matrix(img.shape[1], size, method)
     return np.einsum("ih,hwc->iwc", wh, np.einsum("jw,hwc->hjc", ww, img)).astype(np.float32)
+
+
+def load_image_stack(directory: str | Path, size: int, limit: Optional[int] = None) -> np.ndarray:
+    """Every file of ``directory`` in natural order (the first ``limit``),
+    area-resized to (size, size): an (N, size, size, 3) float32 stack."""
+    directory = Path(directory)
+    names = sorted_alphanumeric([p.name for p in directory.iterdir() if p.is_file()])
+    if limit is not None:
+        names = names[:limit]
+    images: List[np.ndarray] = [load_rgb_image(directory / n, size) for n in names]
+    if not images:
+        raise ValueError(f"found no images under {directory}")
+    return np.stack(images, axis=0)
 
 
 def _read_gray(path: Path) -> np.ndarray:

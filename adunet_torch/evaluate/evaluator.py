@@ -4,20 +4,26 @@ Port of ``adunet/evaluate/evaluator.py``: ``infer_eval_shave`` (:56),
 ``EvalResults``, ``evaluate_sr`` (:67: degrade at the eval scale, restore,
 clip, BT.601 luma, shave, PSNR / SSIM / MS-SSIM / MSE per patch, float64
 pooled mean and std with ±inf passed through). Batches run as they come:
-eager PyTorch needs no padding of a ragged last batch. ``write_outputs`` and
-the report files wait for the evaluate CLI (ROADMAP Queue 1 item 8).
+eager PyTorch needs no padding of a ragged last batch. ``attach_filenames``
+and ``write_outputs`` (:140-169) label the per-patch rows and write the
+reference's three report files (``config.json``, ``metrics.json``,
+``per_image_metrics.csv`` with the columns ``index, filename, psnr_y,
+ssim_y, msssim_y, mse_y``), which the analysis and plot tools read.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+import csv
+import json
+from dataclasses import asdict, dataclass
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from adunet_torch.train.sr import make_sr_eval_step
 
-__all__ = ["EvalResults", "evaluate_sr", "infer_eval_shave"]
+__all__ = ["EvalResults", "evaluate_sr", "infer_eval_shave", "attach_filenames", "write_outputs"]
 
 
 @dataclass
@@ -70,3 +76,26 @@ def evaluate_sr(state, dataset, eval_scale: float, eval_shave: int
         fields[f"{stem}_std"] = float(pooled.std())
     return EvalResults(samples=len(rows), **fields), rows
 
+
+def attach_filenames(per_image: List[Dict[str, float]], filenames: Sequence[str]) -> None:
+    """Label each metric row with its grid-patch name, in place."""
+    if len(per_image) != len(filenames):
+        raise ValueError(f"have {len(per_image)} metric rows but {len(filenames)} patch labels")
+    for row, label in zip(per_image, filenames):
+        row["filename"] = label
+
+
+def write_outputs(run_dir: str | Path, summary: EvalResults, per_image: List[Dict[str, float]],
+                  config: Dict[str, object], write_per_image: bool = True) -> None:
+    """Write ``config.json``, ``metrics.json`` and (unless told not to)
+    ``per_image_metrics.csv`` into ``run_dir``."""
+    run_dir = Path(run_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    for name, payload in (("config.json", config), ("metrics.json", asdict(summary))):
+        (run_dir / name).write_text(json.dumps(payload, indent=2, default=str))
+    if not write_per_image:
+        return
+    with (run_dir / "per_image_metrics.csv").open("w", newline="") as sink:
+        writer = csv.DictWriter(sink, fieldnames=["index", "filename", *_METRIC_KEYS])
+        writer.writeheader()
+        writer.writerows(per_image)

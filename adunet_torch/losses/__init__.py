@@ -1,6 +1,13 @@
-"""Losses: SR (charbonnier, l1, mse, SSIM, the PSNR metric) and segmentation
-(BCE, categorical CE, Dice, the protocol hybrids)."""
+"""Losses: SR (charbonnier, l1, mse, SSIM, the PSNR metric, the combined
+cocktail with its VGG19 perceptual term) and segmentation (BCE, categorical
+CE, Dice, the protocol hybrids)."""
 
+from adunet_torch.losses.perceptual import (
+    VGG19Features,
+    load_vgg19_params,
+    make_perceptual_fn,
+    vgg19_preprocess,
+)
 from adunet_torch.losses.seg import (
     binary_crossentropy,
     categorical_crossentropy,
@@ -19,6 +26,10 @@ from adunet_torch.losses.sr import (
 )
 
 __all__ = [
+    "VGG19Features",
+    "vgg19_preprocess",
+    "load_vgg19_params",
+    "make_perceptual_fn",
     "charbonnier_loss",
     "l1_loss",
     "mse_loss",

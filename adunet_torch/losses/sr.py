@@ -3,8 +3,16 @@
 Port of ``adunet/losses/sr.py``: charbonnier (eps 1e-3, the default loss),
 l1, mse, ``1 - mean SSIM``, the batch-mean PSNR with predictions clipped to
 [0, 1], and the ``combined`` cocktail (1.0 MSE + 0.1 SSIM loss + 0.01
-perceptual MSE over a caller-supplied feature map). Every function computes
-in float32 whatever the input dtype.
+perceptual MSE over a caller-supplied feature map, ``adunet_torch.losses.
+perceptual``, of both images clipped to [0, 1]). Every function computes in
+float32 whatever the input dtype.
+
+The perceptual term's clip is ``minimum(maximum(x, 0), 1)``, as
+``jnp.clip`` computes it, so a pixel exactly at a bound passes half the
+gradient (both frameworks split a tie of ``maximum`` / ``minimum`` evenly;
+``torch.clamp`` would pass all of it). An untrained adaptive model is the
+identity, so every input pixel at exactly 0 or 1 is such a tie in the first
+step. The target's features take no gradient.
 """
 
 from __future__ import annotations
@@ -52,6 +60,13 @@ def psnr_metric(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     return torch.mean(psnr(y_true.to(torch.float32), y_pred))
 
 
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch.float32)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, zero), one)
+
+
 def build_losses_and_metrics(
     loss_name: str,
     perceptual_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
@@ -72,8 +87,9 @@ def build_losses_and_metrics(
             raise ValueError("combined loss requires a perceptual_fn (a feature extractor)")
 
         def combined(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
-            ft = perceptual_fn(torch.clamp(y_true.to(torch.float32), 0.0, 1.0))
-            fp = perceptual_fn(torch.clamp(y_pred.to(torch.float32), 0.0, 1.0))
+            with torch.no_grad():
+                ft = perceptual_fn(_clip01(y_true))
+            fp = perceptual_fn(_clip01(y_pred))
             return (alpha * mse_loss(y_true, y_pred) + beta * ssim_loss(y_true, y_pred)
                     + gamma * torch.mean(torch.square(ft - fp)))
 

@@ -1,12 +1,15 @@
-"""Model families: the adaptive SR U-Net and the two segmentation U-Nets."""
+"""Model families: the adaptive and vanilla SR U-Nets and the two segmentation U-Nets."""
 
 from adunet_torch.models.seg_adaptive import AdaptiveSegUNet, build_adaptive_depth_unet
 from adunet_torch.models.seg_vanilla import VanillaSegUNet, build_unet
 from adunet_torch.models.sr_adaptive import AdaptiveSRUNet, build_super_resolution_unet
+from adunet_torch.models.sr_vanilla import VanillaSRUNet, build_vanilla_sr_unet
 
 __all__ = [
     "AdaptiveSRUNet",
     "build_super_resolution_unet",
+    "VanillaSRUNet",
+    "build_vanilla_sr_unet",
     "AdaptiveSegUNet",
     "build_adaptive_depth_unet",
     "VanillaSegUNet",

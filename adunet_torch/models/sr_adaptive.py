@@ -15,8 +15,15 @@ parameter tree (names mirror flax: ``enc0.conv0.weight`` is flax's
 
 Input and output are NHWC; the output is float32. ``dtype`` is the compute
 dtype (``torch.bfloat16`` for mixed precision); parameters stay float32.
-``remat`` / ``remat_levels`` (ROADMAP Queue 1 item 9) are not ported yet:
-anything but ``False`` / ``None`` raises.
+
+Rematerialisation (:44-72): ``remat=True`` checkpoints every ConvBlock;
+``remat_levels=N`` (which overrides ``remat``) checkpoints only the encoder
+and decoder blocks of the N shallowest levels, whose activations are the
+largest, and never the bottleneck or the head. A checkpointed block keeps
+only its input for the backward and runs its forward again there
+(``torch.utils.checkpoint``, non-reentrant), so on the card its K1 and K2
+kernels launch a second time per training step. The block draws no random
+numbers, so no RNG state is stashed.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from adunet_torch.nn.blocks import Conv, ConvBlock, init_parameters
 from adunet_torch.nn.depth_policy import custom_depth_from_scale, estimate_bottleneck_size
@@ -48,12 +56,11 @@ class AdaptiveSRUNet(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if remat or remat_levels is not None:
-            raise NotImplementedError(
-                "remat / remat_levels are not ported yet (ROADMAP Queue 1 item 9)")
         self.scale = float(scale)
         self.depth = int(depth)
         self.dtype = dtype
+        self.remat = bool(remat)
+        self.remat_levels = remat_levels
         nf, in_ch = base_channels, 3
         for level in range(self.depth):
             self.add_module(f"enc{level}", ConvBlock(in_ch, nf, device=device))
@@ -67,22 +74,35 @@ class AdaptiveSRUNet(nn.Module):
         self.residual_rgb = Conv(residual_head_channels, 3, 1, zero_init=True, device=device)
         init_parameters(self, seed)
 
+    def _uses_remat(self, level: int | None) -> bool:
+        """Whether the block at ``level`` (None: bottleneck or head) is
+        checkpointed."""
+        if self.remat_levels is not None:
+            return level is not None and level < self.remat_levels
+        return self.remat
+
+    def _block(self, name: str, h: torch.Tensor, level: int | None = None) -> torch.Tensor:
+        block = getattr(self, name)
+        if torch.is_grad_enabled() and self._uses_remat(level):
+            return checkpoint(block, h, use_reentrant=False, preserve_rng_state=False)
+        return block(h)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inputs = x
         h = x.to(self.dtype)
         skips = []
         for level in range(self.depth):
-            skip = getattr(self, f"enc{level}")(h)
+            skip = self._block(f"enc{level}", h, level)
             h = resize_by_scale(skip, self.scale)
             skips.append(skip)
-        h = self.bottleneck(h)
+        h = self._block("bottleneck", h)
         for level in reversed(range(self.depth)):
             skip = skips[level]
             h = resize_to_match(h, skip)
             h = torch.relu(getattr(self, f"dec{level}_smooth")(h))
             h = torch.cat([h, skip], dim=-1)
-            h = getattr(self, f"dec{level}")(h)
-        h = self.head(h)
+            h = self._block(f"dec{level}", h, level)
+        h = self._block("head", h)
         residual = self.residual_rgb(h)
         return clipped_residual_add(inputs.to(torch.float32), residual.to(torch.float32))
 

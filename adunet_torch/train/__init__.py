@@ -20,6 +20,8 @@ from adunet_torch.train.sr import (
     make_sr_eval_step,
     make_sr_train_step,
     make_sr_val_step,
+    make_vanilla_sr_train_step,
+    make_vanilla_sr_val_step,
     sr_loss_and_metrics,
 )
 from adunet_torch.train.state import TrainState, create_train_state
@@ -41,6 +43,8 @@ __all__ = [
     "make_sr_eval_step",
     "make_sr_train_step",
     "make_sr_val_step",
+    "make_vanilla_sr_train_step",
+    "make_vanilla_sr_val_step",
     "sr_loss_and_metrics",
     "make_seg_train_step",
     "make_seg_eval_step",

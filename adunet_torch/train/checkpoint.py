@@ -9,6 +9,14 @@ best epoch. The architecture is rebuilt from ``config.json``; nothing is
 pickled but tensors and plain values (restores use ``weights_only=True``).
 A save at a step at or below the latest is dropped unless ``force``ed, as
 Orbax's ``should_save`` does; a forced save never overwrites a step.
+
+A save first copies the state to host memory on the caller's thread (every
+tensor cloned to the CPU), so a later step cannot change what is written,
+and writes that copy. With ``async_save=True`` (:46-130) the write runs on a
+background thread, overlapping the next epoch; saves are serialised, every
+read of the directory (``latest_step``, ``best_step``, the restores) waits
+for the pending write first, and ``wait()`` / ``close()`` join it and raise
+its error, if any. Both modes write the same bytes.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import json
 import math
 import os
 import shutil
+import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -40,18 +49,48 @@ def _encode(v: float) -> float:
     return v
 
 
+def _to_host(tree: Any) -> Any:
+    """A copy of a (nested) state_dict with every tensor cloned to the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
 class CheckpointManager:
     """Best + latest checkpoint retention with metric-driven selection."""
 
     def __init__(self, directory: str | Path, monitor: str = "val_loss", mode: str = "min",
-                 max_to_keep: int = 2):
+                 max_to_keep: int = 2, async_save: bool = False):
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
         self.max_to_keep = max_to_keep
+        self.async_save = async_save
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
+
+    def wait(self) -> None:
+        """Join the pending background write; raise its error, if any."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def close(self) -> None:
+        self.wait()
 
     def _steps(self) -> List[int]:
+        self.wait()
+        return self._listed_steps()
+
+    def _listed_steps(self) -> List[int]:
         return sorted(int(p.name) for p in self.directory.iterdir()
                       if p.is_dir() and p.name.isdigit() and (p / _STATE_FILE).exists())
 
@@ -65,27 +104,40 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, metrics: Optional[Dict[str, float]] = None,
              force: bool = False) -> None:
-        latest = self.latest_step()
+        latest = self.latest_step()  # waits for the pending write
         if not force and latest is not None and step <= latest:
             return
-        target = self.directory / str(step)
-        if target.exists():
+        if (self.directory / str(step)).exists():
             raise FileExistsError(f"checkpoint step {step} already exists in {self.directory}")
-        tmp = self.directory / f".tmp-{step}-{os.getpid()}"
-        tmp.mkdir()
         payload = {
             "step": int(state.step),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "model": _to_host(state.model.state_dict()),
+            "optimizer": _to_host(state.optimizer.state_dict()),
         }
-        torch.save(payload, tmp / _STATE_FILE)
         clean = {k: _encode(v) for k, v in (metrics or {}).items() if not math.isnan(float(v))}
-        (tmp / _METRICS_FILE).write_text(json.dumps(clean))
-        os.replace(tmp, target)
+        if not self.async_save:
+            self._write(step, payload, clean)
+            return
+
+        def write() -> None:
+            try:
+                self._write(step, payload, clean)
+            except Exception as exc:  # raised on the caller's thread by wait()
+                self._error = exc
+
+        self._writer = threading.Thread(target=write, name=f"checkpoint-{step}", daemon=True)
+        self._writer.start()
+
+    def _write(self, step: int, payload: Dict[str, Any], metrics: Dict[str, float]) -> None:
+        tmp = self.directory / f".tmp-{step}-{os.getpid()}"
+        tmp.mkdir()
+        torch.save(payload, tmp / _STATE_FILE)
+        (tmp / _METRICS_FILE).write_text(json.dumps(metrics))
+        os.replace(tmp, self.directory / str(step))
         self._retain()
 
-    def _retain(self) -> None:
-        steps = self._steps()
+    def _retain(self) -> None:  # runs on the writer's thread in async mode
+        steps = self._listed_steps()
         if not steps:
             return
         keep = {steps[-1]}
@@ -97,6 +149,7 @@ class CheckpointManager:
                 shutil.rmtree(self.directory / str(s))
 
     def _load(self, step: int, state: TrainState) -> Dict[str, Any]:
+        self.wait()
         device = next(state.model.parameters()).device
         return torch.load(self.directory / str(step) / _STATE_FILE, map_location=device,
                           weights_only=True)

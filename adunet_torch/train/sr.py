@@ -1,7 +1,6 @@
 """SR train / val / eval steps.
 
-Port of ``adunet/train/sr.py`` (all but the vanilla BatchNorm steps). Each
-``make_*`` returns a function of ``(state, batch[, rng])`` that runs eagerly
+Port of ``adunet/train/sr.py``. Each ``make_*`` returns a function of ``(state, batch[, rng])`` that runs eagerly
 on the model's device: degradation (the LR batch is made on the device from
 the HR batch, as in the reference), forward, loss, backward and one Adam
 update. Host batches may be numpy or tensors; uint8 batches are scaled to
@@ -11,6 +10,12 @@ device: the fit loop reads the metrics once per epoch.
 
 Training degrades at ``DATA_LR_SHRINK = 0.5`` whatever the model's scale
 (the reference's constant); the evaluator degrades at the scale it is given.
+
+The vanilla baseline's steps (``make_vanilla_sr_train_step`` /
+``make_vanilla_sr_val_step``, :242-300) take paired ``(lr, hr)`` batches and
+set the model's mode: a training forward normalises with the batch's
+statistics and moves the BatchNorm running buffers as flax's mutable
+``batch_stats`` do; validation uses the running statistics.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ __all__ = [
     "make_sr_val_step",
     "make_sr_eval_step",
     "make_sr_device_cache_train_step",
+    "make_vanilla_sr_train_step",
+    "make_vanilla_sr_val_step",
 ]
 
 DATA_LR_SHRINK = 0.5
@@ -211,5 +218,47 @@ def make_sr_device_cache_train_step(model, loss_fn: Callable, images_u8: torch.T
         micro = _split(hr, grad_accum) if grad_accum > 1 else [hr]
         pairs = ((degrade(hr_mb, data_scale, patch_size), hr_mb) for hr_mb in micro)
         return state, _update(state, loss_fn, pairs, grad_accum)
+
+    return step
+
+
+def _pair_of(batch: Batch, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    lr_batch, hr_batch = batch
+    return _as_f01(_to_device(lr_batch, device)), _as_f01(_to_device(hr_batch, device))
+
+
+def make_vanilla_sr_train_step(model, loss_fn: Callable):
+    """``(state, (lr, hr), rng=None) -> (state, metrics)`` for a BatchNorm SR
+    model: a training-mode forward (running statistics updated), the loss,
+    the backward and one Adam update; PSNR of the float32 prediction clipped
+    to [0, 1]."""
+
+    def step(state: TrainState, batch: Batch, rng=None):
+        del rng
+        lr_batch, hr_batch = _pair_of(batch, _device_of(state.model))
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = sr_loss_and_metrics(loss_fn, hr_batch, state.model(lr_batch))
+        loss.backward()
+        state.apply_gradients()
+        return state, {"loss": loss.detach(), **metrics}
+
+    return step
+
+
+def make_vanilla_sr_val_step(model, loss_fn: Callable, per_sample: bool = False):
+    """``(state, (lr, hr)) -> metrics`` with the running statistics: loss and
+    PSNR as batch means or, with ``per_sample``, as (B,) vectors."""
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        lr_batch, hr_batch = _pair_of(batch, _device_of(state.model))
+        state.model.eval()
+        pred = state.model(lr_batch)
+        clipped = torch.clamp(pred.to(torch.float32), 0.0, 1.0)
+        psnr_v = psnr(hr_batch.to(torch.float32), clipped)
+        if per_sample:
+            return {"loss": lift_per_sample(loss_fn)(hr_batch, pred), "psnr": psnr_v}
+        return {"loss": loss_fn(hr_batch, pred), "psnr": torch.mean(psnr_v)}
 
     return step

@@ -62,12 +62,35 @@ exits non-zero without one. Every phase raises on failure:
     batches) and ``adunet_torch.cli.train_seg_vanilla`` (float32, flips) for
     2 epochs at full width on ``.npy`` ISIC-style pairs and checks their
     ``config.json`` keys, ``epoch_metrics.csv``, checkpoints and launches;
-13. prints one JSON line with each kernel's launches, error and times, the
+13. runs ``train_sr`` on the streamed path (no ``--device_cache``:
+    ``--uint8_feed --cache_decoded``, bf16, batch 32 x 256 px) for 2 epochs
+    and checks its launches, then times the same model's streamed step
+    (host crops, pinned copy one batch ahead) and device-cache step in turns
+    (counts set to 0 just before the first streamed run: 16 K1, 16 K1
+    backward, 4 K2 per step), the host's wait on the feed, and both steps'
+    device idle share under the profiler;
+14. trains the deep config (scale 0.8, depth 5, base 64, 138,427,843
+    params, bf16, batch 8 x 256 px) without and with ``remat_levels=2``
+    (counts set to 0 just before each: 24 / 24 / 4 and 32 / 24 / 6 per
+    step) and times it beside its convolutions' share of the bf16 peak;
+    then holds one float32 step's gradients with and without remat equal;
+15. trains the vanilla SR U-Net (base 64, depth 4, 34,525,251 params,
+    BatchNorm) in bf16 with the combined loss over the seeded VGG19 tower at
+    batch 8 x 256 px (counts set to 0 just before: 2 K2 per step, no K1),
+    checks gradients, the BatchNorm buffers and the falling loss, times the
+    step, and compares one float32 step with the CPU's;
+16. runs ``train_sr_vanilla`` for 2 epochs, ``evaluate`` and ``restore`` on
+    the streamed run's checkpoint (odd image sizes, overlap 32), and an
+    ``--async_checkpoint`` run of ``train_sr`` whose best and latest states
+    load bit-equal to a synchronous run's;
+17. prints one JSON line with each kernel's launches, error and times, the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
 
 Phases 3 and 4 also hold K1 at C = 16 and 32 (forward and backward kernels,
 float32 and bf16, full and ragged row counts) and K2 at the vanilla model's
-(8, 128, 128, 64), at every shape the segmentation steps give them.
+(8, 128, 128, 64), at every shape the segmentation steps give them, and K1
+at every (rows, C) of the deep config up to C = 1024 and 2048 (bf16; float32
+and ragged row counts at the two widest).
 """
 
 from __future__ import annotations
@@ -91,7 +114,7 @@ from adunet_torch.evaluate import infer_eval_shave
 from adunet_torch.export import load_artifact
 from adunet_torch.kernels import _build, conv64, fused_norm
 from adunet_torch.metrics import msssim_power_factors_for, psnr, ssim, ssim_multiscale
-from adunet_torch.ops import degrade, rgb_to_luma_bt601
+from adunet_torch.ops import degrade, rgb_to_luma_bt601, scaled_size
 from adunet_torch.utils import gpu_identity, setup_runtime
 
 ROOT = Path(__file__).resolve().parent
@@ -134,6 +157,33 @@ K1_NARROW = [((524_288, 32), torch.float32), ((524_288, 16), torch.float32),
              ((524_288, 16), torch.bfloat16), ((524_283, 32), torch.float32),
              ((524_283, 32), torch.bfloat16), ((524_283, 16), torch.bfloat16)]
 SEG_BATCH, SEG_SIZE, SEG_STEPS, SEG_LR = 8, 256, 8, 1e-3
+
+# The deep config (scale 0.8, depth 5, base 64: 138,427,843 params) in bf16 at
+# batch 8 x 256 px: its levels run at 256, 205, 164, 132 and 106 px and its
+# bottleneck at 85 px, so K1 takes C = 64 ... 2048. (rows, C) -> LN+ReLU pairs
+# per forward: enc and dec of each level, the head at level 0, the bottleneck.
+DEEP_SCALE, DEEP_DEPTH, DEEP_BATCH, DEEP_STEPS = 0.8, 5, 8, 3
+DEEP_PARAMS = 138_427_843
+_DEEP_SIZES = [256]
+for _ in range(DEEP_DEPTH):
+    _DEEP_SIZES.append(scaled_size(_DEEP_SIZES[-1], DEEP_SCALE))
+K1_DEEP = {(DEEP_BATCH * s * s, 64 << i): (6 if i == 0 else 2 if i == DEEP_DEPTH else 4)
+           for i, s in enumerate(_DEEP_SIZES)}
+K2_DEEP = {(DEEP_BATCH, 256, 256, 64): 4}
+# K1 at C = 1024 and 2048 beside the deep path's bf16 rows: float32, and row
+# counts that leave a block part-filled
+K1_WIDE = ([((rows, c), torch.float32) for rows, c in K1_DEEP if c >= 1024]
+           + [((rows - 3, c), dtype) for rows, c in K1_DEEP if c >= 1024
+              for dtype in (torch.bfloat16, torch.float32)])
+# launches per training step (K1, K1 backward, K2) without and with
+# remat_levels=2: the recompute runs the forward of enc0/1 and dec0/1 again
+DEEP_PER_STEP = {None: (24, 24, 4), 2: (32, 24, 6)}
+# The streamed flagship: (K1, K1 backward, K2) per step, and the steps timed
+STREAM_PER_STEP, STREAM_STEPS = (16, 16, 4), 20
+# The vanilla SR U-Net (base 64, depth 4: 34,525,251 params) at batch 8 x 256
+# px: no LayerNorm; enc0.conv1 and dec0.conv1 run K2
+VANILLA_SR_PARAMS = 34_525_251
+K2_VANILLA_SR = {(8, 256, 256, 64): 2}
 # launches per step (K1, K1 backward, K2)
 SEG_PER_STEP = {"protocol": (0, 0, sum(K2_PROTOCOL.values())),
                 "vanilla": (sum(K1_VANILLA.values()), sum(K1_VANILLA.values()),
@@ -262,7 +312,9 @@ def _k1_cases():
             + [(s, n, torch.bfloat16, "serve") for s, n in K1_SERVE.items()]
             + [(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()]
             + [(s, n, torch.bfloat16, "vanilla") for s, n in K1_VANILLA.items()]
-            + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW])
+            + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW]
+            + [(s, n, torch.bfloat16, "deep") for s, n in K1_DEEP.items()]
+            + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE])
 
 
 def _k2_cases():
@@ -383,6 +435,19 @@ def k1_dx_close(what: str, got: torch.Tensor, want: torch.Tensor, flips: torch.T
     return err, float((g.float() - w.float()).abs().max()), n_flip, int((~keep).sum())
 
 
+def k1_params_close(what: str, got, want, flips: torch.Tensor, rerun) -> tuple[float, float]:
+    """K1's dgamma / dbeta against the plain backward's at 1e-3 relative. An
+    element on which the two ReLU masks disagree moves its column's sums by
+    its cotangent, so where any does, both are computed again over the rows
+    without one (``rerun(keep) -> (got, want)``, each a (dgamma, dbeta)
+    pair): the masks are row-local, so those rows agree."""
+    if bool(flips.any()):
+        keep = ~flips.reshape(-1, flips.shape[-1]).any(dim=1)
+        got, want = rerun(keep)
+    return (grad_close(what + " dgamma", got[0], want[0], 1e-3),
+            grad_close(what + " dbeta", got[1], want[1], 1e-3))
+
+
 def check_k1_backward(gen: torch.Generator) -> list[dict]:
     """K1's backward kernel against ``layer_norm_relu_backward`` on the same
     CUDA tensors, at every training (bf16) and serving (float32) shape, and
@@ -391,12 +456,16 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
     Tolerances as ``check_backward``'s: dx 1e-5 (float32) / 1e-4 plus one
     bf16 ulp (bf16) of max |dx| outside the rows with a mask disagreement;
     dgamma / dbeta 1e-3 relative (float32 sums over up to 2,097,152 rows in
-    another order). dgamma / dbeta must be bit-identical over two runs."""
+    another order), over the rows without a mask disagreement where there is
+    one (``k1_params_close``). dgamma / dbeta must be bit-identical over two
+    runs."""
     rows_out = []
     cases = ([(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()]
              + [(s, n, torch.float32, "serve") for s, n in K1_SERVE.items()]
              + [(s, n, torch.bfloat16, "vanilla") for s, n in K1_VANILLA.items()]
-             + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW])
+             + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW]
+             + [(s, n, torch.bfloat16, "deep") for s, n in K1_DEEP.items()]
+             + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE])
     for (rows, c), per_call, dtype, path in cases:
         x, a, b = _k1_inputs(gen, rows, c, dtype)
         gy = torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
@@ -412,8 +481,10 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
         what = f"K1 backward {path} {rows}x{c} {dtype}"
         dx_rel, dx_abs, n_flip, n_out = k1_dx_close(
             what + " dx", got[0], want[0], flips, 1e-5 if dtype == torch.float32 else 1e-4)
-        dg_rel = grad_close(what + " dgamma", got[1], want[1], 1e-3)
-        db_rel = grad_close(what + " dbeta", got[2], want[2], 1e-3)
+        dg_rel, db_rel = k1_params_close(
+            what, got[1:], want[1:], flips,
+            lambda keep: (fused_norm._launch_backward(x[keep], a, b, gy[keep], 1e-3)[1:],
+                          fused_norm.layer_norm_relu_backward(x[keep], a, b, gy[keep])[1:]))
         if not (torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])):
             raise AssertionError(f"{what}: dgamma / dbeta differ between two runs")
         del got, want, again, flips
@@ -493,14 +564,21 @@ def check_backward(gen: torch.Generator) -> list[dict]:
         got = _fwd_bwd(fn, inputs, gy)
         want = _fwd_bwd(plain, inputs, gy)
         torch.cuda.synchronize()
-        if kid == "K1":  # dx outside the rows where the two ReLU masks disagree
+        if kid == "K1":  # dx, dgamma, dbeta outside the rows where the ReLU masks disagree
             flips = _k1_flips(x.detach(), a.detach(), b.detach())
             errs = {"dx": k1_dx_close(f"K1 {path} dx", got[0], want[0], flips, rels[0])[0]}
+
+            def rerun(keep):
+                sub = [x.detach()[keep].requires_grad_(True), a, b]
+                return (_fwd_bwd(fn, sub, gy[keep])[1:], _fwd_bwd(plain, sub, gy[keep])[1:])
+
+            errs["dgamma"], errs["dbeta"] = k1_params_close(f"K1 {path}", got[1:], want[1:],
+                                                            flips, rerun)
             del flips
         else:
             errs = {"dx": grad_close(f"K2 {path} dx", got[0], want[0], rels[0])}
-        errs.update({n: grad_close(f"{kid} {path} {n}", g_, w_, r)
-                     for n, g_, w_, r in zip(names[1:], got[1:], want[1:], rels[1:])})
+            errs.update({n: grad_close(f"{kid} {path} {n}", g_, w_, r)
+                         for n, g_, w_, r in zip(names[1:], got[1:], want[1:], rels[1:])})
         del got, want
         ms = cuda_ms(lambda: _fwd_bwd(fn, inputs, gy), 10)
         plain_ms = cuda_ms(lambda: _fwd_bwd(plain, inputs, gy), 3)
@@ -1105,8 +1183,528 @@ def seg_entry_points(tmp: Path) -> dict:
     return out
 
 
+def device_idle(fn, runs: int) -> dict:
+    """The device's idle share over ``runs`` calls of ``fn`` under
+    ``torch.profiler``: 1 - (union of the device activity intervals) / (first
+    start to last end), with the gaps of 1 ms or more counted. None where the
+    profiler recorded no device activity ("not measured")."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return {"idle_share": None, "gaps_1ms": None, "gap_ms_1ms": None, "window_ms": None}
+    merged = [list(spans[0])]
+    for start, end in spans[1:]:
+        if start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    window = merged[-1][1] - merged[0][0]
+    busy = sum(e - b for b, e in merged)
+    gaps = [merged[i + 1][0] - merged[i][1] for i in range(len(merged) - 1)]
+    big = [g for g in gaps if g >= 1000.0]
+    return {"idle_share": 1.0 - busy / window, "gaps_1ms": len(big),
+            "gap_ms_1ms": sum(big) / 1e3, "window_ms": window / 1e3}
+
+
+def _timed_steps(step, n: int) -> float:
+    """ms per call of ``step`` over ``n`` calls, host clock, ending in a
+    device synchronise (a streamed step's time includes its wait for data)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _random_head(model, seed: int = 1) -> None:
+    """A seeded random 1x1 head (std 0.01) in place of the zero one, so the
+    first steps send gradient through the whole network."""
+    with torch.no_grad():
+        model.residual_rgb.weight.normal_(0.0, 0.01,
+                                          generator=torch.Generator("cuda").manual_seed(seed))
+
+
+def streamed_flagship(tmp: Path, ident: str) -> dict:
+    """The streamed path: ``train_sr`` without ``--device_cache``
+    (``--uint8_feed --cache_decoded``, bf16, batch 32 x 256 px) for 2 epochs,
+    then the same model's streamed step and device-cache step timed in turns
+    over the same corpus, and the streamed step's device idle share."""
+    from adunet_torch.cli.train_sr import main as train_main
+    from adunet_torch.data import device_feed, load_device_cache, make_training_patch_dataset
+    from adunet_torch.losses import charbonnier_loss
+    from adunet_torch.models import build_super_resolution_unet
+    from adunet_torch.train import (create_train_state, make_optimizer,
+                                    make_sr_device_cache_train_step, make_sr_train_step)
+
+    corpus = tmp / "cli_corpus"  # 10 images of 512 px (train_entry_point)
+    _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = train_main([
+            "--scale", "0.5", "--depth_override", "3", "--mixed_precision", "--uint8_feed",
+            "--cache_decoded", "--batch_size", "32", "--patch_size", "256",
+            "--patches_per_image", "8", "--epochs", "2", "--high_res_dir", str(corpus),
+            "--image_suffix", ".npy", "--model_dir", str(tmp / "models_streamed"),
+            "--log_dir", str(tmp / "logs"), "--run_name", "streamed", "--seed", "11"])
+    seconds = time.perf_counter() - t0
+    k1, k1b, k2 = _counts()
+    printed = buf.getvalue()
+    for line in printed.splitlines():
+        log(f"[streamed cli] {line}")
+    cfg = json.loads((Path(result["run_dir"]) / "config.json").read_text())
+    steps = 2 * cfg["steps_per_epoch"]
+    forwards = steps + 2 + 2  # train, val (4 tiles) per epoch, eval
+    if (cfg["low_res_mode"], cfg["uint8_feed"], cfg["device_cache"]) != \
+            ("synthetic_patches", True, False) or printed.count("PSNR(Y)") != 2:
+        raise AssertionError(f"streamed train_sr: config {cfg}")
+    if (k1, k1b, k2) != (16 * forwards, 16 * steps, 4 * forwards):
+        raise AssertionError(f"streamed train_sr: expected {16 * forwards} K1 / {16 * steps} K1 "
+                             f"backward / {4 * forwards} K2 launches, got {k1} / {k1b} / {k2}")
+    log(f"[streamed cli] 2 epochs in {seconds:.1f} s; K1 {k1}, K1 backward {k1b}, K2 {k2}")
+
+    paths = sorted(str(p) for p in corpus.glob("*.npy"))
+    model, _ = build_super_resolution_unet(0.5, depth_override=3, dtype=torch.bfloat16,
+                                           device="cuda", seed=0)
+    _random_head(model)
+    state = create_train_state(model, make_optimizer(model.parameters(), 1e-4))
+    ds, _ = make_training_patch_dataset(paths, patch_size=TRAIN_PATCH, patches_per_image=8,
+                                        scale=0.5, batch_size=TRAIN_BATCH, seed=3,
+                                        output_dtype="uint8", cache_decoded=True)
+    feed = device_feed(ds, "cuda")
+    streamed = make_sr_train_step(model, charbonnier_loss)
+    cache = load_device_cache(paths, "cuda")
+    cached = make_sr_device_cache_train_step(model, charbonnier_loss, cache,
+                                             patch_size=TRAIN_PATCH, batch_size=TRAIN_BATCH)
+    gen = torch.Generator("cuda").manual_seed(0)
+    waited = [0.0]
+
+    def run_streamed():
+        t = time.perf_counter()
+        batch = next(feed)  # the host's wait for the producer and the copy's start
+        waited[0] += time.perf_counter() - t
+        streamed(state, batch)
+
+    run_cached = lambda: cached(state, None, gen)  # noqa: E731
+    for _ in range(3):  # warm-up: the shuffle buffer fills, cuDNN picks its algorithms
+        run_streamed()
+        run_cached()
+    _zero_counts()
+    waited[0] = 0.0
+    ms_streamed = [_timed_steps(run_streamed, STREAM_STEPS)]
+    counts = _counts()
+    ms_cached = [_timed_steps(run_cached, STREAM_STEPS)]
+    ms_cached.append(_timed_steps(run_cached, STREAM_STEPS))
+    ms_streamed.append(_timed_steps(run_streamed, STREAM_STEPS))
+    feed_ms = waited[0] / (2 * STREAM_STEPS) * 1e3
+    want = tuple(n * STREAM_STEPS for n in STREAM_PER_STEP)
+    if counts != want:
+        raise AssertionError(f"streamed step: expected {want} K1 / K1 backward / K2 launches over "
+                             f"{STREAM_STEPS} steps, got {counts}")
+    idle = device_idle(run_streamed, 16)
+    idle_cached = device_idle(run_cached, 16)
+    feed.close()
+    ms, ms_c = float(np.mean(ms_streamed)), float(np.mean(ms_cached))
+    # the feed paces the step where the streamed step is slower than the
+    # device-cache one by more than 5 %; the host's wait on the feed and the
+    # profiles' idle gaps say where such time goes
+    paced = ms > 1.05 * ms_c
+
+    def idle_str(d):
+        if d["idle_share"] is None:
+            return "not measured"
+        return (f"{d['idle_share']:.2%} of {d['window_ms']:.1f} ms ({d['gaps_1ms']} gaps >= 1 ms, "
+                f"{d['gap_ms_1ms']:.1f} ms)")
+
+    log(f"[streamed] {ident}: flagship bf16 step, batch {TRAIN_BATCH} x {TRAIN_PATCH} px, uint8 "
+        f"feed from host memory: {ms:.3f} ms/step ({TRAIN_BATCH * 1e3 / ms:.1f} img/s; runs "
+        f"{ms_streamed[0]:.3f} / {ms_streamed[1]:.3f}); device-cache step in the same run "
+        f"{ms_c:.3f} ms/step (runs {ms_cached[0]:.3f} / {ms_cached[1]:.3f}); host-feed share "
+        f"{ms / ms_c - 1.0:+.2%}; the host waits {feed_ms:.3f} ms/step for the next batch; "
+        f"launches per step {[c // STREAM_STEPS for c in counts]}; device idle under the "
+        f"profiler over 16 steps: streamed {idle_str(idle)}, device cache {idle_str(idle_cached)}; "
+        + ("the feed paces the step" if paced else "the feed does not pace the step"))
+    del cache, state, model, feed
+    torch.cuda.empty_cache()
+    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "steps": STREAM_STEPS,
+            "ms_per_step": ms, "ms_runs": ms_streamed, "img_per_s": TRAIN_BATCH * 1e3 / ms,
+            "device_cache_ms_per_step": ms_c, "device_cache_ms_runs": ms_cached,
+            "host_feed_share": ms / ms_c - 1.0, "feed_wait_ms_per_step": feed_ms,
+            "idle": idle, "idle_device_cache": idle_cached,
+            "feed_paces_step": paced, "cli_seconds": seconds, "cli_launches": [k1, k1b, k2],
+            "ckpt_dir": result["ckpt_dir"]}
+
+
+def _conv_flops(model, x: torch.Tensor) -> float:
+    """Multiply-add FLOPs (2 per MAC) of every convolution in one forward of
+    ``model`` on ``x``, from the shapes the Conv modules see."""
+    from adunet_torch.nn import Conv
+
+    total = [0.0]
+
+    def hook(module, inputs, output):
+        o, i, kh, kw = module.weight.shape
+        total[0] += 2.0 * output.numel() * i * kh * kw
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, Conv)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def deep_config(tmp: Path, ident: str) -> dict:
+    """The deep config in bf16 at batch 8 x 256 px from a device cache, with
+    and without remat_levels=2: launches per step, ms/step, peak memory and
+    the share of the bf16 peak that its convolutions' FLOPs reach. Then one
+    float32 step at batch 2 with and without remat from the same weights:
+    every gradient equal within 1e-5 relative L2."""
+    from adunet_torch.data import load_device_cache
+    from adunet_torch.losses import charbonnier_loss
+    from adunet_torch.models import build_super_resolution_unet
+    from adunet_torch.train import (create_train_state, make_optimizer,
+                                    make_sr_device_cache_train_step, make_sr_train_step)
+
+    cache = load_device_cache(sorted(str(p) for p in (tmp / "cache").glob("*.npy")), "cuda")
+    out = {"levels_px": _DEEP_SIZES}
+    for levels in (None, 2):
+        model, info = build_super_resolution_unet(DEEP_SCALE, depth_override=DEEP_DEPTH,
+                                                  dtype=torch.bfloat16, remat_levels=levels,
+                                                  device="cuda", seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != DEEP_PARAMS:
+            raise AssertionError(f"deep config has {n_params} params, expected {DEEP_PARAMS}")
+        _random_head(model)
+        probe = torch.rand(DEEP_BATCH, 256, 256, 3, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+        fwd_flops = _conv_flops(model, probe)
+        state = create_train_state(model, make_optimizer(model.parameters(), 1e-4))
+        step = make_sr_device_cache_train_step(model, charbonnier_loss, cache, patch_size=256,
+                                               batch_size=DEEP_BATCH)
+        gen = torch.Generator("cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        losses = [step(state, None, gen)[1]["loss"] for _ in range(DEEP_STEPS)]
+        torch.cuda.synchronize()
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = tuple(n * DEEP_STEPS for n in DEEP_PER_STEP[levels])
+        if counts != want:
+            raise AssertionError(f"deep config remat_levels={levels}: expected {want} K1 / K1 "
+                                 f"backward / K2 launches over {DEEP_STEPS} steps, got {counts}")
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"deep config: non-finite losses {losses}")
+        ms = cuda_ms(lambda: step(state, None, gen), DEEP_STEPS)
+        # the step's useful work: forward, data gradient and weight gradient
+        # of every convolution (the recompute of remat is not counted)
+        share = 3.0 * fwd_flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+        key = f"remat_{levels or 0}"
+        out[key] = {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)),
+                    "per_step": list(DEEP_PER_STEP[levels]), "ms_per_step": ms,
+                    "img_per_s": DEEP_BATCH * 1e3 / ms, "peak_gb": peak_gb,
+                    "conv_tflop_per_step": 3.0 * fwd_flops / 1e12, "bf16_peak_share": share,
+                    "losses": losses, "bottleneck_px": info["bottleneck_size"]}
+        log(f"[deep] {ident}: scale {DEEP_SCALE}, depth {DEEP_DEPTH}, {n_params:,} params, bf16, "
+            f"batch {DEEP_BATCH} x 256 px, remat_levels={levels}: {ms:.3f} ms/step "
+            f"({DEEP_BATCH * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB; launches "
+            f"per step K1 {counts[0] // DEEP_STEPS}, K1 backward {counts[1] // DEEP_STEPS}, K2 "
+            f"{counts[2] // DEEP_STEPS}; conv FLOPs {3.0 * fwd_flops / 1e12:.3f} TFLOP per step "
+            f"(3 x forward), {share:.2%} of the bf16 peak; losses "
+            + ", ".join(f"{v:.5f}" for v in losses))
+        del state, model, step
+        torch.cuda.empty_cache()
+    del cache
+
+    # float32 gradients with and without remat from the same perturbed weights
+    img = np.stack([_synth()(np.random.default_rng(60 + i), 256) for i in range(2)])
+    hr = np.round(img * 255).astype(np.uint8)
+    grads = {}
+    base_model = None
+    for levels in (None, 2):
+        model, _ = build_super_resolution_unet(DEEP_SCALE, depth_override=DEEP_DEPTH,
+                                               remat_levels=levels, device="cuda", seed=7)
+        if base_model is None:
+            with torch.no_grad():
+                pgen = torch.Generator("cuda").manual_seed(8)
+                for p in model.parameters():
+                    p.add_(0.02 * torch.randn(p.shape, generator=pgen, device="cuda"))
+            base_model = {n: v.clone() for n, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(base_model)
+        state = create_train_state(model, make_optimizer(model.parameters(), 1e-4))
+        make_sr_train_step(model, charbonnier_loss)(state, hr)
+        grads[levels] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del state, model
+        torch.cuda.empty_cache()
+    worst = max(float((grads[2][n] - g).norm() / g.norm().clamp_min(1e-30))
+                for n, g in grads[None].items())
+    zero = [n for n, g in grads[None].items() if not float(g.abs().max()) > 0]
+    log(f"[deep f32 grads] batch 2 x 256 px: worst relative L2 between the gradients with and "
+        f"without remat_levels=2 {worst:.2e} over {len(grads[None])} leaves")
+    if not worst <= 1e-5 or zero:
+        raise AssertionError(f"deep config: gradients with and without remat differ ({worst:.2e}) "
+                             f"or are zero: {zero}")
+    out["f32_remat_grad_rel_l2"] = worst
+    return out
+
+
+def _vanilla_setup(dtype: torch.dtype, device: str, seed: int = 0):
+    """The vanilla SR U-Net at full width and its combined loss over the
+    seeded VGG19 tower (no ImageNet weights are in the repository)."""
+    from adunet_torch.losses import build_losses_and_metrics, make_perceptual_fn
+    from adunet_torch.models import build_vanilla_sr_unet
+
+    model = build_vanilla_sr_unet(dtype=dtype, device=device, seed=seed)
+    loss_fn, _ = build_losses_and_metrics(
+        "combined", perceptual_fn=make_perceptual_fn(None, 256, dtype=dtype, device=device))
+    return model, loss_fn
+
+
+def _vanilla_pairs(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` synthetic 256 px HR images and their LR side (degrade at 0.5)."""
+    rng = np.random.default_rng(seed)
+    hr = np.stack([np.round(_synth()(rng, 256) * 255) / 255.0 for _ in range(n)]).astype(np.float32)
+    lr = degrade(torch.from_numpy(hr), 0.5).numpy()
+    return lr, hr
+
+
+def vanilla_sr(ident: str) -> dict:
+    """``SEG_STEPS`` bf16 steps of the vanilla SR U-Net with the combined
+    loss at batch 8 x 256 px, alternating two batches: launches, gradients,
+    BatchNorm buffers and the loss are checked, then the step is timed."""
+    from adunet_torch.train import create_train_state, make_optimizer, make_vanilla_sr_train_step
+
+    lr, hr = _vanilla_pairs(2 * SEG_BATCH, seed=71)
+    batches = [(torch.from_numpy(lr[i : i + SEG_BATCH]).cuda(),
+                torch.from_numpy(hr[i : i + SEG_BATCH]).cuda()) for i in (0, SEG_BATCH)]
+    model, loss_fn = _vanilla_setup(torch.bfloat16, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != VANILLA_SR_PARAMS:
+        raise AssertionError(f"vanilla SR U-Net has {n_params} params, expected {VANILLA_SR_PARAMS}")
+    state = create_train_state(model, make_optimizer(model.parameters(), SEG_LR))
+    step = make_vanilla_sr_train_step(model, loss_fn)
+    buffers0 = {n: b.clone() for n, b in model.named_buffers()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses = []
+    for i in range(SEG_STEPS):
+        state, metrics = step(state, batches[i % 2])
+        losses.append(metrics["loss"])
+        if i == 0:
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())
+                   or not bool(p.grad.abs().max() > 0)]
+            if bad:
+                raise AssertionError(f"vanilla SR: parameters without a finite nonzero gradient: "
+                                     f"{bad}")
+    torch.cuda.synchronize()
+    counts = _counts()
+    per = sum(K2_VANILLA_SR.values())
+    if counts != (0, 0, per * SEG_STEPS):
+        raise AssertionError(f"vanilla SR: expected (0, 0, {per * SEG_STEPS}) K1 / K1 backward / K2 "
+                             f"launches over {SEG_STEPS} steps, got {counts}")
+    still = [n for n, b in model.named_buffers() if torch.equal(b, buffers0[n])]
+    if still:
+        raise AssertionError(f"vanilla SR: BatchNorm buffers that did not move: {still}")
+    losses = [float(v) for v in losses]
+    log(f"[vanilla sr] bf16, {n_params:,} params, combined loss (seeded VGG19), {SEG_STEPS} steps "
+        f"at batch {SEG_BATCH} x 256 px: losses {', '.join(f'{v:.4f}' for v in losses)}; finite "
+        f"nonzero gradients after step 1; {len(buffers0)} BatchNorm buffers moved; K1 {counts[0]}, "
+        f"K1 backward {counts[1]}, K2 {counts[2]} launches")
+    if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"vanilla SR: the training loss did not fall: {losses}")
+    ms = cuda_ms(lambda: step(state, batches[0]), TIMED_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[vanilla sr] {ident}: bf16 train step with the combined loss, batch {SEG_BATCH} x 256 px: "
+        f"{ms:.3f} ms/step ({SEG_BATCH * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB")
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "steps": SEG_STEPS,
+            "losses": losses, "ms_per_step": ms, "img_per_s": SEG_BATCH * 1e3 / ms,
+            "peak_gb": peak_gb, "n_params": n_params}
+
+
+def vanilla_card_vs_cpu_step() -> dict:
+    """One float32 step of the vanilla SR U-Net (full width, training mode,
+    combined loss over the same seeded VGG19 tower) at batch 2 on the card and
+    on the CPU from the same weights and batch, at the segmentation phase's
+    BatchNorm tolerances (``seg_card_vs_cpu_step``): loss 1e-5 relative,
+    gradients 2e-2 in relative L2 norm, the biases of convs that feed a
+    BatchNorm (true gradient 0) within 2e-4 of the largest gradient norm,
+    running statistics rtol 1e-4 / atol 1e-5."""
+    from adunet_torch.train import create_train_state, make_optimizer, make_vanilla_sr_train_step
+
+    cpu_model, cpu_loss = _vanilla_setup(torch.float32, "cpu", seed=3)
+    gpu_model, gpu_loss = _vanilla_setup(torch.float32, "cuda", seed=4)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    lr, hr = _vanilla_pairs(2, seed=81)
+    out = {}
+    for name, model, loss_fn in (("card", gpu_model, gpu_loss), ("cpu", cpu_model, cpu_loss)):
+        state = create_train_state(model, make_optimizer(model.parameters(), 1e-4))
+        t0 = time.perf_counter()
+        _, metrics = make_vanilla_sr_train_step(model, loss_fn)(state, (lr, hr))
+        out[name] = {"loss": float(metrics["loss"]), "seconds": time.perf_counter() - t0,
+                     "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()}}
+    card, cpu = out["card"], out["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    top = max(float(g.norm()) for g in cpu["grads"].values())
+    pre_bn = {n.replace("norm", "conv").replace("running_mean", "bias")
+              for n in cpu["buffers"] if n.endswith(".running_mean")}
+    grad_rel = max(float((card["grads"][n] - g).norm() / g.norm().clamp_min(1e-30))
+                   for n, g in cpu["grads"].items() if n not in pre_bn)
+    bias_abs = max(max(float(card["grads"][n].norm()), float(cpu["grads"][n].norm()))
+                   for n in pre_bn) / top
+    stats_ok = all(torch.allclose(card["buffers"][n], v, rtol=1e-4, atol=1e-5)
+                   for n, v in cpu["buffers"].items())
+    stats_err = max(float((card["buffers"][n] - v).abs().max()) for n, v in cpu["buffers"].items())
+    log(f"[vanilla sr f32 step] batch 2 x 256 px, combined loss: loss card {card['loss']:.7f} / CPU "
+        f"{cpu['loss']:.7f} (rel {loss_rel:.1e}); worst gradient rel L2 {grad_rel:.1e} "
+        f"(pre-BatchNorm biases {bias_abs:.1e} of the largest gradient norm); running statistics "
+        f"max |diff| {stats_err:.2e}; CPU step {cpu['seconds']:.1f} s")
+    if not (loss_rel <= 1e-5 and grad_rel <= 2e-2 and bias_abs <= 2e-4 and stats_ok):
+        raise AssertionError("the card's float32 vanilla SR step disagrees with the CPU's")
+    return {"loss_rel": loss_rel, "grad_rel_l2": grad_rel, "pre_bn_bias_abs": bias_abs,
+            "running_stats_max_diff": stats_err, "cpu_seconds": cpu["seconds"]}
+
+
+def sr_entry_points(tmp: Path, ckpt_dir: str) -> dict:
+    """``train_sr_vanilla`` (bf16, combined loss, 2 epochs), ``evaluate`` and
+    ``restore`` on the streamed phase's checkpoint, and an
+    ``--async_checkpoint`` run of ``train_sr`` whose best and latest states
+    load bit-equal to a synchronous run's from the same seed (cuDNN held to
+    its deterministic algorithms for the two runs)."""
+    from adunet_torch.cli.evaluate import main as evaluate_main
+    from adunet_torch.cli.restore import main as restore_main
+    from adunet_torch.cli.train_sr import main as train_main
+    from adunet_torch.cli.train_sr_vanilla import main as vanilla_main
+    from adunet_torch.data import load_rgb_image_full
+    from adunet_torch.train import CheckpointManager
+
+    out = {}
+    # train_sr_vanilla on paired HR / LR directories of 16 images
+    lr, hr = _vanilla_pairs(16, seed=91)
+    for sub, stack in (("vhr", hr), ("vlr", lr)):
+        (tmp / sub).mkdir()
+        for i, img in enumerate(stack):
+            np.save(tmp / sub / f"v{i:02d}.npy", np.clip(img, 0.0, 1.0).astype(np.float32))
+    _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = vanilla_main(["--high_res_dir", str(tmp / "vhr"), "--low_res_dir", str(tmp / "vlr"),
+                               "--batch_size", "8", "--epochs", "2", "--mixed_precision",
+                               "--model_dir", str(tmp / "vmodels"), "--log_dir", str(tmp / "logs"),
+                               "--run_name", "vanilla_sr"])
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    for line in buf.getvalue().splitlines():
+        log(f"[vanilla sr cli] {line}")
+    cfg = json.loads((Path(result["run_dir"]) / "config.json").read_text())
+    # 16 images: 13 train (1 step of 8), 2 val, 1 test; forwards: 2 train
+    # steps, 2 val batches, then the val and test evaluation
+    if list(cfg) != ["run_name", "loss", "epochs_ran", "best_epoch", "results", "created_at"] \
+            or cfg["epochs_ran"] != 2 or counts != (0, 0, 2 * 6) \
+            or CheckpointManager(result["ckpt_dir"]).latest_step() != 2:
+        raise AssertionError(f"train_sr_vanilla: config {cfg}, launches {counts}")
+    out["vanilla_cli"] = {"seconds": seconds, "launches": list(counts), "results": cfg["results"]}
+    log(f"[vanilla sr cli] 2 epochs in {seconds:.1f} s; K2 {counts[2]} launches; results "
+        f"{cfg['results']}")
+
+    # evaluate: the reference's three report files
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev = evaluate_main(["--model-path", ckpt_dir, "--scale", "0.5",
+                            "--hr-dir", str(tmp / "cli_corpus"), "--image-suffix", ".npy",
+                            "--batch-size", "8", "--output-dir", str(tmp / "evaluation"),
+                            "--run-name", "streamed"])
+    for line in buf.getvalue().splitlines():
+        log(f"[evaluate] {line}")
+    run_dir = Path(ev["run_dir"])
+    files = sorted(p.name for p in run_dir.iterdir())
+    rows = (run_dir / "per_image_metrics.csv").read_text().strip().splitlines()
+    if files != ["config.json", "metrics.json", "per_image_metrics.csv"] \
+            or rows[0] != "index,filename,psnr_y,ssim_y,msssim_y,mse_y" or len(rows) != 41 \
+            or not np.isfinite(ev["summary"].psnr_mean):
+        raise AssertionError(f"evaluate wrote {files}, {len(rows)} CSV lines")
+    out["evaluate"] = {"samples": ev["summary"].samples, "psnr_mean": ev["summary"].psnr_mean}
+
+    # restore: odd sizes, overlap 32
+    odd = tmp / "odd"
+    odd.mkdir()
+    rng = np.random.default_rng(93)
+    shapes = [(300, 420), (257, 300), (200, 333)]
+    for i, (h, w) in enumerate(shapes):
+        np.save(odd / f"odd{i}.npy", np.round(_synth()(rng, max(h, w))[:h, :w] * 255)
+                .astype(np.uint8))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        written = restore_main(["--model-path", ckpt_dir, "--scale", "0.5", "--input-dir", str(odd),
+                                "--output-dir", str(tmp / "restored"), "--image-suffix", ".npy",
+                                "--overlap", "32"])
+    for line in buf.getvalue().splitlines():
+        log(f"[restore] {line}")
+    for path, (h, w) in zip(written, shapes):
+        arr = np.load(path) if path.suffix == ".npy" else load_rgb_image_full(path)
+        if arr.shape != (h, w, 3) or not np.isfinite(arr).all():
+            raise AssertionError(f"restore wrote {path.name} of shape {arr.shape}, want {(h, w, 3)}")
+    out["restore"] = {"images": len(written), "shapes": shapes}
+
+    # async checkpoints: bit-equal to a synchronous run's
+    small = tmp / "async_corpus"
+    small.mkdir()
+    write_corpus(small, 6, 512, seed=95)  # 4 train / 1 val / 1 test
+    args = ["--scale", "0.5", "--depth_override", "3", "--mixed_precision", "--batch_size", "8",
+            "--patch_size", "256", "--patches_per_image", "2", "--epochs", "2",
+            "--high_res_dir", str(small), "--image_suffix", ".npy", "--uint8_feed",
+            "--cache_decoded", "--seed", "13"]
+    loaded = {}
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for name, extra in (("sync", []), ("async", ["--async_checkpoint"])):
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = train_main(args + extra + ["--model_dir", str(tmp / f"ckpt_{name}"),
+                                                 "--log_dir", str(tmp / "logs"), "--run_name", name])
+            mngr = CheckpointManager(res["ckpt_dir"])
+            loaded[name] = {which: torch.load(Path(res["ckpt_dir"]) / str(step) / "state.pt",
+                                              weights_only=True)
+                            for which, step in (("best", mngr.best_step()),
+                                                ("latest", mngr.latest_step()))}
+            del res
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    for which in ("best", "latest"):
+        a, b = loaded["sync"][which], loaded["async"][which]
+        same = a["step"] == b["step"] and all(torch.equal(b["model"][n], v)
+                                              for n, v in a["model"].items())
+        if not same:
+            raise AssertionError(f"async checkpoint ({which}) differs from the synchronous run's")
+    log(f"[async ckpt] best (step {loaded['sync']['best']['step']}) and latest (step "
+        f"{loaded['sync']['latest']['step']}) states of the --async_checkpoint run load bit-equal "
+        f"to the synchronous run's; evaluate wrote {files}; restore wrote {len(written)} images "
+        f"of shapes {shapes}")
+    out["async_equal"] = True
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_launches: dict,
-                 seg_launches: dict, build_s: float) -> dict:
+                 seg_launches: dict, sr_launches: dict, build_s: float) -> dict:
     """One entry per kernel. ``launches`` come from the training path (device-
     cache steps); ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
     ``library_ms`` and ``library_device_ms`` are summed over the kernel's
@@ -1118,7 +1716,12 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
     the bf16 protocol and vanilla segmentation phases, their launches, the
     shapes and the same sums over one step at batch 8 x 256 px (the protocol
     model's K2 shape is the serving one); ``narrow`` lists K1's other C = 16
-    and 32 checks, per launch."""
+    and 32 checks, per launch; ``streamed``, ``deep`` and ``vanilla_sr`` hold
+    the launches of the streamed flagship steps, the deep config's steps
+    without and with remat_levels=2, and the vanilla SR steps, with the same
+    sums over one step of the deep config (no remat) and of the vanilla SR
+    model at batch 8 x 256 px; ``wide`` lists K1's other C = 1024 and 2048
+    checks (float32, ragged row counts), per launch."""
     meta = {
         "K1": ("layer_norm_relu", "adunet_torch/csrc/fused_norm.cu", "adunet/kernels/fused_norm.py:48"),
         "K1_bwd": ("layer_norm_relu_backward", "adunet_torch/csrc/fused_norm.cu",
@@ -1141,6 +1744,9 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
     seg_paths = {"protocol": ("serve", {"K2": K2_PROTOCOL}),
                  "vanilla": ("vanilla", {"K1": K1_VANILLA, "K1_bwd": K1_VANILLA,
                                          "K2": K2_VANILLA})}
+    # the same for the SR paths of this script's later phases
+    sr_paths = {"deep": ("deep", "serve", {"K1": K1_DEEP, "K1_bwd": K1_DEEP, "K2": K2_DEEP}),
+                "vanilla_sr": (None, "serve", {"K2": K2_VANILLA_SR})}
 
     out = []
     for kid, (name, src, replaces) in meta.items():
@@ -1164,11 +1770,20 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             sums = {k: summed_at(rows, k, per[kid]) for k in keys} if kid in per else {}
             shapes = [d["shape"] for d in rows if tuple(d["shape"]) in per.get(kid, {})]
             entry["seg"][path] = {"launches": seg_launches[path][kid], "shapes": shapes, **sums}
-        narrow = [d for d in details if d["kernel"] == kid and d["path"] == "narrow"]
-        if narrow:  # K1's C = 16 / 32 beside the paths: float32, C = 16, ragged rows
-            entry["narrow"] = [{k: d[k] for k in ("shape", "dtype", "max_abs_err", "ms",
-                                                  "device_ms", "bound_ms", "library_ms")}
-                               for d in narrow]
+        entry["streamed"] = {"launches": sr_launches["streamed"][kid]}
+        for path, (k1_rows, k2_rows, per) in sr_paths.items():
+            rows_path = k2_rows if kid == "K2" else k1_rows
+            rows = [d for d in details if d["kernel"] == kid and d["path"] == rows_path
+                    and d["dtype"] == "bfloat16"]
+            sums = {k: summed_at(rows, k, per[kid]) for k in keys} if kid in per else {}
+            shapes = [d["shape"] for d in rows if tuple(d["shape"]) in per.get(kid, {})]
+            entry[path] = {"launches": sr_launches[path][kid], "shapes": shapes, **sums}
+        for extra in ("narrow", "wide"):  # K1's other checks beside the paths, per launch
+            rows = [d for d in details if d["kernel"] == kid and d["path"] == extra]
+            if rows:
+                entry[extra] = [{k: d[k] for k in ("shape", "dtype", "max_abs_err", "ms",
+                                                   "device_ms", "bound_ms", "library_ms")}
+                                for d in rows]
         if grad:  # the autograd Function's forward + backward
             per_step = K1_TRAIN if kid == "K1" else K2_TRAIN
             entry["fwd_bwd_ms"] = sum(g["fwd_bwd_ms"] * per_step[tuple(g["shape"])] for g in grad)
@@ -1215,17 +1830,26 @@ def main() -> int:
                                    ("vanilla", torch.bfloat16))}
         seg_step = seg_card_vs_cpu_step()
         seg_cli = seg_entry_points(Path(tmp))
+        streamed = streamed_flagship(Path(tmp), ident)
+        deep = deep_config(Path(tmp), ident)
+        vanilla = vanilla_sr(ident)
+        vanilla_step = vanilla_card_vs_cpu_step()
+        sr_cli = sr_entry_points(Path(tmp), streamed.pop("ckpt_dir"))
 
     seconds = time.perf_counter() - t_start
     summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
                "golden": scores, "speed": speed, "train": trained, "f32_step": step_check,
                "train_sr": entry, "seg_train": seg, "seg_f32_step": seg_step,
-               "seg_cli": seg_cli, "seconds": seconds}
+               "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
+               "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "seconds": seconds}
     log("[detail] " + json.dumps(summary))
     log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
     seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}
+    sr_launches = {"streamed": streamed["launches"], "vanilla_sr": vanilla["launches"],
+                   "deep": {kid: {k: deep[k]["launches"][kid] for k in ("remat_0", "remat_2")}
+                            for kid in ("K1", "K1_bwd", "K2")}}
     print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"],
-                                  seg_launches, build_s)))
+                                  seg_launches, sr_launches, build_s)))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

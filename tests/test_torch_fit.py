@@ -233,17 +233,19 @@ def test_train_sr_cli_on_cpu(tiny_corpus, tmp_path, capsys):
 
 
 def test_train_sr_cli_refusals(tiny_corpus, tmp_path):
+    """Only multi-device training is still refused (ROADMAP item 13); the
+    streamed pipeline, remat and the combined loss run
+    (``tests/test_torch_sr_cli.py``). The default device needs a GPU."""
     from adunet_torch.cli.train_sr import main
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(_cli_args(tiny_corpus, tmp_path, "--device", "cpu"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(_cli_args(tiny_corpus, tmp_path, "--device", "cpu", "--device_cache", "--remat"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        main(_cli_args(tiny_corpus, tmp_path, "--device", "cpu", "--device_cache", "--loss", "combined"))
+    for flags in (("--n_devices", "2"), ("--model_shards", "2")):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            main(_cli_args(tiny_corpus, tmp_path, "--device", "cpu", *flags))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             main(_cli_args(tiny_corpus, tmp_path, "--device_cache"))
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            main(_cli_args(tiny_corpus, tmp_path, "--remat_levels", "1"))
 
 
 def test_eval_feed_and_evaluate_sr_match_reference(tmp_path, perturb_params):

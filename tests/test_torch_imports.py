@@ -22,6 +22,13 @@ _TRAINING_MODULES = (
     "adunet_torch.metrics.seg", "adunet_torch.losses.seg", "adunet_torch.data.augment",
     "adunet_torch.data.seg_pipeline", "adunet_torch.train.seg", "adunet_torch.cli.train_seg",
     "adunet_torch.cli.train_seg_vanilla",
+    # the SR remainder: streamed feed, paired data, remat, vanilla SR, the
+    # combined loss, async checkpoints, reports and the SR entry points
+    "adunet_torch.data.patches", "adunet_torch.data.io", "adunet_torch.data.discovery",
+    "adunet_torch.data.array_dataset", "adunet_torch.models.sr_adaptive",
+    "adunet_torch.models.sr_vanilla", "adunet_torch.losses.perceptual", "adunet_torch.losses.sr",
+    "adunet_torch.cli.train_sr_depth3", "adunet_torch.cli.train_sr_vanilla",
+    "adunet_torch.cli.evaluate", "adunet_torch.cli.restore",
 )
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|adunet)(\.|\s|$)", re.MULTILINE

@@ -60,10 +60,15 @@ def test_entry_points_refuse_cuda_without_gpu():
 
 
 def test_untrainable_options_raise():
-    with pytest.raises(NotImplementedError):
-        build_torch(0.5, depth_override=1, remat=True, device="meta")
-    with pytest.raises(NotImplementedError):
-        build_torch(0.5, depth_override=1, remat_levels=2, device="meta")
+    """Only a misspelt norm still raises. remat is ported: ``remat=True``
+    checkpoints every block, ``remat_levels=N`` (which overrides it) the
+    encoder / decoder blocks below level N and never the bottleneck or head,
+    as ``adunet/models/sr_adaptive.py:62-66`` selects them."""
+    everything, _ = build_torch(0.5, depth_override=3, remat=True, device="meta")
+    selective, _ = build_torch(0.5, depth_override=3, remat=True, remat_levels=2, device="meta")
+    levels = [0, 1, 2, None]
+    assert [everything._uses_remat(level) for level in levels] == [True] * 4
+    assert [selective._uses_remat(level) for level in levels] == [True, True, False, False]
     # norm="batch" is trainable since the segmentation models were ported
     assert type(ConvBlock(3, 8, norm="batch").norm0).__name__ == "BatchNorm"
     with pytest.raises(ValueError, match="unknown norm"):

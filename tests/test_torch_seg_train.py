@@ -385,9 +385,10 @@ def test_seg_clis_refuse_what_is_not_ported(tiny_isic, tmp_path):
     base = _protocol_args(tiny_isic, tmp_path, "x", 1)
     with pytest.raises(NotImplementedError, match="item 13"):
         protocol_main(base + ["--device", "cpu", "--n_devices", "2"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        vanilla_main(_vanilla_args(tiny_isic, tmp_path, 1) + ["--device", "cpu",
-                                                              "--async_checkpoint"])
+    # --async_checkpoint is ported: it writes the best checkpoint on a thread
+    out = vanilla_main(_vanilla_args(tiny_isic, tmp_path, 1) + ["--device", "cpu",
+                                                                "--async_checkpoint"])
+    assert CheckpointManager(out["checkpoint"]).latest_step() == 1
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             protocol_main(base)
