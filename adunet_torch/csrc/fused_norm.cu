@@ -9,18 +9,16 @@
 // 2*sizeof(T) bytes per element, far below the card's ~20 FLOP/byte (f32
 // SIMT) ridge, so its floor is (read x + write y) / 3.35 TB/s.
 //
-// Design: one warp per row, eight rows per 256-thread block. The row stays
-// in registers between the two warp reductions (the mean, then the mean of
-// squared deviations, as the reference computes them), so x is read from
-// device memory once and y written once. Each lane loads V contiguous
-// elements (8-16 bytes) so a warp's load is one coalesced run; C is a
-// compile-time constant (16..2048), so the loops fully unroll.
-//
-// Narrow rows (C = 16, 32: the vanilla segmentation U-Net's first level) are
-// shorter than 32 lanes x one 16-byte vector, so there L = C / V lanes hold a
-// row (V elements of 16 bytes each) and a warp holds 32 / L consecutive rows,
-// still one coalesced run per load. The reductions are butterflies over
-// lane offsets below L, which never cross from one row's lanes to another's.
+// Design: each lane loads 16-byte vectors (V = 4 float32 or 8 bf16 values),
+// so a warp's load is one coalesced run of 512 bytes. A row of C elements is
+// held by L = min(32, C / V) lanes, K vectors each, and a warp holds 32 / L
+// consecutive rows (C < 32 * V: C <= 64 in float32, C <= 128 in bf16), eight
+// warps to a 256-thread block. The row stays in registers between the two
+// warp reductions (the mean, then the mean of squared deviations, as the
+// reference computes them), so x is read from device memory once and y
+// written once. The reductions are butterflies over lane offsets below L,
+// which never cross from one row's lanes to another's; C is a compile-time
+// constant (16..2048), so the loops fully unroll.
 #include "common.cuh"
 
 namespace adunet {
@@ -28,14 +26,13 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
-// The split of a row of C elements of type S over the lanes: L lanes per row
-// (32, or fewer for a narrow row), V elements per vector load, K loads per
-// lane. C >= 64 keeps one warp per row with V = min(C / 32, 16 bytes).
+// The split of a row of C elements of type S over the lanes: V elements per
+// 16-byte vector load, L lanes per row (32, or fewer for a narrow row), K
+// loads per lane. The forward and the backward kernel share it.
 template <typename S, int C>
 struct RowSplit {
-  static constexpr int kMaxV = 16 / static_cast<int>(sizeof(S));
-  static constexpr int V = C >= 64 ? ((C / 32) < kMaxV ? C / 32 : kMaxV) : (C < kMaxV ? C : kMaxV);
-  static constexpr int L = C >= 64 ? 32 : C / V;
+  static constexpr int V = 16 / static_cast<int>(sizeof(S));
+  static constexpr int L = C / V < 32 ? C / V : 32;
   static constexpr int K = C / (L * V);
   static_assert(L * V * K == C && 32 % L == 0, "C must split into L * V * K, L dividing 32");
 };
@@ -48,19 +45,34 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
+// A lane's K x V elements of a row, as float32 values (the forward) or as
+// raw 16-byte words converted exactly at each use (the backward).
+template <int K, int V>
+struct FloatRow {
+  const float (&v)[K][V];
+  __device__ __forceinline__ float operator()(int k, int i) const { return v[k][i]; }
+};
+
+template <typename Tr, int K>
+struct RawRow {
+  const uint4 (&w)[K];
+  __device__ __forceinline__ float operator()(int k, int i) const { return Tr::unpack(w[k], i); }
+};
+
 // Mean and rsqrt(biased variance + eps) of a row held by L lanes, V x K
-// elements per lane: the mean first, then the mean of squared deviations,
-// as the reference computes them. The forward and the backward kernel both
-// call this, so the backward's ReLU mask is the forward's bit for bit.
-template <int V, int K, int L>
-__device__ __forceinline__ void row_stats(const float (&v)[K][V], float eps, float& mean,
-                                          float& rstd) {
+// elements per lane, element (k, i) of this lane being at(k, i): the mean
+// first, then the mean of squared deviations, as the reference computes
+// them. The forward and the backward kernel both call this at the same split
+// (one on a FloatRow, the other on a RawRow), so they add the same values in
+// one order and the backward's ReLU mask is the forward kernel's bit for bit.
+template <int V, int K, int L, typename At>
+__device__ __forceinline__ void row_stats(const At& at, float eps, float& mean, float& rstd) {
   constexpr int C = L * V * K;
   float s = 0.f;
 #pragma unroll
   for (int k = 0; k < K; ++k)
 #pragma unroll
-    for (int i = 0; i < V; ++i) s += v[k][i];
+    for (int i = 0; i < V; ++i) s += at(k, i);
   mean = row_sum<L>(s) / C;
 
   float q = 0.f;
@@ -68,7 +80,7 @@ __device__ __forceinline__ void row_stats(const float (&v)[K][V], float eps, flo
   for (int k = 0; k < K; ++k)
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const float d = v[k][i] - mean;
+      const float d = at(k, i) - mean;
       q += d * d;
     }
   rstd = rsqrtf(row_sum<L>(q) / C + eps);
@@ -105,7 +117,7 @@ layer_norm_relu_kernel(const typename Tr::storage* __restrict__ x,
   }
 
   float mean, rstd;
-  row_stats<V, K, L>(v, eps, mean, rstd);
+  row_stats<V, K, L>(FloatRow<K, V>{v}, eps, mean, rstd);
   if (!live) return;
 
   typename Tr::storage* yr = y + row * C;
@@ -162,23 +174,68 @@ cudaError_t dispatch(const void* x, const void* gamma, const void* beta, void* y
 // sizeof(T) bytes per element (0.805 GB, 0.24 ms, at 2,097,152 x 64 bf16);
 // the (2, C) parameter sums are noise beside that.
 //
-// Design: the forward's layout, one warp per row (or 32 / L narrow rows per
-// warp) in registers at the same V / K / L split, with the statistics from
-// `row_stats`, the forward's own code, so the mask is the forward kernel's.
-// The two row means are two more row sums. A warp loads R row slots (R * K
-// >= 4) before it reduces any of them, so enough loads are in flight to
-// cover the memory latency at small C.
-// dgamma / dbeta are a deterministic two-level sum without atomics: the
-// grid is capped at kBwdBlocksPerSm blocks per SM (the caller's scratch
-// holds one (2, C) float32 partial per block; `bwd_max_blocks` sizes both),
-// each lane keeps its columns' partial sums in registers over the
-// rows its warp walks, a narrow-row warp adds its row groups' partials by a
-// butterfly in a fixed order, the block adds its 8 warps' partials in warp
-// order in shared memory and writes them out, and a second small kernel adds
-// the blocks' partials in a fixed order. (At C >= 1024 the per-lane partials
-// outgrow the registers and spill; the flagship's C is at most 512.)
+// Design: the forward's split (`RowSplit`) and its statistics code
+// (`row_stats`), so the ReLU mask is the forward kernel's bit for bit. A warp
+// loads R row slots of x and g as raw 16-byte words (bf16 stays packed two to
+// a register) before it reduces any of them, so enough loads are in flight
+// to cover the memory latency; then three passes over the registers: the
+// statistics, the mask with the dgamma / dbeta terms and the two row means,
+// and dx, each recomputing xhat and the mask from the raw words rather than
+// holding them as float32.
+// dgamma / dbeta are a deterministic two-level sum without atomics. Each lane
+// owns its columns' partial sums over the rows its warp walks (a grid-stride
+// loop over a grid sized to the blocks that fit on the card at once):
+//  - C <= 512: in registers, with gamma / beta held there too; a narrow-row
+//    warp adds its 32 / L row groups' partials by a butterfly in a fixed
+//    order at the end, and each warp writes its sums to its own slice of
+//    shared memory;
+//  - C >= 1024 (32 or more columns per lane, which would not fit in
+//    registers beside the row): in the warp's own [2][C] float32 slice of
+//    shared memory, laid out lane-major so a lane's float4 read-modify-write
+//    is free of bank conflicts, with gamma / beta staged in shared memory in
+//    the same layout. The R rows' terms are added in registers first, so a
+//    slot is read and written once per R rows. A block's slices and
+//    parameters take 72 KB at C = 1024 and 144 KB at C = 2048, so one or two
+//    blocks fit on an SM with the registers the row takes: 8 or 16 warps,
+//    each with a whole row of x and g in flight. (The same sums in registers
+//    took all 255 and spilled 824-880 bytes of stack a lane at C = 2048.)
+// The block then adds its warps' slices in warp order (one barrier) and
+// writes one (2, C) partial; a second small kernel adds the blocks' partials
+// in a fixed order. The caller's scratch holds kBwdMaxBlocksPerSm partials
+// per SM (`bwd_max_blocks`), the most the grid can have.
 
-template <typename Tr, int V, int K, int L, int R>
+template <typename Tr, int C>
+struct BwdShape {
+  using Sp = RowSplit<typename Tr::storage, C>;
+  static constexpr int V = Sp::V, K = Sp::K, L = Sp::L;
+  static constexpr int G = 32 / L;  // rows per warp in one row slot
+  static constexpr int H = V / 4;   // float4 groups per vector
+  static constexpr bool kShared = K * V >= 32;  // the partials live in shared memory
+  // row slots in flight: two where a lane's registers hold both beside the
+  // rest (its raw words of x and g; at C <= 512 its parameters and partials)
+  static constexpr int R = (kShared ? K <= 4 : K == 1) ? 2 : 1;
+  // the warps' [2][C] slices, then (kShared) gamma and beta
+  static constexpr int kSmemBytes = (kWarpsPerBlock * 2 * C + (kShared ? 2 * C : 0)) * 4;
+};
+
+// gamma and beta of a lane's vector k, float4 group h: from the staged copy
+// in shared memory (kShared) or from the lane's registers.
+template <bool kShared, int KR, int V, int H>
+__device__ __forceinline__ void lane_params(const float4* s_ga, const float4* s_be,
+                                            const float (&ga)[KR][V], const float (&be)[KR][V],
+                                            int k, int h, int lane, float (&gam)[4],
+                                            float (&bet)[4]) {
+  if constexpr (kShared) {
+    const float4 a = s_ga[(k * H + h) * 32 + lane], b = s_be[(k * H + h) * 32 + lane];
+    gam[0] = a.x, gam[1] = a.y, gam[2] = a.z, gam[3] = a.w;
+    bet[0] = b.x, bet[1] = b.y, bet[2] = b.z, bet[3] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gam[e] = ga[k][4 * h + e], bet[e] = be[k][4 * h + e];
+  }
+}
+
+template <typename Tr, int C>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
                                 const typename Tr::storage* __restrict__ g,
@@ -187,108 +244,188 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
                                 typename Tr::storage* __restrict__ dx,
                                 float* __restrict__ partial,  // [gridDim.x][2][C]
                                 long long rows, float eps) {
-  constexpr int C = L * V * K;
-  constexpr int G = 32 / L;  // rows per warp in one row slot
-  __shared__ float s_part[2][C];
+  using B = BwdShape<Tr, C>;
+  constexpr int V = B::V, K = B::K, L = B::L, G = B::G, H = B::H, R = B::R;
+  constexpr int W = kWarpsPerBlock;
+  constexpr bool kShared = B::kShared;
+  constexpr int C4 = C / 4;  // float4 slots of one [C] row of a slice
+  extern __shared__ float4 smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int sub = lane % L;
   const int grp = lane / L;
 
-  float pg[K][V], pb[K][V];
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int i = 0; i < V; ++i) pg[k][i] = pb[k][i] = 0.f;
+  // kShared: this warp's partial slots and the staged parameters, slot
+  // (k, h) of lane l at (k * H + h) * 32 + l, holding columns
+  // (k * 32 + l) * V + 4h .. + 3
+  float4* const s_pg = smem + warp * 2 * C4;
+  float4* const s_pb = s_pg + C4;
+  float4* const s_ga = smem + W * 2 * C4;
+  float4* const s_be = s_ga + C4;
+  // otherwise: this lane's parameters and partial sums in registers
+  constexpr int KR = kShared ? 1 : K;
+  float ga[KR][V], be[KR][V], pg[KR][V], pb[KR][V];
 
-  const long long stride = static_cast<long long>(gridDim.x) * kWarpsPerBlock * R * G;
-  for (long long row0 = (static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp) * R * G;
-       row0 < rows; row0 += stride) {
-    float v[R][K][V], gv[R][K][V];
+  if constexpr (kShared) {
+#pragma unroll
+    for (int j = 0; j < K * H; ++j)
+      s_pg[j * 32 + lane] = s_pb[j * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = threadIdx.x; j < C4; j += W * 32) {
+      const int c = ((j / 32 / H) * 32 + j % 32) * V + (j / 32 % H) * 4;
+      s_ga[j] = *reinterpret_cast<const float4*>(gamma + c);
+      s_be[j] = *reinterpret_cast<const float4*>(beta + c);
+    }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c0 = (k * L + sub) * V;
+      load_vec<F32, V>(gamma + c0, ga[k]);
+      load_vec<F32, V>(beta + c0, be[k]);
+#pragma unroll
+      for (int i = 0; i < V; ++i) pg[k][i] = pb[k][i] = 0.f;
+    }
+  }
+
+  const long long stride = static_cast<long long>(gridDim.x) * W * R * G;
+  for (long long row0 = (static_cast<long long>(blockIdx.x) * W + warp) * R * G; row0 < rows;
+       row0 += stride) {
+    uint4 xr[R][K], gr[R][K];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (row0 + r * G >= rows) break;  // warp-uniform
       const long long row = row0 + r * G + grp;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (row < rows) {
           const long long off = row * C + (k * L + sub) * V;
-          load_vec<Tr, V>(x + off, v[r][k]);
-          load_vec<Tr, V>(g + off, gv[r][k]);
-        } else {  // a narrow row past the end: zeros, which add 0 to every sum
-#pragma unroll
-          for (int i = 0; i < V; ++i) v[r][k][i] = gv[r][k][i] = 0.f;
+          xr[r][k] = *reinterpret_cast<const uint4*>(x + off);
+          gr[r][k] = *reinterpret_cast<const uint4*>(g + off);
+        } else {  // a row past the end: zeros, which add 0 to every sum
+          xr[r][k] = gr[r][k] = make_uint4(0u, 0u, 0u, 0u);
         }
       }
     }
+
+    float mean[R], rstd[R], s1[R], s2[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (row0 + r * G >= rows) break;
-      const long long row = row0 + r * G + grp;
-      float mean, rstd;
-      row_stats<V, K, L>(v[r], eps, mean, rstd);
-      float s1 = 0.f, s2 = 0.f;
+      row_stats<V, K, L>(RawRow<Tr, K>{xr[r]}, eps, mean[r], rstd[r]);
+      s1[r] = s2[r] = 0.f;
+    }
+
+    // the mask, the dgamma / dbeta terms and the sums of the two row means
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int c0 = (k * L + sub) * V;
-        float ga[V], be[V];
-        load_vec<F32, V>(gamma + c0, ga);
-        load_vec<F32, V>(beta + c0, be);
+    for (int k = 0; k < K; ++k)
 #pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const float xh = (v[r][k][i] - mean) * rstd;
-          const float pre = xh * ga[i] + be[i];  // the forward's expression
-          const float gm = pre > 0.f ? gv[r][k][i] : 0.f;
-          pg[k][i] += gm * xh;
-          pb[k][i] += gm;
-          const float gg = gm * ga[i];
-          s1 += gg;
-          s2 += gg * xh;
-          v[r][k][i] = xh;
-          gv[r][k][i] = gg;
+      for (int h = 0; h < H; ++h) {
+        float gam[4], bet[4], tg[4] = {0.f, 0.f, 0.f, 0.f}, tb[4] = {0.f, 0.f, 0.f, 0.f};
+        lane_params<kShared, KR, V, H>(s_ga, s_be, ga, be, k, h, lane, gam, bet);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * h + e;
+            const float xh = (Tr::unpack(xr[r][k], i) - mean[r]) * rstd[r];
+            const float pre = xh * gam[e] + bet[e];  // the forward's expression
+            const float gm = pre > 0.f ? Tr::unpack(gr[r][k], i) : 0.f;
+            if constexpr (kShared) {
+              tg[e] += gm * xh;
+              tb[e] += gm;
+            } else {
+              pg[k][i] += gm * xh;
+              pb[k][i] += gm;
+            }
+            const float gg = gm * gam[e];
+            s1[r] += gg;
+            s2[r] += gg * xh;
+          }
+        if constexpr (kShared) {
+          const int j = (k * H + h) * 32 + lane;
+          float4 a = s_pg[j], b = s_pb[j];
+          a.x += tg[0], a.y += tg[1], a.z += tg[2], a.w += tg[3];
+          b.x += tb[0], b.y += tb[1], b.z += tb[2], b.w += tb[3];
+          s_pg[j] = a, s_pb[j] = b;
         }
       }
-      const float mg = row_sum<L>(s1) / C;
-      const float mgx = row_sum<L>(s2) / C;
-      if (row < rows) {
+    float mg[R], mgx[R];
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          float o[V];
+    for (int r = 0; r < R; ++r) {
+      mg[r] = row_sum<L>(s1[r]) / C;
+      mgx[r] = row_sum<L>(s2[r]) / C;
+    }
+
+    // dx
 #pragma unroll
-          for (int i = 0; i < V; ++i) o[i] = (gv[r][k][i] - mg - v[r][k][i] * mgx) * rstd;
-          store_vec<Tr, V>(dx + row * C + (k * L + sub) * V, o);
-        }
+    for (int k = 0; k < K; ++k) {
+      float o[R][V];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        float gam[4], bet[4];
+        lane_params<kShared, KR, V, H>(s_ga, s_be, ga, be, k, h, lane, gam, bet);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * h + e;
+            const float xh = (Tr::unpack(xr[r][k], i) - mean[r]) * rstd[r];
+            const float pre = xh * gam[e] + bet[e];
+            const float gg = (pre > 0.f ? Tr::unpack(gr[r][k], i) : 0.f) * gam[e];
+            o[r][i] = (gg - mg[r] - xh * mgx[r]) * rstd[r];
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const long long row = row0 + r * G + grp;
+        if (row < rows) store_vec<Tr, V>(dx + row * C + (k * L + sub) * V, o[r]);
       }
     }
   }
 
-  // a narrow-row warp: add its G row groups' partials of each column (lane
-  // offsets L..16, a fixed butterfly), so group 0 holds the warp's sums
+  float* const out = partial + static_cast<size_t>(blockIdx.x) * 2 * C;
+  if constexpr (kShared) {
+    __syncthreads();
+    for (int j = threadIdx.x; j < 2 * C4; j += W * 32) {  // in warp order: the same every run
+      float4 t = smem[j];
 #pragma unroll
-  for (int o = L; o < 32; o <<= 1)
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        pg[k][i] += __shfl_xor_sync(0xffffffffu, pg[k][i], o);
-        pb[k][i] += __shfl_xor_sync(0xffffffffu, pb[k][i], o);
+      for (int w = 1; w < W; ++w) {
+        const float4 u = smem[w * 2 * C4 + j];
+        t.x += u.x, t.y += u.y, t.z += u.z, t.w += u.w;
       }
-
-  for (int w = 0; w < kWarpsPerBlock; ++w) {  // in warp order: the same sums every run
-    if (warp == w && grp == 0) {
+      const int jj = j % C4;
+      const int c = ((jj / 32 / H) * 32 + jj % 32) * V + (jj / 32 % H) * 4;
+      *reinterpret_cast<float4*>(out + (j / C4) * C + c) = t;
+    }
+  } else {
+    // a narrow-row warp: add its G row groups' partials of each column (lane
+    // offsets L..16, a fixed butterfly), so group 0 holds the warp's sums
+#pragma unroll
+    for (int o = L; o < 32; o <<= 1)
 #pragma unroll
       for (int k = 0; k < K; ++k)
 #pragma unroll
         for (int i = 0; i < V; ++i) {
-          const int c = (k * L + sub) * V + i;
-          s_part[0][c] = w == 0 ? pg[k][i] : s_part[0][c] + pg[k][i];
-          s_part[1][c] = w == 0 ? pb[k][i] : s_part[1][c] + pb[k][i];
+          pg[k][i] += __shfl_xor_sync(0xffffffffu, pg[k][i], o);
+          pb[k][i] += __shfl_xor_sync(0xffffffffu, pb[k][i], o);
+        }
+    float* const slice = reinterpret_cast<float*>(smem) + warp * 2 * C;
+    if (grp == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          slice[(k * L + sub) * V + i] = pg[k][i];
+          slice[C + (k * L + sub) * V + i] = pb[k][i];
         }
     }
     __syncthreads();
+    const float* const all = reinterpret_cast<const float*>(smem);
+    for (int j = threadIdx.x; j < 2 * C; j += W * 32) {  // in warp order
+      float t = all[j];
+#pragma unroll
+      for (int w = 1; w < W; ++w) t += all[w * 2 * C + j];
+      out[j] = t;
+    }
   }
-  float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * C;
-  for (int j = threadIdx.x; j < 2 * C; j += kWarpsPerBlock * 32) out[j] = (&s_part[0][0])[j];
 }
 
 // out[j] = sum over p < n_parts of partial[p][j], in a fixed order: a block
@@ -320,46 +457,81 @@ layer_norm_relu_bwd_cols_kernel(const float* __restrict__ partial, int n_parts, 
   }
 }
 
-constexpr int kBwdBlocksPerSm = 8;
+// The backward's grid holds at most this many blocks per SM (fewer where
+// fewer fit), so its scratch holds this many (2, C) partials per SM.
+constexpr int kBwdMaxBlocksPerSm = 8;
+constexpr int kMaxDevices = 64;
 
-// The backward's grid cap on the current device, which is also the number of
-// (2, C) partials its scratch must hold.
+// The SM count of device `dev`, queried once per device.
+cudaError_t sm_count(int dev, int* n) {
+  static int cache[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0;
+    const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cache[dev] = sms;
+  }
+  *n = cache[dev];
+  return cudaSuccess;
+}
+
+// The number of (2, C) partials the backward's scratch must hold on the
+// current device: the most blocks its grid can have.
 cudaError_t bwd_max_blocks(int* blocks) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *blocks = kBwdBlocksPerSm * sms;
+  if (e == cudaSuccess) e = sm_count(dev, &sms);
+  *blocks = kBwdMaxBlocksPerSm * sms;
   return e;
 }
 
 template <typename Tr, int C>
-void launch_bwd(const void* x, const void* g, const void* gamma, const void* beta, void* dx,
-                void* dparams, void* partial, int max_blocks, long long rows, float eps,
-                cudaStream_t stream) {
+cudaError_t launch_bwd(const void* x, const void* g, const void* gamma, const void* beta,
+                       void* dx, void* dparams, void* partial, long long rows, float eps,
+                       cudaStream_t stream) {
   using S = typename Tr::storage;
-  using Sp = RowSplit<S, C>;
-  constexpr int R = Sp::K >= 4 ? 1 : 4 / Sp::K;
-  constexpr long long kRowsPerBlock = kWarpsPerBlock * R * (32 / Sp::L);
+  using B = BwdShape<Tr, C>;
+  void (*const kernel)(const S*, const S*, const float*, const float*, S*, float*, long long,
+                       float) = layer_norm_relu_bwd_rows_kernel<Tr, C>;
+  // blocks of this kernel that fit on one SM at once, per device (0: not yet asked)
+  static int per_sm[kMaxDevices] = {};
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = sm_count(dev, &sms);
+  if (e != cudaSuccess) return e;
+  if (per_sm[dev] == 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B::kSmemBytes);
+    int n = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kWarpsPerBlock * 32,
+                                                        B::kSmemBytes);
+    if (e != cudaSuccess) return e;
+    per_sm[dev] = n < 1 ? 1 : n < kBwdMaxBlocksPerSm ? n : kBwdMaxBlocksPerSm;
+  }
+  constexpr long long kRowsPerBlock = kWarpsPerBlock * B::R * B::G;
   const long long want = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const int blocks = static_cast<int>(want < max_blocks ? want : max_blocks);
-  layer_norm_relu_bwd_rows_kernel<Tr, Sp::V, Sp::K, Sp::L, R>
-      <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  const long long fit = static_cast<long long>(per_sm[dev]) * sms;
+  const int blocks = static_cast<int>(want < fit ? want : fit);
+  kernel<<<blocks, kWarpsPerBlock * 32, B::kSmemBytes, stream>>>(
       static_cast<const S*>(x), static_cast<const S*>(g), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<S*>(dx), static_cast<float*>(partial), rows,
       eps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
   layer_norm_relu_bwd_cols_kernel<<<(2 * C + 31) / 32, 32 * kColSlices, 0, stream>>>(
       static_cast<const float*>(partial), blocks, 2 * C, static_cast<float*>(dparams));
+  return cudaGetLastError();
 }
 
 template <typename Tr>
 cudaError_t dispatch_bwd(const void* x, const void* g, const void* gamma, const void* beta,
-                         void* dx, void* dparams, void* partial, int max_blocks, long long rows,
-                         int C, float eps, cudaStream_t stream) {
+                         void* dx, void* dparams, void* partial, long long rows, int C, float eps,
+                         cudaStream_t stream) {
   switch (C) {
-#define ADUNET_BWD_CASE(c)                                                                    \
-  case c:                                                                                     \
-    launch_bwd<Tr, c>(x, g, gamma, beta, dx, dparams, partial, max_blocks, rows, eps, stream); \
-    break;
+#define ADUNET_BWD_CASE(c) \
+  case c:                  \
+    return launch_bwd<Tr, c>(x, g, gamma, beta, dx, dparams, partial, rows, eps, stream);
     ADUNET_BWD_CASE(16)
     ADUNET_BWD_CASE(32)
     ADUNET_BWD_CASE(64)
@@ -372,15 +544,14 @@ cudaError_t dispatch_bwd(const void* x, const void* g, const void* gamma, const 
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace adunet
 
 // Writes to *n (an int) the number of (2, C) float32 partials that
-// adunet_layer_norm_relu_backward's scratch must hold on the current device.
-// Returns the CUDA error.
+// adunet_layer_norm_relu_backward's scratch must hold on the current device
+// (the same for every C and type). Returns the CUDA error.
 extern "C" int adunet_layer_norm_relu_backward_partials(void* n) {
   return adunet::bwd_max_blocks(static_cast<int*>(n));
 }
@@ -395,17 +566,14 @@ extern "C" int adunet_layer_norm_relu_backward(const void* x, const void* g, con
                                                void* partial, long long rows, int C, float eps,
                                                int dtype, void* stream) {
   if (rows <= 0) return cudaErrorInvalidValue;
-  int max_blocks = 0;
-  const cudaError_t e = adunet::bwd_max_blocks(&max_blocks);
-  if (e != cudaSuccess) return e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case adunet::kFloat32:
-      return adunet::dispatch_bwd<adunet::F32>(x, g, gamma, beta, dx, dparams, partial,
-                                               max_blocks, rows, C, eps, st);
+      return adunet::dispatch_bwd<adunet::F32>(x, g, gamma, beta, dx, dparams, partial, rows, C,
+                                               eps, st);
     case adunet::kBFloat16:
-      return adunet::dispatch_bwd<adunet::BF16>(x, g, gamma, beta, dx, dparams, partial,
-                                                max_blocks, rows, C, eps, st);
+      return adunet::dispatch_bwd<adunet::BF16>(x, g, gamma, beta, dx, dparams, partial, rows, C,
+                                                eps, st);
     default:
       return cudaErrorInvalidValue;
   }

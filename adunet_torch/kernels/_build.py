@@ -101,23 +101,27 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.adunet_error_string.restype = ctypes.c_char_p
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+def library(rebuild: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library, built on first call. ``rebuild`` compiles
+    the sources again even where a library of the same sources exists, so
+    that ``last_build`` holds the compiler's report (the library already
+    loaded, built from the same sources, stays loaded)."""
     global _lib
     with _lock:
-        if _lib is None:
+        if _lib is None or rebuild:
             digest = hashlib.sha256()
             for src in sorted(_CSRC.glob("*.cu*")):
                 digest.update(src.read_bytes())
             digest.update(" ".join(_ARCH + _FLAGS).encode())
             out = build_dir() / f"libadunet_kernels_{digest.hexdigest()[:16]}.so"
-            if not out.exists():
+            if rebuild or not out.exists():
                 _build(out)
             else:
                 last_build.update(seconds=0.0, log="(cached)", path=str(out))
-            lib = ctypes.CDLL(str(out))
-            _declare(lib)
-            _lib = lib
+            if _lib is None:
+                lib = ctypes.CDLL(str(out))
+                _declare(lib)
+                _lib = lib
         return _lib
 
 

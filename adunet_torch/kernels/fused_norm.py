@@ -2,21 +2,24 @@
 
 Replaces the Pallas TPU kernel ``adunet/kernels/fused_norm.py:48``
 (``_pallas_forward``; ``pl.pallas_call`` at :59). The CUDA source is
-``adunet_torch/csrc/fused_norm.cu``: one warp per row of the (rows, C) view
-(at C = 16 and 32, 32 / L rows per warp, L = C / (16-byte vector) lanes
-each), the row held in registers between the two float32 reductions, so x
-is read once and y written once. Its bound on an H100 is bytes: (read x + write y) /
-3.35 TB/s, e.g. ~80 us for the 524,288 x 64 float32 level of the flagship.
+``adunet_torch/csrc/fused_norm.cu``: each lane loads 16-byte vectors, a row
+is held by L = min(32, C / vector) lanes (so at C <= 64 in float32 and C <=
+128 in bf16 a warp holds 32 / L rows), and the row stays in registers
+between the two float32 reductions, so x is read once and y written once.
+Its bound on an H100 is bytes: (read x + write y) / 3.35 TB/s, e.g. ~80 us
+for the 524,288 x 64 float32 level of the flagship.
 
 ``layer_norm_relu`` is a ``torch.autograd.Function``, the counterpart of the
 reference's custom VJP (:86-136). It saves x, gamma and beta. Forward: the
 kernel above. Backward: the reference's ``_bwd`` (:109-133), a float32
-recompute from the inputs, as a second kernel in the same source (one warp
-per row with the forward's statistics code, so the ReLU mask is the forward
-kernel's; dgamma / dbeta by a deterministic two-level sum over per-block
-partials). Its bound is bytes too: read x and the cotangent, write dx, e.g.
-~0.24 ms at 2,097,152 x 64 bf16. ``layer_norm_relu_backward`` is its plain
-version.
+recompute from the inputs, as a second kernel in the same source: the
+forward's split and statistics code, so the ReLU mask is the forward
+kernel's; x and the cotangent held as raw words; dgamma / dbeta by a
+deterministic two-level sum, each lane's column partials in registers at C
+<= 512 and in its warp's slice of shared memory at C >= 1024, over a grid
+sized to the blocks that fit on the card. Its bound is bytes too: read x
+and the cotangent, write dx, e.g. ~0.24 ms at 2,097,152 x 64 bf16.
+``layer_norm_relu_backward`` is its plain version.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version below, a CUDA tensor launches the kernel or raises. There is no
@@ -129,6 +132,23 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float
     return y
 
 
+_partials_per_device: dict[int, int] = {}
+
+
+def _n_partials(lib, device: torch.device) -> int:
+    """The (2, C) partials the backward kernel's scratch must hold on
+    ``device`` (the most blocks its grid can have), asked of the library once
+    per device. Call with ``device`` current."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    n = _partials_per_device.get(index)
+    if n is None:
+        out = ctypes.c_int(0)
+        _build.check(lib.adunet_layer_norm_relu_backward_partials(ctypes.addressof(out)),
+                     "layer_norm_relu backward")
+        n = _partials_per_device[index] = out.value
+    return n
+
+
 def _launch_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                      g: torch.Tensor, eps: float):
     """The backward kernel on CUDA tensors: (dx, dgamma, dbeta) as
@@ -148,10 +168,8 @@ def _launch_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     dparams = torch.empty(2, c, dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
-        n_partials = ctypes.c_int(0)  # the kernel's grid cap: one (2, C) partial per block
-        _build.check(lib.adunet_layer_norm_relu_backward_partials(ctypes.addressof(n_partials)),
-                     "layer_norm_relu backward")
-        partial = torch.empty(n_partials.value, 2, c, dtype=torch.float32, device=x.device)
+        partial = torch.empty(_n_partials(lib, x.device), 2, c, dtype=torch.float32,
+                              device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.adunet_layer_norm_relu_backward(
             x.data_ptr(), g.data_ptr(), ga.data_ptr(), be.data_ptr(), dx.data_ptr(),

@@ -8,7 +8,10 @@ Run from the root of a checkout, with no arguments:
 It needs one NVIDIA Hopper card (the kernels are built for sm_90a) and
 exits non-zero without one. Every phase raises on failure:
 
-1. builds the CUDA kernels from ``adunet_torch/csrc`` with ``nvcc``;
+1. builds the CUDA kernels from ``adunet_torch/csrc`` with ``nvcc`` (again
+   if the library came from the build cache) and fails if ptxas's report
+   shows a byte of spill in any of the 16 instantiations of K1's backward
+   row kernel;
 2. prints the card's name and power limit (``nvidia-smi``);
 3. holds each kernel's forward against its plain PyTorch version on the
    card, at every shape the flagship's float32 serving forward (batch 8) and
@@ -86,6 +89,11 @@ exits non-zero without one. Every phase raises on failure:
 17. prints one JSON line with each kernel's launches, error and times, the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
 
+At the start of each phase it prints a host probe (a fixed numpy and Python
+timing, the load average, the live threads, torch's CPU threads), and
+beside each K1-backward row the device time it had before the kernel's
+redesign.
+
 Phases 3 and 4 also hold K1 at C = 16 and 32 (forward and backward kernels,
 float32 and bf16, full and ragged row counts) and K2 at the vanilla model's
 (8, 128, 128, 64), at every shape the segmentation steps give them, and K1
@@ -98,6 +106,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
+import re
 import sys
 import tempfile
 import threading
@@ -136,6 +146,30 @@ K1_PER_CALL = sum(K1_SERVE.values())  # 16
 # the device kernel K2 launches for each type (a substring of its name)
 K2_KERNEL = {torch.float32: "conv3x3_c64_kernel", torch.bfloat16: "conv3x3_c64_wgmma_kernel"}
 K1_BWD_KERNEL = "layer_norm_relu_bwd"  # its rows kernel and its column-sum kernel
+# K1's backward kernel's profiler device times per launch before its
+# redesign (this script's run on NVIDIA H100 80GB HBM3, 700.00 W, at the
+# commit before it; PERF.md §6), keyed (path, rows, C, dtype): printed beside
+# this run's
+K1_BWD_PRIOR_MS = {
+    ("train", 2_097_152, 64, "bfloat16"): 0.4414, ("train", 524_288, 128, "bfloat16"): 0.1931,
+    ("train", 131_072, 256, "bfloat16"): 0.1127, ("train", 32_768, 512, "bfloat16"): 0.0924,
+    ("serve", 524_288, 64, "float32"): 0.1523, ("serve", 131_072, 128, "float32"): 0.0766,
+    ("serve", 32_768, 256, "float32"): 0.0447, ("serve", 8_192, 512, "float32"): 0.0297,
+    ("vanilla", 524_288, 32, "bfloat16"): 0.0582, ("vanilla", 131_072, 64, "bfloat16"): 0.0356,
+    ("vanilla", 32_768, 128, "bfloat16"): 0.0163, ("vanilla", 8_192, 256, "bfloat16"): 0.0096,
+    ("vanilla", 2_048, 512, "bfloat16"): 0.0089, ("narrow", 524_288, 32, "float32"): 0.0762,
+    ("narrow", 524_288, 16, "float32"): 0.0407, ("narrow", 524_288, 16, "bfloat16"): 0.0337,
+    ("narrow", 524_283, 32, "float32"): 0.0762, ("narrow", 524_283, 32, "bfloat16"): 0.0576,
+    ("narrow", 524_283, 16, "bfloat16"): 0.0342, ("deep", 524_288, 64, "bfloat16"): 0.1196,
+    ("deep", 336_200, 128, "bfloat16"): 0.1287, ("deep", 215_168, 256, "bfloat16"): 0.1611,
+    ("deep", 139_392, 512, "bfloat16"): 0.2356, ("deep", 89_888, 1024, "bfloat16"): 0.2686,
+    ("deep", 57_800, 2048, "bfloat16"): 0.8426, ("wide", 89_888, 1024, "float32"): 0.3853,
+    ("wide", 57_800, 2048, "float32"): 1.1469, ("wide", 89_885, 1024, "bfloat16"): 0.2687,
+    ("wide", 89_885, 1024, "float32"): 0.3857, ("wide", 57_797, 2048, "bfloat16"): 0.8375,
+    ("wide", 57_797, 2048, "float32"): 1.1541,
+}
+# the backward's row kernel is built for these (C, type) pairs
+K1_BWD_INSTANCES = {(c, t) for c in fused_norm.SUPPORTED_CHANNELS for t in ("F32", "BF16")}
 # K2 bf16 against its plain version: the absolute term beside one bf16 ulp,
 # a few times the largest this script has read (its K2 lines print the term
 # each run needs; PERF.md, "K2, the bf16 tolerance"). K1's bf16 keeps 1e-6.
@@ -192,6 +226,66 @@ SEG_PER_STEP = {"protocol": (0, 0, sum(K2_PROTOCOL.values())),
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def check_k1_bwd_spills(build_log: str) -> list[dict]:
+    """Registers, stack frame and spills of each instantiation of K1's
+    backward row kernel, from ptxas's report in the build log (``-Xptxas
+    -v``: a "Function properties for <name>" line, then the stack and spill
+    line, then the registers line). Raises if an instantiation is missing
+    from the report or spills any bytes."""
+    found, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        inst = re.search(r"layer_norm_relu_bwd_rows_kernelI\w*?_\d+(F32|BF16)ELi(\d+)E", name or "")
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if inst and m:
+            found[(int(inst.group(2)), inst.group(1))] = dict(
+                C=int(inst.group(2)), type=inst.group(1), stack=int(m.group(1)),
+                spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if inst and m and (int(inst.group(2)), inst.group(1)) in found:
+            found[(int(inst.group(2)), inst.group(1))]["registers"] = int(m.group(1))
+    rows = [found[k] for k in sorted(found)]
+    for r in rows:
+        log(f"[spill] K1 backward C={r['C']} {r['type']}: {r.get('registers')} registers, stack "
+            f"{r['stack']} bytes, spill stores {r['spill_stores']} bytes, spill loads "
+            f"{r['spill_loads']} bytes")
+    if set(found) != K1_BWD_INSTANCES:
+        raise AssertionError(f"ptxas reported K1 backward instantiations {sorted(found)}, "
+                             f"expected {sorted(K1_BWD_INSTANCES)}")
+    spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"K1 backward spills: {spilled}")
+    return rows
+
+
+def host_probe(phase: str) -> dict:
+    """A fixed host workload's time and the host's load at the start of a
+    phase: numpy sorts a seeded 2^18-element array, Python sums 200,000
+    squares in a loop; the load average, the live Python threads and
+    torch's CPU threads. A later phase whose probe runs slower than the
+    first shows a host slowed by its neighbours or by this process."""
+    arr = np.random.default_rng(0).random(1 << 18)
+    t0 = time.perf_counter()
+    np.sort(arr)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    total = 0
+    for i in range(200_000):
+        total += i * i
+    python_ms = (time.perf_counter() - t0) * 1e3
+    probe = {"phase": phase, "numpy_sort_ms": numpy_ms, "python_loop_ms": python_ms,
+             "loadavg": list(os.getloadavg()), "threads": threading.active_count(),
+             "torch_threads": torch.get_num_threads()}
+    log(f"[host] {phase}: numpy sort {numpy_ms:.3f} ms, python loop {python_ms:.3f} ms, load "
+        f"average {' / '.join(f'{v:.2f}' for v in probe['loadavg'])}, {probe['threads']} "
+        f"Python threads, torch {probe['torch_threads']} CPU threads")
+    return probe
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -311,6 +405,15 @@ def _k1_cases():
     return ([(s, n, torch.float32, "serve") for s, n in K1_SERVE.items()]
             + [(s, n, torch.bfloat16, "serve") for s, n in K1_SERVE.items()]
             + [(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()]
+            + [(s, n, torch.bfloat16, "vanilla") for s, n in K1_VANILLA.items()]
+            + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW]
+            + [(s, n, torch.bfloat16, "deep") for s, n in K1_DEEP.items()]
+            + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE])
+
+
+def _k1_bwd_cases():
+    return ([(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()]
+            + [(s, n, torch.float32, "serve") for s, n in K1_SERVE.items()]
             + [(s, n, torch.bfloat16, "vanilla") for s, n in K1_VANILLA.items()]
             + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW]
             + [(s, n, torch.bfloat16, "deep") for s, n in K1_DEEP.items()]
@@ -460,13 +563,7 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
     one (``k1_params_close``). dgamma / dbeta must be bit-identical over two
     runs."""
     rows_out = []
-    cases = ([(s, n, torch.bfloat16, "train") for s, n in K1_TRAIN.items()]
-             + [(s, n, torch.float32, "serve") for s, n in K1_SERVE.items()]
-             + [(s, n, torch.bfloat16, "vanilla") for s, n in K1_VANILLA.items()]
-             + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW]
-             + [(s, n, torch.bfloat16, "deep") for s, n in K1_DEEP.items()]
-             + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE])
-    for (rows, c), per_call, dtype, path in cases:
+    for (rows, c), per_call, dtype, path in _k1_bwd_cases():
         x, a, b = _k1_inputs(gen, rows, c, dtype)
         gy = torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
 
@@ -504,18 +601,21 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
         # arithmetic is float32 whatever the storage type
         bnd, by = bound_ms(3 * rows * c * x.element_size() + 4 * c * 4, 20 * rows * c,
                            torch.float32)
+        prior = K1_BWD_PRIOR_MS.get((path, rows, c, _dname(dtype)))
         rows_out.append(dict(kernel="K1_bwd", path=path, shape=[rows, c], dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=dx_abs,
                              rel_err={"dx": dx_rel, "dgamma": dg_rel, "dbeta": db_rel},
                              mask_disagreements=n_flip, rows_left_out=n_out, ms=ms,
                              device_ms=dev_ms, device_launches_recorded=dev_n, plain_ms=plain,
                              library_ms=lib, library_device_ms=lib_dev,
-                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
+                             prior_device_ms=prior))
         log(f"[K1 bwd] {path} rows={rows} C={c} {dtype}: rel err dx {dx_rel:.1e} (max |err| "
             f"{dx_abs:.2e}), dgamma {dg_rel:.1e}, dbeta {db_rel:.1e}; mask disagreements "
             f"{n_flip} ({n_out} rows left out); kernel {ms:.4f} ms (events; profiler device "
-            f"time {_ms(dev_ms)} over {dev_n} launches), plain {plain:.4f} ms, library backward "
-            f"{lib:.4f} ms (device time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
+            f"time {_ms(dev_ms)} over {dev_n} launches; before the redesign {_ms(prior)}), "
+            f"plain {plain:.4f} ms, library backward {lib:.4f} ms (device time {_ms(lib_dev)}), "
+            f"bound {bnd:.4f} ms ({by})")
         del x, gy, xl, yl
         torch.cuda.empty_cache()
     return rows_out
@@ -1798,50 +1898,60 @@ def main() -> int:
     setup_runtime()
     t_start = time.perf_counter()
 
+    probes = [host_probe("build")]
     _build.library()
     build_s = float(_build.last_build.get("seconds", 0.0))
+    if _build.last_build.get("log") == "(cached)":  # build anew for ptxas's report
+        _build.library(rebuild=True)
     log(f"[build] kernels ready in {build_s:.1f} s: {_build.last_build.get('path')}")
     for line in _build.last_build.get("log", "").splitlines():
         if "registers" in line or "spill" in line or line.startswith("---"):
             log(f"[ptxas] {line.strip()}")
+    spills = check_k1_bwd_spills(_build.last_build["log"])
 
     ident = gpu_identity().splitlines()[0]
     log(f"[gpu] {ident}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    def phase(name, fn, *args):
+        probes.append(host_probe(name))
+        return fn(*args)
+
     gen = torch.Generator("cuda").manual_seed(0)
-    details = check_k1(gen) + check_k2(gen)
-    grads = check_backward(gen)
-    details += check_k1_backward(gen)
+    details = phase("k1", check_k1, gen) + phase("k2", check_k2, gen)
+    grads = phase("grads", check_backward, gen)
+    details += phase("k1_bwd", check_k1_backward, gen)
     torch.cuda.empty_cache()
 
     call, _ = load_artifact(ARTIFACT, device="cuda")
-    served = serve_flagship(call)
-    scores = golden(call)
-    speed = forward_speed(call, ident)
+    served = phase("serve", serve_flagship, call)
+    scores = phase("golden", golden, call)
+    speed = phase("speed", forward_speed, call, ident)
     del call
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        trained = train_flagship(Path(tmp), ident)
-        step_check = card_vs_cpu_step()
-        entry = train_entry_point(Path(tmp))
-        seg = {f"{kind}_{_dname(dtype)}": train_seg(kind, dtype, ident)
+        trained = phase("train", train_flagship, Path(tmp), ident)
+        step_check = phase("f32_step", card_vs_cpu_step)
+        entry = phase("train_sr", train_entry_point, Path(tmp))
+        seg = {f"{kind}_{_dname(dtype)}": phase(f"seg_{kind}_{_dname(dtype)}", train_seg, kind,
+                                                dtype, ident)
                for kind, dtype in (("protocol", torch.bfloat16), ("protocol", torch.float32),
                                    ("vanilla", torch.bfloat16))}
-        seg_step = seg_card_vs_cpu_step()
-        seg_cli = seg_entry_points(Path(tmp))
-        streamed = streamed_flagship(Path(tmp), ident)
-        deep = deep_config(Path(tmp), ident)
-        vanilla = vanilla_sr(ident)
-        vanilla_step = vanilla_card_vs_cpu_step()
-        sr_cli = sr_entry_points(Path(tmp), streamed.pop("ckpt_dir"))
+        seg_step = phase("seg_f32_step", seg_card_vs_cpu_step)
+        seg_cli = phase("seg_cli", seg_entry_points, Path(tmp))
+        streamed = phase("streamed", streamed_flagship, Path(tmp), ident)
+        deep = phase("deep", deep_config, Path(tmp), ident)
+        vanilla = phase("vanilla_sr", vanilla_sr, ident)
+        vanilla_step = phase("vanilla_sr_f32_step", vanilla_card_vs_cpu_step)
+        sr_cli = phase("sr_cli", sr_entry_points, Path(tmp), streamed.pop("ckpt_dir"))
 
     seconds = time.perf_counter() - t_start
     summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
                "golden": scores, "speed": speed, "train": trained, "f32_step": step_check,
                "train_sr": entry, "seg_train": seg, "seg_f32_step": seg_step,
                "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
-               "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "seconds": seconds}
+               "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "seconds": seconds,
+               "k1_bwd_ptxas": spills, "host_probes": probes}
     log("[detail] " + json.dumps(summary))
     log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
     seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}

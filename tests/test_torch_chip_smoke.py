@@ -1,0 +1,52 @@
+"""``chip_smoke.py``'s check that no instantiation of K1's backward row
+kernel spills, read from a ptxas report written here in the form ``nvcc
+-Xptxas -v`` prints (the real report exists only where ``nvcc`` runs)."""
+
+import pytest
+
+import chip_smoke
+from adunet_torch.kernels import fused_norm
+
+_TYPE_ARG = {"F32": "3F32", "BF16": "4BF16"}
+
+
+def _properties(name: str, spill: int, registers: int) -> list[str]:
+    return [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    {spill} bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads",
+            f"ptxas info    : Used {registers} registers, used 1 barriers, 408 bytes cmem[0]"]
+
+
+def _report(spill_at=None, missing=None) -> str:
+    """A report with every backward row kernel (C, type) but ``missing``, a
+    spill of 24 bytes at ``spill_at``, and the forward and column kernels,
+    which the check ignores, spilling."""
+    lines = ["--- fused_norm.cu"]
+    lines += _properties("_ZN6adunet12_GLOBAL__N_122layer_norm_relu_kernelINS_3F32ELi4ELi16ELi32EE"
+                         "EvPKNT_7storageEPKfS8_PS4_xf", 16, 255)
+    lines += _properties("_ZN6adunet12_GLOBAL__N_131layer_norm_relu_bwd_cols_kernelEPKfiiPf", 8, 40)
+    for c in fused_norm.SUPPORTED_CHANNELS:
+        for t, arg in _TYPE_ARG.items():
+            if (c, t) != missing:
+                lines += _properties(
+                    f"_ZN6adunet12_GLOBAL__N_131layer_norm_relu_bwd_rows_kernelINS_{arg}ELi{c}EE"
+                    "EvPKNT_7storageES6_PKfS8_PS4_Pfxf", 24 if (c, t) == spill_at else 0, c // 8 + 60)
+    return "\n".join(lines)
+
+
+def test_k1_bwd_spill_check_reads_every_instantiation(capsys):
+    rows = chip_smoke.check_k1_bwd_spills(_report())
+    assert {(r["C"], r["type"]) for r in rows} == chip_smoke.K1_BWD_INSTANCES
+    assert all(r["stack"] == r["spill_stores"] == r["spill_loads"] == 0 for r in rows)
+    assert all(r["registers"] == r["C"] // 8 + 60 for r in rows)
+    assert capsys.readouterr().out.count("[spill] K1 backward") == 16
+
+
+@pytest.mark.parametrize("report, message", [
+    (_report(spill_at=(2048, "BF16")), "spills"),
+    (_report(spill_at=(16, "F32")), "spills"),
+    (_report(missing=(1024, "F32")), "instantiations"),
+])
+def test_k1_bwd_spill_check_fails_on_a_spill_or_a_missing_instantiation(report, message):
+    with pytest.raises(AssertionError, match=message):
+        chip_smoke.check_k1_bwd_spills(report)

@@ -177,6 +177,28 @@ def test_build_declares_every_entry_point_as_its_c_signature():
             "adunet_error_string"} <= seen
 
 
+def test_backward_scratch_size_is_asked_once_per_device(monkeypatch):
+    """K1 backward's scratch size (one (2, C) partial per block of its grid)
+    comes from the library once per device, not once per launch; each device
+    gets its own answer. Checked on a stand-in for the loaded library."""
+    import ctypes
+
+    calls = []
+
+    class FakeLib:
+        def adunet_layer_norm_relu_backward_partials(self, addr):
+            calls.append(addr)
+            ctypes.c_int.from_address(addr).value = 1056 + len(calls)
+            return 0
+
+    monkeypatch.setattr(tnorm, "_partials_per_device", {})
+    lib = FakeLib()
+    assert tnorm._n_partials(lib, torch.device("cuda", 0)) == 1057
+    assert tnorm._n_partials(lib, torch.device("cuda", 0)) == 1057
+    assert tnorm._n_partials(lib, torch.device("cuda", 1)) == 1058
+    assert len(calls) == 2
+
+
 @pytest.mark.parametrize("x_shape, w_hwio", [
     ((2, 16, 128, 64), (3, 3, 64, 64)),
     ((8, 256, 256, 64), (3, 3, 64, 64)),

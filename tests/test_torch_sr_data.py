@@ -85,19 +85,26 @@ def _producers():
     return [t for t in threading.enumerate() if t.name == "patch-producer"]
 
 
+def _new_producer(before: set) -> threading.Thread:
+    """The one producer thread started since ``before`` was taken. Producers
+    of earlier tests' iterators may still be winding down, so threads are
+    told apart by identity, not counted."""
+    (started,) = [t for t in _producers() if t not in before]
+    return started
+
+
 def test_producer_stops_with_the_consumer_and_reports_errors(corpus, tmp_path):
     files = find_images(corpus, ".npy")
-    before = len(_producers())
+    before = set(_producers())
     ds = TrainingPatchDataset(files, patch_size=32, patches_per_image=1, scale=0.5, batch_size=2,
                               seed=0, shuffle_buffer=2, prefetch_batches=1)
     it = iter(ds)
     next(it)
+    producer = _new_producer(before)
     time.sleep(0.3)  # the producer fills the queue and blocks on it
     it.close()
-    deadline = time.time() + 10
-    while len(_producers()) > before and time.time() < deadline:
-        time.sleep(0.05)
-    assert len(_producers()) == before
+    producer.join(timeout=10)
+    assert not producer.is_alive()
 
     bad = tmp_path / "bad.npy"
     bad.write_bytes(b"not an array")
@@ -113,16 +120,15 @@ def test_device_feed_on_the_cpu_passes_batches_through_and_stops_the_producer(co
     pairs = [(b, b.astype(np.float32)) for b in batches]
     assert all(g is b for g, b in zip(device_feed(batches, "cpu"), batches))
     assert all(g is p for g, p in zip(device_feed(pairs, "cpu"), pairs))
-    before = len(_producers())
+    before = set(_producers())
     ds = TrainingPatchDataset(find_images(corpus, ".npy"), patch_size=32, patches_per_image=1,
                               scale=0.5, batch_size=2, seed=0, shuffle_buffer=2)
     feed = device_feed(ds, "cpu")
     assert next(feed).shape == (2, 32, 32, 3)
+    producer = _new_producer(before)
     feed.close()
-    deadline = time.time() + 10
-    while len(_producers()) > before and time.time() < deadline:
-        time.sleep(0.05)
-    assert len(_producers()) == before
+    producer.join(timeout=10)
+    assert not producer.is_alive()
 
 
 def test_pair_lr_files_matches_the_reference(tmp_path):

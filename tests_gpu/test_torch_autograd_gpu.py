@@ -17,7 +17,8 @@ relative L2 norm. K1's backward kernel shares the forward kernel's ReLU mask,
 whose float32 warp sums round otherwise than the plain version's ``mean``: an
 element within a rounding of 0 can be in one mask and not in the other, and
 it moves its whole row's dx. Such rows (at most 1e-5 of the elements may
-disagree) are left out of the dx comparison.
+disagree) are left out of the dx comparison, and, where the backward kernel
+alone runs at the larger row counts, out of the dgamma / dbeta comparison.
 """
 
 import pytest
@@ -60,6 +61,25 @@ def _k1_dx_close(x, g, b, got, want, rel):
     _close(got.reshape(-1, c)[keep], want.reshape(-1, c)[keep], rel)
 
 
+def _k1_params_close(x, g, b, gy, dg, db):
+    """dgamma / dbeta against the plain backward's, over the rows where the
+    kernel's and the plain forward's ReLU masks agree (the masks are
+    row-local, so the kernel on those rows alone has the plain mask). One
+    element whose masks disagree moves its column's sums by its cotangent:
+    among 16 M elements, enough to pass 1e-3."""
+    c = x.shape[-1]
+    with torch.no_grad():
+        flips = ((fused_norm.layer_norm_relu(x, g, b) > 0)
+                 != (fused_norm.layer_norm_relu_plain(x, g, b) > 0)).reshape(-1, c)
+    if bool(flips.any()):
+        keep = ~flips.any(dim=1)
+        x, gy = x[keep], gy[keep]
+        dg, db = fused_norm._launch_backward(x, g, b, gy, 1e-3)[1:]
+    want = fused_norm.layer_norm_relu_backward(x, g, b, gy)
+    _close(dg, want[1], 1e-3)
+    _close(db, want[2], 1e-3)
+
+
 def _grads(fn, inputs, gy):
     return torch.autograd.grad(fn(*inputs), inputs, gy)
 
@@ -92,10 +112,16 @@ def _k1_bwd_inputs(gen, rows, c, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", fused_norm.SUPPORTED_CHANNELS)
-@pytest.mark.parametrize("rows", [1, 8 * 4 * 3 + 5])
+@pytest.mark.parametrize("rows", [1, 8 * 4 * 3 + 5, "waves"])
 def test_layer_norm_relu_backward_kernel_matches_plain(cuda, dtype, c, rows):
     """The backward kernel alone against ``layer_norm_relu_backward``, at
-    every C, at one row and at a row count that fills no block evenly."""
+    every C, at one row, at a row count that fills no block evenly, and at
+    2^24 / C + 5 rows ("waves"), which the grid-stride loop of a grid sized
+    to the card walks in several turns at every C (about 8 at C = 2048, 15
+    at C = 64 in bf16 on an H100), each block's partial in the scratch
+    covering many rows."""
+    if rows == "waves":
+        rows = (1 << 24) // c + 5
     x, g, b, gy = _k1_bwd_inputs(cuda, rows, c, dtype)
     before = fused_norm.layer_norm_relu.backward_launches
     dx, dg, db = fused_norm._launch_backward(x, g, b, gy, 1e-3)
@@ -103,8 +129,7 @@ def test_layer_norm_relu_backward_kernel_matches_plain(cuda, dtype, c, rows):
     want = fused_norm.layer_norm_relu_backward(x, g, b, gy)
     assert (dx.dtype, dg.dtype, db.dtype) == (dtype, torch.float32, torch.float32)
     _k1_dx_close(x, g, b, dx, want[0], 1e-5 if dtype == torch.float32 else 1e-4)
-    _close(dg, want[1], 1e-3)
-    _close(db, want[2], 1e-3)
+    _k1_params_close(x, g, b, gy, dg, db)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -123,13 +148,38 @@ def test_layer_norm_relu_backward_dead_row_is_zero(cuda, dtype):
     _close(db, want[2], 1e-3)
 
 
-def test_layer_norm_relu_backward_parameter_sums_are_deterministic(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_relu_backward_parameter_sums_are_deterministic(cuda, dtype):
     """dgamma / dbeta come from a two-level sum in a fixed order, no atomics:
     two runs on the same inputs agree bit for bit."""
-    x, g, b, gy = _k1_bwd_inputs(cuda, 300_001, 64, torch.bfloat16)
+    x, g, b, gy = _k1_bwd_inputs(cuda, 300_001, 64, dtype)
     first = fused_norm._launch_backward(x, g, b, gy, 1e-3)
     second = fused_norm._launch_backward(x, g, b, gy, 1e-3)
     assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", fused_norm.SUPPORTED_CHANNELS)
+def test_layer_norm_relu_backward_mask_is_the_forward_kernels(cuda, dtype, c):
+    """The backward kernel's ReLU mask is the forward kernel's output > 0,
+    bit for bit, where pre-activations lie within a rounding of 0: beta is
+    -xhat * gamma at every other column, xhat from the plain float32
+    statistics (the kernels' warp sums round otherwise, so the kernels'
+    pre-activations there are a rounding either side of 0, or 0). With one
+    row and a cotangent of 1, dbeta is exactly the backward's mask."""
+    for seed in range(4):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        x = (torch.randn(1, c, generator=gen, device="cuda") * 3 + 1).to(dtype)
+        gamma = torch.randn(c, generator=gen, device="cuda") * 0.2 + 1
+        beta = torch.randn(c, generator=gen, device="cuda") * 0.2
+        xf = x[0].float()
+        dev = xf - xf.mean()
+        xhat = dev * torch.rsqrt(dev.square().mean() + 1e-3)
+        beta[::2] = -(xhat * gamma)[::2]
+        _, _, dbeta = fused_norm._launch_backward(x, gamma, beta, torch.ones_like(x), 1e-3)
+        y = fused_norm.layer_norm_relu(x, gamma, beta)[0]
+        assert bool((y[::2].float() <= 1e-4).all())  # the edge is what is tested
+        assert torch.equal(dbeta, (y > 0).float())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

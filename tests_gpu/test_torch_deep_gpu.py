@@ -1,13 +1,14 @@
 """K1 at the deep config's widths and the deep / vanilla SR steps on the card.
 
 The deep config (scale 0.8, depth 5) runs K1 at C = 1024 (its level 4) and
-C = 2048 (its bottleneck), where a lane holds 32 and 64 float32 values of a
-row and the backward kernel's per-lane partial sums spill. These tests hold
-both kernels there: one row, row counts that leave a block part-filled, the
-deep config's own row counts at batch 8, a dead row, and dgamma / dbeta bit
-for bit over two runs. Then a float32 step of a depth-5 model with and
-without ``remat_levels`` (gradients within 1e-5 relative L2), and a float32
-step of the vanilla SR U-Net against the CPU at the BatchNorm tolerances.
+C = 2048 (its bottleneck), where a lane holds 32 and 64 values of a row and
+the backward kernel keeps its per-lane partial sums in shared memory. These
+tests hold both kernels there: one row, row counts that leave a block
+part-filled, the deep config's own row counts at batch 8, a dead row, and
+dgamma / dbeta bit for bit over two runs in float32 and bf16. Then a float32
+step of a depth-5 model with and without ``remat_levels`` (gradients within
+1e-5 relative L2), and a float32 step of the vanilla SR U-Net against the
+CPU at the BatchNorm tolerances.
 Every test needs a CUDA GPU and skips without one:
 
     python -m pytest tests_gpu -q
@@ -30,26 +31,11 @@ from adunet_torch.losses import charbonnier_loss
 from adunet_torch.models import build_super_resolution_unet
 from adunet_torch.train import create_train_state, make_optimizer, make_sr_train_step
 
-from test_torch_autograd_gpu import _close, _k1_bwd_inputs, _k1_dx_close, _k1_forward_close
+from test_torch_autograd_gpu import (_close, _k1_bwd_inputs, _k1_dx_close, _k1_forward_close,
+                                     _k1_params_close)
 
 pytestmark = pytest.mark.gpu
 
-
-def _k1_params_close(x, g, b, gy, dg, db):
-    """dgamma / dbeta against the plain backward's, over the rows where the
-    kernel's and the plain forward's ReLU masks agree (the masks are
-    row-local, so the kernel on those rows alone has the plain mask)."""
-    c = x.shape[-1]
-    with torch.no_grad():
-        flips = ((fused_norm.layer_norm_relu(x, g, b) > 0)
-                 != (fused_norm.layer_norm_relu_plain(x, g, b) > 0)).reshape(-1, c)
-    if bool(flips.any()):
-        keep = ~flips.any(dim=1)
-        x, gy = x[keep], gy[keep]
-        dg, db = fused_norm._launch_backward(x, g, b, gy, 1e-3)[1:]
-    want = fused_norm.layer_norm_relu_backward(x, g, b, gy)
-    _close(dg, want[1], 1e-3)
-    _close(db, want[2], 1e-3)
 
 # the deep config's rows at batch 8 x 256 px: level 4 (106 px) and the
 # bottleneck (85 px)
@@ -97,9 +83,10 @@ def test_wide_rows_dead_row_is_zero(cuda, dtype, c):
     _close(db, want[2], 1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [1024, 2048])
-def test_wide_rows_parameter_sums_are_deterministic(cuda, c):
-    x, g, b, gy = _k1_bwd_inputs(cuda, DEEP_ROWS[c], c, torch.bfloat16)
+def test_wide_rows_parameter_sums_are_deterministic(cuda, c, dtype):
+    x, g, b, gy = _k1_bwd_inputs(cuda, DEEP_ROWS[c], c, dtype)
     first = fused_norm._launch_backward(x, g, b, gy, 1e-3)
     second = fused_norm._launch_backward(x, g, b, gy, 1e-3)
     assert all(torch.equal(u, v) for u, v in zip(first, second))
