@@ -1,4 +1,5 @@
-"""HTTP model server over an SR serving artifact, on the port's model.
+"""HTTP model server over an SR or segmentation serving artifact, on the
+port's model.
 
 Port of ``adunet/cli/serve.py``: the same endpoints (``GET /v1/health``,
 ``GET /v1/metadata`` with the manifest and live serving stats,
@@ -9,6 +10,13 @@ partial batch, and the same 400 / 413 / 503 behaviour. The model runs on
 unless ``--device cpu`` is given). The batcher thread runs the model's
 ``call``, which enters ``torch.inference_mode()`` in that thread (the mode is
 thread-local) and brings results back to numpy with ``.cpu().numpy()``.
+A reply holds one array per request: (N, P, P, 3) restored tiles for an SR
+artifact, (N, P, P, C) mask probabilities for a segmentation one.
+
+A joint SR + segmentation artifact is refused at start: its call returns two
+arrays, which the batcher's one row per request cannot carry. The reference
+starts on one and then answers every request with a 500, since its batcher
+indexes the call's dict as an array (``adunet/cli/serve.py:147-149``).
 
 Run: ``python -m adunet_torch.cli.serve --artifact <dir> [--device cuda] --port 8500``
 """
@@ -29,7 +37,8 @@ import numpy as np
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    parser = argparse.ArgumentParser(description="Serve an adunet SR artifact with the PyTorch port.")
+    parser = argparse.ArgumentParser(description="Serve an adunet SR or segmentation artifact "
+                                                 "with the PyTorch port.")
     parser.add_argument("--artifact", type=str, required=True,
                         help="Artifact directory (manifest.json + weights.npz).")
     parser.add_argument("--device", type=str, default="cuda",
@@ -161,6 +170,12 @@ def make_server(artifact_dir: str, host: str = "127.0.0.1", port: int = 0,
     from adunet_torch.export import load_artifact
 
     call, manifest = load_artifact(artifact_dir, device=device)
+    if manifest.get("model") == "joint_sr_seg_unet":
+        raise ValueError(
+            f"artifact at {artifact_dir!r} is a joint SR + segmentation model, whose call "
+            "returns two arrays ('sr' and 'mask'); the server replies with one array per "
+            "request, so it serves SR and segmentation artifacts only."
+        )
     if "input_shape" not in manifest:
         raise ValueError(
             f"artifact at {artifact_dir!r} has no 'input_shape' in its manifest; the "

@@ -10,8 +10,9 @@ lines. ``--device`` is ``cuda`` by default, which raises without a GPU;
 ``*_segmentation`` masks, ``.jpg`` / ``.png`` / ``.npy``) are decoded on the
 host and augmented on the device inside the train step.
 ``--async_checkpoint`` writes the checkpoints on a background thread.
-``--n_devices`` above 1 (ROADMAP Queue 1 item 13) is not ported and raises;
-TensorBoard scalars are not written.
+``--n_devices`` above 1 (ROADMAP Queue 1 item 13) is not ported and raises.
+Where ``tensorboardX`` imports, each epoch's ``train/*``, ``val/*`` and
+``perf/*`` scalars go to TensorBoard events in the run directory.
 
     python -m adunet_torch.cli.train_seg --protocol A --train_images DIR \\
         --train_masks DIR --val_images DIR --val_masks DIR [--device cpu]
@@ -108,6 +109,7 @@ def train(cfg: SegTrainConfig) -> dict:
         make_optimizer,
         make_seg_eval_step,
         make_seg_train_step,
+        open_tb_writer,
         repeat,
     )
     from adunet_torch.utils.runtime import resolve_device
@@ -154,6 +156,7 @@ def train(cfg: SegTrainConfig) -> dict:
     ckpt = CheckpointManager(ckpt_dir, monitor="val_dice", mode="max",
                              async_save=cfg.async_checkpoint)
 
+    tb_writer = open_tb_writer(run_dir)
     train_step = make_seg_train_step(model, loss_fn, augment=cfg.augment)
     eval_step = make_seg_eval_step(model, loss_fn, per_sample=True)
 
@@ -187,6 +190,7 @@ def train(cfg: SegTrainConfig) -> dict:
         log_dir=run_dir,
         pre_val_hook=pre_val_hook,
         cache_val_on_device=cfg.val_device_cache,
+        tb_writer=tb_writer,
     )
     state = result.state
     eval_metrics = weighted_eval(eval_step, state, val_ds)
@@ -219,6 +223,8 @@ def train(cfg: SegTrainConfig) -> dict:
     }
     (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
     ckpt.write_config(config_payload)
+    if tb_writer is not None:
+        tb_writer.close()
     ckpt.close()
 
     print("Validation metrics:")

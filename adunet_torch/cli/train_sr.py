@@ -23,8 +23,13 @@ Three data paths, as in the reference:
 else seeded random ones), ``--remat`` / ``--remat_levels`` checkpoint the
 ConvBlocks, ``--async_checkpoint`` writes checkpoints on a background thread.
 Refused with the ROADMAP item that ports it: ``--model_shards`` and
-``--n_devices`` above 1 (Queue 1 item 13). TensorBoard scalars and previews
-are not written.
+``--n_devices`` above 1 (Queue 1 item 13). Where ``tensorboardX`` imports,
+the run directory gets the reference's TensorBoard events
+(``adunet/cli/train_sr.py:396-443, 561-564``): at step 0 the
+hyperparameters and model summary as text, the dataset census scalars and
+the preview HR / LR patches as images and histograms; each epoch's
+``train/*``, ``val/*`` and ``perf/*`` scalars (``fit``); the ``eval/*``
+scalars of the post-training evaluation.
 
     python -m adunet_torch.cli.train_sr --scale 0.5 --depth_override 3 \\
         --mixed_precision --uint8_feed --cache_decoded --batch_size 32 \\
@@ -124,15 +129,20 @@ def train(cfg: SRTrainConfig) -> dict:
         ArrayDataset,
         device_feed,
         find_images,
+        grid_patch_count,
         load_device_cache,
         load_rgb_image,
+        load_rgb_image_full,
         make_eval_patch_dataset,
         make_training_patch_dataset,
         pair_lr_files,
+        random_patches,
+        read_image_size,
     )
     from adunet_torch.evaluate import evaluate_sr, infer_eval_shave
     from adunet_torch.losses import build_losses_and_metrics, make_perceptual_fn
     from adunet_torch.models import build_super_resolution_unet
+    from adunet_torch.ops import degrade
     from adunet_torch.train import (
         CheckpointManager,
         create_train_state,
@@ -141,6 +151,7 @@ def train(cfg: SRTrainConfig) -> dict:
         make_sr_device_cache_train_step,
         make_sr_train_step,
         make_sr_val_step,
+        open_tb_writer,
         repeat,
     )
     from adunet_torch.utils.misc import split_indices
@@ -180,16 +191,21 @@ def train(cfg: SRTrainConfig) -> dict:
         train_patch_count = len(train_idx)
         steps_per_epoch = train_ds.steps_per_epoch
         val_ds = paired_dataset(val_idx, shuffle=False, drop_remainder=False)
+        val_patch_count, test_patch_count = len(val_idx), len(test_idx)
     else:
         # the epoch length of the patch stream: patches_per_image random
         # crops per training image
         train_patch_count = len(train_paths) * cfg.patches_per_image
         steps_per_epoch = math.ceil(train_patch_count / cfg.batch_size)
-        val_ds = None
+        val_ds, val_patch_count = None, 0
         if val_paths:
-            val_ds, _, _ = make_eval_patch_dataset(val_paths, patch_size=cfg.patch_size,
-                                                   scale=degrade_scale, batch_size=cfg.batch_size,
-                                                   stride=cfg.eval_stride)
+            val_ds, val_patch_count, _ = make_eval_patch_dataset(
+                val_paths, patch_size=cfg.patch_size, scale=degrade_scale,
+                batch_size=cfg.batch_size, stride=cfg.eval_stride)
+        # census only: counted from the image headers, nothing decoded
+        test_patch_count = sum(grid_patch_count(*read_image_size(p), cfg.patch_size,
+                                                stride=cfg.eval_stride or cfg.patch_size)
+                               for p in test_paths)
     dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
     model, info = build_super_resolution_unet(
         scale=cfg.scale,
@@ -236,10 +252,9 @@ def train(cfg: SRTrainConfig) -> dict:
         "created_at": timestamp,
     }
     (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
-    (run_dir / "model_summary.txt").write_text(
-        f"{model!r}\nTotal params: {n_params:,}\ndepth: {info['depth']}\n"
-        f"bottleneck: {info['bottleneck_size']}px\n"
-    )
+    model_table = (f"{model!r}\nTotal params: {n_params:,}\ndepth: {info['depth']}\n"
+                   f"bottleneck: {info['bottleneck_size']}px\n")
+    (run_dir / "model_summary.txt").write_text(model_table)
     print(f"Model: depth={info['depth']} params={n_params:,} device={dev}")
 
     ckpt = CheckpointManager(ckpt_dir, monitor="val_loss", mode="min",
@@ -278,6 +293,33 @@ def train(cfg: SRTrainConfig) -> dict:
     elif initial_epoch > 0:
         print("[warn] --initial_epoch was set without --resume_from; training will skip "
               "the initial epochs but start from random weights.")
+
+    tb_writer = open_tb_writer(run_dir)
+    if tb_writer is not None:
+        tb_writer.add_text("config/hyperparameters",
+                           "```json\n" + json.dumps(config_payload, indent=2, default=str)
+                           + "\n```", 0)
+        tb_writer.add_text("model/summary", "```\n" + model_table + "\n```", 0)
+        census = {"images/train": len(train_paths), "images/val": len(val_paths),
+                  "images/test": len(test_paths), "patches_per_epoch/train": train_patch_count,
+                  "patches/val": val_patch_count, "patches/test": test_patch_count}
+        for tag, value in census.items():
+            tb_writer.add_scalar(f"dataset/{tag}", int(value), 0)
+        preview_count = min(cfg.preview_patches, len(train_paths))
+        if preview_count > 0:
+            if paired:
+                lr_preview, hr_preview = next(iter(paired_dataset(
+                    train_idx[:preview_count], shuffle=False, drop_remainder=False)))
+            else:
+                hr_preview = random_patches(load_rgb_image_full(train_paths[0]), cfg.patch_size,
+                                            count=preview_count,
+                                            rng=np.random.default_rng(cfg.seed))
+                lr_preview = degrade(torch.from_numpy(hr_preview), degrade_scale,
+                                     cfg.patch_size).numpy()
+            for name, arr in (("hr", hr_preview), ("lr", lr_preview)):
+                arr01 = np.clip(arr, 0.0, 1.0)
+                tb_writer.add_images(f"samples/{name}_train", arr01, 0, dataformats="NHWC")
+                tb_writer.add_histogram(f"hist/{name}_train", arr01.reshape(-1), 0)
 
     samples_per_step = None
     if cfg.device_cache and not paired:
@@ -329,6 +371,7 @@ def train(cfg: SRTrainConfig) -> dict:
             log_dir=run_dir,
             samples_per_step=samples_per_step,
             profile_dir=(run_dir / "profile") if cfg.profile else None,
+            tb_writer=tb_writer,
         )
     finally:
         train_iter.close()  # stops the patch producer thread
@@ -361,7 +404,14 @@ def train(cfg: SRTrainConfig) -> dict:
         print(f"  SSIM(Y)    : {summary.ssim_mean:.4f} +/- {summary.ssim_std:.4f}")
         print(f"  MS-SSIM(Y) : {summary.msssim_mean:.4f} +/- {summary.msssim_std:.4f}")
         final_metrics[name.lower()] = dataclasses.asdict(summary)
+        if tb_writer is not None:
+            step = len(result.history)
+            for metric in ("mse", "psnr", "ssim", "msssim"):
+                tb_writer.add_scalar(f"eval/{name.lower()}_{metric}_y",
+                                     getattr(summary, f"{metric}_mean"), step)
 
+    if tb_writer is not None:
+        tb_writer.close()
     ckpt.close()
     return {"run_dir": str(run_dir), "ckpt_dir": str(ckpt_dir), "eval": final_metrics,
             "history_epochs": len(result.history), "best_epoch": result.best_epoch,

@@ -14,11 +14,18 @@
   spatial axes: flax correlates the dilated input with the kernel
   unflipped, torch's transposed conv scatters it unflipped
   (``adunet_torch/nn/blocks.py::ConvTranspose``).
-- ``flax_leaf_paths(depth, quantized)``: the flat leaf order of the SR
-  model's param tree, i.e. recursively sorted dict keys, the order in which
-  ``jax.tree_util`` flattens dicts and in which an exported artifact stores
-  its ``weights.npz`` leaves (``w0``, ``w1``, ...). A quantized conv kernel
-  is the two leaves ``{"q", "scale"}``, in that order.
+- ``flax_trees_from_state_dict(state_dict)``: the inverse, to
+  ``(params, batch_stats)`` nested numpy dicts (HWIO kernels); what an
+  export quantizes and writes.
+- ``model_leaf_paths(model, quantized)``: the flat leaf order of a model's
+  param tree, read from its own parameter names: recursively sorted dict
+  keys, the order in which ``jax.tree_util`` flattens dicts and in which an
+  exported artifact stores its ``weights.npz`` leaves (``w0``, ``w1``, ...).
+  A quantized conv kernel is the two leaves ``{"q", "scale"}``, in that
+  order. ``flax_leaf_paths(depth, quantized)`` is that order for the
+  adaptive SR U-Net at ``depth``. The joint model's names are ``enc{i}``,
+  ``bottleneck``, ``{sr,seg}_dec{i}``, ``{sr,seg}_dec{i}_smooth``,
+  ``sr_head``, ``residual_rgb`` and ``mask_logits``.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "flax_leaf_paths"]
+__all__ = ["state_dict_from_flax", "flax_trees_from_state_dict", "model_leaf_paths",
+           "flax_leaf_paths"]
 
 
 _STATS_NAMES = {"mean": "running_mean", "var": "running_var"}
+_STATS_TORCH = {v: k for k, v in _STATS_NAMES.items()}
 
 
 def state_dict_from_flax(params: Mapping[str, Any],
@@ -78,33 +87,60 @@ def state_dict_from_flax(params: Mapping[str, Any],
     return out
 
 
-def _param_tree_skeleton(depth: int, quantized: bool = False) -> Dict[str, Any]:
-    """Nested dict with the SR model's param-tree keys (leaves are ``None``)."""
-    kernel = {"q": None, "scale": None} if quantized else None
-    conv = {"bias": None, "kernel": kernel}
-    norm = {"bias": None, "scale": None}
+def _flax_path(name: str, ndim: int) -> Tuple[str, Tuple[str, ...]]:
+    """(collection, path) of a state_dict entry in the reference's trees:
+    ``"params"`` (a 4-D ``weight`` is a conv ``kernel``, a 1-D one a norm
+    ``scale``) or ``"batch_stats"`` (the BatchNorm buffers)."""
+    *prefix, leaf = name.split(".")
+    if leaf in _STATS_TORCH:
+        return "batch_stats", (*prefix, _STATS_TORCH[leaf])
+    if leaf == "weight":
+        leaf = "kernel" if ndim == 4 else "scale"
+    return "params", (*prefix, leaf)
 
-    def block() -> Dict[str, Any]:
-        return {"conv0": dict(conv), "conv1": dict(conv), "norm0": dict(norm), "norm1": dict(norm)}
 
-    tree: Dict[str, Any] = {"bottleneck": block(), "head": block(), "residual_rgb": dict(conv)}
-    for level in range(depth):
-        tree[f"enc{level}"] = block()
-        tree[f"dec{level}"] = block()
-        tree[f"dec{level}_smooth"] = dict(conv)
-    return tree
+def model_leaf_paths(model: torch.nn.Module, quantized: bool = False,
+                     collection: str = "params") -> List[Tuple[str, ...]]:
+    """Leaf paths of ``model``'s flax tree (``"params"`` or ``"batch_stats"``)
+    in flattening order, read from its own parameter and buffer names.
+    ``jax.tree_util`` flattens dicts by sorted keys at every level, which is
+    the lexicographic order of the path tuples (``seg_dec0`` before
+    ``seg_dec0_smooth``). With ``quantized`` a conv kernel is the two leaves
+    ``(..., "kernel", "q")`` and ``(..., "kernel", "scale")``."""
+    paths: List[Tuple[str, ...]] = []
+    for name, tensor in model.state_dict(keep_vars=True).items():
+        coll, path = _flax_path(name, tensor.dim())
+        if coll != collection:
+            continue
+        if quantized and path[-1] == "kernel":
+            paths += [path + ("q",), path + ("scale",)]
+        else:
+            paths.append(path)
+    return sorted(paths)
 
 
 def flax_leaf_paths(depth: int, quantized: bool = False) -> List[Tuple[str, ...]]:
-    """Leaf paths of the SR model's param tree in flattening order."""
-    paths: List[Tuple[str, ...]] = []
+    """Leaf paths of the adaptive SR U-Net's param tree at ``depth`` in
+    flattening order (``model_leaf_paths`` of the model on the meta device)."""
+    from adunet_torch.models.sr_adaptive import AdaptiveSRUNet
 
-    def walk(node: Mapping[str, Any], prefix: Tuple[str, ...]) -> None:
-        for key in sorted(node):
-            if isinstance(node[key], Mapping):
-                walk(node[key], prefix + (key,))
-            else:
-                paths.append(prefix + (key,))
+    return model_leaf_paths(AdaptiveSRUNet(scale=0.5, depth=depth, device="meta"), quantized)
 
-    walk(_param_tree_skeleton(depth, quantized), ())
-    return paths
+
+def flax_trees_from_state_dict(state_dict: Mapping[str, torch.Tensor]
+                               ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of ``state_dict_from_flax``: ``(params, batch_stats)`` as
+    nested dicts of float32 numpy arrays, conv kernels in HWIO."""
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for name, tensor in state_dict.items():
+        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        coll, path = _flax_path(name, arr.ndim)
+        if path[-1] == "kernel":
+            if path[-2].endswith("_up"):
+                raise ValueError(f"{name}: ConvTranspose kernels have no exported layout")
+            arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        node = trees[coll]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return trees["params"], trees["batch_stats"]

@@ -1,34 +1,71 @@
-"""Load an exported SR serving artifact and run it on the port's model.
+"""Serving artifacts: write them from the port's models, load them into it.
 
-Port of the loading half of ``adunet/export/aot.py``. An artifact directory
-holds ``manifest.json``, ``model.stablehlo`` and, for int8 weight-only
-exports, ``weights.npz``: the param tree's leaves ``w0..wN`` in flattening
-order (``adunet_torch.convert.flax_leaf_paths``), each conv kernel as an
-int8 ``q`` plus a float32 per-output-channel ``scale``
-(``quantize_params_int8``, :32). The port never reads the StableHLO program:
-it dequantizes the leaves as ``q.astype(f32) * scale`` (``_dequantize_params``,
-:55) into the port's own ``AdaptiveSRUNet``. An artifact without a weights
-file has its float32 weights baked into the program and cannot be served by
-the port.
+Port of ``adunet/export/aot.py``. An artifact directory holds
+``manifest.json`` and ``weights.npz``: the param tree's leaves ``w0..wN`` in
+flattening order (``adunet_torch.convert.model_leaf_paths``), each conv
+kernel, when quantized, as an int8 ``q`` plus a float32 per-output-channel
+``scale`` (``quantize_params_int8``, :32).
+
+- ``save_artifact`` writes the port's artifacts: ``"format":
+  "adunet_torch.weights"``, no ``model.stablehlo`` (there is no JAX to lower
+  a program with), so they load only in the port, as the manifest says.
+  Without ``quantize`` the leaves are the float32 weights, the counterpart
+  of the reference's float32 program. A segmentation model's BatchNorm
+  statistics go into the weights file as the extra leaves ``s0..sM`` (the
+  ``batch_stats`` tree in flattening order; ``batch_stats_leaves`` in the
+  manifest), where the reference bakes them into its program (:164-199).
+- ``load_artifact`` reads the manifest's ``model`` (``adaptive_sr_unet``,
+  ``adaptive_seg_unet`` or ``joint_sr_seg_unet``), dequantizes the leaves as
+  ``q.astype(f32) * scale`` (``_dequantize_params``, :55) and builds that
+  model on the device. It loads the port's artifacts and the reference's
+  int8 SR and joint ones (it never reads their StableHLO program). A
+  reference float32 artifact has its weights only inside the program, and a
+  reference seg artifact its BatchNorm statistics: both are refused.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from adunet_torch.convert import flax_leaf_paths, state_dict_from_flax
+from adunet_torch.convert import flax_trees_from_state_dict, model_leaf_paths, state_dict_from_flax
+from adunet_torch.models.joint import JointSRSegUNet
+from adunet_torch.models.seg_adaptive import AdaptiveSegUNet
 from adunet_torch.models.sr_adaptive import AdaptiveSRUNet
 from adunet_torch.utils.runtime import resolve_device
 
-__all__ = ["MANIFEST_FILE", "load_artifact"]
+__all__ = ["MANIFEST_FILE", "WEIGHTS_FILE", "FORMAT", "quantize_params_int8", "save_artifact",
+           "load_artifact"]
 
 MANIFEST_FILE = "manifest.json"
-_LEAVES_PER_LEVEL = 23  # quantized leaves: enc + dec blocks (10 each) + smooth conv (3)
+WEIGHTS_FILE = "weights.npz"
+FORMAT = "adunet_torch.weights"
+_PROGRAM_FILE = "model.stablehlo"
+_MODELS = {AdaptiveSRUNet: "adaptive_sr_unet", AdaptiveSegUNet: "adaptive_seg_unet",
+           JointSRSegUNet: "joint_sr_seg_unet"}
+
+
+def quantize_params_int8(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """Weight-only int8 quantization of the 4-D conv kernels (HWIO) of a
+    nested param dict: each becomes ``{"q": int8, "scale": f32[C_out]}``
+    with per-output-channel symmetric scales, rounded half to even
+    (``np.round``) as the reference does; other leaves stay float32."""
+    out: Dict[str, Any] = {}
+    for key, value in params.items():
+        if isinstance(value, Mapping):
+            out[key] = quantize_params_int8(value)
+            continue
+        w = np.asarray(value)
+        if w.ndim != 4:
+            out[key] = w
+            continue
+        scale = np.maximum(np.abs(w).max(axis=(0, 1, 2)) / 127.0, 1e-12).astype(np.float32)
+        out[key] = {"q": np.clip(np.round(w / scale), -127, 127).astype(np.int8), "scale": scale}
+    return out
 
 
 def _dequantize(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -44,6 +81,66 @@ def _dequantize(tree: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _get(tree: Mapping[str, Any], path: Sequence[str]) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: Dict[str, Any], path: Sequence[str], leaf: Any) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def save_artifact(model: torch.nn.Module, out_dir: str | Path, image_size: int,
+                  batch_size: int, quantize: Optional[str] = None,
+                  meta: Optional[Dict[str, Any]] = None) -> Path:
+    """Write ``model``'s serving artifact for (batch_size, image_size,
+    image_size, 3) float32 inputs into ``out_dir``; returns it.
+
+    ``quantize="int8"`` stores conv kernels as int8 + per-channel scales;
+    None stores the float32 weights. The manifest carries the model's name,
+    depth and (SR and joint) scale, its parameter count, and ``meta``."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantization mode: {quantize}")
+    name = _MODELS.get(type(model))
+    if name is None:
+        raise ValueError(f"{type(model).__name__} has no serving artifact")
+    params, batch_stats = flax_trees_from_state_dict(model.state_dict())
+    tree = quantize_params_int8(params) if quantize else params
+    leaves = {f"w{i}": _get(tree, p)
+              for i, p in enumerate(model_leaf_paths(model, quantized=bool(quantize)))}
+    stats_paths = model_leaf_paths(model, collection="batch_stats")
+    leaves.update({f"s{i}": _get(batch_stats, p) for i, p in enumerate(stats_paths)})
+
+    out_dir = Path(out_dir).expanduser()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / _PROGRAM_FILE).unlink(missing_ok=True)  # no stale program beside these weights
+    np.savez(out_dir / WEIGHTS_FILE, **leaves)
+    manifest: Dict[str, Any] = {
+        "format": FORMAT,
+        "loads_in": "adunet_torch only: no StableHLO program; load with "
+                    "adunet_torch.export.load_artifact",
+        "model": name,
+        "input_shape": [int(batch_size), int(image_size), int(image_size), 3],
+        "input_dtype": "float32",
+        "artifact_bytes": (out_dir / WEIGHTS_FILE).stat().st_size,
+        "weights_file": WEIGHTS_FILE,
+        "weights_leaves": len(leaves) - len(stats_paths),
+        "batch_stats_leaves": len(stats_paths),
+        "depth": model.depth,
+        "param_count": sum(p.numel() for p in model.parameters()),
+    }
+    if hasattr(model, "scale"):
+        manifest["scale"] = model.scale
+    if quantize:
+        manifest["quantization"] = f"{quantize}-weight-only"
+    manifest.update(meta or {})
+    (out_dir / MANIFEST_FILE).write_text(json.dumps(manifest, indent=2))
+    return out_dir
+
+
 def _read_manifest(path: str | Path) -> Tuple[Path, Dict[str, Any]]:
     path = Path(path).expanduser()
     base = path if path.is_dir() else path.parent
@@ -57,67 +154,114 @@ def _read_manifest(path: str | Path) -> Tuple[Path, Dict[str, Any]]:
             "program (no 'weights_file' in the manifest); the PyTorch port can serve "
             "only weight-file artifacts. Re-export with --quantize int8."
         )
-    if manifest.get("model", "adaptive_sr_unet") != "adaptive_sr_unet":
-        raise ValueError(f"artifact model {manifest['model']!r} is not ported yet "
-                         "(only adaptive_sr_unet)")
+    name = manifest.get("model", "adaptive_sr_unet")
+    if name not in _MODELS.values():
+        raise ValueError(f"artifact model {name!r} is not one the port serves "
+                         f"({', '.join(_MODELS.values())})")
+    if name == "adaptive_seg_unet" and manifest.get("format") != FORMAT:
+        raise ValueError(
+            f"artifact at {path} is a reference segmentation export: its BatchNorm running "
+            "statistics are baked into its StableHLO program and are not in its weights "
+            "file, so the port cannot rebuild the model. Export the checkpoint with "
+            "adunet_torch.cli.export_model, which writes them as weight leaves."
+        )
     return base, manifest
 
 
-def _read_params(path: str | Path) -> Tuple[Dict[str, Any], int, Dict[str, Any]]:
-    """(dequantized flax-style param tree, depth, manifest) of an artifact."""
-    base, manifest = _read_manifest(path)
-    n = int(manifest["weights_leaves"])
-    if n % _LEAVES_PER_LEVEL or n < 2 * _LEAVES_PER_LEVEL:
-        raise ValueError(f"{n} weight leaves do not form an adaptive SR U-Net param tree")
-    depth = n // _LEAVES_PER_LEVEL - 1
-    if int(manifest.get("depth", depth)) != depth:
-        raise ValueError(f"manifest depth {manifest['depth']} but {n} leaves imply depth {depth}")
-    paths = flax_leaf_paths(depth, quantized=True)
-    tree: Dict[str, Any] = {}
+def _scale(manifest: Dict[str, Any], path: Path) -> float:
+    """An SR or joint artifact's encoder shrink: the manifest's, else its
+    checkpoint's ``config.json`` (the reference's joint manifest names the
+    checkpoint but not the scale, which its program bakes in)."""
+    if "scale" in manifest:
+        return float(manifest["scale"])
+    cfg = Path(manifest.get("checkpoint", "")).expanduser() / "config.json"
+    if manifest.get("checkpoint") and cfg.exists():
+        return float(json.loads(cfg.read_text())["scale"])
+    raise ValueError(f"artifact at {path} names no 'scale' and its checkpoint's config.json is "
+                     "not found: the encoder's shrink cannot be read from the weights")
+
+
+def _make_model(name: str, depth: int, scale: Optional[float], device,
+                params: Optional[Dict[str, Any]] = None) -> torch.nn.Module:
+    """The artifact's model; with ``params``, its widths read from them."""
+    def width(*block: str, default: int = 64) -> int:
+        return default if params is None else int(_get(params, block + ("kernel",)).shape[-1])
+
+    if name == "adaptive_sr_unet":
+        return AdaptiveSRUNet(scale, depth, base_channels=width("enc0", "conv0"),
+                              residual_head_channels=width("head", "conv0"), device=device)
+    if name == "adaptive_seg_unet":
+        return AdaptiveSegUNet(depth, base_channels=width("enc0", "conv0"), device=device)
+    return JointSRSegUNet(scale, depth, base_channels=width("enc0", "conv0"),
+                          residual_head_channels=width("sr_head", "conv0"),
+                          num_classes=width("mask_logits", default=1), device=device)
+
+
+def _read_leaves(base: Path, manifest: Dict[str, Any], name: str, scale: Optional[float]
+                 ) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
+    """(dequantized param tree, batch_stats tree, depth) of an artifact."""
+    if "depth" not in manifest:
+        raise ValueError(f"artifact at {base} names no 'depth' in its {MANIFEST_FILE}")
+    quantized = manifest.get("format") != FORMAT or bool(manifest.get("quantization"))
+    n, depth = int(manifest["weights_leaves"]), int(manifest["depth"])
+    skeleton = _make_model(name, depth, scale, "meta")
+    paths = model_leaf_paths(skeleton, quantized=quantized)
+    if len(paths) != n:
+        raise ValueError(f"{n} weight leaves do not form a {name} param tree of depth {depth}")
+    stats_paths = model_leaf_paths(skeleton, collection="batch_stats")
+    if int(manifest.get("batch_stats_leaves", 0)) != len(stats_paths):
+        raise ValueError(f"{name} of depth {depth} has {len(stats_paths)} BatchNorm statistics; "
+                         f"the manifest says {manifest.get('batch_stats_leaves', 0)}")
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
     with np.load(base / manifest["weights_file"]) as z:
         for i, path_keys in enumerate(paths):
             leaf = z[f"w{i}"]
             if path_keys[-1] == "q" and (leaf.dtype != np.int8 or leaf.ndim != 4):
                 raise ValueError(f"leaf w{i} ({'/'.join(path_keys)}) is {leaf.dtype} {leaf.shape}, "
                                  "expected an int8 HWIO kernel")
-            node = tree
-            for key in path_keys[:-1]:
-                node = node.setdefault(key, {})
-            node[path_keys[-1]] = leaf
-    return _dequantize(tree), depth, manifest
+            _put(params, path_keys, leaf)
+        for i, path_keys in enumerate(stats_paths):
+            _put(batch_stats, path_keys, z[f"s{i}"])
+    return _dequantize(params), batch_stats, depth
 
 
 def load_artifact(
     path: str | Path, device: str | torch.device = "cuda"
-) -> Tuple[Callable[[np.ndarray], np.ndarray], Dict[str, Any]]:
+) -> Tuple[Callable[[np.ndarray], Any], Dict[str, Any]]:
     """Build the artifact's model on ``device`` and return ``(call, manifest)``.
 
-    ``call(tiles)`` takes float32 numpy (B, P, P, 3) and returns the clipped
-    restoration as float32 numpy (``adunet/export/aot.py:151-156``). It runs
-    under ``torch.inference_mode()``, entered in the calling thread (the mode
-    is thread-local). ``call.model`` is the ``AdaptiveSRUNet``."""
+    ``call(tiles)`` takes float32 numpy (B, P, P, 3) and returns float32
+    numpy (``adunet/export/aot.py:151-232``): the clipped restoration (SR),
+    the eval-mode probability mask (seg), or ``{"sr": clipped, "mask":
+    probabilities}`` (joint). It runs under ``torch.inference_mode()``,
+    entered in the calling thread (the mode is thread-local). ``call.model``
+    is the model."""
     dev = resolve_device(device)
-    params, depth, manifest = _read_params(path)
-    model = AdaptiveSRUNet(
-        scale=float(manifest["scale"]),
-        depth=depth,
-        base_channels=params["enc0"]["conv0"]["kernel"].shape[-1],
-        residual_head_channels=params["head"]["conv0"]["kernel"].shape[-1],
-        device=dev,
-    ).eval()
-    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    base, manifest = _read_manifest(path)
+    name = manifest.get("model", "adaptive_sr_unet")
+    scale = None if name == "adaptive_seg_unet" else _scale(manifest, base)
+    params, batch_stats, depth = _read_leaves(base, manifest, name, scale)
+    model = _make_model(name, depth, scale, dev, params).eval()
+    model.load_state_dict(state_dict_from_flax(params, batch_stats), strict=True)
     n_params = sum(p.numel() for p in model.parameters())
     if "param_count" in manifest and int(manifest["param_count"]) != n_params:
         raise ValueError(f"manifest param_count {manifest['param_count']} != model's {n_params}")
     patch = tuple(manifest["input_shape"][1:]) if "input_shape" in manifest else None
 
-    def call(tiles: np.ndarray) -> np.ndarray:
+    def host(t: torch.Tensor, clip: bool = False) -> np.ndarray:
+        t = t.to(torch.float32)
+        return (torch.clamp(t, 0.0, 1.0) if clip else t).cpu().numpy()
+
+    def call(tiles: np.ndarray):
         arr = np.asarray(tiles, dtype=np.float32)
         if arr.ndim != 4 or (patch is not None and arr.shape[1:] != patch):
             raise ValueError(f"expected (B, *{patch}) tiles, got {arr.shape}")
         with torch.inference_mode():
             out = model(torch.tensor(arr, device=dev))
-            return torch.clamp(out.to(torch.float32), 0.0, 1.0).cpu().numpy()
+            if name == "joint_sr_seg_unet":
+                return {"sr": host(out[0], clip=True), "mask": host(out[1])}
+            return host(out, clip=name == "adaptive_sr_unet")
 
     call.model = model
     return call, manifest

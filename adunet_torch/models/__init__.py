@@ -1,5 +1,7 @@
-"""Model families: the adaptive and vanilla SR U-Nets and the two segmentation U-Nets."""
+"""Model families: the adaptive and vanilla SR U-Nets, the two segmentation U-Nets and
+the joint SR + segmentation U-Net."""
 
+from adunet_torch.models.joint import JointSRSegUNet, build_joint_unet
 from adunet_torch.models.seg_adaptive import AdaptiveSegUNet, build_adaptive_depth_unet
 from adunet_torch.models.seg_vanilla import VanillaSegUNet, build_unet
 from adunet_torch.models.sr_adaptive import AdaptiveSRUNet, build_super_resolution_unet
@@ -14,4 +16,6 @@ __all__ = [
     "build_adaptive_depth_unet",
     "VanillaSegUNet",
     "build_unet",
+    "JointSRSegUNet",
+    "build_joint_unet",
 ]

@@ -1,8 +1,17 @@
-"""Training: optimizer and schedule, train state, SR and segmentation steps,
-precise-BN, checkpoints, fit."""
+"""Training: optimizer and schedule, train state, SR, segmentation and joint
+SR + segmentation steps, precise-BN, checkpoints, fit."""
 
 from adunet_torch.train.checkpoint import CheckpointManager
-from adunet_torch.train.loop import EpochLog, FitResult, fit, make_plateau_state, plateau_update, repeat
+from adunet_torch.train.joint import make_joint_eval_step, make_joint_train_step
+from adunet_torch.train.loop import (
+    EpochLog,
+    FitResult,
+    fit,
+    make_plateau_state,
+    open_tb_writer,
+    plateau_update,
+    repeat,
+)
 from adunet_torch.train.schedules import Adam, cosine_decay_schedule, make_optimizer
 from adunet_torch.train.seg import (
     make_bn_refresh_step,
@@ -34,6 +43,7 @@ __all__ = [
     "make_plateau_state",
     "plateau_update",
     "repeat",
+    "open_tb_writer",
     "Adam",
     "cosine_decay_schedule",
     "make_optimizer",
@@ -53,6 +63,8 @@ __all__ = [
     "precise_batch_stats",
     "snapshot_refresh_batches",
     "make_precise_bn_program",
+    "make_joint_train_step",
+    "make_joint_eval_step",
     "TrainState",
     "create_train_state",
 ]

@@ -148,14 +148,14 @@ class CheckpointManager:
             if s not in keep:
                 shutil.rmtree(self.directory / str(s))
 
-    def _load(self, step: int, state: TrainState) -> Dict[str, Any]:
+    def _load(self, step: int, model: torch.nn.Module) -> Dict[str, Any]:
         self.wait()
-        device = next(state.model.parameters()).device
+        device = next(model.parameters()).device
         return torch.load(self.directory / str(step) / _STATE_FILE, map_location=device,
                           weights_only=True)
 
     def _restore(self, step: int, state: TrainState) -> TrainState:
-        payload = self._load(step, state)
+        payload = self._load(step, state.model)
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
@@ -177,6 +177,17 @@ class CheckpointManager:
         step = self.best_step()
         step = self.latest_step() if step is None else step
         return None if step is None else self._restore(step, state)
+
+    def restore_weights(self, model: torch.nn.Module, best: bool = True) -> Optional[int]:
+        """Load the best (or, with ``best=False`` or no scored checkpoint, the
+        latest) checkpoint's model weights into ``model``, without the
+        optimizer, as the reference's ``restore_*_weights`` do for a serving
+        export; returns the step, or None if there is no checkpoint."""
+        step = self.best_step() if best else None
+        step = self.latest_step() if step is None else step
+        if step is not None:
+            model.load_state_dict(self._load(step, model)["model"])
+        return step
 
     def write_config(self, config: Dict[str, Any]) -> None:
         (self.directory / "config.json").write_text(json.dumps(config, indent=2, default=str))

@@ -11,8 +11,12 @@ run of either package. The segmentation trainers' hooks are here too: a
 ``pre_val_hook`` run before each validation (precise-BN), pooled metrics
 finalized from their component sums over the whole epoch
 (``metric_finalizers``), and validation batches kept on the device after
-their first pass (``cache_val_on_device``). Not ported: multi-device
-sharding (ROADMAP Queue 1 item 13) and TensorBoard scalars.
+their first pass (``cache_val_on_device``). With a ``tb_writer`` (``open_tb_writer``: a
+``tensorboardX`` writer, or None where the package does not import, the
+reference's guard) each epoch also writes the TensorBoard scalars
+``train/*``, ``val/*``, ``perf/ms_per_step`` and ``perf/images_per_sec``
+(``adunet/train/loop.py:476-482``). Not ported: multi-device sharding
+(ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from adunet_torch.train.checkpoint import CheckpointManager
 from adunet_torch.train.sr import _to_device
 from adunet_torch.train.state import TrainState
 
-__all__ = ["fit", "FitResult", "EpochLog", "make_plateau_state", "plateau_update", "repeat"]
+__all__ = ["fit", "FitResult", "EpochLog", "make_plateau_state", "plateau_update", "repeat",
+           "open_tb_writer"]
 
 
 @dataclass
@@ -136,6 +141,17 @@ def repeat(dataset):
         yield from dataset
 
 
+def open_tb_writer(log_dir: str | Path):
+    """A ``tensorboardX`` writer on ``log_dir``, or None where the package
+    does not import (the reference's ``try`` / ``except Exception``)."""
+    try:
+        from tensorboardX import SummaryWriter
+
+        return SummaryWriter(str(log_dir))
+    except Exception:
+        return None
+
+
 def _batch_size_of(batch) -> int:
     leaf = batch[0] if isinstance(batch, (tuple, list)) else batch
     return int(leaf.shape[0])
@@ -201,6 +217,7 @@ def fit(
     pre_val_hook: Optional[Callable[[TrainState], TrainState]] = None,
     metric_finalizers: Optional[Dict[str, Callable]] = None,
     cache_val_on_device: bool = False,
+    tb_writer=None,
 ) -> FitResult:
     """Run the training loop.
 
@@ -226,6 +243,8 @@ def fit(
     - ``cache_val_on_device``: keep the validation batches on the model's
       device after their first pass, so later epochs neither decode nor copy
       them again.
+    - ``tb_writer``: a TensorBoard writer (``add_scalar``) for the epoch
+      scalars; the caller closes it.
     """
     history: List[EpochLog] = []
     best_metric: Optional[float] = None
@@ -329,6 +348,13 @@ def fit(
                         csv_writer.writeheader()
                 csv_writer.writerow(row)
                 csv_file.flush()
+            if tb_writer is not None:
+                for k, v in train_metrics.items():
+                    tb_writer.add_scalar(f"train/{k}", v, epoch + 1)
+                for k, v in val_metrics.items():
+                    tb_writer.add_scalar(f"val/{k}", v, epoch + 1)
+                tb_writer.add_scalar("perf/ms_per_step", log.ms_per_step, epoch + 1)
+                tb_writer.add_scalar("perf/images_per_sec", images_seen / duration, epoch + 1)
 
             monitored_pool = {**train_metrics, **{f"val_{k}": v for k, v in val_metrics.items()}}
             current = monitored_pool.get(monitor)

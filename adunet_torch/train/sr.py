@@ -143,10 +143,14 @@ def make_sr_train_step(model, loss_fn: Callable, data_scale: float = DATA_LR_SHR
 
 def lift_per_sample(fn: Callable) -> Callable:
     """Lift a batch-mean ``fn(y_true, y_pred) -> scalar`` to a (B,) vector,
-    each sample evaluated as its own batch of one."""
+    each sample evaluated as its own batch of one; a ``fn`` that returns a
+    dict of scalars gives a dict of (B,) vectors."""
 
-    def per_sample(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-        return torch.stack([fn(t[i : i + 1], p[i : i + 1]) for i in range(t.shape[0])])
+    def per_sample(t: torch.Tensor, p: torch.Tensor):
+        rows = [fn(t[i : i + 1], p[i : i + 1]) for i in range(t.shape[0])]
+        if isinstance(rows[0], dict):
+            return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        return torch.stack(rows)
 
     return per_sample
 

@@ -86,7 +86,21 @@ exits non-zero without one. Every phase raises on failure:
     the streamed run's checkpoint (odd image sizes, overlap 32), and an
     ``--async_checkpoint`` run of ``train_sr`` whose best and latest states
     load bit-equal to a synchronous run's;
-17. prints one JSON line with each kernel's launches, error and times, the
+17. trains the joint SR + segmentation U-Net at ``train_joint``'s defaults
+    (scale 0.5, base 64, depth 4 from the depth policy, 50,273,348 params,
+    bf16, Adam 1e-4; a seeded random ``residual_rgb``) on synthetic lesion
+    pairs at batch 8 x 256 px (counts set to 0 just before: 28 K1, 28 K1
+    backward and 5 K2 per step), checks every gradient and the falling loss,
+    and times the step beside its peak memory and device idle share;
+18. takes one float32 step of the joint model at batch 1 x 256 px on the
+    card and on the CPU from the same params and compares them as phase 8
+    does;
+19. runs ``train_joint`` for 2 epochs at full width (its ``config.json`` and
+    ``result.json`` keys as the reference's), ``export_model --workload joint
+    --quantize int8`` and one forward of the artifact on the card (28 K1, no
+    K1 backward, 5 K2), then exports phase 12's protocol checkpoint, serves it
+    over HTTP and holds the masks to the checkpoint's live model;
+20. prints one JSON line with each kernel's launches, error and times, the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
 
 At the start of each phase it prints a host probe (a fixed numpy and Python
@@ -98,7 +112,8 @@ Phases 3 and 4 also hold K1 at C = 16 and 32 (forward and backward kernels,
 float32 and bf16, full and ragged row counts) and K2 at the vanilla model's
 (8, 128, 128, 64), at every shape the segmentation steps give them, and K1
 at every (rows, C) of the deep config up to C = 1024 and 2048 (bf16; float32
-and ragged row counts at the two widest).
+and ragged row counts at the two widest), and K1 and its backward at every
+(rows, C) of the joint model's bf16 step, 2,048 x 1024 among them.
 """
 
 from __future__ import annotations
@@ -222,6 +237,25 @@ K2_VANILLA_SR = {(8, 256, 256, 64): 2}
 SEG_PER_STEP = {"protocol": (0, 0, sum(K2_PROTOCOL.values())),
                 "vanilla": (sum(K1_VANILLA.values()), sum(K1_VANILLA.values()),
                             sum(K2_VANILLA.values()))}
+
+# The joint SR + segmentation U-Net at train_joint's defaults (scale 0.5, base
+# 64, 256 px: depth 4 from the depth policy, 50,273,348 params) in bf16 at
+# batch 8 x 256 px: levels at 256, 128, 64 and 32 px, bottleneck at 16 px.
+# (rows, C) -> LN+ReLU pairs per forward: enc, sr_dec and seg_dec of each
+# level, the sr_head at level 0, the bottleneck. K2: enc0.conv1, sr_dec0.conv1,
+# seg_dec0.conv1, sr_head.conv0 and .conv1 (the decoders' conv0 take the
+# 128-channel concat, which K2's gate sends to cuDNN).
+JOINT_PARAMS = 50_273_348
+JOINT_BATCH, JOINT_SIZE, JOINT_STEPS = 8, 256, 6
+K1_JOINT = {(524_288, 64): 8, (131_072, 128): 6, (32_768, 256): 6, (8_192, 512): 6,
+            (2_048, 1024): 2}
+K2_JOINT = {(JOINT_BATCH, 256, 256, 64): 5}
+# The served joint forward runs K1 in float32 at K1_JOINT's rows: the serving
+# checks hold the first four, and this one the bottleneck's
+K1_JOINT_SERVED = {(2_048, 1024): K1_JOINT[(2_048, 1024)]}
+# launches (K1, K1 backward, K2) per training step and per served forward
+JOINT_PER_STEP = (sum(K1_JOINT.values()), sum(K1_JOINT.values()), sum(K2_JOINT.values()))
+JOINT_PER_FORWARD = (JOINT_PER_STEP[0], 0, JOINT_PER_STEP[2])
 
 
 def log(msg: str) -> None:
@@ -408,7 +442,9 @@ def _k1_cases():
             + [(s, n, torch.bfloat16, "vanilla") for s, n in K1_VANILLA.items()]
             + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW]
             + [(s, n, torch.bfloat16, "deep") for s, n in K1_DEEP.items()]
-            + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE])
+            + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE]
+            + [(s, n, torch.bfloat16, "joint") for s, n in K1_JOINT.items()]
+            + [(s, n, torch.float32, "joint_served") for s, n in K1_JOINT_SERVED.items()])
 
 
 def _k1_bwd_cases():
@@ -417,7 +453,8 @@ def _k1_bwd_cases():
             + [(s, n, torch.bfloat16, "vanilla") for s, n in K1_VANILLA.items()]
             + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW]
             + [(s, n, torch.bfloat16, "deep") for s, n in K1_DEEP.items()]
-            + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE])
+            + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE]
+            + [(s, n, torch.bfloat16, "joint") for s, n in K1_JOINT.items()])
 
 
 def _k2_cases():
@@ -1278,6 +1315,8 @@ def seg_entry_points(tmp: Path) -> dict:
             f"checkpoints at epoch {epochs}")
         out[kind] = {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "seconds": seconds,
                      "csv_header": rows[0].split(",")}
+        if kind == "protocol":  # exported and served by the joint_cli phase
+            out[kind]["ckpt_dir"] = str(result["ckpt_dir"])
         del result
         torch.cuda.empty_cache()
     return out
@@ -1294,8 +1333,11 @@ def device_idle(fn, runs: int) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
+    # device activity: kernels and copies, not the user-annotation ranges (such as
+    # Optimizer.step's) that the profiler also puts on the device timeline
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False)
                    and e.time_range.end > e.time_range.start)
     if not spans:
         return {"idle_share": None, "gaps_1ms": None, "gap_ms_1ms": None, "window_ms": None}
@@ -1803,6 +1845,281 @@ def sr_entry_points(tmp: Path, ckpt_dir: str) -> dict:
     return out
 
 
+def _joint_batches(n_batches: int, batch: int, seed: int):
+    """``n_batches`` batches of synthetic lesion pairs on the card: float32
+    images (B, 256, 256, 3) in [0, 1] and binary masks (B, 256, 256, 1)."""
+    images, masks = seg_pairs(n_batches * batch, JOINT_SIZE, seed=seed)
+    return [(torch.from_numpy(images[i : i + batch]).cuda(),
+             torch.from_numpy(masks[i : i + batch]).cuda())
+            for i in range(0, n_batches * batch, batch)]
+
+
+def _joint_losses():
+    from adunet_torch.losses import charbonnier_loss, make_bce_dice_loss
+
+    return charbonnier_loss, make_bce_dice_loss(0.5, 1.0)  # train_joint's, one class
+
+
+def train_joint(ident: str) -> dict:
+    """The joint SR + segmentation U-Net at train_joint's defaults (depth 4 from
+    the policy, 50,273,348 params), bf16 compute, float32 params, Adam 1e-4, a
+    seeded random ``residual_rgb`` in place of the zero one, alternating two
+    batches of 8 synthetic lesion pairs at 256 px: launches per step (counts
+    set to 0 just before), a finite nonzero gradient for every parameter in
+    the first step, a falling loss, ms/step, img/s, peak memory and the
+    device's idle share."""
+    from adunet_torch.models import build_joint_unet
+    from adunet_torch.train import create_train_state, make_joint_train_step, make_optimizer
+
+    batches = _joint_batches(2, JOINT_BATCH, seed=61)
+    model, info = build_joint_unet(0.5, dtype=torch.bfloat16, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    if (n_params, info["depth"]) != (JOINT_PARAMS, 4):
+        raise AssertionError(f"joint model: {n_params} params at depth {info['depth']}, expected "
+                             f"{JOINT_PARAMS} at depth 4")
+    _random_head(model)
+    state = create_train_state(model, make_optimizer(model.parameters(), 1e-4))
+    step = make_joint_train_step(model, *_joint_losses(), data_scale=0.5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _zero_counts()
+    metrics = []
+    for i in range(JOINT_STEPS):
+        state, m = step(state, batches[i % 2])
+        metrics.append(m)
+        if i == 0:
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())
+                   or not bool(p.grad.abs().max() > 0)]
+            if bad:
+                raise AssertionError(f"joint: parameters without a finite nonzero gradient: {bad}")
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = tuple(n * JOINT_STEPS for n in JOINT_PER_STEP)
+    if counts != want:
+        raise AssertionError(f"joint: expected {want} K1 / K1 backward / K2 launches over "
+                             f"{JOINT_STEPS} steps, got {counts}")
+    losses = [float(m["loss"]) for m in metrics]
+    log(f"[joint] {n_params:,} params, depth {info['depth']}, bottleneck "
+        f"{info['bottleneck_size']} px, bf16, {JOINT_STEPS} steps at batch {JOINT_BATCH} x "
+        f"{JOINT_SIZE} px: losses {', '.join(f'{v:.5f}' for v in losses)} (SR "
+        f"{float(metrics[0]['sr_loss']):.5f} -> {float(metrics[-1]['sr_loss']):.5f}, seg "
+        f"{float(metrics[0]['seg_loss']):.5f} -> {float(metrics[-1]['seg_loss']):.5f}); finite "
+        f"nonzero gradients after step 1; K1 {counts[0]}, K1 backward {counts[1]}, K2 "
+        f"{counts[2]} launches")
+    # two alternating batches: compare the means of the first and last two steps
+    if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"joint: the training loss did not fall: {losses}")
+    ms = cuda_ms(lambda: step(state, batches[0]), TIMED_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    idle = device_idle(lambda: step(state, batches[0]), 3)
+    idle_str = "not measured" if idle["idle_share"] is None else f"{idle['idle_share']:.2%}"
+    log(f"[joint] {ident}: bf16 train step, batch {JOINT_BATCH} x {JOINT_SIZE} px: {ms:.3f} "
+        f"ms/step ({JOINT_BATCH * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB; "
+        f"device idle {idle_str} over 3 steps under the profiler")
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "steps": JOINT_STEPS,
+            "per_step": list(JOINT_PER_STEP), "losses": losses, "ms_per_step": ms,
+            "img_per_s": JOINT_BATCH * 1e3 / ms, "peak_gb": peak_gb, "n_params": n_params,
+            "depth": info["depth"], "idle": idle}
+
+
+def joint_card_vs_cpu_step() -> dict:
+    """One float32 step of the joint model (full width, depth 4) at batch 1 x
+    256 px on the card and on the CPU (plain versions) from the same perturbed
+    params and lesion pair, with the flagship's tolerances
+    (``card_vs_cpu_step``): loss 1e-5 relative; each gradient 1e-3 in
+    relative L2 norm; updated params within 2 x lr with fewer than 0.1 % of
+    elements apart by more than lr / 2."""
+    from adunet_torch.models import build_joint_unet
+    from adunet_torch.train import create_train_state, make_joint_train_step, make_optimizer
+
+    lr = 1e-4
+    cpu_model, _ = build_joint_unet(0.5, device="cpu", seed=3)
+    with torch.no_grad():  # break the identity start
+        pgen = torch.Generator().manual_seed(4)
+        for p in cpu_model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=pgen))
+    gpu_model, _ = build_joint_unet(0.5, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    images, masks = seg_pairs(1, JOINT_SIZE, seed=71)
+    out = {}
+    for name, model in (("card", gpu_model), ("cpu", cpu_model)):
+        state = create_train_state(model, make_optimizer(model.parameters(), lr))
+        t0 = time.perf_counter()
+        _, metrics = make_joint_train_step(model, *_joint_losses())(state, (images, masks))
+        out[name] = {"loss": float(metrics["loss"]), "seconds": time.perf_counter() - t0,
+                     "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+    card, cpu = out["card"], out["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_rel = max(float((card["grads"][n] - g).norm() / g.norm().clamp_min(1e-30))
+                   for n, g in cpu["grads"].items())
+    diffs = torch.cat([(card["params"][n] - p).abs().flatten() for n, p in cpu["params"].items()])
+    far = float((diffs > lr / 2).float().mean())
+    log(f"[joint f32 step] batch 1 x {JOINT_SIZE} px: loss card {card['loss']:.7f} / CPU "
+        f"{cpu['loss']:.7f} (rel {loss_rel:.1e}); worst gradient rel L2 {grad_rel:.1e}; updated "
+        f"params max |diff| {float(diffs.max()):.2e}, share > lr/2 {far:.2e}; CPU step "
+        f"{cpu['seconds']:.1f} s")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-3 and float(diffs.max()) <= 2 * lr + 1e-6
+            and far < 1e-3):
+        raise AssertionError("the card's float32 joint step disagrees with the CPU's")
+    return {"loss_rel": loss_rel, "grad_rel_l2": grad_rel, "param_max_diff": float(diffs.max()),
+            "param_far_share": far}
+
+
+# config.json and result.json keys of the reference's train_joint
+# (adunet/cli/train_joint.py:149-157, 200-210)
+JOINT_CONFIG_KEYS = [
+    "train_image_dir", "train_mask_dir", "val_image_dir", "val_mask_dir", "image_suffix",
+    "mask_suffix", "image_size", "scale", "depth_override", "base_channels",
+    "residual_head_channels", "num_classes", "sr_loss", "sr_weight", "seg_weight", "batch_size",
+    "epochs", "learning_rate", "patience", "seed", "limit_train", "limit_val", "mixed_precision",
+    "async_checkpoint", "remat", "model_dir", "log_dir", "run_name", "n_devices", "depth",
+    "bottleneck_size", "n_params", "steps_per_epoch", "created_at"]
+JOINT_FINAL_KEYS = ["epoch", "steps", "duration_s", "ms_per_step", "dice", "iou", "loss", "psnr",
+                    "seg_loss", "sr_loss", "val_dice", "val_iou", "val_loss", "val_psnr",
+                    "val_seg_loss", "val_sr_loss"]
+
+
+def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
+    """``train_joint`` for 2 epochs at full width (bf16, batch 8, on the
+    segmentation phase's 16 train / 8 val lesion pairs), ``export_model
+    --workload joint --quantize int8`` and ``load_artifact`` on the card (one
+    served forward); then the segmentation phase's protocol checkpoint
+    exported (float32), served over HTTP, and its masks held to the
+    checkpoint's live model on the card. The served joint outputs are held
+    to the same checkpoint's model with its conv kernels quantized and
+    dequantized in memory (the port's quantizer, bit-equal to the
+    reference's on the CPU) on the card."""
+    from adunet_torch.cli.export_model import load_joint_checkpoint, load_seg_checkpoint
+    from adunet_torch.convert import flax_trees_from_state_dict, state_dict_from_flax
+    from adunet_torch.export import quantize_params_int8
+    from adunet_torch.cli.export_model import main as export_main
+    from adunet_torch.cli.train_joint import main as joint_main
+
+    corpus = tmp / "isic"
+    epochs, steps = 2, 2  # 16 pairs at batch 8; 8 val pairs: one val batch an epoch
+    args = ["--train_image_dir", str(corpus / "train_img"),
+            "--train_mask_dir", str(corpus / "train_mask"),
+            "--val_image_dir", str(corpus / "val_img"), "--val_mask_dir", str(corpus / "val_mask"),
+            "--image_suffix", ".npy", "--mask_suffix", "_segmentation.npy", "--mixed_precision",
+            "--epochs", str(epochs), "--model_dir", str(tmp / "joint_models"),
+            "--log_dir", str(tmp / "joint_logs"), "--run_name", "joint", "--seed", "9"]
+    _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = joint_main(args)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    for line in buf.getvalue().splitlines():
+        log(f"[joint cli] {line}")
+    forwards = epochs * steps + epochs  # train steps and val batches
+    want = (JOINT_PER_STEP[0] * forwards, JOINT_PER_STEP[1] * epochs * steps,
+            JOINT_PER_STEP[2] * forwards)
+    if counts != want:
+        raise AssertionError(f"train_joint: expected {want} K1 / K1 backward / K2 launches, "
+                             f"got {counts}")
+    run_dir = Path(result["run_dir"])
+    cfg = json.loads((run_dir / "config.json").read_text())
+    res = json.loads((run_dir / "result.json").read_text())
+    rows = (run_dir / "epoch_metrics.csv").read_text().strip().splitlines()
+    if (list(cfg) != JOINT_CONFIG_KEYS or list(res["final_metrics"]) != JOINT_FINAL_KEYS
+            or len(rows) != epochs + 1 or (cfg["depth"], cfg["n_params"], cfg["steps_per_epoch"])
+            != (4, JOINT_PARAMS, steps)):
+        raise AssertionError(f"train_joint wrote config keys {list(cfg)}, final metrics "
+                             f"{list(res['final_metrics'])}, {len(rows)} CSV lines")
+    if not all(np.isfinite(v) for v in res["final_metrics"].values()):
+        raise AssertionError(f"train_joint: non-finite final metrics {res['final_metrics']}")
+    events = sorted(p.name for p in run_dir.glob("events.out.tfevents.*"))
+    log(f"[joint cli] {epochs} epochs in {seconds:.1f} s; K1 {counts[0]}, K1 backward "
+        f"{counts[1]}, K2 {counts[2]} launches; config.json and result.json keys as the "
+        f"reference's; TensorBoard event files: {len(events)} (none where tensorboardX is "
+        "not installed)")
+    out = {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "seconds": seconds,
+           "final_metrics": res["final_metrics"], "tb_event_files": len(events)}
+    del result
+    torch.cuda.empty_cache()
+
+    art = tmp / "joint_export"
+    with contextlib.redirect_stdout(buf):
+        export_main(["--workload", "joint", "--model-path", res["checkpoint"], "--output-dir",
+                     str(art), "--quantize", "int8"])
+    call, manifest = load_artifact(art, device="cuda")
+    x = seg_pairs(JOINT_BATCH, JOINT_SIZE, seed=81)[0]
+    _zero_counts()
+    served = call(x)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != JOINT_PER_FORWARD:
+        raise AssertionError(f"joint artifact: expected {JOINT_PER_FORWARD} K1 / K1 backward / "
+                             f"K2 launches per forward, got {counts}")
+    if not (served["sr"].shape == x.shape and served["mask"].shape == x.shape[:3] + (1,)
+            and np.isfinite(served["mask"]).all() and 0 <= served["mask"].min()
+            and served["mask"].max() <= 1 and 0 <= served["sr"].min() and served["sr"].max() <= 1):
+        raise AssertionError("joint artifact: outputs of the wrong shape or range")
+    del call
+    torch.cuda.empty_cache()
+
+    def dequantized(tree):
+        if set(tree) == {"q", "scale"}:
+            return tree["q"].astype(np.float32) * tree["scale"]
+        return {k: dequantized(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+    live, _ = load_joint_checkpoint(Path(res["checkpoint"]), device="cuda")
+    params, stats = flax_trees_from_state_dict(live.state_dict())
+    live.load_state_dict(state_dict_from_flax(dequantized(quantize_params_int8(params)), stats))
+    with torch.inference_mode():
+        sr, mask = live(torch.from_numpy(x).cuda())
+        want = {"sr": sr.float().clamp(0.0, 1.0).cpu().numpy(), "mask": mask.float().cpu().numpy()}
+    errs = {k: float(np.abs(served[k] - want[k]).max()) for k in ("sr", "mask")}
+    log(f"[joint export] int8 artifact ({manifest['weights_leaves']} leaves, "
+        f"{manifest['artifact_bytes'] / 1e6:.2f} MB) served one forward at batch "
+        f"{JOINT_BATCH} x {JOINT_SIZE} px: K1 {counts[0]}, K1 backward {counts[1]}, K2 "
+        f"{counts[2]} launches; max |served - checkpoint with dequantized weights| sr "
+        f"{errs['sr']:.2e}, mask {errs['mask']:.2e}")
+    if not max(errs.values()) <= 1e-5:
+        raise AssertionError(f"served joint outputs differ from the checkpoint's model with "
+                             f"dequantized weights: {errs}")
+    out["served_launches"] = dict(zip(("K1", "K1_bwd", "K2"), counts))
+    out["served_max_abs_err"] = errs
+    del live, sr, mask
+    torch.cuda.empty_cache()
+
+    # the protocol segmentation checkpoint: export (float32), serve, compare
+    seg_art = tmp / "seg_export"
+    with contextlib.redirect_stdout(buf):
+        export_main(["--workload", "seg", "--model-path", seg_ckpt, "--output-dir",
+                     str(seg_art)])
+    live, _ = load_seg_checkpoint(Path(seg_ckpt), device="cuda")
+    server = make_server(str(seg_art), port=0, batch_window_ms=200.0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    images = seg_pairs(3, JOINT_SIZE, seed=91)[0]
+    try:
+        got = _post_npy(f"http://127.0.0.1:{server.server_address[1]}/v1/predict", images)
+    finally:
+        server.shutdown()
+        server.batcher.close()
+        server.server_close()
+        thread.join(timeout=30)
+    with torch.inference_mode():  # eval-mode BatchNorm: each mask depends on its image alone
+        want = live(torch.from_numpy(images).cuda()).float().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    log(f"[seg serve] protocol checkpoint exported ({server.manifest['batch_stats_leaves']} "
+        f"BatchNorm statistics leaves) and served over HTTP: 3 masks {got.shape}, max |served - "
+        f"live| {err:.2e}")
+    if got.shape != (3, JOINT_SIZE, JOINT_SIZE, 1) or not err <= 1e-5 or thread.is_alive():
+        raise AssertionError(f"served segmentation masks differ from the live model's ({err:.2e})")
+    out["seg_served_max_abs_err"] = err
+    del live
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_launches: dict,
                  seg_launches: dict, sr_launches: dict, build_s: float) -> dict:
     """One entry per kernel. ``launches`` come from the training path (device-
@@ -1820,8 +2137,12 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
     the launches of the streamed flagship steps, the deep config's steps
     without and with remat_levels=2, and the vanilla SR steps, with the same
     sums over one step of the deep config (no remat) and of the vanilla SR
-    model at batch 8 x 256 px; ``wide`` lists K1's other C = 1024 and 2048
-    checks (float32, ragged row counts), per launch."""
+    model at batch 8 x 256 px; ``joint`` the launches of the joint SR +
+    segmentation model's bf16 steps with the same sums over one of its steps
+    at batch 8 x 256 px, and ``joint_served`` the launches of one forward of
+    its exported int8 artifact, with the same sums over that float32 forward
+    at batch 8 x 256 px; ``wide`` lists K1's other C = 1024 and 2048 checks
+    (float32, ragged row counts), per launch."""
     meta = {
         "K1": ("layer_norm_relu", "adunet_torch/csrc/fused_norm.cu", "adunet/kernels/fused_norm.py:48"),
         "K1_bwd": ("layer_norm_relu_backward", "adunet_torch/csrc/fused_norm.cu",
@@ -1846,7 +2167,8 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
                                          "K2": K2_VANILLA})}
     # the same for the SR paths of this script's later phases
     sr_paths = {"deep": ("deep", "serve", {"K1": K1_DEEP, "K1_bwd": K1_DEEP, "K2": K2_DEEP}),
-                "vanilla_sr": (None, "serve", {"K2": K2_VANILLA_SR})}
+                "vanilla_sr": (None, "serve", {"K2": K2_VANILLA_SR}),
+                "joint": ("joint", "serve", {"K1": K1_JOINT, "K1_bwd": K1_JOINT, "K2": K2_JOINT})}
 
     out = []
     for kid, (name, src, replaces) in meta.items():
@@ -1871,6 +2193,13 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             shapes = [d["shape"] for d in rows if tuple(d["shape"]) in per.get(kid, {})]
             entry["seg"][path] = {"launches": seg_launches[path][kid], "shapes": shapes, **sums}
         entry["streamed"] = {"launches": sr_launches["streamed"][kid]}
+        # the served joint forward: float32 at the serving rows and K1_JOINT_SERVED's
+        per = {"K1": K1_JOINT, "K2": K2_JOINT}.get(kid, {})
+        rows = [d for d in details if d["kernel"] == kid and d["dtype"] == "float32"
+                and d["path"] in ("serve", "joint_served") and tuple(d["shape"]) in per]
+        entry["joint_served"] = {"launches": sr_launches["joint_served"][kid],
+                                 "shapes": [d["shape"] for d in rows],
+                                 **({k: summed_at(rows, k, per) for k in keys} if per else {})}
         for path, (k1_rows, k2_rows, per) in sr_paths.items():
             rows_path = k2_rows if kid == "K2" else k1_rows
             rows = [d for d in details if d["kernel"] == kid and d["path"] == rows_path
@@ -1944,18 +2273,24 @@ def main() -> int:
         vanilla = phase("vanilla_sr", vanilla_sr, ident)
         vanilla_step = phase("vanilla_sr_f32_step", vanilla_card_vs_cpu_step)
         sr_cli = phase("sr_cli", sr_entry_points, Path(tmp), streamed.pop("ckpt_dir"))
+        joint = phase("joint", train_joint, ident)
+        joint_step = phase("joint_f32_step", joint_card_vs_cpu_step)
+        joint_cli = phase("joint_cli", joint_entry_points, Path(tmp),
+                          seg_cli["protocol"].pop("ckpt_dir"))
 
     seconds = time.perf_counter() - t_start
     summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
                "golden": scores, "speed": speed, "train": trained, "f32_step": step_check,
                "train_sr": entry, "seg_train": seg, "seg_f32_step": seg_step,
                "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
-               "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "seconds": seconds,
+               "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "joint": joint,
+               "joint_f32_step": joint_step, "joint_cli": joint_cli, "seconds": seconds,
                "k1_bwd_ptxas": spills, "host_probes": probes}
     log("[detail] " + json.dumps(summary))
     log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
     seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}
     sr_launches = {"streamed": streamed["launches"], "vanilla_sr": vanilla["launches"],
+                   "joint": joint["launches"], "joint_served": joint_cli["served_launches"],
                    "deep": {kid: {k: deep[k]["launches"][kid] for k in ("remat_0", "remat_2")}
                             for kid in ("K1", "K1_bwd", "K2")}}
     print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"],

@@ -116,7 +116,10 @@ def main() -> int:
         torch.cuda.synchronize()
     kernels, ops = [], []
     for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        on_device = str(getattr(evt, "device_type", "")).endswith("CUDA")
+        if on_device and getattr(evt, "is_user_annotation", False):
+            continue  # a range such as Optimizer.step's on the device timeline, not a kernel
+        if on_device:
             kernels.append({"name": evt.key, "count": evt.count // args.steps,
                             "ms": _device_us(evt, True) / 1e3 / args.steps})
         elif _device_us(evt, False) > 0:

@@ -29,6 +29,9 @@ _TRAINING_MODULES = (
     "adunet_torch.models.sr_vanilla", "adunet_torch.losses.perceptual", "adunet_torch.losses.sr",
     "adunet_torch.cli.train_sr_depth3", "adunet_torch.cli.train_sr_vanilla",
     "adunet_torch.cli.evaluate", "adunet_torch.cli.restore",
+    # the joint model, its trainer, and the export half
+    "adunet_torch.models.joint", "adunet_torch.train.joint", "adunet_torch.cli.train_joint",
+    "adunet_torch.export.aot", "adunet_torch.cli.export_model", "adunet_torch.cli.serve",
 )
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|adunet)(\.|\s|$)", re.MULTILINE

@@ -352,6 +352,12 @@ def test_train_seg_cli_writes_the_reference_schema(tiny_isic, tmp_path):
     ckpt_dir = tmp_path / "port" / "models" / "port"
     assert (ckpt_dir / "config.json").exists() and CheckpointManager(ckpt_dir).latest_step() == 2
     assert (got_dir / "model_summary.txt").read_text().startswith("AdaptiveSegUNet(")
+    # TensorBoard: the reference's per-epoch tags, in both run directories
+    for run_dir in (want_dir, got_dir):
+        blob = b"".join(f.read_bytes() for f in run_dir.glob("events.out.tfevents.*"))
+        for tag in (b"train/loss", b"train/dice", b"val/dice", b"val/iou", b"perf/ms_per_step",
+                    b"perf/images_per_sec"):
+            assert tag in blob, (run_dir.name, tag)
     # precise-BN: the final running statistics are population statistics,
     # not the EMA a 2-epoch run leaves near the init (mean 0, var 1)
     assert not torch.allclose(result["state"].model.enc0.norm0.running_var, torch.ones(8),

@@ -11,7 +11,8 @@ remaining SR entry points on the CPU.
 - an async checkpoint writes the bytes a synchronous one writes, snapshots
   the state before a later step changes it, and hands a write error to the
   caller;
-- tiny runs of ``train_sr`` (streamed float32 / uint8 feed, ``--low_res_dir``),
+- tiny runs of ``train_sr`` (streamed float32 / uint8 feed, ``--low_res_dir``;
+  the TensorBoard events hold the reference's tags),
   ``train_sr_depth3`` (``--remat_levels``, ``--loss combined``, async
   checkpoints bit-equal to a synchronous run), ``train_sr_vanilla``,
   ``evaluate`` and ``restore`` on ``--device cpu``.
@@ -206,6 +207,14 @@ def test_train_sr_cli_data_paths(corpus, tmp_path, capsys, extra, mode, steps):
     assert CheckpointManager(out["ckpt_dir"]).latest_step() == 2
     printed = capsys.readouterr().out
     assert printed.count("PSNR(Y)") == 2 and np.isfinite(out["eval"]["test"]["psnr_mean"])
+    # the reference's TensorBoard tags (tests/test_cli_e2e.py:58-67), fit's
+    # epoch scalars and the post-training eval scalars
+    blob = b"".join(f.read_bytes() for f in Path(out["run_dir"]).glob("events.out.tfevents.*"))
+    for tag in (b"config/hyperparameters", b"model/summary", b"dataset/images/train",
+                b"dataset/patches_per_epoch/train", b"samples/hr_train", b"samples/lr_train",
+                b"hist/hr_train", b"hist/lr_train", b"train/loss", b"val/psnr",
+                b"perf/ms_per_step", b"perf/images_per_sec", b"eval/test_psnr_y"):
+        assert tag in blob, f"missing TensorBoard tag {tag!r}"
 
 
 def test_train_sr_depth3_remat_combined_async_equals_sync(corpus, tmp_path):
