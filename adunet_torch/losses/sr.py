@@ -29,6 +29,8 @@ __all__ = [
     "mse_loss",
     "ssim_loss",
     "psnr_metric",
+    "perceptual_target",
+    "combined_loss",
     "build_losses_and_metrics",
 ]
 
@@ -67,6 +69,25 @@ def _clip01(x: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, zero), one)
 
 
+def perceptual_target(perceptual_fn: Callable[[torch.Tensor], torch.Tensor],
+                      y_true: torch.Tensor) -> torch.Tensor:
+    """The target's features ``perceptual_fn(clip(y_true))``, without gradient."""
+    with torch.no_grad():
+        return perceptual_fn(_clip01(y_true))
+
+
+def combined_loss(y_true: torch.Tensor, y_pred: torch.Tensor, target_features: torch.Tensor,
+                  perceptual_fn: Callable[[torch.Tensor], torch.Tensor], alpha: float,
+                  beta: float, gamma: float) -> torch.Tensor:
+    """``alpha`` MSE + ``beta`` (1 - SSIM) + ``gamma`` mean((target_features -
+    perceptual_fn(clip(y_pred)))^2), given ``perceptual_target(perceptual_fn,
+    y_true)``: the combined loss, for callers that share the target's
+    features across several predictions."""
+    fp = perceptual_fn(_clip01(y_pred))
+    return (alpha * mse_loss(y_true, y_pred) + beta * ssim_loss(y_true, y_pred)
+            + gamma * torch.mean(torch.square(target_features - fp)))
+
+
 def build_losses_and_metrics(
     loss_name: str,
     perceptual_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
@@ -87,11 +108,8 @@ def build_losses_and_metrics(
             raise ValueError("combined loss requires a perceptual_fn (a feature extractor)")
 
         def combined(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
-            with torch.no_grad():
-                ft = perceptual_fn(_clip01(y_true))
-            fp = perceptual_fn(_clip01(y_pred))
-            return (alpha * mse_loss(y_true, y_pred) + beta * ssim_loss(y_true, y_pred)
-                    + gamma * torch.mean(torch.square(ft - fp)))
+            ft = perceptual_target(perceptual_fn, y_true)
+            return combined_loss(y_true, y_pred, ft, perceptual_fn, alpha, beta, gamma)
 
         return combined, metrics
     raise ValueError(f"loss '{loss_name}' is not registered; choose charbonnier, l1, or combined.")

@@ -11,11 +11,12 @@ card computes what the CPU oracle computes.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 
 import torch
 
-__all__ = ["resolve_device", "setup_runtime", "gpu_identity"]
+__all__ = ["resolve_device", "setup_runtime", "gpu_identity", "deterministic_cudnn"]
 
 
 def setup_runtime() -> None:
@@ -50,3 +51,20 @@ def gpu_identity() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip()
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Restrict cuDNN to deterministic algorithms (no autotuning) for the
+    enclosed work, and restore the previous setting after. cuDNN's default
+    choice for some float32 convolutions of the vanilla SR step does not
+    repeat from run to run (its backward algorithms sum with atomics), so a
+    seeded training run would not repeat bit for bit, as the reference's
+    XLA programs do."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved

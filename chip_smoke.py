@@ -100,7 +100,17 @@ exits non-zero without one. Every phase raises on failure:
     --quantize int8`` and one forward of the artifact on the card (28 K1, no
     K1 backward, 5 K2), then exports phase 12's protocol checkpoint, serves it
     over HTTP and holds the masks to the checkpoint's live model;
-20. prints one JSON line with each kernel's launches, error and times, the
+20. drives the tuner (``adunet_torch.cli.tune``) at full width: a 3-trial,
+    2-epoch vanilla SR study (float32, base 64, 256 px, on 20 synthetic
+    images) with a 1-epoch retrain, the same study with
+    ``--parallel-trials 3``, and a 2-trial seg study at 256 px with the
+    search's own base channels (counts set to 0 just before each: 2 K2 per
+    lane per training step and per validation forward, no K1; the seg
+    trials as their drawn widths give K2); holds 3 lanes of one group
+    against the same configs run alone (1e-6 relative) and times the group
+    against them, and the float32 lane step at batch 4, 8 and 16 beside its
+    peak memory and device idle share;
+21. prints one JSON line with each kernel's launches, error and times, the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
 
 At the start of each phase it prints a host probe (a fixed numpy and Python
@@ -110,7 +120,8 @@ redesign.
 
 Phases 3 and 4 also hold K1 at C = 16 and 32 (forward and backward kernels,
 float32 and bf16, full and ragged row counts) and K2 at the vanilla model's
-(8, 128, 128, 64), at every shape the segmentation steps give them, and K1
+(8, 128, 128, 64), at every shape the segmentation steps give them, K2 in
+float32 at the tuner's (4, 256, 256, 64) and (16, 256, 256, 64), and K1
 at every (rows, C) of the deep config up to C = 1024 and 2048 (bf16; float32
 and ragged row counts at the two widest), and K1 and its backward at every
 (rows, C) of the joint model's bf16 step, 2,048 x 1024 among them.
@@ -121,6 +132,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import sys
@@ -140,7 +152,7 @@ from adunet_torch.export import load_artifact
 from adunet_torch.kernels import _build, conv64, fused_norm
 from adunet_torch.metrics import msssim_power_factors_for, psnr, ssim, ssim_multiscale
 from adunet_torch.ops import degrade, rgb_to_luma_bt601, scaled_size
-from adunet_torch.utils import gpu_identity, setup_runtime
+from adunet_torch.utils import deterministic_cudnn, gpu_identity, setup_runtime
 
 ROOT = Path(__file__).resolve().parent
 ARTIFACT = ROOT / "experiments" / "round3_flagship" / "export_int8"
@@ -256,6 +268,23 @@ K1_JOINT_SERVED = {(2_048, 1024): K1_JOINT[(2_048, 1024)]}
 # launches (K1, K1 backward, K2) per training step and per served forward
 JOINT_PER_STEP = (sum(K1_JOINT.values()), sum(K1_JOINT.values()), sum(K2_JOINT.values()))
 JOINT_PER_FORWARD = (JOINT_PER_STEP[0], 0, JOINT_PER_STEP[2])
+
+# The tuner (adunet_torch.cli.tune): the vanilla SR U-Net (base 64, depth 4)
+# trains in float32 at 256 px and batch 4, 8 or 16; enc0.conv1 and dec0.conv1
+# run K2 at (B, 256, 256, 64), 2 launches per forward. Batch 8 is the serving
+# row's shape; these are the two new ones.
+TUNE_BATCHES = (4, 8, 16)
+K2_TUNE = {(4, 256, 256, 64): 2, (16, 256, 256, 64): 2}
+K2_TUNE_PER_FORWARD = 2
+# 20 HR images: the tuner's seeded 0.8 / 0.2 split gives 16 train, 4 val
+TUNE_IMAGES, TUNE_TRAIN, TUNE_VAL = 20, 16, 4
+# lanes against single lanes: 8 train / 2 val pairs
+TUNE_LANE_SPLIT = (8, 2)
+TUNE_CONFIGS = [{"lr": 3e-4, "alpha": 1.0, "beta": 0.1, "gamma": 0.01},
+                {"lr": 1e-4, "alpha": 1.7, "beta": 0.02, "gamma": 0.001},
+                {"lr": 5e-5, "alpha": 0.6, "beta": 0.3, "gamma": 0.05}]
+TUNE_RESULT_KEYS = {"direction", "sampler", "n_trials", "n_complete", "n_pruned", "best_value",
+                    "best_params", "trials"}
 
 
 def log(msg: str) -> None:
@@ -462,7 +491,8 @@ def _k2_cases():
             + [(s, n, torch.bfloat16, "serve") for s, n in K2_SERVE.items()]
             + [(s, n, torch.bfloat16, "train") for s, n in K2_TRAIN.items()]
             + [(s, n, dtype, "vanilla") for s, n in K2_VANILLA.items()
-               for dtype in (torch.bfloat16, torch.float32)])
+               for dtype in (torch.bfloat16, torch.float32)]
+            + [(s, n, torch.float32, "tune") for s, n in K2_TUNE.items()])
 
 
 def check_k1(gen: torch.Generator) -> list[dict]:
@@ -680,7 +710,8 @@ def check_backward(gen: torch.Generator) -> list[dict]:
         + [("K1", (524_288, 32), torch.bfloat16, "vanilla")] \
         + [("K2", s, torch.bfloat16, "train") for s in K2_TRAIN] \
         + [("K2", s, torch.float32, "serve") for s in K2_SERVE] \
-        + [("K2", s, torch.bfloat16, "vanilla") for s in K2_VANILLA]
+        + [("K2", s, torch.bfloat16, "vanilla") for s in K2_VANILLA] \
+        + [("K2", s, torch.float32, "tune") for s in K2_TUNE]
     for kid, shape, dtype, path in cases:
         if kid == "K1":
             x, a, b = _k1_inputs(gen, *shape, dtype)
@@ -2120,6 +2151,188 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
     return out
 
 
+def _trial_k2(trials, n_train: int, n_val: int, per_forward) -> int:
+    """K2 launches of a study's trials: ``per_forward(params)`` per training
+    step and per validation forward, for each epoch a trial reported."""
+    total = 0
+    for t in trials:
+        b = int(t["params"]["batch_size"])
+        forwards = math.ceil(n_train / b) + math.ceil(n_val / b)
+        total += per_forward(t["params"]) * len(t["intermediate"]) * forwards
+    return total
+
+
+def _seg_k2_per_forward(params: dict, size: int) -> int:
+    """K2 launches per forward of the adaptive seg U-Net: enc{l}.conv1 and
+    dec{l}.conv1 at each level whose width is 64 and whose shape K2's gate
+    accepts (base 64 at 256 px; base 32 at 128 px)."""
+    base, depth = int(params["base_channels"]), int(params["depth"])
+    return sum(2 for level in range(depth) if base << level == 64
+               and conv64.supported((1, size >> level, size >> level, 64), (64, 64, 3, 3)))
+
+
+def tune(tmp: Path, ident: str) -> dict:
+    """The tuner at full width (vanilla SR, base 64, float32, 256 px) on 20
+    synthetic HR images (``write_corpus``; LR degraded at 0.5 on the card):
+
+    - ``adunet_torch.cli.tune.main`` runs a 3-trial, 2-epoch SR study with a
+      1-epoch retrain, then the same study with ``--parallel-trials 3``
+      (counts set to 0 just before each): the results' keys, the trials'
+      states, the retrain's ``config.json`` and best checkpoint, and exactly
+      2 K2 launches per lane per training step and per validation forward,
+      no K1;
+    - ``run_group`` of 3 fixed configs at batch 4 for 2 epochs (8 train / 2
+      val synthetic pairs) against each config run as a group of one, with
+      cuDNN's deterministic algorithms as the CLI runs them: every curve
+      value within 1e-6 relative, launches as above; the group's wall-clock
+      against the singles' sum;
+    - the float32 lane step at batch 4, 8 and 16: CUDA-event time, peak
+      memory and the device's idle share;
+    - a 2-trial, 1-epoch seg study at 256 px on 16 / 8 lesion pairs with the
+      search's own base channels: K2 launches as the drawn widths give them.
+    """
+    from adunet_torch.cli import tune as tune_cli
+    from adunet_torch.train import CheckpointManager
+    from adunet_torch.tune import BatchedVanillaSRTuner
+
+    hr_dir = tmp / "tune_hr"
+    hr_dir.mkdir()
+    write_corpus(hr_dir, TUNE_IMAGES, 256, seed=91)
+    common = ["--workload", "sr", "--n-trials", "3", "--epochs", "2", "--image-size", "256",
+              "--sr-base-channels", "64", "--high-res-dir", str(hr_dir), "--image-suffix",
+              ".npy", "--device", "cuda"]
+    out: dict = {"studies": {}}
+    for mode, extra in (("sequential", ["--retrain", "--final-epochs", "1"]),
+                        ("laned", ["--parallel-trials", "3"])):
+        results, models = tmp / f"tune_{mode}.json", tmp / f"tune_{mode}_models"
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tune_cli.main(common + extra + ["--results", str(results), "--model-dir", str(models)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        payload = json.loads(results.read_text())
+        trials = payload["trials"]
+        want_keys = TUNE_RESULT_KEYS | ({"retrain"} if mode == "sequential" else set())
+        states = [t["state"] for t in trials]
+        ok_states = {"COMPLETE"} if mode == "laned" else {"COMPLETE", "PRUNED"}
+        values = [v for t in trials for v in t["intermediate"].values()]
+        if (set(payload) != want_keys or payload["n_trials"] != 3 or not set(states) <= ok_states
+                or not all(np.isfinite(values)) or payload["best_value"] is None):
+            raise AssertionError(f"tune {mode}: results {payload}")
+        k2 = _trial_k2(trials, TUNE_TRAIN, TUNE_VAL, lambda p: K2_TUNE_PER_FORWARD)
+        if mode == "sequential":
+            ckpt_dir = models / "unet_vanilla_tuned_best"
+            config = json.loads((ckpt_dir / "config.json").read_text())
+            best = CheckpointManager(ckpt_dir).best_step()
+            if (set(config) != {"workload", "lr", "alpha", "beta", "gamma", "batch_size",
+                                "final_epochs"} or best != 1
+                    or not (ckpt_dir / str(best) / "state.pt").exists()
+                    or payload["retrain"]["checkpoint"] != str(ckpt_dir)):
+                raise AssertionError(f"tune retrain: config {config}, best step {best}")
+            k2 += _trial_k2([{"params": config, "intermediate": [0]}], TUNE_TRAIN, TUNE_VAL,
+                            lambda p: K2_TUNE_PER_FORWARD)
+        if counts != (0, 0, k2):
+            raise AssertionError(f"tune {mode}: expected (0, 0, {k2}) K1 / K1 backward / K2 "
+                                 f"launches, got {counts}")
+        log(f"[tune {mode}] 3 trials x 2 epochs{' + 1-epoch retrain' if mode == 'sequential' else ''}"
+            f" in {seconds:.1f} s: states {states}, batch sizes "
+            f"{[t['params']['batch_size'] for t in trials]}, best val loss "
+            f"{payload['best_value']:.6f}; K1 {counts[0]}, K1 backward {counts[1]}, K2 {counts[2]} "
+            f"launches (2 per lane per training step and validation forward)")
+        out["studies"][mode] = {"seconds": seconds, "states": states,
+                                "launches": dict(zip(("K1", "K1_bwd", "K2"), counts))}
+    out["launches"] = out["studies"]["sequential"]["launches"]
+
+    # lanes against single lanes, with cuDNN's deterministic algorithms as the
+    # CLI runs them (its default ones do not repeat a run bit for bit), on 8
+    # train / 2 val images: batch 4 is cuDNN's slowest (PERF.md)
+    lr, hr = _vanilla_pairs(max(TUNE_BATCHES), seed=95)
+    runner = BatchedVanillaSRTuner(lr, hr, np.arange(TUNE_LANE_SPLIT[0]),
+                                   np.arange(TUNE_LANE_SPLIT[0], sum(TUNE_LANE_SPLIT)),
+                                   device="cuda")
+    with deterministic_cudnn():
+        epochs, batch = 2, 4
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        curves = runner.run_group(TUNE_CONFIGS, batch, epochs)
+        group_s = time.perf_counter() - t0
+        counts = _counts()
+        want = K2_TUNE_PER_FORWARD * len(TUNE_CONFIGS) * epochs * sum(
+            math.ceil(n / batch) for n in TUNE_LANE_SPLIT)
+        if counts != (0, 0, want):
+            raise AssertionError(f"tune lanes: expected (0, 0, {want}) launches, got {counts}")
+        singles, singles_s = [], []
+        for cfg in TUNE_CONFIGS:
+            t0 = time.perf_counter()
+            singles.append(runner.run_group([cfg], batch, epochs)[0])
+            singles_s.append(time.perf_counter() - t0)
+    lanes_np, singles_np = np.asarray(curves), np.asarray(singles)
+    worst = float(np.max(np.abs(lanes_np - singles_np) / np.abs(singles_np)))
+    log(f"[tune lanes] {len(TUNE_CONFIGS)} lanes x {epochs} epochs at batch {batch}: curves "
+        f"{np.round(lanes_np, 6).tolist()}; worst relative difference from single lanes "
+        f"{worst:.3e}; K2 {counts[2]} launches; {ident}: group {group_s:.3f} s against "
+        f"{sum(singles_s):.3f} s for the single lanes in turn ({sum(singles_s) / group_s:.3f}x)")
+    if not worst <= 1e-6 or not np.all(np.isfinite(lanes_np)):
+        raise AssertionError(f"tune lanes differ from single lanes: {worst:.3e}")
+    out["lanes"] = {"curves": curves, "worst_rel_diff": worst, "group_s": group_s,
+                    "singles_s": singles_s, "launches": dict(zip(("K1", "K1_bwd", "K2"), counts))}
+
+    # the float32 lane step at the search space's batch sizes, as the CLI runs it
+    out["step"] = {}
+    for b in TUNE_BATCHES:
+        lanes = runner.lanes(TUNE_CONFIGS[:1])
+        data = (torch.from_numpy(lr[:b]).cuda(), torch.from_numpy(hr[:b]).cuda())
+        with deterministic_cudnn():
+            runner.train_step(lanes, data)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: runner.train_step(lanes, data), TIMED_STEPS)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            idle = device_idle(lambda: runner.train_step(lanes, data), 3)
+        share = idle["idle_share"]
+        log(f"[tune step] {ident}: float32 lane step, batch {b} x 256 px: {ms:.3f} ms/step "
+            f"({b * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB; device idle "
+            f"{'not measured' if share is None else f'{100 * share:.1f} %'} over 3 steps")
+        out["step"][b] = {"ms_per_step": ms, "img_per_s": b * 1e3 / ms, "peak_gb": peak_gb,
+                          **idle}
+        del lanes, data
+        torch.cuda.empty_cache()
+    del runner
+
+    # a seg study with the search's own base channels
+    isic = tmp / "tune_isic"
+    write_isic_corpus(isic, 16, 8, 256, seed=93)
+    results = tmp / "tune_seg.json"
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tune_cli.main(["--workload", "seg", "--n-trials", "2", "--epochs", "1", "--image-size",
+                       "256", "--train-images", str(isic / "train_img"), "--train-masks",
+                       str(isic / "train_mask"), "--val-images", str(isic / "val_img"),
+                       "--val-masks", str(isic / "val_mask"), "--results", str(results),
+                       "--model-dir", str(tmp / "tune_seg_models"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    payload = json.loads(results.read_text())
+    trials = payload["trials"]
+    k2 = _trial_k2(trials, 16, 8, lambda p: _seg_k2_per_forward(p, 256))
+    if (set(payload) != TUNE_RESULT_KEYS or any(t["state"] != "COMPLETE" for t in trials)
+            or not 0.0 <= payload["best_value"] <= 1.0 or counts != (0, 0, k2)):
+        raise AssertionError(f"tune seg: results {payload}, launches {counts} (K2 expected {k2})")
+    log(f"[tune seg] 2 trials x 1 epoch in {seconds:.1f} s: params "
+        f"{[t['params'] for t in trials]}, best val Dice {payload['best_value']:.4f}; K1 "
+        f"{counts[0]}, K1 backward {counts[1]}, K2 {counts[2]} launches (expected {k2})")
+    out["seg"] = {"seconds": seconds, "params": [t["params"] for t in trials],
+                  "launches": dict(zip(("K1", "K1_bwd", "K2"), counts))}
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_launches: dict,
                  seg_launches: dict, sr_launches: dict, build_s: float) -> dict:
     """One entry per kernel. ``launches`` come from the training path (device-
@@ -2142,7 +2355,9 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
     at batch 8 x 256 px, and ``joint_served`` the launches of one forward of
     its exported int8 artifact, with the same sums over that float32 forward
     at batch 8 x 256 px; ``wide`` lists K1's other C = 1024 and 2048 checks
-    (float32, ragged row counts), per launch."""
+    (float32, ragged row counts), per launch; ``tune`` the launches of the
+    tuner's sequential SR study and, per launch, K2's float32 rows at the
+    lane step's batch 4, 8 and 16 x 256 px."""
     meta = {
         "K1": ("layer_norm_relu", "adunet_torch/csrc/fused_norm.cu", "adunet/kernels/fused_norm.py:48"),
         "K1_bwd": ("layer_norm_relu_backward", "adunet_torch/csrc/fused_norm.cu",
@@ -2207,6 +2422,17 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             sums = {k: summed_at(rows, k, per[kid]) for k in keys} if kid in per else {}
             shapes = [d["shape"] for d in rows if tuple(d["shape"]) in per.get(kid, {})]
             entry[path] = {"launches": sr_launches[path][kid], "shapes": shapes, **sums}
+        # the tuner's float32 lane steps: per launch at batch 4 and 16 (path
+        # "tune") and 8 (the float32 serving row), with forward + backward
+        rows = [d for d in details if d["kernel"] == kid and d["dtype"] == "float32"
+                and (d["path"] == "tune" or (d["path"] == "serve" and kid == "K2"))]
+        fb = {tuple(g["shape"]): g["fwd_bwd_ms"] for g in grads
+              if g["kernel"] == kid and g["dtype"] == "float32" and g["path"] in ("tune", "serve")}
+        entry["tune"] = {"launches": sr_launches["tune"][kid],
+                         "rows": [{**{k: d[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
+                                                        "plain_ms", "bound_ms", "bound_by",
+                                                        "library_ms", "library_device_ms")},
+                                   "fwd_bwd_ms": fb.get(tuple(d["shape"]))} for d in rows]}
         for extra in ("narrow", "wide"):  # K1's other checks beside the paths, per launch
             rows = [d for d in details if d["kernel"] == kid and d["path"] == extra]
             if rows:
@@ -2277,6 +2503,7 @@ def main() -> int:
         joint_step = phase("joint_f32_step", joint_card_vs_cpu_step)
         joint_cli = phase("joint_cli", joint_entry_points, Path(tmp),
                           seg_cli["protocol"].pop("ckpt_dir"))
+        tuned = phase("tune", tune, Path(tmp), ident)
 
     seconds = time.perf_counter() - t_start
     summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
@@ -2284,13 +2511,15 @@ def main() -> int:
                "train_sr": entry, "seg_train": seg, "seg_f32_step": seg_step,
                "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
                "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "joint": joint,
-               "joint_f32_step": joint_step, "joint_cli": joint_cli, "seconds": seconds,
+               "joint_f32_step": joint_step, "joint_cli": joint_cli, "tune": tuned,
+               "seconds": seconds,
                "k1_bwd_ptxas": spills, "host_probes": probes}
     log("[detail] " + json.dumps(summary))
     log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
     seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}
     sr_launches = {"streamed": streamed["launches"], "vanilla_sr": vanilla["launches"],
                    "joint": joint["launches"], "joint_served": joint_cli["served_launches"],
+                   "tune": tuned["launches"],
                    "deep": {kid: {k: deep[k]["launches"][kid] for k in ("remat_0", "remat_2")}
                             for kid in ("K1", "K1_bwd", "K2")}}
     print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"],

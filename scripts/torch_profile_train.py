@@ -11,7 +11,15 @@ the joint SR + segmentation U-Net at ``train_joint``'s defaults (scale 0.5,
 base 64, depth 4 from the depth policy, 50,273,348 params, bf16, Adam 1e-4)
 and runs its train step at batch 8 x 256 px on synthetic lesion pairs
 (``scripts/make_synth_isic.py::synth_pair``, seed 61) held on the card:
-degrade, both heads, Charbonnier + BCE-Dice, backward, Adam. It times
+degrade, both heads, Charbonnier + BCE-Dice, backward, Adam.
+``--model vanilla_f32`` runs the tuner's float32 lane step
+(``adunet_torch.tune.BatchedVanillaSRTuner.train_step``, one lane): the
+vanilla SR U-Net (base 64, depth 4, 34,525,251 params, BatchNorm) on LR
+images degraded at 0.5 from synthetic 256-px images (seed 5) held on the
+card, the combined loss over the seeded VGG19 tower (its HR forward, the
+prediction's forward and backward), backward, Adam, with cuDNN's
+deterministic algorithms as the tuner's CLI runs them; batch 8 by default.
+It times
 steps with CUDA events after a warm-up, then traces a few steps with
 ``torch.profiler`` and prints the device time per step of the kernels'
 forward (K1, K2) and of K1's backward kernels by their device kernels'
@@ -22,7 +30,8 @@ and power limit. ``--json PATH`` also writes the full result as JSON.
 
 Run from the repository root on a machine with a GPU:
 
-    python3 scripts/torch_profile_train.py [--model flagship|joint] [--steps 5] [--batch N]
+    python3 scripts/torch_profile_train.py [--model flagship|joint|vanilla_f32] [--steps 5]
+        [--batch N]
         [--json PATH]
 """
 
@@ -47,12 +56,14 @@ from make_synth_isic import synth_pair  # noqa: E402
 from adunet_torch.data import load_device_cache  # noqa: E402
 from adunet_torch.losses import charbonnier_loss, make_bce_dice_loss  # noqa: E402
 from adunet_torch.models import build_joint_unet, build_super_resolution_unet  # noqa: E402
+from adunet_torch.ops import degrade  # noqa: E402
 from adunet_torch.train import (  # noqa: E402
     create_train_state,
     make_joint_train_step,
     make_optimizer,
     make_sr_device_cache_train_step,
 )
+from adunet_torch.tune import BatchedVanillaSRTuner  # noqa: E402
 from adunet_torch.utils import gpu_identity  # noqa: E402
 
 # label -> ("kernel", substring of a device kernel's name) or ("op", exact name
@@ -61,6 +72,7 @@ GROUPS = {
     "K1 forward (kernel)": ("kernel", "layer_norm_relu_kernel"),
     "K1 backward (kernels: rows, column sums)": ("kernel", "layer_norm_relu_bwd"),
     "K2 forward (bf16 tensor-core kernel)": ("kernel", "conv3x3_c64_wgmma_kernel"),
+    "K2 forward (float32 kernel)": ("kernel", "conv3x3_c64_kernel"),
     "K2 backward (cuDNN)": ("op", "autograd::engine::evaluate_function: _Conv3x3SameBackward"),
     "cuDNN conv forward (other convs)": ("op", "aten::cudnn_convolution"),
     "conv backward (all convs)": ("op", "aten::convolution_backward"),
@@ -109,8 +121,22 @@ def joint_step(batch: int):
     return lambda: step(state, (images, masks))
 
 
+def vanilla_f32_step(batch: int):
+    """The tuner's float32 lane step (one lane) on one batch held on the card,
+    with cuDNN's deterministic algorithms, as the tuner's CLI runs it."""
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(5)
+    hr = np.stack([synth_image(rng, 256) for _ in range(batch)]).astype(np.float32)
+    lr = degrade(torch.from_numpy(hr), 0.5).numpy()
+    runner = BatchedVanillaSRTuner(lr, hr, np.arange(batch), np.arange(batch), device="cuda")
+    lanes = runner.lanes([{"lr": 1e-4, "alpha": 1.0, "beta": 0.1, "gamma": 0.01}])
+    data = (torch.from_numpy(lr).cuda(), torch.from_numpy(hr).cuda())
+    return lambda: runner.train_step(lanes, data)
+
+
 STEPS = {"flagship": (flagship_step, 32, "bf16 flagship train step, device cache"),
-         "joint": (joint_step, 8, "bf16 joint SR + segmentation train step")}
+         "joint": (joint_step, 8, "bf16 joint SR + segmentation train step"),
+         "vanilla_f32": (vanilla_f32_step, 8, "the tuner's float32 vanilla SR lane step")}
 
 
 def main() -> int:
@@ -118,7 +144,7 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--model", choices=sorted(STEPS), default="flagship")
     parser.add_argument("--batch", type=int, default=None,
-                        help="batch size (default 32 for the flagship, 8 for the joint model)")
+                        help="batch size (default 32 for the flagship, 8 otherwise)")
     parser.add_argument("--json", type=Path, default=None, help="write the full result here")
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -32,6 +32,9 @@ _TRAINING_MODULES = (
     # the joint model, its trainer, and the export half
     "adunet_torch.models.joint", "adunet_torch.train.joint", "adunet_torch.cli.train_joint",
     "adunet_torch.export.aot", "adunet_torch.cli.export_model", "adunet_torch.cli.serve",
+    # the tuner
+    "adunet_torch.tune", "adunet_torch.tune.search", "adunet_torch.tune.parallel",
+    "adunet_torch.cli.tune",
 )
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|adunet)(\.|\s|$)", re.MULTILINE
