@@ -7,7 +7,13 @@ HR images are grid-tiled, degraded at ``--scale`` and restored, and the
 Y-channel PSNR / SSIM / MS-SSIM / MSE with the border shave are written as
 the reference's reports (``config.json``, ``metrics.json``,
 ``per_image_metrics.csv``) under ``<output-dir>/<run-name>``. ``--device``
-is ``cuda`` by default (raises without a GPU) or ``cpu``.
+is ``cuda`` by default (raises without a GPU) or ``cpu``. Under ``torchrun``
+the tiles are sharded over the processes (``evaluate_sr``'s mesh: each scores
+its share, the per-patch numbers gathered back), every process gets the
+numbers one process computes, and process 0 writes the reports
+(``adunet/cli/evaluate.py:122-133``):
+
+    torchrun --nproc-per-node N -m adunet_torch.cli.evaluate --model-path ... --scale 0.5 ...
 
     python -m adunet_torch.cli.evaluate --model-path runs/models/unet_adaptive_scale0.50_depth3 \\
         --scale 0.5 --hr-dir DIR --image-suffix .npy [--device cpu]
@@ -87,6 +93,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     from adunet_torch.data import find_images, make_eval_patch_dataset
     from adunet_torch.evaluate import attach_filenames, evaluate_sr, infer_eval_shave, write_outputs
+    from adunet_torch.parallel import is_main_process, make_mesh, maybe_initialize_distributed
+
+    mesh = make_mesh() if maybe_initialize_distributed(args.device) else None
 
     hr_files = find_images(args.hr_dir, args.image_suffix, args.limit)
     eval_ds, _total, patch_labels = make_eval_patch_dataset(
@@ -96,7 +105,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                                 args.depth_override, best=not args.latest,
                                                 device=args.device)
     eval_shave = infer_eval_shave(args.scale, args.eval_shave)
-    summary, per_patch = evaluate_sr(state, eval_ds, eval_scale=args.scale, eval_shave=eval_shave)
+    summary, per_patch = evaluate_sr(state, eval_ds, eval_scale=args.scale, eval_shave=eval_shave,
+                                     mesh=mesh)
     attach_filenames(per_patch, patch_labels)
 
     print(f"Scored {summary.samples} patches across {len(hr_files)} images.")
@@ -123,8 +133,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "images": len(hr_files),
         "created_at": timestamp,
     }
-    write_outputs(run_dir, summary, per_patch, config_payload, not args.skip_per_image)
-    print(f"[done] Evaluation report at {run_dir}")
+    if is_main_process():
+        write_outputs(run_dir, summary, per_patch, config_payload, not args.skip_per_image)
+        print(f"[done] Evaluation report at {run_dir}")
     return {"run_dir": str(run_dir), "summary": summary, "per_patch": per_patch}
 
 

@@ -11,7 +11,10 @@ directories, else by ``loss``, and the latest). Each step degrades the
 images on the device at ``--scale``, restores them through the SR decoder
 and segments them through the seg decoder. ``--device`` is ``cuda`` by
 default, which raises without a GPU; ``cpu`` runs the kernels' plain
-versions. ``--n_devices`` above 1 (ROADMAP Queue 1 item 13) raises.
+versions. Several GPUs: one process per GPU under ``torchrun``, as
+``train_sr`` (``--batch_size`` per process, ``--n_devices`` equal to
+``WORLD_SIZE`` or omitted, an equal-length shard of the training pairs per
+process, DDP, sharded validation, process 0 writing the artifacts).
 
     python -m adunet_torch.cli.train_joint --train_image_dir DIR --train_mask_dir DIR \\
         [--val_image_dir DIR --val_mask_dir DIR] --mixed_precision [--device cpu]
@@ -21,13 +24,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 from datetime import datetime
 from pathlib import Path
 from typing import List, Optional
 
 import torch
-
-from adunet_torch.cli.train_seg import refuse_unported
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -69,9 +71,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def train(args: argparse.Namespace) -> dict:
+def train(args: argparse.Namespace, argv: Optional[List[str]] = None) -> dict:
     """Train and write the run's artifacts; returns ``result.json``'s payload
-    plus the run directory and the state."""
+    plus the run directory and the state. ``argv`` goes into the
+    ``torchrun`` hint of a single-process ``--n_devices`` above 1."""
     from adunet_torch.data import SegPairDataset, discover_pairs
     from adunet_torch.losses import charbonnier_loss, l1_loss, make_bce_dice_loss, make_weighted_ce_loss
     from adunet_torch.models import build_joint_unet
@@ -85,10 +88,20 @@ def train(args: argparse.Namespace) -> dict:
         open_tb_writer,
         repeat,
     )
+    from adunet_torch.parallel import (
+        broadcast_from_main,
+        data_parallel,
+        is_main_process,
+        launch_mesh,
+        process_count,
+        process_shard,
+    )
     from adunet_torch.utils.runtime import resolve_device
 
-    refuse_unported(args.n_devices)
+    mesh = launch_mesh(args.device, n_devices=args.n_devices,
+                       command=("adunet_torch.cli.train_joint", argv or []))
     dev = resolve_device(args.device)
+    main = is_main_process()
     train_pairs = discover_pairs(args.train_image_dir.expanduser(), args.train_mask_dir.expanduser(),
                                  args.image_suffix, args.mask_suffix, args.limit_train)
     val_pairs = None
@@ -97,6 +110,7 @@ def train(args: argparse.Namespace) -> dict:
                                    args.image_suffix, args.mask_suffix, args.limit_val)
     print(f"Loaded {len(train_pairs)} train pairs"
           + (f", {len(val_pairs)} val pairs." if val_pairs else "."))
+    train_pairs = process_shard(train_pairs, seed=args.seed)  # this process's equal share
 
     train_ds = SegPairDataset(train_pairs, batch_size=args.batch_size, image_size=args.image_size,
                               augment=False, shuffle=True, seed=args.seed,
@@ -128,8 +142,10 @@ def train(args: argparse.Namespace) -> dict:
         seg_loss_fn = make_bce_dice_loss(0.5, 1.0)
     state = create_train_state(model, make_optimizer(model.parameters(), args.learning_rate))
     n_params = sum(p.numel() for p in model.parameters())
+    if mesh is not None:
+        state = data_parallel(state, mesh)
 
-    timestamp = datetime.now().strftime("%Y%m%d-%H%M%S")
+    timestamp = broadcast_from_main(datetime.now().strftime("%Y%m%d-%H%M%S"))
     run_dir = Path(args.log_dir).expanduser() / f"{args.run_name}_{timestamp}"
     run_dir.mkdir(parents=True, exist_ok=True)
     ckpt_dir = Path(args.model_dir).expanduser() / f"{args.run_name}_best"
@@ -144,20 +160,22 @@ def train(args: argparse.Namespace) -> dict:
         "depth": info["depth"],
         "bottleneck_size": info["bottleneck_size"],
         "n_params": n_params,
-        "n_devices": 1,
+        "n_devices": process_count(),
         "steps_per_epoch": steps_per_epoch,
         "created_at": timestamp,
     }
-    (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
+    if main:
+        (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
     ckpt.write_config(config_payload)
-    print(f"Joint model: depth={info['depth']} params={n_params:,} devices=1 device={dev}")
+    print(f"Joint model: depth={info['depth']} params={n_params:,} devices={process_count()} "
+          f"device={dev}")
 
     step_kwargs = dict(sr_weight=args.sr_weight, seg_weight=args.seg_weight,
                        data_scale=args.scale)
     train_step = make_joint_train_step(model, sr_loss_fn, seg_loss_fn, **step_kwargs)
     eval_step = make_joint_eval_step(model, sr_loss_fn, seg_loss_fn, per_sample=True,
                                      **step_kwargs)
-    tb_writer = open_tb_writer(run_dir)
+    tb_writer = open_tb_writer(run_dir) if main else None
     try:
         result = fit(
             state,
@@ -190,13 +208,15 @@ def train(args: argparse.Namespace) -> dict:
         "checkpoint": str(ckpt_dir),
         "created_at": timestamp,
     }
-    (run_dir / "result.json").write_text(json.dumps(payload, indent=2, default=str))
+    if main:
+        (run_dir / "result.json").write_text(json.dumps(payload, indent=2, default=str))
     ckpt.close()
     return {**payload, "run_dir": str(run_dir), "state": result.state}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    return train(parse_args(argv))
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return train(parse_args(argv), argv)
 
 
 if __name__ == "__main__":

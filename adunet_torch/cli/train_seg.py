@@ -10,7 +10,12 @@ lines. ``--device`` is ``cuda`` by default, which raises without a GPU;
 ``*_segmentation`` masks, ``.jpg`` / ``.png`` / ``.npy``) are decoded on the
 host and augmented on the device inside the train step.
 ``--async_checkpoint`` writes the checkpoints on a background thread.
-``--n_devices`` above 1 (ROADMAP Queue 1 item 13) is not ported and raises.
+Several GPUs: one process per GPU under ``torchrun``, as ``train_sr``
+(``adunet/cli/train_seg.py:99-117``): ``--batch_size`` per process,
+``--n_devices`` equal to ``WORLD_SIZE`` or omitted, each process on its own
+equal-length shard of the training pairs with the last batch padded
+(``pad_tail``), BatchNorm on the global batch's statistics, DDP averaging
+the gradients, validation sharded, and process 0 writing the artifacts.
 Where ``tensorboardX`` imports, each epoch's ``train/*``, ``val/*`` and
 ``perf/*`` scalars go to TensorBoard events in the run directory.
 
@@ -24,6 +29,7 @@ import argparse
 import dataclasses
 import json
 import math
+import sys
 from datetime import datetime
 from pathlib import Path
 from typing import List, Optional
@@ -75,13 +81,6 @@ def config_from_args(args: argparse.Namespace) -> SegTrainConfig:
     return SegTrainConfig(**kwargs).resolved()
 
 
-def refuse_unported(n_devices: Optional[int]) -> None:
-    """Raise for the options the port does not have yet, naming their item."""
-    if (n_devices or 1) > 1:
-        raise NotImplementedError(
-            "--n_devices > 1 is not ported to adunet_torch yet (ROADMAP Queue 1 item 13).")
-
-
 def weighted_eval(eval_step, state, dataset) -> dict:
     """Per-sample eval metrics averaged over every sample of ``dataset``
     (sorted by name, as the reference's)."""
@@ -96,9 +95,11 @@ def weighted_eval(eval_step, state, dataset) -> dict:
     return {k: sums[k] / total for k in sorted(sums)}
 
 
-def train(cfg: SegTrainConfig) -> dict:
+def train(cfg: SegTrainConfig, argv: Optional[List[str]] = None) -> dict:
     """Train, validate and write the run's artifacts; returns the run and
-    checkpoint directories, the final validation metrics and the state."""
+    checkpoint directories, the final validation metrics and the state.
+    ``argv`` goes into the ``torchrun`` hint of a single-process
+    ``--n_devices`` above 1."""
     from adunet_torch.data import build_isic_dataset
     from adunet_torch.losses import make_bce_dice_loss, make_hybrid_ce_dice_loss
     from adunet_torch.models import build_adaptive_depth_unet
@@ -112,16 +113,28 @@ def train(cfg: SegTrainConfig) -> dict:
         open_tb_writer,
         repeat,
     )
+    from adunet_torch.parallel import (
+        broadcast_from_main,
+        data_parallel,
+        is_main_process,
+        launch_mesh,
+        process_count,
+        process_seed,
+    )
     from adunet_torch.utils.runtime import resolve_device
 
-    refuse_unported(cfg.n_devices)
+    mesh = launch_mesh(cfg.device, n_devices=cfg.n_devices,
+                       command=("adunet_torch.cli.train_seg", argv or []))
     dev = resolve_device(cfg.device)
+    main = is_main_process()
     protocol = PROTOCOLS[cfg.protocol]
 
     train_ds, train_count = build_isic_dataset(
         cfg.train_images, cfg.train_masks, batch_size=cfg.batch_size,
         image_size=cfg.image_size, augment=cfg.augment, shuffle=True, seed=cfg.seed,
-        limit=cfg.limit, cache_decoded=cfg.cache_decoded,
+        limit=cfg.limit, cache_decoded=cfg.cache_decoded, shard_across_processes=True,
+        # across processes every train batch has the full local size
+        pad_tail=mesh is not None,
     )
     val_ds, val_count = build_isic_dataset(
         cfg.val_images, cfg.val_masks, batch_size=cfg.batch_size,
@@ -143,20 +156,23 @@ def train(cfg: SegTrainConfig) -> dict:
     )
     state = create_train_state(model, optimizer)
     n_params = sum(p.numel() for p in model.parameters())
+    if mesh is not None:
+        state = data_parallel(state, mesh)
 
-    timestamp = datetime.now().strftime("%Y%m%d-%H%M%S")
+    timestamp = broadcast_from_main(datetime.now().strftime("%Y%m%d-%H%M%S"))
     run_name = cfg.run_name or f"protocol{protocol.key}_seed{cfg.seed}_{timestamp}"
     run_dir = Path(cfg.log_dir).expanduser() / run_name
     run_dir.mkdir(parents=True, exist_ok=True)
     ckpt_dir = Path(cfg.model_dir).expanduser() / run_name
 
-    print(f"Model: depth={cfg.depth} params={n_params:,} devices=1 protocol={protocol.key} "
-          f"device={dev}")
-    (run_dir / "model_summary.txt").write_text(f"{model!r}\nTotal params: {n_params:,}\n")
+    print(f"Model: depth={cfg.depth} params={n_params:,} devices={process_count()} "
+          f"protocol={protocol.key} device={dev}")
+    if main:
+        (run_dir / "model_summary.txt").write_text(f"{model!r}\nTotal params: {n_params:,}\n")
     ckpt = CheckpointManager(ckpt_dir, monitor="val_dice", mode="max",
                              async_save=cfg.async_checkpoint)
 
-    tb_writer = open_tb_writer(run_dir)
+    tb_writer = open_tb_writer(run_dir) if main else None
     train_step = make_seg_train_step(model, loss_fn, augment=cfg.augment)
     eval_step = make_seg_eval_step(model, loss_fn, per_sample=True)
 
@@ -179,7 +195,7 @@ def train(cfg: SegTrainConfig) -> dict:
         train_step,
         steps_per_epoch=steps_per_epoch,
         epochs=cfg.epochs,
-        rng=torch.Generator(device=dev).manual_seed(cfg.seed),
+        rng=torch.Generator(device=dev).manual_seed(process_seed(cfg.seed)),
         val_data=val_ds,
         val_step=eval_step,
         monitor="val_dice",
@@ -206,7 +222,7 @@ def train(cfg: SegTrainConfig) -> dict:
         "depth": cfg.depth,
         "base_channels": cfg.base_channels,
         "n_params": n_params,
-        "n_devices": 1,
+        "n_devices": process_count(),
         "train_samples": train_count,
         "val_samples": val_count,
         "train_steps_per_epoch": steps_per_epoch,
@@ -221,7 +237,8 @@ def train(cfg: SegTrainConfig) -> dict:
         "metrics": eval_metrics,
         "created_at": timestamp,
     }
-    (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
+    if main:
+        (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
     ckpt.write_config(config_payload)
     if tb_writer is not None:
         tb_writer.close()
@@ -236,7 +253,8 @@ def train(cfg: SegTrainConfig) -> dict:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    return train(config_from_args(parse_args(argv)))
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return train(config_from_args(parse_args(argv)), argv)
 
 
 if __name__ == "__main__":

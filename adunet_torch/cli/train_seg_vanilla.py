@@ -10,8 +10,12 @@ early stopping (patience 10), ReduceLROnPlateau on ``val_loss`` (factor 0.5,
 patience 5, min 1e-6), a ``<run_name>_final`` checkpoint and ``config.json``
 with the reference's keys. ``--device`` is ``cuda`` by default, which raises
 without a GPU; ``cpu`` runs the kernels' plain versions.
-``--async_checkpoint`` writes the best checkpoints on a background thread;
-``--n_devices`` above 1 raises, naming its ROADMAP item.
+``--async_checkpoint`` writes the best checkpoints on a background thread.
+Several GPUs: one process per GPU under ``torchrun``, as ``train_seg``
+(``--batch_size`` per process, ``--n_devices`` equal to ``WORLD_SIZE`` or
+omitted, an equal-length shard of the training pairs per process with the
+last batch padded, DDP, sharded validation with the pooled metrics' sums
+reduced, process 0 writing the artifacts).
 
     python -m adunet_torch.cli.train_seg_vanilla --train_image_dir DIR \\
         --train_mask_dir DIR --val_image_dir DIR --val_mask_dir DIR [--device cpu]
@@ -22,13 +26,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import sys
 from datetime import datetime
 from pathlib import Path
 from typing import List, Optional
 
 import torch
-
-from adunet_torch.cli.train_seg import refuse_unported
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -65,9 +68,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def train(args: argparse.Namespace) -> dict:
+def train(args: argparse.Namespace, argv: Optional[List[str]] = None) -> dict:
     """Train and write the run's artifacts; returns ``config.json``'s payload
-    plus the run directory and the state."""
+    plus the run directory and the state. ``argv`` goes into the
+    ``torchrun`` hint of a single-process ``--n_devices`` above 1."""
     from adunet_torch.data import SegPairDataset, discover_pairs
     from adunet_torch.losses import binary_crossentropy, make_weighted_ce_loss
     from adunet_torch.metrics import (
@@ -88,20 +92,31 @@ def train(args: argparse.Namespace) -> dict:
         metric_finalizers_of,
         repeat,
     )
+    from adunet_torch.parallel import (
+        broadcast_from_main,
+        data_parallel,
+        is_main_process,
+        launch_mesh,
+        process_seed,
+        process_shard,
+    )
     from adunet_torch.utils.runtime import resolve_device
 
-    refuse_unported(args.n_devices)
+    mesh = launch_mesh(args.device, n_devices=args.n_devices,
+                       command=("adunet_torch.cli.train_seg_vanilla", argv or []))
     dev = resolve_device(args.device)
     train_pairs = discover_pairs(args.train_image_dir.expanduser(), args.train_mask_dir.expanduser(),
                                  args.image_suffix, args.mask_suffix, args.limit_train)
     val_pairs = discover_pairs(args.val_image_dir.expanduser(), args.val_mask_dir.expanduser(),
                                args.image_suffix, args.mask_suffix, args.limit_val)
     print(f"Discovered {len(train_pairs)} train / {len(val_pairs)} val image-mask pairs.")
+    train_pairs = process_shard(train_pairs, seed=args.seed)  # this process's equal share
 
     # the vanilla reference resizes images bilinearly
     train_ds = SegPairDataset(train_pairs, batch_size=args.batch_size, image_size=args.image_size,
                               augment=args.augment, shuffle=True, seed=args.seed,
-                              num_classes=args.num_classes, image_interp="linear")
+                              num_classes=args.num_classes, image_interp="linear",
+                              pad_tail=mesh is not None)
     val_ds = SegPairDataset(val_pairs, batch_size=args.batch_size, image_size=args.image_size,
                             augment=False, shuffle=False, seed=args.seed,
                             num_classes=args.num_classes, image_interp="linear")
@@ -139,8 +154,10 @@ def train(args: argparse.Namespace) -> dict:
     state = create_train_state(model, make_optimizer(model.parameters(), args.learning_rate,
                                                      inject_lr=True))
     n_params = sum(p.numel() for p in model.parameters())
+    if mesh is not None:
+        state = data_parallel(state, mesh)
 
-    timestamp = datetime.now().strftime("%Y%m%d-%H%M%S")
+    timestamp = broadcast_from_main(datetime.now().strftime("%Y%m%d-%H%M%S"))
     run_dir = Path(args.log_dir).expanduser() / f"{args.run_name}_{timestamp}"
     run_dir.mkdir(parents=True, exist_ok=True)
     ckpt_dir = Path(args.model_dir).expanduser() / f"{args.run_name}_best"
@@ -157,7 +174,7 @@ def train(args: argparse.Namespace) -> dict:
         train_step,
         steps_per_epoch=steps_per_epoch,
         epochs=args.epochs,
-        rng=torch.Generator(device=dev).manual_seed(args.seed),
+        rng=torch.Generator(device=dev).manual_seed(process_seed(args.seed)),
         val_data=val_ds,
         val_step=eval_step,
         monitor=monitor,
@@ -189,12 +206,14 @@ def train(args: argparse.Namespace) -> dict:
         "final_checkpoint": str(final_dir),
         "created_at": timestamp,
     }
-    (run_dir / "config.json").write_text(json.dumps(payload, indent=2, default=str))
+    if is_main_process():
+        (run_dir / "config.json").write_text(json.dumps(payload, indent=2, default=str))
     return {**payload, "run_dir": str(run_dir), "state": state}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    return train(parse_args(argv))
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return train(parse_args(argv), argv)
 
 
 if __name__ == "__main__":

@@ -22,8 +22,19 @@ Three data paths, as in the reference:
 ``--loss combined`` adds the VGG19 perceptual term (``--vgg19_npz`` weights,
 else seeded random ones), ``--remat`` / ``--remat_levels`` checkpoint the
 ConvBlocks, ``--async_checkpoint`` writes checkpoints on a background thread.
-Refused with the ROADMAP item that ports it: ``--model_shards`` and
-``--n_devices`` above 1 (Queue 1 item 13). Where ``tensorboardX`` imports,
+
+Several GPUs: one process per GPU under ``torchrun`` (the reference's
+multi-process mode, ``adunet/cli/train_sr.py:155-160, 250-330``).
+``--batch_size`` is per process, so the global batch is ``batch_size x
+world``; ``--n_devices`` is the mesh's global device count and must equal
+``WORLD_SIZE`` or be omitted (in a plain process above 1 it raises with the
+``torchrun`` line). Each process trains on its own equal-length shard of the
+training images (``process_shard``) with its own random stream
+(``process_seed``); DDP averages the gradients. ``--model_shards M`` shards
+the wide levels' weights and Adam moments over M processes
+(``adunet_torch.parallel.partition``; data extent ``world / M``).
+Validation and the post-training evaluation are sharded over the
+processes, and process 0 writes the run's artifacts. Where ``tensorboardX`` imports,
 the run directory gets the reference's TensorBoard events
 (``adunet/cli/train_sr.py:396-443, 561-564``): at step 0 the
 hyperparameters and model summary as text, the dataset census scalars and
@@ -34,6 +45,7 @@ scalars of the post-training evaluation.
     python -m adunet_torch.cli.train_sr --scale 0.5 --depth_override 3 \\
         --mixed_precision --uint8_feed --cache_decoded --batch_size 32 \\
         --patch_size 256 --high_res_dir DIR --image_suffix .npy [--device cpu]
+    torchrun --nproc-per-node 4 -m adunet_torch.cli.train_sr ... [--model_shards 2]
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import argparse
 import dataclasses
 import json
 import math
+import sys
 from datetime import datetime
 from pathlib import Path
 from typing import List, Optional
@@ -116,15 +129,11 @@ def config_from_args(args: argparse.Namespace) -> SRTrainConfig:
     return cfg
 
 
-def _refuse_unported(cfg: SRTrainConfig) -> None:
-    if cfg.model_shards > 1 or (cfg.n_devices or 1) > 1:
-        raise NotImplementedError("--model_shards / --n_devices > 1 is not ported to adunet_torch "
-                                  "yet (ROADMAP Queue 1 item 13).")
-
-
-def train(cfg: SRTrainConfig) -> dict:
+def train(cfg: SRTrainConfig, argv: Optional[List[str]] = None) -> dict:
     """Run the training and the post-training evaluation; returns the run's
-    directories, eval summaries, epoch count, best epoch and final state."""
+    directories, eval summaries, epoch count, best epoch and final state.
+    ``argv`` (the command's arguments) goes into the ``torchrun`` hint of a
+    single-process ``--n_devices`` above 1."""
     from adunet_torch.data import (
         ArrayDataset,
         device_feed,
@@ -154,13 +163,28 @@ def train(cfg: SRTrainConfig) -> dict:
         open_tb_writer,
         repeat,
     )
+    from adunet_torch.parallel import (
+        barrier,
+        broadcast_from_main,
+        data_extent,
+        data_index,
+        data_parallel,
+        is_main_process,
+        launch_mesh,
+        process_count,
+        process_seed,
+        process_shard,
+    )
     from adunet_torch.utils.misc import split_indices
     from adunet_torch.utils.runtime import resolve_device
 
-    _refuse_unported(cfg)
+    mesh = launch_mesh(cfg.device, n_devices=cfg.n_devices, model_shards=cfg.model_shards,
+                       batch_size=cfg.batch_size, grad_accum=cfg.grad_accum,
+                       command=("adunet_torch.cli.train_sr", argv or []))
     if cfg.high_res_dir is None:
         raise ValueError("--high_res_dir is required (no cluster default paths in this build).")
     dev = resolve_device(cfg.device)
+    main = is_main_process()
 
     hr_paths = find_images(cfg.high_res_dir, cfg.image_suffix, cfg.limit)
     train_split = 1.0 - (cfg.val_split + cfg.test_split)
@@ -170,6 +194,11 @@ def train(cfg: SRTrainConfig) -> dict:
     train_paths = [hr_paths[i] for i in train_idx]
     val_paths = [hr_paths[i] for i in val_idx]
     test_paths = [hr_paths[i] for i in test_idx]
+    # each data shard streams its own equal-length slice of the training
+    # images, with its own random stream (a model-shard group shares one)
+    shard = {"index": data_index(mesh), "count": data_extent(mesh)}
+    train_paths = process_shard(train_paths, seed=cfg.seed, **shard)
+    data_seed = process_seed(cfg.seed, index=shard["index"])
     degrade_scale = cfg.train_degrade_scale()
     paired = bool(cfg.low_res_dir)
 
@@ -185,7 +214,8 @@ def train(cfg: SRTrainConfig) -> dict:
             return ArrayDataset(lr_stack, hr_stack, batch_size=cfg.batch_size, shuffle=shuffle,
                                 seed=cfg.seed, drop_remainder=drop_remainder)
 
-        train_ds = paired_dataset(train_idx, shuffle=True, drop_remainder=True)
+        train_ds = paired_dataset(process_shard(list(train_idx), seed=cfg.seed, **shard),
+                                  shuffle=True, drop_remainder=True)
         if train_ds is None:
             raise ValueError("Paired mode requires at least one training image.")
         train_patch_count = len(train_idx)
@@ -227,8 +257,10 @@ def train(cfg: SRTrainConfig) -> dict:
     loss_fn, _metrics = build_losses_and_metrics(cfg.loss, perceptual_fn=perceptual_fn)
     state = create_train_state(model, make_optimizer(model.parameters(), cfg.learning_rate))
     n_params = sum(p.numel() for p in model.parameters())
+    if mesh is not None:
+        state = data_parallel(state, mesh)
 
-    timestamp = datetime.now().strftime("%Y%m%d-%H%M%S")
+    timestamp = broadcast_from_main(datetime.now().strftime("%Y%m%d-%H%M%S"))
     inferred = f"scale{cfg.scale:.2f}_bs{cfg.batch_size}_lr{cfg.learning_rate:.0e}_{timestamp}"
     run_name = cfg.run_name or inferred
     run_dir = Path(cfg.log_dir).expanduser() / run_name
@@ -242,7 +274,7 @@ def train(cfg: SRTrainConfig) -> dict:
         "depth": info["depth"],
         "bottleneck_size": info["bottleneck_size"],
         "n_params": n_params,
-        "n_devices": 1,
+        "n_devices": process_count(),
         "train_images": len(train_paths),
         "val_images": len(val_paths),
         "test_images": len(test_paths),
@@ -251,17 +283,20 @@ def train(cfg: SRTrainConfig) -> dict:
         "low_res_mode": "paired_directory" if paired else "synthetic_patches",
         "created_at": timestamp,
     }
-    (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
     model_table = (f"{model!r}\nTotal params: {n_params:,}\ndepth: {info['depth']}\n"
                    f"bottleneck: {info['bottleneck_size']}px\n")
-    (run_dir / "model_summary.txt").write_text(model_table)
-    print(f"Model: depth={info['depth']} params={n_params:,} device={dev}")
+    if main:  # host-side artifacts: process 0 only
+        (run_dir / "config.json").write_text(json.dumps(config_payload, indent=2, default=str))
+        (run_dir / "model_summary.txt").write_text(model_table)
+    print(f"Model: depth={info['depth']} params={n_params:,} device={dev} "
+          f"processes={process_count()}")
 
     ckpt = CheckpointManager(ckpt_dir, monitor="val_loss", mode="min",
                              async_save=cfg.async_checkpoint)
     stored_cfg = {}
     if (ckpt_dir / "config.json").exists():
         stored_cfg = json.loads((ckpt_dir / "config.json").read_text())
+    barrier()  # every process has read the stored config before process 0 rewrites it
     ckpt.write_config(config_payload)
 
     initial_epoch = cfg.initial_epoch
@@ -294,7 +329,7 @@ def train(cfg: SRTrainConfig) -> dict:
         print("[warn] --initial_epoch was set without --resume_from; training will skip "
               "the initial epochs but start from random weights.")
 
-    tb_writer = open_tb_writer(run_dir)
+    tb_writer = open_tb_writer(run_dir) if main else None
     if tb_writer is not None:
         tb_writer.add_text("config/hyperparameters",
                            "```json\n" + json.dumps(config_payload, indent=2, default=str)
@@ -341,7 +376,7 @@ def train(cfg: SRTrainConfig) -> dict:
         if not paired:
             train_ds, _ = make_training_patch_dataset(
                 train_paths, patch_size=cfg.patch_size, patches_per_image=cfg.patches_per_image,
-                scale=degrade_scale, batch_size=cfg.batch_size, seed=cfg.seed,
+                scale=degrade_scale, batch_size=cfg.batch_size, seed=data_seed,
                 shuffle_buffer=cfg.shuffle_buffer,
                 output_dtype="uint8" if cfg.uint8_feed else "float32",
                 cache_decoded=cfg.cache_decoded,
@@ -359,7 +394,7 @@ def train(cfg: SRTrainConfig) -> dict:
             steps_per_epoch=steps_per_epoch,
             epochs=cfg.epochs,
             initial_epoch=initial_epoch,
-            rng=torch.Generator(device=dev).manual_seed(cfg.seed),
+            rng=torch.Generator(device=dev).manual_seed(data_seed),
             val_data=val_ds,
             val_step=val_step,
             monitor="val_loss",
@@ -397,7 +432,8 @@ def train(cfg: SRTrainConfig) -> dict:
                                                      scale=degrade_scale,
                                                      batch_size=cfg.batch_size,
                                                      stride=cfg.eval_stride)
-        summary, _rows = evaluate_sr(state, ds, eval_scale=degrade_scale, eval_shave=eval_shave)
+        summary, _rows = evaluate_sr(state, ds, eval_scale=degrade_scale, eval_shave=eval_shave,
+                                     mesh=mesh)
         print(f"{name} patches evaluated: {summary.samples}")
         print(f"  MSE(Y)     : {summary.mse_mean:.6f} +/- {summary.mse_std:.6f}")
         print(f"  PSNR(Y)    : {summary.psnr_mean:.4f} +/- {summary.psnr_std:.4f} dB")
@@ -419,9 +455,9 @@ def train(cfg: SRTrainConfig) -> dict:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    args = parse_args(argv)
-    cfg = config_from_args(args)
-    return train(cfg)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cfg = config_from_args(parse_args(argv))
+    return train(cfg, argv)
 
 
 if __name__ == "__main__":

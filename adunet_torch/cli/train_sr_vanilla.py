@@ -9,8 +9,11 @@ train / val / test split, the BatchNorm U-Net with its sigmoid head, the
 validation, early stopping and best checkpoints on ``val_loss``, then RGB
 PSNR / SSIM / MS-SSIM mean ± std over the validation and test splits, and a
 ``config.json`` with the reference's keys. ``--device`` is ``cuda`` by
-default (raises without a GPU) or ``cpu``; ``--n_devices`` above 1 raises,
-naming its ROADMAP item.
+default (raises without a GPU) or ``cpu``. Several GPUs: one process per
+GPU under ``torchrun``, as ``train_sr`` (``--batch_size`` per process,
+``--n_devices`` equal to ``WORLD_SIZE`` or omitted, an equal-length shard of
+the training images per process, BatchNorm on the global batch, DDP,
+sharded validation, process 0 writing the artifacts).
 
     python -m adunet_torch.cli.train_sr_vanilla --high_res_dir HR --low_res_dir LR \\
         [--mixed_precision] [--device cpu]
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 from datetime import datetime
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -94,9 +98,10 @@ def evaluate(state, dataset, eval_step) -> Dict[str, Tuple[float, float]]:
     return {k: mean_std(v) for k, v in acc.items()}
 
 
-def train(args: argparse.Namespace) -> dict:
+def train(args: argparse.Namespace, argv: Optional[List[str]] = None) -> dict:
     """Train and evaluate; returns ``config.json``'s payload plus the run
-    directory, the checkpoint directory and the state."""
+    directory, the checkpoint directory and the state. ``argv`` goes into
+    the ``torchrun`` hint of a single-process ``--n_devices`` above 1."""
     from adunet_torch.data import ArrayDataset, load_image_stack, make_array_dataset
     from adunet_torch.losses import build_losses_and_metrics, make_perceptual_fn
     from adunet_torch.models import build_vanilla_sr_unet
@@ -110,11 +115,17 @@ def train(args: argparse.Namespace) -> dict:
         repeat,
     )
     from adunet_torch.utils.misc import split_indices
+    from adunet_torch.parallel import (
+        broadcast_from_main,
+        data_parallel,
+        is_main_process,
+        launch_mesh,
+        process_shard,
+    )
     from adunet_torch.utils.runtime import resolve_device
 
-    if (args.n_devices or 1) > 1:
-        raise NotImplementedError("--n_devices > 1 is not ported to adunet_torch yet "
-                                  "(ROADMAP Queue 1 item 13).")
+    mesh = launch_mesh(args.device, n_devices=args.n_devices,
+                       command=("adunet_torch.cli.train_sr_vanilla", argv or []))
     dev = resolve_device(args.device)
     hr_images = load_image_stack(args.high_res_dir.expanduser(), args.hr_size, limit=args.limit)
     lr_images = load_image_stack(args.low_res_dir.expanduser(), args.hr_size, limit=args.limit)
@@ -124,7 +135,8 @@ def train(args: argparse.Namespace) -> dict:
     train_split = 1.0 - (args.val_split + args.test_split)
     tr_idx, va_idx, te_idx = split_indices(hr_images.shape[0], train_split, args.val_split,
                                            args.test_split, args.seed)
-    train_ds = ArrayDataset(lr_images[np.asarray(tr_idx)], hr_images[np.asarray(tr_idx)],
+    mine = np.asarray(process_shard(list(tr_idx), seed=args.seed))  # this process's equal share
+    train_ds = ArrayDataset(lr_images[mine], hr_images[mine],
                             batch_size=args.batch_size, shuffle=True, seed=args.seed,
                             drop_remainder=True)
     val_ds = make_array_dataset(lr_images, hr_images, va_idx, args.batch_size, False, args.seed)
@@ -140,8 +152,10 @@ def train(args: argparse.Namespace) -> dict:
     loss_fn, _ = build_losses_and_metrics(args.loss, perceptual_fn=perceptual_fn)
     state = create_train_state(model, make_optimizer(model.parameters(), args.learning_rate))
     n_params = sum(p.numel() for p in model.parameters())
+    if mesh is not None:
+        state = data_parallel(state, mesh)
 
-    timestamp = datetime.now().strftime("%Y%m%d-%H%M%S")
+    timestamp = broadcast_from_main(datetime.now().strftime("%Y%m%d-%H%M%S"))
     run_name = args.run_name or f"vanilla_sr_{timestamp}"
     run_dir = Path(args.log_dir).expanduser() / run_name
     run_dir.mkdir(parents=True, exist_ok=True)
@@ -181,14 +195,16 @@ def train(args: argparse.Namespace) -> dict:
         "results": results,
         "created_at": timestamp,
     }
-    (run_dir / "config.json").write_text(json.dumps(payload, indent=2, default=str))
+    if is_main_process():
+        (run_dir / "config.json").write_text(json.dumps(payload, indent=2, default=str))
     ckpt.close()
     return {**payload, "run_dir": str(run_dir), "ckpt_dir": str(ckpt_dir), "n_params": n_params,
             "state": state}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    return train(parse_args(argv))
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return train(parse_args(argv), argv)
 
 
 if __name__ == "__main__":

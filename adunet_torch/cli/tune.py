@@ -26,6 +26,14 @@ which raises without a GPU; ``cpu`` runs the kernels' plain versions).
   ``<model-dir>/unet_vanilla_tuned_best`` or ``unet_seg_tuned_best`` with a
   ``config.json`` of the reference's keys. The study's JSON is written before
   the retrain.
+- Several GPUs: ``torchrun --nproc-per-node N -m adunet_torch.cli.tune
+  --workload sr --parallel-trials K ...`` spreads each group's lanes over
+  the N processes (lane ``i`` on process ``i mod N``,
+  ``BatchedVanillaSRTuner``'s mesh); every process drives the same study
+  from the gathered values and process 0 writes the results. The retrain
+  runs on every process alike (process 0 writes its checkpoints). A
+  sequential study (``--parallel-trials 1``, and every seg study) runs in
+  one process and raises under a multi-process launch.
 - cuDNN runs its deterministic algorithms for the whole study
   (``adunet_torch.utils.deterministic_cudnn``), so a seed repeats a study
   bit for bit, values and pruning included, as the reference's XLA
@@ -198,11 +206,11 @@ def _sr_workload(args, dev: torch.device) -> Workload:
             "batch_size": trial.suggest_categorical("batch_size", [4, 8, 16]),
         }
 
-    def make_runner(lane_width=None) -> BatchedVanillaSRTuner:
+    def make_runner(lane_width=None, mesh=None) -> BatchedVanillaSRTuner:
         return BatchedVanillaSRTuner(
             lr_images, hr_images, tr_idx, va_idx,
             base_channels=args.sr_base_channels, seed=args.seed,
-            perceptual_fn=perceptual_fn, lane_width=lane_width, device=dev,
+            perceptual_fn=perceptual_fn, lane_width=lane_width, device=dev, mesh=mesh,
         )
 
     # Sequential trials are one-lane groups of the laned runner, as in the
@@ -244,7 +252,8 @@ def _sr_workload(args, dev: torch.device) -> Workload:
         return {"final_val_loss": best, "checkpoint": str(ckpt_dir)}
 
     return Workload(objective, "minimize", retrain, run_config,
-                    parallel=(suggest_params, lambda: make_runner(args.parallel_trials)))
+                    parallel=(suggest_params,
+                              lambda mesh=None: make_runner(args.parallel_trials, mesh)))
 
 
 def _seg_workload(args, dev: torch.device) -> Workload:
@@ -335,7 +344,7 @@ def _seg_workload(args, dev: torch.device) -> Workload:
     return Workload(objective, "maximize", retrain, run_config)
 
 
-def run_parallel_study(study, args, suggest_params, make_runner) -> None:
+def run_parallel_study(study, args, suggest_params, make_runner, mesh=None) -> None:
     """Drive the study in batches of trials trained as lanes.
 
     Each round asks ``--parallel-trials`` configs at once (constant-liar
@@ -344,11 +353,11 @@ def run_parallel_study(study, args, suggest_params, make_runner) -> None:
     (``adunet_torch.tune.parallel``). The sequential objective's value is the
     val-loss curve minimum; the per-epoch curve is recorded as the trial's
     intermediate values so the results payload is shape-compatible with
-    sequential studies.
+    sequential studies. With ``mesh`` the lanes spread over its processes.
     """
     from adunet_torch.tune import group_trials_by
 
-    runner = make_runner()
+    runner = make_runner(mesh)
     remaining = args.n_trials
     while remaining > 0:
         k = min(args.parallel_trials, remaining)
@@ -365,11 +374,17 @@ def run_parallel_study(study, args, suggest_params, make_runner) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
+    from adunet_torch.parallel import make_mesh, maybe_initialize_distributed, process_count
     from adunet_torch.utils.runtime import deterministic_cudnn, resolve_device
 
     args = parse_args(argv)
     if args.parallel_trials < 1:
         raise ValueError("--parallel-trials must be >= 1")
+    mesh = make_mesh() if maybe_initialize_distributed(args.device) else None
+    if process_count() > 1 and (args.workload != "sr" or args.parallel_trials == 1):
+        raise ValueError("a multi-process launch spreads lanes over the processes: it needs "
+                         "--workload sr with --parallel-trials > 1; run a sequential study "
+                         "in one process.")
     if args.workload == "sr":
         if not args.high_res_dir:
             raise ValueError("--high-res-dir is required for --workload sr")
@@ -385,10 +400,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
             )
     dev = resolve_device(args.device)
     with deterministic_cudnn():  # a seeded study repeats bit for bit
-        return _run_study(args, dev)
+        return _run_study(args, dev, mesh)
 
 
-def _run_study(args, dev: torch.device) -> dict:
+def _run_study(args, dev: torch.device, mesh=None) -> dict:
     from adunet_torch.tune import create_study
 
     workload = (_sr_workload if args.workload == "sr" else _seg_workload)(args, dev)
@@ -401,7 +416,7 @@ def _run_study(args, dev: torch.device) -> dict:
             pruner_warmup_steps=args.pruner_warmup_steps,
         )
         suggest_params, make_runner = workload.parallel
-        run_parallel_study(study, args, suggest_params, make_runner)
+        run_parallel_study(study, args, suggest_params, make_runner, mesh)
     else:
         study = create_study(
             direction=workload.direction, seed=args.seed, pruner=args.pruner,
@@ -411,7 +426,11 @@ def _run_study(args, dev: torch.device) -> dict:
         )
         study.optimize(workload.objective, n_trials=args.n_trials)
 
-    args.results.parent.mkdir(parents=True, exist_ok=True)
+    from adunet_torch.parallel import is_main_process
+
+    main = is_main_process()  # every process holds the same study; process 0 writes it
+    if main:
+        args.results.parent.mkdir(parents=True, exist_ok=True)
     if hasattr(study, "results_payload"):
         payload = study.results_payload()
     else:  # optuna study
@@ -422,14 +441,16 @@ def _run_study(args, dev: torch.device) -> dict:
         }
     # persist the study BEFORE the optional retrain: a crash during the
     # retrain must not discard hours of completed trials
-    args.results.write_text(json.dumps(payload, indent=2, default=str))
+    if main:
+        args.results.write_text(json.dumps(payload, indent=2, default=str))
 
     if args.retrain:
         print(f"Retraining best config: {study.best_params}")
         retrain_result = workload.retrain(study.best_params)
         print(f"Retrain result: {retrain_result}")
         payload["retrain"] = retrain_result
-        args.results.write_text(json.dumps(payload, indent=2, default=str))
+        if main:
+            args.results.write_text(json.dumps(payload, indent=2, default=str))
     print(f"Best value: {study.best_value}")
     print(f"Best params: {study.best_params}")
     print(f"Results written to {args.results}")

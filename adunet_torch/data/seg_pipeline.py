@@ -201,16 +201,19 @@ def build_isic_dataset(
 ) -> Tuple[SegPairDataset, int]:
     """The reference's constructor: ISIC pairs (``collect_isic_pairs``), the
     first ``limit`` of them, as a ``SegPairDataset``; returns it and the pair
-    count. ``shard_across_processes`` (multi-process data parallelism) is not
-    ported (ROADMAP Queue 1 item 13) and raises.
+    count. ``shard_across_processes=True`` gives each process of a
+    multi-process run its equal-length stride-slice of the pairs
+    (``adunet_torch.parallel.process_shard``: local batches must differ, and
+    equal lengths give equal step counts); the count is then the shard's.
     """
-    if shard_across_processes:
-        raise NotImplementedError(
-            "shard_across_processes is not ported to adunet_torch yet (ROADMAP Queue 1 item 13).")
     pairs = collect_isic_pairs(image_dir, mask_dir)
     if limit is not None and limit > 0:
         pairs = pairs[:limit]
-    global_pairs = pairs
+    global_pairs = pairs  # the same on every process (sorted discovery)
+    if shard_across_processes:
+        from adunet_torch.parallel.distributed import process_shard
+
+        pairs = process_shard(pairs, seed=seed)
     ds = SegPairDataset(
         pairs,
         batch_size=batch_size,
@@ -221,6 +224,7 @@ def build_isic_dataset(
         pad_tail=pad_tail,
         cache_decoded=cache_decoded,
     )
-    # precise-BN's refresh batches select from the whole pair list
+    # precise-BN's refresh batches select from the whole pair list, the same
+    # batches on every process
     ds.global_pairs = global_pairs
     return ds, len(pairs)

@@ -4,7 +4,12 @@ Port of ``adunet/evaluate/evaluator.py``: ``infer_eval_shave`` (:56),
 ``EvalResults``, ``evaluate_sr`` (:67: degrade at the eval scale, restore,
 clip, BT.601 luma, shave, PSNR / SSIM / MS-SSIM / MSE per patch, float64
 pooled mean and std with ±inf passed through). Batches run as they come:
-eager PyTorch needs no padding of a ragged last batch. ``attach_filenames``
+eager PyTorch needs no padding of a ragged last batch. With a ``mesh``
+(:90) each batch is sharded over the processes of its data axis
+(``pad_and_shard_ragged``: padded to a multiple of the extent, the padded
+rows masked), each process scores its rows, and the per-patch vectors are
+gathered back in the batch's order, so every process holds the numbers one
+process computes. ``attach_filenames``
 and ``write_outputs`` (:140-169) label the per-patch rows and write the
 reference's three report files (``config.json``, ``metrics.json``,
 ``per_image_metrics.csv`` with the columns ``index, filename, psnr_y,
@@ -20,7 +25,10 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from adunet_torch.parallel.mesh import data_extent, data_group, pad_and_shard_ragged
 from adunet_torch.train.sr import make_sr_eval_step
 
 __all__ = ["EvalResults", "evaluate_sr", "infer_eval_shave", "attach_filenames", "write_outputs"]
@@ -52,14 +60,29 @@ def infer_eval_shave(scale: float, explicit: Optional[int] = None) -> int:
     return 2 * int(round(1.0 / scale))
 
 
-def evaluate_sr(state, dataset, eval_scale: float, eval_shave: int
+def _gathered(out: Dict[str, torch.Tensor], n_valid: int, mesh) -> Dict[str, np.ndarray]:
+    """Every process's per-patch vectors of one sharded batch, in the
+    batch's order, the padded rows dropped."""
+    local = torch.stack([out[k].to(torch.float32) for k in _METRIC_KEYS])
+    parts = [torch.empty_like(local) for _ in range(data_extent(mesh))]
+    dist.all_gather(parts, local, group=data_group(mesh))
+    whole = torch.cat(parts, dim=1).cpu().numpy()[:, :n_valid]
+    return dict(zip(_METRIC_KEYS, whole))
+
+
+def evaluate_sr(state, dataset, eval_scale: float, eval_shave: int, mesh=None
                 ) -> Tuple[EvalResults, List[Dict[str, float]]]:
-    """Score ``state.model`` over ``dataset`` (HR batches or (lr, hr) pairs)."""
+    """Score ``state.model`` over ``dataset`` (HR batches or (lr, hr) pairs);
+    with ``mesh``, sharded over its data axis."""
     step = make_sr_eval_step(None, eval_scale=eval_scale, eval_shave=eval_shave)
     rows: List[Dict[str, float]] = []
     series: Dict[str, List[np.ndarray]] = {key: [] for key in _METRIC_KEYS}
     for batch in dataset:
-        out = {k: v.cpu().numpy() for k, v in step(state, batch).items()}
+        if mesh is not None:
+            local, _mask, n_valid = pad_and_shard_ragged(batch, mesh)
+            out = _gathered(step(state, local), n_valid, mesh)
+        else:
+            out = {k: v.cpu().numpy() for k, v in step(state, batch).items()}
         n = len(out[_METRIC_KEYS[0]])
         base = len(rows)
         rows.extend({"index": base + i, **{k: float(out[k][i]) for k in _METRIC_KEYS}}

@@ -105,6 +105,18 @@ class LayerNormReLU(nn.Module):
         return layer_norm_relu(x.contiguous(), self.weight, self.bias, 1e-3)
 
 
+def _global_moments(xf: torch.Tensor, axes, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, fast variance) per channel over every process's batch."""
+    from torch.distributed.nn.functional import all_reduce
+
+    c = xf.shape[-1]
+    count = xf.new_full((1,), xf.numel() // c)
+    sums = all_reduce(torch.cat([xf.sum(dim=axes), xf.square().sum(dim=axes), count]),
+                      group=group)
+    mean = sums[:c] / sums[-1]
+    return mean, torch.clamp(sums[c : 2 * c] / sums[-1] - mean.square(), min=0.0)
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.99, epsilon=1e-3, dtype=float32)`` over
     the channels of an NHWC tensor; returns float32.
@@ -113,7 +125,15 @@ class BatchNorm(nn.Module):
     take ``momentum * old + (1 - momentum) * batch`` (no gradient). When
     ``stats_sink`` is a list, a training-mode forward appends its batch
     (mean, variance) there instead and leaves the buffers alone (precise-BN,
-    ``adunet_torch.train.seg``)."""
+    ``adunet_torch.train.seg``).
+
+    With a process group in ``sync_group`` (set by
+    ``adunet_torch.parallel.data_parallel``), the training statistics are
+    the global batch's, as flax's ``BatchNorm`` reduces over the whole
+    batch sharded over a mesh: the per-channel sum, sum of squares and
+    count are summed over the group in float32 by an all-reduce whose
+    backward all-reduces the gradients too, and the running update and
+    ``stats_sink`` see the global statistics."""
 
     def __init__(self, features: int, momentum: float = BN_MOMENTUM, eps: float = 1e-3,
                  device=None):
@@ -125,6 +145,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
         self.stats_sink: list | None = None
+        self.sync_group = None
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         with torch.no_grad():
@@ -137,8 +158,11 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.float32)
         if self.training:
             axes = tuple(range(xf.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
+            if self.sync_group is not None:
+                mean, var = _global_moments(xf, axes, self.sync_group)
+            else:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
             if self.stats_sink is not None:
                 self.stats_sink.append((mean.detach(), var.detach()))
             else:

@@ -17,6 +17,16 @@ background thread, overlapping the next epoch; saves are serialised, every
 read of the directory (``latest_step``, ``best_step``, the restores) waits
 for the pending write first, and ``wait()`` / ``close()`` join it and raise
 its error, if any. Both modes write the same bytes.
+
+Across processes every process calls the same methods in the same order.
+Process 0 alone writes (and prunes), from the whole state: leaves sharded
+over processes (DTensors, ``adunet_torch.parallel.partition``) are gathered
+first, by every process. Whether a save is due is process 0's reading of
+the directory, broadcast; a save is followed by a barrier (for an async
+write, at the next ``wait``), so every process then reads the new
+directory. Every process restores, each into its own shard of a sharded
+leaf. A checkpoint has the one format whatever wrote it, and loads in a
+single process.
 """
 
 from __future__ import annotations
@@ -31,9 +41,16 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from adunet_torch.parallel.distributed import (
+    barrier,
+    broadcast_from_main,
+    is_distributed,
+    is_main_process,
+)
+from adunet_torch.parallel.partition import full_tensor, is_sharded
 from adunet_torch.train.state import TrainState
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "load_model_state"]
 
 _STATE_FILE = "state.pt"
 _METRICS_FILE = "metrics.json"
@@ -50,14 +67,46 @@ def _encode(v: float) -> float:
 
 
 def _to_host(tree: Any) -> Any:
-    """A copy of a (nested) state_dict with every tensor cloned to the CPU."""
+    """A copy of a (nested) state_dict with every tensor cloned to the CPU; a
+    sharded leaf is gathered whole first (a collective)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        return full_tensor(tree).detach().to("cpu", copy=True)
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_host(v) for v in tree)
     return tree
+
+
+def _placed_like(template: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """A whole tensor from a checkpoint as ``template`` holds it: for a
+    sharded leaf, this process's shard (cut locally, no collective)."""
+    if is_sharded(template):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(value.to(template.to_local().device, template.dtype),
+                                 template.device_mesh, template.placements, src_data_rank=None)
+    return value
+
+
+def load_model_state(model: torch.nn.Module, state: Dict[str, torch.Tensor]) -> None:
+    """``model.load_state_dict`` of a whole state dict, into sharded leaves
+    too."""
+    current = model.state_dict()
+    model.load_state_dict({k: _placed_like(current[k], v) if k in current else v
+                           for k, v in state.items()})
+
+
+def _load_optimizer_state(optimizer: torch.optim.Optimizer, state: Dict[str, Any]) -> None:
+    optimizer.load_state_dict(state)
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if is_sharded(p):
+                slots = optimizer.state.get(p, {})
+                for key, value in slots.items():
+                    if key != "step" and isinstance(value, torch.Tensor) \
+                            and not is_sharded(value):
+                        slots[key] = _placed_like(p, value)
 
 
 class CheckpointManager:
@@ -73,12 +122,17 @@ class CheckpointManager:
         self.async_save = async_save
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        self._unsynced = False  # a save the other processes have not waited for
 
     def wait(self) -> None:
-        """Join the pending background write; raise its error, if any."""
+        """Join the pending background write (and, across processes, wait
+        for every process); raise its error, if any."""
         if self._writer is not None:
             self._writer.join()
             self._writer = None
+        if self._unsynced:
+            self._unsynced = False
+            barrier()
         if self._error is not None:
             error, self._error = self._error, None
             raise error
@@ -104,19 +158,35 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, metrics: Optional[Dict[str, float]] = None,
              force: bool = False) -> None:
-        latest = self.latest_step()  # waits for the pending write
+        # process 0 reads the directory for everyone: another process could
+        # read it after process 0 has written this step
+        latest = broadcast_from_main(self.latest_step())  # waits for the pending write
         if not force and latest is not None and step <= latest:
             return
-        if (self.directory / str(step)).exists():
+        main = is_main_process()
+        if main and (self.directory / str(step)).exists():
             raise FileExistsError(f"checkpoint step {step} already exists in {self.directory}")
+        self._unsynced = is_distributed()
+        model_state = state.model.state_dict()
+        if not main and not any(is_sharded(v) for v in model_state.values()):
+            if not self.async_save:
+                self.wait()
+            return
         payload = {
             "step": int(state.step),
-            "model": _to_host(state.model.state_dict()),
+            "model": _to_host(model_state),
             "optimizer": _to_host(state.optimizer.state_dict()),
         }
+        if not main:  # took part in the gathers; process 0 writes
+            if not self.async_save:
+                self.wait()
+            return
         clean = {k: _encode(v) for k, v in (metrics or {}).items() if not math.isnan(float(v))}
         if not self.async_save:
-            self._write(step, payload, clean)
+            try:
+                self._write(step, payload, clean)
+            finally:
+                self.wait()
             return
 
         def write() -> None:
@@ -156,8 +226,8 @@ class CheckpointManager:
 
     def _restore(self, step: int, state: TrainState) -> TrainState:
         payload = self._load(step, state.model)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        load_model_state(state.model, payload["model"])
+        _load_optimizer_state(state.optimizer, payload["optimizer"])
         state.step = int(payload["step"])
         return state
 
@@ -186,8 +256,10 @@ class CheckpointManager:
         step = self.best_step() if best else None
         step = self.latest_step() if step is None else step
         if step is not None:
-            model.load_state_dict(self._load(step, model)["model"])
+            load_model_state(model, self._load(step, model)["model"])
         return step
 
     def write_config(self, config: Dict[str, Any]) -> None:
-        (self.directory / "config.json").write_text(json.dumps(config, indent=2, default=str))
+        """Write ``config.json`` (process 0 only)."""
+        if is_main_process():
+            (self.directory / "config.json").write_text(json.dumps(config, indent=2, default=str))

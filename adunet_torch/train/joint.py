@@ -62,12 +62,12 @@ def make_joint_train_step(model, sr_loss_fn: Callable, seg_loss_fn: Callable,
         del rng  # the joint step is deterministic given the batch
         lr_batch, hr, masks = _batch_of(batch, _device_of(state.model), data_scale)
         state.optimizer.zero_grad(set_to_none=True)
-        sr_pred, seg_pred = state.model(lr_batch)
+        sr_pred, seg_pred = state.train_module(lr_batch)
         loss, metrics = _joint_loss_and_metrics(sr_loss_fn, seg_loss_fn, sr_weight, seg_weight,
                                                 hr, masks, sr_pred, seg_pred)
         loss.backward()
         state.apply_gradients()
-        return state, {"loss": loss.detach(), **metrics}
+        return state, state.reduce_metrics({"loss": loss.detach(), **metrics})
 
     return step
 

@@ -15,8 +15,18 @@ their first pass (``cache_val_on_device``). With a ``tb_writer`` (``open_tb_writ
 ``tensorboardX`` writer, or None where the package does not import, the
 reference's guard) each epoch also writes the TensorBoard scalars
 ``train/*``, ``val/*``, ``perf/ms_per_step`` and ``perf/images_per_sec``
-(``adunet/train/loop.py:476-482``). Not ported: multi-device sharding
-(ROADMAP Queue 1 item 13).
+(``adunet/train/loop.py:476-482``).
+
+Across processes (a state with ``parallel``, ``adunet_torch.parallel``)
+each process feeds its own training batches, and the steps return the
+global batch's metrics. Validation is sharded as the reference's is on a
+mesh (:318-329): each batch (every process holds the whole validation set)
+is padded to a multiple of the data extent, each process scores its rows
+with a per-sample ``val_step``, the padded rows are masked out, and the
+sums (pooled metrics' components too) are all-reduced before they are
+finalized. Every process therefore sees the same numbers and takes the same
+early-stopping and ReduceLROnPlateau decisions; process 0 alone prints,
+writes the CSV, the TensorBoard scalars and the profile.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from adunet_torch.parallel.distributed import is_main_process
+from adunet_torch.parallel.mesh import pad_and_shard_ragged
 from adunet_torch.train.checkpoint import CheckpointManager
 from adunet_torch.train.sr import _to_device
 from adunet_torch.train.state import TrainState
@@ -258,6 +270,10 @@ def fit(
 
     csv_writer = None
     csv_file = None
+    main = is_main_process()
+    verbose = verbose if main else 0
+    if not main:
+        log_dir = tb_writer = profile_dir = None
     if log_dir is not None:
         log_dir = Path(log_dir)
         log_dir.mkdir(parents=True, exist_ok=True)
@@ -305,19 +321,38 @@ def fit(
                 vacc: Dict[str, torch.Tensor] = {}
                 vcount = 0
                 cached = bool(val_cache)
+                par = state.parallel
                 for vbatch in (val_cache if cached else val_data):
-                    if val_cache is not None and not cached:
-                        vbatch = _to_device_tree(vbatch, next(state.model.parameters()).device)
-                        val_cache.append(vbatch)
-                    n = _batch_size_of(vbatch)
+                    if not cached:
+                        mask = None
+                        n = _batch_size_of(vbatch)
+                        if par is not None:  # this process's rows; padding masked
+                            vbatch, mask, n = pad_and_shard_ragged(vbatch, par.mesh)
+                        if val_cache is not None:
+                            dev = next(state.model.parameters()).device
+                            vbatch = _to_device_tree(vbatch, dev)
+                            mask = None if mask is None else mask.to(dev)
+                            val_cache.append((vbatch, mask, n))
+                    else:
+                        vbatch, mask, n = vbatch
                     out = val_step(state, vbatch)
                     for k, v in out.items():
                         # per-sample vectors sum over the samples; batch means
                         # weigh by the batch size
-                        s = v.sum(dim=0) if v.dim() else v * float(n)
+                        if mask is not None:
+                            if not v.dim():
+                                raise ValueError(f"validation across processes needs per-sample "
+                                                 f"val steps; {k!r} is a batch mean")
+                            m = mask.to(v.device).reshape((-1,) + (1,) * (v.dim() - 1))
+                            # select, not multiply: a padded row's inf PSNR times 0 is NaN
+                            s = torch.where(m > 0, v, torch.zeros_like(v)).sum(dim=0)
+                        else:
+                            s = v.sum(dim=0) if v.dim() else v * float(n)
                         vacc[k] = s if k not in vacc else vacc[k] + s
                     vcount += n
                 if vacc:
+                    if par is not None:
+                        vacc = par.sum_metrics(vacc)
                     val_metrics = _finalize(_read(vacc), vcount, metric_finalizers)
                 tail_t["val"] = time.perf_counter() - tv0
 

@@ -41,9 +41,10 @@ class Adam(torch.optim.Adam):
     schedule over the update count and the ``inject_lr`` mark."""
 
     def __init__(self, params: Iterable, learning_rate: float,
-                 schedule: Optional[Callable[[int], float]] = None, inject_lr: bool = False):
+                 schedule: Optional[Callable[[int], float]] = None, inject_lr: bool = False,
+                 foreach: Optional[bool] = None):
         lr = schedule(0) if schedule is not None else learning_rate
-        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-7)
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-7, foreach=foreach)
         self.schedule = schedule
         self.inject_lr = inject_lr
 

@@ -72,9 +72,9 @@ def make_seg_train_step(model, loss_fn: Callable, augment: bool | str = True,
                 raise ValueError("augmentation draws from a torch.Generator on the model's device")
             augment_fn = augment_pair_batch if mode == "full" else flip_pair_batch
             images, masks = augment_fn(images, masks, rng)
-        state.model.train()
+        state.train_module.train()
         state.optimizer.zero_grad(set_to_none=True)
-        pred = state.model(images)
+        pred = state.train_module(images)
         loss = loss_fn(masks, pred)
         loss.backward()
         state.apply_gradients()
@@ -88,7 +88,7 @@ def make_seg_train_step(model, loss_fn: Callable, augment: bool | str = True,
                         metrics[f"{name}#{comp}"] = v
                 else:
                     metrics[name] = fn(masks, pred)
-        return state, metrics
+        return state, state.reduce_metrics(metrics)
 
     return step
 

@@ -8,6 +8,11 @@ update. Host batches may be numpy or tensors; uint8 batches are scaled to
 sample, 1-d) tensors on the device, and nothing in a step waits for the
 device: the fit loop reads the metrics once per epoch.
 
+Across processes (``TrainState.parallel``) a train step runs its forward
+through the data-parallel module, reduces the gradients in the last
+micro-batch's backward only, and returns the metrics averaged over the
+processes: the global batch's.
+
 Training degrades at ``DATA_LR_SHRINK = 0.5`` whatever the model's scale
 (the reference's constant); the evaluator degrades at the scale it is given.
 
@@ -20,6 +25,7 @@ statistics and moves the BatchNorm running buffers as flax's mutable
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
@@ -109,14 +115,16 @@ def _update(state: TrainState, loss_fn, pairs, k: int) -> Dict[str, torch.Tensor
     Returns the metrics averaged over the micro-batches."""
     state.optimizer.zero_grad(set_to_none=True)
     sums: Dict[str, torch.Tensor] = {}
-    for lr_b, hr_b in pairs:
-        loss, metrics = sr_loss_and_metrics(loss_fn, hr_b, state.model(lr_b))
-        (loss / k if k > 1 else loss).backward()
+    for i, (lr_b, hr_b) in enumerate(pairs):
+        # across processes, only the last micro-batch's backward reduces
+        with state.no_sync() if i < k - 1 else contextlib.nullcontext():
+            loss, metrics = sr_loss_and_metrics(loss_fn, hr_b, state.train_module(lr_b))
+            (loss / k if k > 1 else loss).backward()
         for name, value in {"loss": loss.detach(), **metrics}.items():
             value = value.to(torch.float32)
             sums[name] = value if name not in sums else sums[name] + value
     state.apply_gradients()
-    return {name: v / k for name, v in sums.items()} if k > 1 else sums
+    return state.reduce_metrics({name: v / k for name, v in sums.items()} if k > 1 else sums)
 
 
 def make_sr_train_step(model, loss_fn: Callable, data_scale: float = DATA_LR_SHRINK,
@@ -240,12 +248,12 @@ def make_vanilla_sr_train_step(model, loss_fn: Callable):
     def step(state: TrainState, batch: Batch, rng=None):
         del rng
         lr_batch, hr_batch = _pair_of(batch, _device_of(state.model))
-        state.model.train()
+        state.train_module.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = sr_loss_and_metrics(loss_fn, hr_batch, state.model(lr_batch))
+        loss, metrics = sr_loss_and_metrics(loss_fn, hr_batch, state.train_module(lr_batch))
         loss.backward()
         state.apply_gradients()
-        return state, {"loss": loss.detach(), **metrics}
+        return state, state.reduce_metrics({"loss": loss.detach(), **metrics})
 
     return step
 

@@ -32,7 +32,16 @@ computes, operation for operation: bit for bit where cuDNN runs
 deterministic algorithms (``adunet_torch.utils.deterministic_cudnn``, as the
 tuner's CLI runs), and within cuDNN's run-to-run noise otherwise. On one
 card K lanes take about K times one trial, less K - 1 HR tower forwards per
-batch: not the reference's "K trials in one trial's wall-clock" on a mesh.
+batch.
+
+With a ``mesh`` (a one-dim ``DeviceMesh`` over the processes of a
+``torchrun`` launch; the reference shard_maps its trial axis over a mesh,
+:206-228) the lanes spread over the processes: lane ``i`` trains on the
+process at coordinate ``i mod n``, each process steps its own lanes on its
+own GPU with no collective inside a trial, and each epoch's validation
+losses reach every process by ``all_gather_object``. Every process then
+holds every curve and takes the same early-stop decision, so a study driven
+by them stays the same on every process.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from adunet_torch.data import ArrayDataset
 from adunet_torch.losses import make_perceptual_fn
@@ -84,8 +95,8 @@ class BatchedVanillaSRTuner:
     padded lane: the reference pads a group up to a fixed width only so that
     every group shares one compiled program, and discards the padded lanes'
     results. In eager PyTorch a padded lane would be a whole trial of wasted
-    work. ``mesh`` (lanes spread over several GPUs, ROADMAP Queue 1 item 13)
-    is not ported: anything but None raises. ``init_state`` (a state_dict)
+    work. ``mesh`` spreads the lanes over the processes of a one-dim
+    ``DeviceMesh`` (see the module docstring). ``init_state`` (a state_dict)
     replaces the seeded init of every lane; ``device`` is ``cuda`` by
     default (raises without a GPU) or ``cpu``.
     """
@@ -105,9 +116,9 @@ class BatchedVanillaSRTuner:
         device: str | torch.device = "cuda",
         init_state: Optional[Dict[str, torch.Tensor]] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("lanes spread over a device mesh are not ported to "
-                                      "adunet_torch yet (ROADMAP Queue 1 item 13).")
+        if mesh is not None and (not isinstance(mesh, DeviceMesh) or mesh.ndim != 1):
+            raise ValueError(f"mesh must be a one-dim DeviceMesh over the processes, got {mesh!r}")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.lr_images, self.hr_images = lr_images, hr_images
         self.train_idx = np.asarray(train_idx)
@@ -184,7 +195,9 @@ class BatchedVanillaSRTuner:
         per-trial validation losses; returning truthy stops the whole group
         early (the curves end at that epoch). The sequential study drives a
         one-lane group through it for live median pruning."""
-        lanes = self.lanes(configs)
+        n, me = (1, 0) if self.mesh is None else (self.mesh.size(0), self.mesh.get_local_rank(0))
+        mine = [i for i in range(len(configs)) if i % n == me]  # this process's lanes
+        lanes = self.lanes([configs[i] for i in mine])
         train_ds = ArrayDataset(
             self.lr_images[self.train_idx], self.hr_images[self.train_idx],
             batch_size=batch_size, shuffle=True, seed=self.seed,
@@ -193,19 +206,25 @@ class BatchedVanillaSRTuner:
             self.lr_images[self.val_idx], self.hr_images[self.val_idx],
             batch_size=batch_size, shuffle=False, seed=self.seed,
         )
-        curves: List[List[float]] = [[] for _ in lanes]
+        curves: List[List[float]] = [[] for _ in configs]
         it = repeat(train_ds)
         for epoch in range(epochs):
-            for _ in range(train_ds.steps_per_epoch):
-                self.train_step(lanes, next(it))
-            vals, weights = [], []
-            for batch in val_ds:
-                vals.append(self.val_losses(lanes, batch))
-                weights.append(batch[0].shape[0])
-            per_batch = torch.stack(vals).cpu().numpy()  # (batches, lanes)
-            epoch_val = np.average(per_batch, axis=0, weights=weights)
-            for lane_curve, value in zip(curves, epoch_val):
-                lane_curve.append(float(value))
+            epoch_val: Dict[int, float] = {}
+            if lanes:
+                for _ in range(train_ds.steps_per_epoch):
+                    self.train_step(lanes, next(it))
+                vals, weights = [], []
+                for batch in val_ds:
+                    vals.append(self.val_losses(lanes, batch))
+                    weights.append(batch[0].shape[0])
+                per_batch = torch.stack(vals).cpu().numpy()  # (batches, lanes)
+                epoch_val = dict(zip(mine, np.average(per_batch, axis=0, weights=weights)))
+            if self.mesh is not None:  # every process gets every lane's value
+                parts: List[Dict[int, float]] = [{} for _ in range(n)]
+                dist.all_gather_object(parts, epoch_val, group=self.mesh.get_group(0))
+                epoch_val = {i: v for part in parts for i, v in part.items()}
+            for i, lane_curve in enumerate(curves):
+                lane_curve.append(float(epoch_val[i]))
             if on_epoch is not None and on_epoch(epoch, [c[-1] for c in curves]):
                 break
         return curves

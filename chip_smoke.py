@@ -110,7 +110,18 @@ exits non-zero without one. Every phase raises on failure:
     against the same configs run alone (1e-6 relative) and times the group
     against them, and the float32 lane step at batch 4, 8 and 16 beside its
     peak memory and device idle share;
-21. prints one JSON line with each kernel's launches, error and times, the
+21. runs ``torchrun --standalone --nproc-per-node 1`` of
+    ``adunet_torch.cli.train_sr`` (NCCL, world 1, the model wrapped in DDP)
+    on the bf16 flagship at batch 32 x 256 px from a device cache for 2 x 12
+    steps, and the same command without torchrun; both hold K1 / K1
+    backward / K2 at 16 / 16 / 4 launches a step, and their ms/step come
+    from their ``epoch_metrics.csv`` (``ddp``);
+22. starts 2 processes on the one card in a gloo group (CUDA tensors) and
+    holds a float32 flagship step, a float32 protocol seg step (BatchNorm
+    on the global batch; per-rank statistics shown to fail the check) and a
+    ``--model_shards 2`` step to one process on the same global batch of 8
+    (``ddp_ranks``);
+23. prints one JSON line with each kernel's launches, error and times, the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
 
 At the start of each phase it prints a host probe (a fixed numpy and Python
@@ -130,11 +141,14 @@ and ragged row counts at the two widest), and K1 and its backward at every
 from __future__ import annotations
 
 import contextlib
+import csv
 import io
 import json
 import math
 import os
 import re
+import signal
+import subprocess
 import sys
 import tempfile
 import threading
@@ -283,6 +297,13 @@ TUNE_LANE_SPLIT = (8, 2)
 TUNE_CONFIGS = [{"lr": 3e-4, "alpha": 1.0, "beta": 0.1, "gamma": 0.01},
                 {"lr": 1e-4, "alpha": 1.7, "beta": 0.02, "gamma": 0.001},
                 {"lr": 5e-5, "alpha": 0.6, "beta": 0.3, "gamma": 0.05}]
+# The ddp phase: train_sr on the flagship (bf16, batch 32 x 256 px, device
+# cache of 8 training images) under torchrun and without it: 48 patches an
+# image, 12 steps an epoch. The ddp_ranks phase: two processes on the card
+# against one at a global batch of 8, float32, Adam at the trainers' rate.
+DDP_EPOCHS, DDP_PPI = 2, 48
+RANKS_BATCH, RANKS_LR = 8, 1e-4
+
 TUNE_RESULT_KEYS = {"direction", "sampler", "n_trials", "n_complete", "n_pruned", "best_value",
                     "best_params", "trials"}
 
@@ -2333,6 +2354,300 @@ def tune(tmp: Path, ident: str) -> dict:
     return out
 
 
+def _run_children(cmds: list[list[str]], timeout: float) -> list[str]:
+    """Run ``cmds`` at once (each in its own process group) and return their
+    output; raise if one fails, and kill every one still running then or
+    at ``timeout``."""
+    procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, start_new_session=True) for c in cmds]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{' '.join(c[:8])} ... exited {p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def ddp_worker(out: str, argv: list[str]) -> int:
+    """``train_sr.main(argv)`` in this process, launched by torchrun or not:
+    writes its kernel launches (counts set to 0 just before), whether it ran
+    in a process group (backend, world) and what wrapped its model to
+    ``out``."""
+    import torch.distributed as dist
+    from adunet_torch.cli.train_sr import main as train_main
+
+    setup_runtime()
+    _zero_counts()
+    result = train_main(argv)
+    torch.cuda.synchronize()
+    grouped = dist.is_initialized()
+    info = {"launches": list(_counts()), "distributed": grouped,
+            "backend": dist.get_backend() if grouped else None,
+            "world": dist.get_world_size() if grouped else 1,
+            "wrapped": type(result["state"].train_module).__name__,
+            "updates": result["state"].step, "run_dir": result["run_dir"],
+            "eval": {k: v["psnr_mean"] for k, v in result["eval"].items()}}
+    if grouped:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(info))
+    return 0
+
+
+def ddp(tmp: Path, ident: str) -> dict:
+    """The slice's path at full width: ``torchrun --standalone --nproc-per-node
+    1 -m adunet_torch.cli.train_sr`` (through this script's ``--ddp-worker``,
+    which reads the launches) on the bf16 flagship at batch 32 x 256 px from
+    a device cache, and the same command without torchrun. NCCL must join at
+    world 1 and DDP wrap the model; K1 / K1 backward / K2 launch 16 / 16 / 4
+    a step in both runs; ms/step from each run's ``epoch_metrics.csv`` (its
+    last epoch: the first includes cuDNN's and the allocator's warm-up)."""
+    corpus = tmp / "ddp_corpus"
+    corpus.mkdir()
+    write_corpus(corpus, 10, 512, seed=13)  # 8 train / 1 val / 1 test images
+    runs = {}
+    for mode in ("torchrun", "plain"):
+        root = tmp / "ddp" / mode
+        args = ["--scale", "0.5", "--depth_override", "3", "--device_cache", "--mixed_precision",
+                "--batch_size", str(TRAIN_BATCH), "--patch_size", str(TRAIN_PATCH),
+                "--patches_per_image", str(DDP_PPI), "--epochs", str(DDP_EPOCHS),
+                "--high_res_dir", str(corpus), "--image_suffix", ".npy", "--model_dir",
+                str(root / "models"), "--log_dir", str(root / "logs"), "--run_name", "r",
+                "--seed", "11"]
+        out = tmp / "ddp" / f"{mode}.json"
+        launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "1"] if mode == "torchrun" else [sys.executable])
+        t0 = time.perf_counter()
+        printed = _run_children([launcher + [str(ROOT / "chip_smoke.py"), "--ddp-worker",
+                                             str(out), "--", *args]], timeout=400)[0]
+        info = json.loads(out.read_text())
+        info["seconds"] = time.perf_counter() - t0
+        run_dir = Path(info["run_dir"])
+        with open(run_dir / "epoch_metrics.csv") as f:
+            rows = list(csv.DictReader(f))
+        info["ms_per_step"] = [float(r["ms_per_step"]) for r in rows]
+        info["loss"] = [float(r["loss"]) for r in rows]
+        info["steps_per_epoch"] = json.loads((run_dir / "config.json").read_text())[
+            "steps_per_epoch"]
+        for line in printed.splitlines():
+            if line.startswith(("Epoch", "Model:")) or "PSNR(Y)" in line:
+                log(f"[ddp] {mode}: {line}")
+        runs[mode] = info
+    t, p = runs["torchrun"], runs["plain"]
+    if (t["backend"], t["world"], t["wrapped"]) != ("nccl", 1, "DistributedDataParallel"):
+        raise AssertionError(f"torchrun run: backend {t['backend']}, world {t['world']}, "
+                             f"model {t['wrapped']}; expected nccl, 1, DistributedDataParallel")
+    if p["distributed"] or p["wrapped"] != "AdaptiveSRUNet":
+        raise AssertionError(f"the plain run joined a group or wrapped its model: {p}")
+    per_step = {}
+    for mode, info in runs.items():
+        steps = DDP_EPOCHS * info["steps_per_epoch"]
+        forwards = steps + DDP_EPOCHS + 2  # train, val (4 tiles, one batch), eval (val, test)
+        want = [16 * forwards, 16 * steps, 4 * forwards]
+        if info["launches"] != want or info["updates"] != steps:
+            raise AssertionError(f"{mode}: {info['launches']} launches (K1 / K1 backward / K2) "
+                                 f"and {info['updates']} updates; expected {want} and {steps}")
+        if not all(np.isfinite(info["loss"])):
+            raise AssertionError(f"{mode}: non-finite training loss {info['loss']}")
+        extra = forwards - steps  # forwards without a backward
+        k1, k1b, k2 = info["launches"]
+        per_step[mode] = [(k1 - 16 * extra) / steps, k1b / steps, (k2 - 4 * extra) / steps]
+    ms_t, ms_p = t["ms_per_step"][-1], p["ms_per_step"][-1]
+    log(f"[ddp] {ident}: backend {t['backend']}, world {t['world']}, model wrapped in "
+        f"{t['wrapped']}; flagship bf16 batch {TRAIN_BATCH} x {TRAIN_PATCH} px, device cache, "
+        f"{DDP_EPOCHS} x {t['steps_per_epoch']} steps: {ms_t:.3f} ms/step under torchrun, "
+        f"{ms_p:.3f} without ({100 * (ms_t / ms_p - 1):+.2f} %; last epoch, epoch_metrics.csv); "
+        f"K1 / K1 backward / K2 per step {'/'.join(f'{v:g}' for v in per_step['torchrun'])} "
+        f"(without torchrun {'/'.join(f'{v:g}' for v in per_step['plain'])}); losses "
+        f"{t['loss']} / {p['loss']}; {t['seconds']:.1f} / {p['seconds']:.1f} s a run")
+    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), t["launches"])),
+            "per_step": per_step["torchrun"], "backend": t["backend"], "world": t["world"],
+            "ms_per_step": {"torchrun": t["ms_per_step"], "plain": p["ms_per_step"]},
+            "loss": {"torchrun": t["loss"], "plain": p["loss"]},
+            "seconds": {"torchrun": t["seconds"], "plain": p["seconds"]}}
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A parameter on the host, whole (a sharded one gathered)."""
+    from adunet_torch.parallel.partition import full_tensor
+
+    return full_tensor(t).detach().to("cpu", copy=True)
+
+
+def _ranks_sr_step(data: dict, mesh=None) -> dict:
+    """One float32 step of the flagship on the card from ``data``'s init and
+    global batch, this process's rows of it on ``mesh``'s data axis."""
+    from adunet_torch.losses import charbonnier_loss
+    from adunet_torch.models import build_super_resolution_unet
+    from adunet_torch.parallel import data_parallel, shard_batch
+    from adunet_torch.train import create_train_state, make_optimizer, make_sr_train_step
+
+    model, _ = build_super_resolution_unet(0.5, depth_override=3, device="cuda")
+    model.load_state_dict(data["sr_init"])
+    state = create_train_state(model, make_optimizer(model.parameters(), RANKS_LR))
+    if mesh is not None:
+        state = data_parallel(state, mesh)
+    hr = data["hr"] if mesh is None else shard_batch(data["hr"], mesh)
+    _, metrics = make_sr_train_step(model, charbonnier_loss)(state, hr)
+    from torch.distributed.tensor import DTensor
+
+    return {"loss": float(metrics["loss"]),
+            "params": {n: _full(p) for n, p in model.named_parameters()},
+            "sharded": sorted(n for n, p in model.named_parameters() if isinstance(p, DTensor))}
+
+
+def _ranks_seg_step(data: dict, mesh=None, global_bn: bool = True) -> dict:
+    """One float32 step of the protocol seg U-Net on the card (BatchNorm;
+    ``global_bn=False`` leaves each process its own batch statistics)."""
+    from adunet_torch.nn.blocks import BatchNorm
+    from adunet_torch.parallel import data_parallel, shard_batch
+    from adunet_torch.train import create_train_state, make_optimizer, make_seg_train_step
+
+    model, loss_fn, _, _ = _seg_setup("protocol", torch.float32, "cuda")
+    model.load_state_dict(data["seg_init"])
+    state = create_train_state(model, make_optimizer(model.parameters(), RANKS_LR))
+    if mesh is not None:
+        state = data_parallel(state, mesh)
+        for m in model.modules():
+            if isinstance(m, BatchNorm) and not global_bn:
+                m.sync_group = None
+    batch = data["seg"] if mesh is None else shard_batch(data["seg"], mesh)
+    _, metrics = make_seg_train_step(model, loss_fn, augment="none")(state, batch)
+    return {"loss": float(metrics["loss"]),
+            "grads": {n: _full(p.grad) for n, p in model.named_parameters()},
+            "state": {n: _full(v) for n, v in model.state_dict().items()}}
+
+
+def ranks_worker(rank: int, world: int, rdv: str, inp: str, out: str) -> int:
+    """One of ``world`` processes on this card in a gloo group (CUDA tensors;
+    gloo is only the transport): the flagship step data-parallel, the
+    protocol seg step with BatchNorm on the global batch and with per-rank
+    statistics, and the flagship step with ``--model_shards 2``."""
+    import faulthandler
+
+    import torch.distributed as dist
+    from adunet_torch.parallel import make_dp_model_mesh, make_mesh
+
+    faulthandler.enable()
+    setup_runtime()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=world)
+    data = torch.load(inp, weights_only=False)
+    parts = {"sr": lambda m: _ranks_sr_step(data, m), "seg": lambda m: _ranks_seg_step(data, m),
+             "seg_per_rank": lambda m: _ranks_seg_step(data, m, global_bn=False),
+             "shards": lambda m: _ranks_sr_step(data, make_dp_model_mesh(world,
+                                                                         device_type="cuda"))}
+    res = {}
+    with deterministic_cudnn():
+        mesh = make_mesh(device_type="cuda")
+        for name, part in parts.items():
+            t0 = time.perf_counter()
+            res[name] = part(mesh)
+            torch.cuda.synchronize()
+            print(f"[rank {rank}] {name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.save(res, f"{out}/rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    num = sum(float((got[n] - w).double().square().sum()) for n, w in want.items())
+    den = sum(float(w.double().square().sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def ddp_ranks(tmp: Path) -> dict:
+    """Two processes on the one card in a gloo group (``--ranks-worker``),
+    held to one process at the same global batch of 8 (4 a rank):
+
+    (a) one float32 flagship step: loss 1e-5 relative; params after the
+        Adam step 1e-5 in relative L2 over all of them;
+    (b) one float32 step of the protocol seg U-Net at 256 px: loss and
+        every running statistic 1e-5 (relative L2 per buffer); gradients 2e-2
+        relative L2 (float32 keeps this BatchNorm model's gradients to ~5e-3,
+        ``scripts/torch_seg_grad_precision.py``), the biases feeding a
+        BatchNorm (true gradient 0) within 2e-4 of the largest gradient norm;
+        the same step with per-rank batch statistics must miss the running
+        statistics by more than 1e-3 (so the check would catch it);
+    (c) ``--model_shards 2`` (world 2, data extent 1: both processes on the
+        whole batch of 8) against (a)'s one process, as (a).
+
+    Everything under deterministic cuDNN."""
+    from adunet_torch.models import build_super_resolution_unet
+
+    sr_model, _ = build_super_resolution_unet(0.5, depth_override=3, device="cpu", seed=3)
+    with torch.no_grad():  # off the identity start: every parameter gets a gradient
+        pgen = torch.Generator().manual_seed(4)
+        for p in sr_model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=pgen))
+    seg_model, _, _, _ = _seg_setup("protocol", torch.float32, "cpu", seed=3)
+    synth = _synth()
+    rng = np.random.default_rng(22)
+    hr = np.stack([np.round(synth(rng, TRAIN_PATCH) * 255).astype(np.uint8)
+                   for _ in range(RANKS_BATCH)])
+    data = {"sr_init": sr_model.state_dict(), "seg_init": seg_model.state_dict(), "hr": hr,
+            "seg": seg_pairs(RANKS_BATCH, SEG_SIZE, seed=43)}
+    inp = tmp / "ranks_in.pt"
+    torch.save(data, inp)
+    with deterministic_cudnn():
+        one_sr, one_seg = _ranks_sr_step(data), _ranks_seg_step(data)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _run_children([[sys.executable, str(ROOT / "chip_smoke.py"), "--ranks-worker", str(r), "2",
+                    str(tmp / "ranks_rdv"), str(inp), str(tmp)] for r in range(2)], timeout=400)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    r0 = ranks[0]
+    out = {"seconds": seconds}
+    # (a) and (c)
+    for key in ("sr", "shards"):
+        got = r0[key]
+        out[key] = {"loss_rel": abs(got["loss"] - one_sr["loss"]) / abs(one_sr["loss"]),
+                    "params_rel_l2": _rel_l2(got["params"], one_sr["params"]),
+                    "ranks_equal_loss": ranks[1][key]["loss"] == got["loss"]}
+        if not (out[key]["loss_rel"] <= 1e-5 and out[key]["params_rel_l2"] <= 1e-5
+                and out[key]["ranks_equal_loss"]):
+            raise AssertionError(f"ddp_ranks {key}: {out[key]}")
+    shards = r0["shards"]["sharded"]
+    if not {"bottleneck.conv1.weight", "enc2.norm0.weight"} <= set(shards) \
+            or "enc0.conv1.weight" in shards:
+        raise AssertionError(f"--model_shards 2 sharded {shards}")
+    out["shards"]["sharded_leaves"] = len(shards)
+    # (b)
+    got, want = r0["seg"], one_seg
+    top = max(float(g.norm()) for g in want["grads"].values())
+    pre_bn = {n.replace("norm", "conv").replace("running_mean", "bias")
+              for n in want["state"] if n.endswith(".running_mean")}
+    stats = [n for n in want["state"] if "running" in n]
+    seg = {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+           "stats_rel_l2": max(float((got["state"][n] - want["state"][n]).norm()
+                                     / want["state"][n].norm()) for n in stats),
+           "per_rank_stats_rel_l2": max(float((r0["seg_per_rank"]["state"][n] - want["state"][n])
+                                              .norm() / want["state"][n].norm()) for n in stats),
+           "grad_rel_l2": max(float((got["grads"][n] - g).norm() / g.norm().clamp_min(1e-30))
+                              for n, g in want["grads"].items() if n not in pre_bn),
+           "pre_bn_bias_abs": max(float((got["grads"][n] - want["grads"][n]).norm())
+                                  for n in pre_bn) / top}
+    out["seg"] = seg
+    if not (seg["loss_rel"] <= 1e-5 and seg["stats_rel_l2"] <= 1e-5 and seg["grad_rel_l2"] <= 2e-2
+            and seg["pre_bn_bias_abs"] <= 2e-4 and seg["per_rank_stats_rel_l2"] > 1e-3):
+        raise AssertionError(f"ddp_ranks seg: {seg}")
+    log(f"[ddp_ranks] 2 processes on one card, gloo over CUDA tensors, global batch "
+        f"{RANKS_BATCH} (4 a rank), float32, deterministic cuDNN: flagship step loss rel "
+        f"{out['sr']['loss_rel']:.1e}, params rel L2 {out['sr']['params_rel_l2']:.1e}; protocol "
+        f"seg step loss rel {seg['loss_rel']:.1e}, running statistics rel L2 "
+        f"{seg['stats_rel_l2']:.1e} (per-rank statistics {seg['per_rank_stats_rel_l2']:.1e}, "
+        f"which the 1e-5 check catches), gradients rel L2 {seg['grad_rel_l2']:.1e}, pre-BN biases "
+        f"{seg['pre_bn_bias_abs']:.1e}; --model_shards 2 ({len(shards)} leaves sharded, FSDP2 "
+        f"over gloo) loss rel {out['shards']['loss_rel']:.1e}, params rel L2 "
+        f"{out['shards']['params_rel_l2']:.1e}; {seconds:.1f} s for the 2 processes")
+    return out
+
+
 def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_launches: dict,
                  seg_launches: dict, sr_launches: dict, build_s: float) -> dict:
     """One entry per kernel. ``launches`` come from the training path (device-
@@ -2357,7 +2672,9 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
     at batch 8 x 256 px; ``wide`` lists K1's other C = 1024 and 2048 checks
     (float32, ragged row counts), per launch; ``tune`` the launches of the
     tuner's sequential SR study and, per launch, K2's float32 rows at the
-    lane step's batch 4, 8 and 16 x 256 px."""
+    lane step's batch 4, 8 and 16 x 256 px; ``ddp`` the launches of the
+    ``train_sr`` run under torchrun (NCCL, world 1; its training steps,
+    validation and evaluation forwards)."""
     meta = {
         "K1": ("layer_norm_relu", "adunet_torch/csrc/fused_norm.cu", "adunet/kernels/fused_norm.py:48"),
         "K1_bwd": ("layer_norm_relu_backward", "adunet_torch/csrc/fused_norm.cu",
@@ -2408,6 +2725,7 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             shapes = [d["shape"] for d in rows if tuple(d["shape"]) in per.get(kid, {})]
             entry["seg"][path] = {"launches": seg_launches[path][kid], "shapes": shapes, **sums}
         entry["streamed"] = {"launches": sr_launches["streamed"][kid]}
+        entry["ddp"] = {"launches": sr_launches["ddp"][kid]}
         # the served joint forward: float32 at the serving rows and K1_JOINT_SERVED's
         per = {"K1": K1_JOINT, "K2": K2_JOINT}.get(kid, {})
         rows = [d for d in details if d["kernel"] == kid and d["dtype"] == "float32"
@@ -2450,6 +2768,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available; this smoke run needs one.", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--ddp-worker"]:  # the ddp phase's child: OUT -- train_sr's args
+        return ddp_worker(sys.argv[2], sys.argv[4:])
+    if sys.argv[1:2] == ["--ranks-worker"]:  # the ddp_ranks phase's: RANK WORLD RDV IN OUT
+        rank, world, rdv, inp, out = sys.argv[2:7]
+        return ranks_worker(int(rank), int(world), rdv, inp, out)
     setup_runtime()
     t_start = time.perf_counter()
 
@@ -2504,6 +2827,9 @@ def main() -> int:
         joint_cli = phase("joint_cli", joint_entry_points, Path(tmp),
                           seg_cli["protocol"].pop("ckpt_dir"))
         tuned = phase("tune", tune, Path(tmp), ident)
+        torch.cuda.empty_cache()
+        dp = phase("ddp", ddp, Path(tmp), ident)
+        dp_ranks = phase("ddp_ranks", ddp_ranks, Path(tmp))
 
     seconds = time.perf_counter() - t_start
     summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
@@ -2512,14 +2838,14 @@ def main() -> int:
                "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
                "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "joint": joint,
                "joint_f32_step": joint_step, "joint_cli": joint_cli, "tune": tuned,
-               "seconds": seconds,
+               "ddp": dp, "ddp_ranks": dp_ranks, "seconds": seconds,
                "k1_bwd_ptxas": spills, "host_probes": probes}
     log("[detail] " + json.dumps(summary))
     log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
     seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}
     sr_launches = {"streamed": streamed["launches"], "vanilla_sr": vanilla["launches"],
                    "joint": joint["launches"], "joint_served": joint_cli["served_launches"],
-                   "tune": tuned["launches"],
+                   "tune": tuned["launches"], "ddp": dp["launches"],
                    "deep": {kid: {k: deep[k]["launches"][kid] for k in ("remat_0", "remat_2")}
                             for kid in ("K1", "K1_bwd", "K2")}}
     print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"],

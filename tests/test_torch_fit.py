@@ -233,13 +233,16 @@ def test_train_sr_cli_on_cpu(tiny_corpus, tmp_path, capsys):
 
 
 def test_train_sr_cli_refusals(tiny_corpus, tmp_path):
-    """Only multi-device training is still refused (ROADMAP item 13); the
-    streamed pipeline, remat and the combined loss run
+    """Several devices need one process each: in a plain process
+    ``--n_devices`` / ``--model_shards`` above 1 raise with the ``torchrun``
+    line to use (multi-process runs: ``tests/test_torch_parallel_cli.py``);
+    the streamed pipeline, remat and the combined loss run
     (``tests/test_torch_sr_cli.py``). The default device needs a GPU."""
     from adunet_torch.cli.train_sr import main
 
     for flags in (("--n_devices", "2"), ("--model_shards", "2")):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2 -m "
+                                             "adunet_torch.cli.train_sr "):
             main(_cli_args(tiny_corpus, tmp_path, "--device", "cpu", *flags))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

@@ -35,6 +35,9 @@ _TRAINING_MODULES = (
     # the tuner
     "adunet_torch.tune", "adunet_torch.tune.search", "adunet_torch.tune.parallel",
     "adunet_torch.cli.tune",
+    # multi-process training
+    "adunet_torch.parallel", "adunet_torch.parallel.distributed", "adunet_torch.parallel.mesh",
+    "adunet_torch.parallel.partition", "adunet_torch.parallel.data_parallel",
 )
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|adunet)(\.|\s|$)", re.MULTILINE

@@ -256,7 +256,9 @@ def test_train_joint_cli_matches_reference_artifacts(corpus, tmp_path):
 def test_train_joint_refuses_what_is_not_ported(corpus, tmp_path):
     from adunet_torch.cli.train_joint import main
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # one process drives one device: the error names the torchrun launch
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2 -m "
+                                         "adunet_torch.cli.train_joint "):
         main(_cli_args(corpus, tmp_path) + ["--device", "cpu", "--n_devices", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

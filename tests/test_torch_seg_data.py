@@ -149,9 +149,12 @@ def test_build_isic_dataset_matches_reference(corpus):
     for (ti, tm), (wi, wm) in zip(tds, jds):
         np.testing.assert_array_equal(ti, wi)
         np.testing.assert_array_equal(tm, wm)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpipe.build_isic_dataset(*corpus, batch_size=3, image_size=16, augment=False,
-                                 shuffle=False, seed=2, shard_across_processes=True)
+    # in one process, a process shard is the whole pair list, as the reference's
+    jds, jn = jpipe.build_isic_dataset(*corpus, batch_size=3, image_size=16, augment=False,
+                                       shuffle=False, seed=2, shard_across_processes=True)
+    tds, tn = tpipe.build_isic_dataset(*corpus, batch_size=3, image_size=16, augment=False,
+                                       shuffle=False, seed=2, shard_across_processes=True)
+    assert tn == jn and tds.pairs == jds.pairs and tds.global_pairs == jds.global_pairs
 
 
 def _jax_draws(key, n, size, min_scale=1.0, max_scale=1.15):

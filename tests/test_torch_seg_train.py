@@ -389,7 +389,9 @@ def test_seg_clis_refuse_what_is_not_ported(tiny_isic, tmp_path):
     from adunet_torch.cli.train_seg_vanilla import main as vanilla_main
 
     base = _protocol_args(tiny_isic, tmp_path, "x", 1)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # one process drives one device: the error names the torchrun launch
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2 -m "
+                                         "adunet_torch.cli.train_seg "):
         protocol_main(base + ["--device", "cpu", "--n_devices", "2"])
     # --async_checkpoint is ported: it writes the best checkpoint on a thread
     out = vanilla_main(_vanilla_args(tiny_isic, tmp_path, 1) + ["--device", "cpu",

@@ -137,8 +137,11 @@ def test_lane_width_changes_nothing_and_on_epoch_truncates(sr_corpus):
 
 
 def test_mesh_is_refused(sr_corpus):
+    """Only a one-dim DeviceMesh spreads lanes over processes (run across
+    processes in ``tests/test_torch_parallel_tune.py``); anything else is
+    refused."""
     lr, hr, tr_idx, va_idx = sr_corpus
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="one-dim DeviceMesh"):
         BatchedVanillaSRTuner(lr, hr, tr_idx, va_idx, base_channels=BASE_CH, device="cpu",
                               mesh=object())
 
