@@ -5,6 +5,15 @@
 // Same function: zero outside the image, float32 accumulation of the 9 taps,
 // bias added, output in the input type (float32 or bf16).
 //
+// Halo-row mode (`halo` = 1): the input holds H + 2 rows, the output H, and
+// the conv is SAME in W and VALID in H. Under a space mesh (the image height
+// split over processes, adunet_torch/parallel/spatial.py) the top and bottom
+// input rows are the neighbours' edge rows, or zeros at the image's border,
+// so the H rows computed are the whole image's rows of this shard. Only the
+// input's row origin and row count change: the f32 kernel stages rows
+// y0 + r (not y0 + r - 1) of the H + 2, and the bf16 kernel's tensor map
+// spans H + 2 rows with its tile origin one row lower.
+//
 // Bound on an H100: 2*9*64*64 = 73,728 FLOP per output pixel against
 // 2*64*sizeof(T) bytes (x read once, y written once). float32 (full-precision
 // FMAs, no TF32, so the serving path computes what the CPU oracle computes):
@@ -68,7 +77,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 conv3x3_c64_kernel(const float* __restrict__ x,
                    const float* __restrict__ w,     // [9][64 ci][64 co], tap = 3*dy + dx
                    const float* __restrict__ bias,  // [64]
-                   float* __restrict__ y, int H, int W) {
+                   float* __restrict__ y, int H, int W, int halo) {
   __shared__ __align__(16) float s_in[kCK][kTH + 2][kRow];
   __shared__ __align__(16) float s_w[9][kCK][kC];
 
@@ -79,7 +88,9 @@ conv3x3_c64_kernel(const float* __restrict__ x,
   const int tx = pg % (kTW / 8);
   const int x0 = blockIdx.x * kTW;
   const int y0 = blockIdx.y * kTH;
-  const size_t img = static_cast<size_t>(blockIdx.z) * H * W * kC;
+  const int Hin = H + 2 * halo;  // input rows
+  const size_t img_in = static_cast<size_t>(blockIdx.z) * Hin * W * kC;
+  const size_t img_out = static_cast<size_t>(blockIdx.z) * H * W * kC;
 
   float acc[8][8];
 #pragma unroll
@@ -91,11 +102,11 @@ conv3x3_c64_kernel(const float* __restrict__ x,
     for (int pos = tid; pos < (kTH + 2) * (kTW + 2); pos += kThreads) {
       const int r = pos / (kTW + 2);
       const int p = pos - r * (kTW + 2);
-      const int yy = y0 + r - 1;
+      const int yy = y0 + r - 1 + halo;
       const int xx = x0 + p - 1;
       float v[kCK];
-      if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-        load_vec<F32, kCK>(x + img + (static_cast<size_t>(yy) * W + xx) * kC + c0, v);
+      if (yy >= 0 && yy < Hin && xx >= 0 && xx < W) {
+        load_vec<F32, kCK>(x + img_in + (static_cast<size_t>(yy) * W + xx) * kC + c0, v);
       } else {
 #pragma unroll
         for (int c = 0; c < kCK; ++c) v[c] = 0.f;
@@ -145,7 +156,7 @@ conv3x3_c64_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int xx = x0 + 8 * tx + i;
-    float* out = y + img + (static_cast<size_t>(yy) * W + xx) * kC;
+    float* out = y + img_out + (static_cast<size_t>(yy) * W + xx) * kC;
     float lo[4], hi[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -158,12 +169,12 @@ conv3x3_c64_kernel(const float* __restrict__ x,
 }
 
 cudaError_t launch_f32(const void* x, const void* w, const void* bias, void* y, int B, int H,
-                       int W, cudaStream_t stream) {
+                       int W, int halo, cudaStream_t stream) {
   if (H % kTH != 0 || W % kTW != 0) return cudaErrorInvalidValue;
   const dim3 grid(W / kTW, H / kTH, B);
   conv3x3_c64_kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(y), H, W);
+      static_cast<const float*>(bias), static_cast<float*>(y), H, W, halo);
   return cudaGetLastError();
 }
 
@@ -301,7 +312,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_c64_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const uint4* __restrict__ wpk,     // pack_weights_bf16, 72 KB
                          const float* __restrict__ bias,    // [64]
-                         unsigned short* __restrict__ y, int H, int W, int n_tiles) {
+                         unsigned short* __restrict__ y, int H, int W, int halo,
+                         int n_tiles) {
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the buffers to it
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -322,7 +334,9 @@ conv3x3_c64_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     const int tx = r - ty * tiles_x;
     const uint32_t bar = smem_u32(&s_bar[stage]);
     mbar_expect_tx(bar, kBoxBytes);
-    tma_load_4d(smem_u32(s_in + stage * kStageBytes), &xmap, bar, 0, tx * kTW - 1, ty * kTH - 1, b);
+    // tile row ty's input rows start at output row ty * kTH - 1: one lower in halo mode
+    tma_load_4d(smem_u32(s_in + stage * kStageBytes), &xmap, bar, 0, tx * kTW - 1,
+                ty * kTH - 1 + halo, b);
   };
 
   if (tid == 0) {
@@ -442,15 +456,16 @@ EncodeTiled encode_tiled() {
 }
 
 cudaError_t launch_bf16(const void* x, const void* w, const void* bias, void* y, int B, int H,
-                        int W, cudaStream_t stream) {
+                        int W, int halo, cudaStream_t stream) {
   if (H % kTH != 0 || W % kTW != 0) return cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap map;
-  const cuuint64_t dims[4] = {kC, static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+  const int Hin = H + 2 * halo;  // the input's rows
+  const cuuint64_t dims[4] = {kC, static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(Hin),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {kPixBytes, static_cast<cuuint64_t>(W) * kPixBytes,
-                                 static_cast<cuuint64_t>(H) * W * kPixBytes};
+                                 static_cast<cuuint64_t>(Hin) * W * kPixBytes};
   const cuuint32_t box[4] = {kC, kBoxW, kBoxH, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   // FLOAT_OOB_FILL_NONE fills what lies outside the tensor with zeros
@@ -469,7 +484,7 @@ cudaError_t launch_bf16(const void* x, const void* w, const void* bias, void* y,
   const int grid = n_tiles < sms ? n_tiles : sms;
   conv3x3_c64_wgmma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       map, static_cast<const uint4*>(w), static_cast<const float*>(bias),
-      static_cast<unsigned short*>(y), H, W, n_tiles);
+      static_cast<unsigned short*>(y), H, W, halo, n_tiles);
   return cudaGetLastError();
 }
 
@@ -477,21 +492,22 @@ cudaError_t launch_bf16(const void* x, const void* w, const void* bias, void* y,
 }  // namespace
 }  // namespace adunet
 
-// x, y: contiguous NHWC (B, H, W, 64) of `dtype` (0 float32, 1 bf16); bias:
-// float32 (64,). w: for float32, float32 [9][64 ci][64 co] (`pack_weights`);
+// x: contiguous NHWC (B, H + 2 * halo, W, 64), y: (B, H, W, 64), both of
+// `dtype` (0 float32, 1 bf16); halo 0 is the SAME conv, 1 the halo-row mode
+// (VALID in H, SAME in W); bias: float32 (64,). w: for float32, float32 [9][64 ci][64 co] (`pack_weights`);
 // for bf16, bf16 [9][64 co][64 ci] with each 128-byte row's 16-byte chunks
 // swizzled (`pack_weights_bf16`). All pointers 16-byte aligned; H % 4 == 0
 // and W % 128 == 0 (the Python gate `supported` is stricter). Returns the
 // launch's CUDA error.
 extern "C" int adunet_conv3x3_c64(const void* x, const void* w, const void* bias, void* y, int B,
-                                  int H, int W, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
+                                  int H, int W, int halo, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || (halo != 0 && halo != 1)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case adunet::kFloat32:
-      return adunet::launch_f32(x, w, bias, y, B, H, W, st);
+      return adunet::launch_f32(x, w, bias, y, B, H, W, halo, st);
     case adunet::kBFloat16:
-      return adunet::tc::launch_bf16(x, w, bias, y, B, H, W, st);
+      return adunet::tc::launch_bf16(x, w, bias, y, B, H, W, halo, st);
     default:
       return cudaErrorInvalidValue;
   }

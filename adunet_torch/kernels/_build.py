@@ -95,7 +95,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.adunet_layer_norm_relu_backward_partials.argtypes = [_P]
     lib.adunet_layer_norm_relu_backward_partials.restype = ctypes.c_int
     lib.adunet_conv3x3_c64.argtypes = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, _P]
+                                       ctypes.c_int, ctypes.c_int, _P]
     lib.adunet_conv3x3_c64.restype = ctypes.c_int
     lib.adunet_error_string.argtypes = [ctypes.c_int]
     lib.adunet_error_string.restype = ctypes.c_char_p

@@ -29,6 +29,15 @@ unchanged, so the same four convs of the flagship reach the kernel; callers
 send every other conv to ``F.conv2d``, as the reference sends them to XLA.
 Dispatch is by the tensor's device: a CPU tensor takes the plain version
 below, a CUDA tensor launches the kernel or raises.
+
+``conv3x3_rows`` is the kernels' halo-row mode, for an image whose height is
+split over the processes of a space mesh (``adunet_torch.parallel.spatial``):
+its input holds H + 2 rows, the top and bottom ones the neighbours' edge rows
+(zeros at the image's border), and it writes H rows, SAME in W and VALID in
+H. The gate applies to the output's shape. Its backward pads H by 0, so dx
+covers all H + 2 input rows and the exchange sends the halo rows' share back
+to their owners. ``conv3x3_rows.launches`` counts its launches apart from
+``conv3x3_same.launches``.
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ __all__ = [
     "conv3x3_same",
     "conv3x3_same_plain",
     "conv3x3_same_backward",
+    "conv3x3_rows",
+    "conv3x3_rows_plain",
     "pack_weights",
     "pack_weights_bf16",
     "supported",
@@ -89,12 +100,11 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
-    """The plain version: the explicit sum of the 9 taps' matmuls in float32
-    over a zero-padded NHWC input, plus bias, cast to x.dtype."""
+def _plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, pad_h: int) -> torch.Tensor:
     acc = _acc_dtype(x.dtype)
     _, h, wd, _ = x.shape
-    xp = F.pad(x.to(acc), (0, 0, 1, 1, 1, 1))
+    h += 2 * pad_h - 2  # output rows
+    xp = F.pad(x.to(acc), (0, 0, 1, 1, pad_h, pad_h))
     wt = w.to(acc).permute(2, 3, 1, 0)  # (3, 3, C_in, C_out)
     out = None
     for dy in range(3):
@@ -106,19 +116,32 @@ def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | No
     return out.to(x.dtype)
 
 
+def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """The plain version: the explicit sum of the 9 taps' matmuls in float32
+    over a zero-padded NHWC input, plus bias, cast to x.dtype."""
+    return _plain(x, w, bias, 1)
+
+
+def conv3x3_rows_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """The halo-row mode's plain version: (B, H + 2, W, C) in, (B, H, W, C)
+    out, zero-padded in W only, otherwise as ``conv3x3_same_plain``."""
+    return _plain(x, w, bias, 0)
+
+
 def conv3x3_same_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                           need_dx: bool = True, need_dw: bool = True, need_db: bool = True,
-                          bias_dtype: torch.dtype | None = None):
+                          bias_dtype: torch.dtype | None = None, pad_h: int = 1):
     """(dx, dw, db) of the 3x3 SAME conv of NHWC ``x`` with OIHW ``w`` for
     the NHWC output cotangent ``g``; an entry not asked for is None. db is
-    summed in float32 and returned in ``bias_dtype`` (default w's dtype)."""
+    summed in float32 and returned in ``bias_dtype`` (default w's dtype).
+    ``pad_h=0`` is the halo-row mode's (dx covers x's H + 2 rows)."""
     g = g.to(x.dtype)
     dx = dw = db = None
     if need_dx or need_dw:
         gn = g.permute(0, 3, 1, 2)  # NCHW views of channels-last memory
         xn = x.permute(0, 3, 1, 2)
         dxn, dw, _ = torch.ops.aten.convolution_backward(
-            gn, xn, w.to(x.dtype), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            gn, xn, w.to(x.dtype), None, [1, 1], [pad_h, 1], [1, 1], False, [0, 0], 1,
             [need_dx, need_dw, False],
         )
         dx = dxn.permute(0, 2, 3, 1) if need_dx else None
@@ -128,8 +151,10 @@ def conv3x3_same_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     return dx, dw, db
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
-    """The CUDA kernel on a CUDA tensor; raises on what it does not take."""
+def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
+            halo: int = 0) -> torch.Tensor:
+    """The CUDA kernel on a CUDA tensor (``halo`` 1: the halo-row mode);
+    raises on what it does not take."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"conv3x3_same: kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -139,35 +164,47 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torc
     wp = pack_weights_bf16(w) if x.dtype == torch.bfloat16 else pack_weights(w)
     b = (torch.zeros(64, device=x.device) if bias is None
          else bias.detach().to(torch.float32).contiguous())
-    y = torch.empty_like(x)
     bsz, h, wd, _ = x.shape
+    h -= 2 * halo  # output rows
+    y = torch.empty((bsz, h, wd, 64), dtype=x.dtype, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.adunet_conv3x3_c64(
             x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
-            bsz, h, wd, _DTYPE_CODES[x.dtype], stream,
+            bsz, h, wd, halo, _DTYPE_CODES[x.dtype], stream,
         )
-    _build.check(code, "conv3x3_same")
-    conv3x3_same.launches += 1
+    _build.check(code, "conv3x3_rows" if halo else "conv3x3_same")
+    if halo:
+        conv3x3_rows.launches += 1
+    else:
+        conv3x3_same.launches += 1
     return y
 
 
 class _Conv3x3Same(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, bias):
+    halo = 0  # 1: the halo-row mode (_Conv3x3Rows)
+
+    @classmethod
+    def forward(cls, ctx, x, w, bias):
         ctx.save_for_backward(x, w)
         ctx.bias_dtype = None if bias is None else bias.dtype
         if x.device.type == "cpu":
-            return conv3x3_same_plain(x, w, bias)
-        return _launch(x, w, bias)
+            plain = conv3x3_rows_plain if cls.halo else conv3x3_same_plain
+            return plain(x, w, bias)
+        return _launch(x, w, bias, cls.halo)
 
-    @staticmethod
-    def backward(ctx, g):
+    @classmethod
+    def backward(cls, ctx, g):
         x, w = ctx.saved_tensors
         need_dx, need_dw, need_db = ctx.needs_input_grad
         return conv3x3_same_backward(x, w, g, need_dx, need_dw,
-                                     need_db and ctx.bias_dtype is not None, ctx.bias_dtype)
+                                     need_db and ctx.bias_dtype is not None, ctx.bias_dtype,
+                                     pad_h=1 - cls.halo)
+
+
+class _Conv3x3Rows(_Conv3x3Same):
+    halo = 1
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
@@ -183,4 +220,18 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) ->
     return _Conv3x3Same.apply(x, w, bias)
 
 
+def conv3x3_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """K2's halo-row mode: the 3x3 conv of NHWC ``x`` of H + 2 rows with OIHW
+    ``w``, SAME in W and VALID in H, H rows out, where the output's shape is
+    ``supported``; differentiable in x, w and bias. As ``conv3x3_same``
+    otherwise; ``conv3x3_rows.launches`` counts kernel launches."""
+    out_shape = (x.shape[0], x.shape[1] - 2, *x.shape[2:])
+    if x.dim() != 4 or not supported(out_shape, tuple(w.shape)):
+        raise ValueError(f"conv3x3_rows: unsupported shapes x={tuple(x.shape)} w={tuple(w.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3_rows: no kernel for device {x.device}")
+    return _Conv3x3Rows.apply(x, w, bias)
+
+
 conv3x3_same.launches = 0
+conv3x3_rows.launches = 0

@@ -16,6 +16,13 @@ parameter tree (names mirror flax: ``enc0.conv0.weight`` is flax's
 Input and output are NHWC; the output is float32. ``dtype`` is the compute
 dtype (``torch.bfloat16`` for mixed precision); parameters stay float32.
 
+On a space mesh (``space``, set by ``adunet_torch.parallel.spatial.attach``)
+the input holds this process's rows of each image and ``forward`` takes the
+image's global ``height``: every level's height is computed from it
+(``scaled_size``), never read from a tensor, and the resizes are
+row-sharded, so the skip and the upsampled tensor of a level hold the same
+rows.
+
 Rematerialisation (:44-72): ``remat=True`` checkpoints every ConvBlock;
 ``remat_levels=N`` (which overrides ``remat``) checkpoints only the encoder
 and decoder blocks of the N shallowest levels, whose activations are the
@@ -36,13 +43,15 @@ from torch.utils.checkpoint import checkpoint
 
 from adunet_torch.nn.blocks import Conv, ConvBlock, init_parameters
 from adunet_torch.nn.depth_policy import custom_depth_from_scale, estimate_bottleneck_size
-from adunet_torch.ops import clipped_residual_add, resize_by_scale, resize_to_match
+from adunet_torch.ops import clipped_residual_add, resize_by_scale, resize_to_match, scaled_size
 from adunet_torch.utils.runtime import resolve_device
 
 __all__ = ["AdaptiveSRUNet", "build_super_resolution_unet"]
 
 
 class AdaptiveSRUNet(nn.Module):
+    supports_space = True  # adunet_torch.parallel.spatial.attach covers it
+
     def __init__(
         self,
         scale: float,
@@ -72,6 +81,7 @@ class AdaptiveSRUNet(nn.Module):
             self.add_module(f"dec{level}", ConvBlock(2 * nf, nf, device=device))
         self.head = ConvBlock(base_channels, residual_head_channels, device=device)
         self.residual_rgb = Conv(residual_head_channels, 3, 1, zero_init=True, device=device)
+        self.space = None
         init_parameters(self, seed)
 
     def _uses_remat(self, level: int | None) -> bool:
@@ -87,18 +97,25 @@ class AdaptiveSRUNet(nn.Module):
             return checkpoint(block, h, use_reentrant=False, preserve_rng_state=False)
         return block(h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, height: int | None = None) -> torch.Tensor:
+        """``height``: on a space mesh, the global height of x's images."""
+        space = self.space
+        if space is not None and height is None:
+            raise ValueError("on a space mesh the forward needs the images' global height")
+        rows = height if space is not None else None  # this level's global height
         inputs = x
         h = x.to(self.dtype)
         skips = []
         for level in range(self.depth):
             skip = self._block(f"enc{level}", h, level)
-            h = resize_by_scale(skip, self.scale)
-            skips.append(skip)
+            h = resize_by_scale(skip, self.scale, space=space, height=rows)
+            skips.append((skip, rows))
+            rows = scaled_size(rows, self.scale) if space is not None else None
         h = self._block("bottleneck", h)
         for level in reversed(range(self.depth)):
-            skip = skips[level]
-            h = resize_to_match(h, skip)
+            skip, skip_rows = skips[level]
+            h = resize_to_match(h, skip, space=space, height=rows, ref_height=skip_rows)
+            rows = skip_rows
             h = torch.relu(getattr(self, f"dec{level}_smooth")(h))
             h = torch.cat([h, skip], dim=-1)
             h = self._block(f"dec{level}", h, level)

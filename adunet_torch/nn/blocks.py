@@ -6,7 +6,12 @@ Port of ``adunet/nn/blocks.py``:
   shape the K2 gate accepts runs the K2 kernel (``conv3x3_same``, an
   autograd Function); every other conv goes to ``F.conv2d`` on the NHWC
   tensor's NCHW view (a contiguous NHWC tensor permuted is an NCHW tensor in
-  channels_last memory format, so no copy is made).
+  channels_last memory format, so no copy is made). On a space mesh
+  (``space``, set by ``adunet_torch.parallel.spatial.attach``) x holds this
+  process's rows of the image: a 3x3 conv takes one row of each neighbour
+  (``SpaceShard.halo``) and runs VALID in H, SAME in W: K2's halo-row mode
+  (``conv3x3_rows``) where the gate takes the output's shape, else
+  ``F.conv2d`` with padding (0, 1).
 - ``LayerNormReLU`` ← ``FusedLayerNormReLU`` :87 — K1 (``layer_norm_relu``,
   an autograd Function), eps 1e-3, with flax's ``scale``/``bias`` as
   ``weight``/``bias``.
@@ -45,7 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adunet_torch.kernels import conv3x3_same, layer_norm_relu, supported
+from adunet_torch.kernels import conv3x3_rows, conv3x3_same, layer_norm_relu, supported
 
 __all__ = ["BN_MOMENTUM", "Conv", "LayerNormReLU", "BatchNorm", "ConvBlock", "ConvTranspose",
            "max_pool2x2", "init_parameters"]
@@ -69,6 +74,7 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k, device=device))
         self.bias = nn.Parameter(torch.empty(out_channels, device=device))
         self.zero_init = zero_init
+        self.space = None  # adunet_torch.parallel.spatial.SpaceShard on a space mesh
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -82,6 +88,12 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         b = self.bias.to(x.dtype)
+        if self.space is not None and w.shape[-1] == 3:
+            xp = self.space.halo(x, 1)
+            if supported(tuple(x.shape), tuple(w.shape)):
+                return conv3x3_rows(xp, w, b)
+            y = F.conv2d(xp.permute(0, 3, 1, 2), w, b, padding=(0, 1))
+            return y.permute(0, 2, 3, 1)
         if supported(tuple(x.shape), tuple(w.shape)):
             return conv3x3_same(x.contiguous(), w, b)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=w.shape[-1] // 2)

@@ -17,14 +17,17 @@ __all__ = ["degrade", "rgb_to_luma_bt601", "clipped_residual_add"]
 _LUMA = (65.481, 128.553, 24.966)
 
 
-def degrade(hr: torch.Tensor, scale: float, output_size: int | None = None) -> torch.Tensor:
+def degrade(hr: torch.Tensor, scale: float, output_size: int | None = None, space=None,
+            height: int | None = None) -> torch.Tensor:
     """Shrink an HR (..., H, W, C) image to ``round(size*scale)`` with an area
     filter and bring it back with cv2's cubic. The size uses Python's
     round-half-to-even, as the reference does (:41-42), and the output is
-    NOT clipped: cubic overshoot is kept. Returns float32."""
+    NOT clipped: cubic overshoot is kept. Returns float32. With ``space``
+    (``adunet_torch.parallel.spatial``), hr holds that shard's rows of an
+    image of ``height`` rows and both resizes are row-sharded."""
     if not 0 < scale < 1:
         raise ValueError("degrade scale: expected a value strictly inside (0, 1).")
-    h, w = hr.shape[-3], hr.shape[-2]
+    h, w = (hr.shape[-3] if space is None else height), hr.shape[-2]
     if output_size is not None and output_size > 0:
         target_h = target_w = int(output_size)
     else:
@@ -32,8 +35,9 @@ def degrade(hr: torch.Tensor, scale: float, output_size: int | None = None) -> t
     down_h = max(1, int(round(target_h * scale)))
     down_w = max(1, int(round(target_w * scale)))
     x = hr.to(torch.float32).clamp(0.0, 1.0)
-    down = resize(x, (down_h, down_w), method="area")
-    return resize(down, (target_h, target_w), method="bicubic_cv2", antialias=False)
+    down = resize(x, (down_h, down_w), method="area", space=space, height=h)
+    return resize(down, (target_h, target_w), method="bicubic_cv2", antialias=False,
+                  space=space, height=down_h)
 
 
 def rgb_to_luma_bt601(image: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,11 @@ device. In the reference these are XLA einsums (not Pallas), so here they are
 (``adunet_torch.utils.runtime.setup_runtime``), the counterpart of the
 reference's ``Precision.HIGHEST``.
 
+Under a space mesh (``adunet_torch.parallel.spatial``) a tensor holds its
+process's rows of the image: ``space`` (a ``SpaceShard``) and ``height`` (the
+global height of x) make the resize along H a row-sharded product
+(``SpaceShard.resize_rows``), and every size comes from the global height.
+
 Kernels: ``area`` (box overlap, cv2.INTER_AREA), ``bilinear`` (triangle,
 antialias-stretched on downsampling, tf.image.resize), ``bicubic`` (Keys
 a=-0.5), ``bicubic_cv2`` (Keys a=-0.75, cv2.INTER_CUBIC), ``nearest``,
@@ -131,13 +136,23 @@ def resize(
     out_hw: Tuple[int, int] | Sequence[int],
     method: str = "bilinear",
     antialias: bool = True,
+    space=None,
+    height: int | None = None,
 ) -> torch.Tensor:
     """Resize the spatial dims of a (..., H, W, C) tensor; float32 in, float32
-    out (``resize_by_scale`` / ``resize_to_match`` cast back)."""
+    out (``resize_by_scale`` / ``resize_to_match`` cast back). With ``space``,
+    x holds that shard's rows of an image of ``height`` rows, ``out_hw[0]`` is
+    the global output height, and the result holds the shard's output rows."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     *lead, h, w, c = x.shape
     y = x.to(torch.float32).reshape(-1, h, w * c)
-    if h != out_h:
+    if space is not None:
+        if height is None:
+            raise ValueError("a row-sharded resize needs the image's global height")
+        if height != out_h:
+            y = space.resize_rows(y, height, out_h, method, antialias)
+            h = y.shape[1]
+    elif h != out_h:
         wh = _device_matrix(h, out_h, method, antialias, y.device)
         y = torch.matmul(wh, y)  # (N, out_h, W*C)
         h = out_h
@@ -154,16 +169,21 @@ def scaled_size(size: int, scale: float) -> int:
 
 
 def resize_by_scale(
-    x: torch.Tensor, scale: float, method: str = "bilinear", antialias: bool = True
+    x: torch.Tensor, scale: float, method: str = "bilinear", antialias: bool = True,
+    space=None, height: int | None = None,
 ) -> torch.Tensor:
-    """Fractional resize by ``scale``; preserves the dtype."""
-    h, w = x.shape[-3], x.shape[-2]
-    y = resize(x, (scaled_size(h, scale), scaled_size(w, scale)), method, antialias)
-    return y.to(x.dtype)
+    """Fractional resize by ``scale``; preserves the dtype. With ``space``,
+    ``height`` is x's global height (see ``resize``)."""
+    h = x.shape[-3] if space is None else height
+    out = (scaled_size(h, scale), scaled_size(x.shape[-2], scale))
+    return resize(x, out, method, antialias, space, height).to(x.dtype)
 
 
 def resize_to_match(
-    x: torch.Tensor, ref: torch.Tensor, method: str = "bilinear", antialias: bool = True
+    x: torch.Tensor, ref: torch.Tensor, method: str = "bilinear", antialias: bool = True,
+    space=None, height: int | None = None, ref_height: int | None = None,
 ) -> torch.Tensor:
-    """Resize ``x`` to ``ref``'s spatial dims; preserves x's dtype."""
-    return resize(x, (ref.shape[-3], ref.shape[-2]), method, antialias).to(x.dtype)
+    """Resize ``x`` to ``ref``'s spatial dims; preserves x's dtype. With
+    ``space``, ``height`` and ``ref_height`` are the two global heights."""
+    out_h = ref.shape[-3] if space is None else ref_height
+    return resize(x, (out_h, ref.shape[-2]), method, antialias, space, height).to(x.dtype)

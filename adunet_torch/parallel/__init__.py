@@ -1,8 +1,9 @@
 """Multi-process training: launch, meshes, batch shards, channel sharding.
 
 Port of ``adunet/parallel``: one process per GPU under ``torchrun``,
-``torch.distributed`` collectives in place of the ones XLA inserts. Not
-ported yet: ``make_dp_spatial_mesh`` (ROADMAP).
+``torch.distributed`` collectives in place of the ones XLA inserts, and the
+exchanges of height-sharded activations on a ``("data", "space")`` mesh
+(``spatial``) in place of the halos GSPMD inserts.
 """
 
 from adunet_torch.parallel.data_parallel import DataParallel, data_parallel, launch_mesh
@@ -22,6 +23,8 @@ from adunet_torch.parallel.mesh import (
     data_extent,
     data_group,
     data_index,
+    make_dp_axis_mesh,
+    make_dp_spatial_mesh,
     make_mesh,
     mesh_shape_for,
     pad_and_shard_ragged,
@@ -34,12 +37,17 @@ from adunet_torch.parallel.partition import (
     make_dp_model_mesh,
     shard_params,
 )
+from adunet_torch.parallel.spatial import SpaceShard, height_split
 
 __all__ = [
     "maybe_initialize_distributed",
     "make_mesh",
     "auto_data_parallel_size",
     "make_dp_model_mesh",
+    "make_dp_axis_mesh",
+    "make_dp_spatial_mesh",
+    "SpaceShard",
+    "height_split",
     "channel_partition_spec",
     "shard_params",
     "full_tensor",

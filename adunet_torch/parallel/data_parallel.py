@@ -14,14 +14,23 @@ set up so that the port's train steps compute on the global batch:
   optimizer is built anew over the sharded parameters (its moments follow
   their sharding), and the gradients of the replicated leaves are averaged
   over the data axis before each update (``sync_grads``);
+- on a ``("data", "space")`` mesh (``make_dp_spatial_mesh``) each process
+  holds its rows of every image: the model gets the mesh's ``SpaceShard``
+  (``adunet_torch.parallel.spatial.attach``; only the adaptive SR U-Net is
+  covered, any other model raises ``NotImplementedError``), the parameters
+  stay replicated over both axes, and DDP averages the gradients over the
+  whole world W = data x space. The SR step scales each process's loss to
+  its rows' share (``adunet_torch.train.sr``), so that average is the global
+  batch's gradient;
 - every ``BatchNorm`` takes its training statistics over the global batch
   (``BatchNorm.sync_group``), as flax's does under GSPMD.
 
 ``DataParallel`` is what the steps see through ``TrainState``: the module to
 run the training forward through, ``no_sync`` for every micro-batch of an
 accumulated step but the last, and ``mean_metrics``, which averages a step's
-metrics over the data axis (a pooled metric's ``name#component`` sums are
-summed), so the logs show the global batch's numbers. ``state.model`` stays
+metrics over the data axis (over the whole world on a space mesh; a pooled
+metric's ``name#component`` sums are summed), so the logs show the global
+batch's numbers; ``space`` is the ``SpaceShard`` or None. ``state.model`` stays
 the unwrapped module, whose names checkpoints and ``convert`` read.
 """
 
@@ -39,6 +48,7 @@ from adunet_torch.nn.blocks import BatchNorm
 from adunet_torch.parallel.distributed import is_distributed, maybe_initialize_distributed
 from adunet_torch.parallel.mesh import data_extent, data_group, make_mesh, mesh_shape_for
 from adunet_torch.parallel.partition import is_sharded, make_dp_model_mesh, shard_params
+from adunet_torch.parallel.spatial import SpaceShard, attach
 from adunet_torch.train.schedules import Adam
 from adunet_torch.train.state import TrainState
 
@@ -49,10 +59,12 @@ class DataParallel:
     """The processes' share of a train state: see the module docstring."""
 
     def __init__(self, model: nn.Module, mesh: DeviceMesh, module: nn.Module,
-                 sharded: List[nn.Module]):
+                 sharded: List[nn.Module], space: Optional[SpaceShard] = None):
         self.mesh = mesh
-        self.group = data_group(mesh)
-        self.extent = data_extent(mesh)
+        self.space = space
+        # the processes a step's gradients and metrics are averaged over
+        self.group = dist.group.WORLD if space is not None else data_group(mesh)
+        self.extent = dist.get_world_size() if space is not None else data_extent(mesh)
         self.module = module  # the training forward: DDP, or the sharded model itself
         self._sharded = sharded
         self._replicated = ([p for p in model.parameters() if not is_sharded(p)]
@@ -114,11 +126,18 @@ def data_parallel(state: TrainState, mesh: DeviceMesh, min_channels: int = 256) 
     returns it. Call it before restoring a checkpoint into the state and
     before its first step."""
     model = state.model
+    names = mesh.mesh_dim_names or ()
+    if "space" in names:
+        dim = names.index("space")
+        space = SpaceShard(mesh.get_group("space"), mesh.size(dim), mesh.get_local_rank("space"))
+        attach(model, space)
+        ddp = nn.parallel.DistributedDataParallel(model, broadcast_buffers=False)
+        state.parallel = DataParallel(model, mesh, ddp, [], space)
+        return state
     group = data_group(mesh)
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.sync_group = group
-    names = mesh.mesh_dim_names or ()
     if "model" in names and mesh.size(names.index("model")) > 1:
         if any(len(s) for s in state.optimizer.state.values()):
             raise ValueError("shard the state before its first step or restore")

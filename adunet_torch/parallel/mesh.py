@@ -2,10 +2,14 @@
 
 Port of ``adunet/parallel/mesh.py``. A process drives one GPU, so a mesh is
 a ``torch.distributed.device_mesh.DeviceMesh`` over the run's processes
-with the dim names ``("data",)`` or ``("data", "model")``. Where the
+with the dim names ``("data",)``, ``("data", "model")`` or ``("data",
+"space")`` (``make_dp_spatial_mesh``: each image's height split over the
+``"space"`` processes, ``adunet_torch.parallel.spatial``). Where the
 reference puts a host batch on the mesh sharded on its leading dim
 (``shard_batch``), here each process takes its own rows of the global batch
-(``shard_batch``); ragged validation and evaluation batches are padded to a
+(``shard_batch``), and on a mesh with ``"space"`` its rows of every image's
+height (``height_split``, as the reference's ``batch_sharding`` shards the
+height over ``"space"``); ragged validation and evaluation batches are padded to a
 multiple of the data extent by repeating their last row and come with a
 mask of the real rows (``pad_and_shard_ragged``). ``replicate`` broadcasts a
 module's parameters and buffers from process 0.
@@ -14,8 +18,6 @@ module's parameters and buffers from process 0.
 and ``--model_shards``: ``--n_devices`` is the mesh's global device count,
 which under ``torchrun`` must equal ``WORLD_SIZE``; in a plain single process
 a count above 1 raises with the ``torchrun`` line to use.
-
-Not ported yet: ``make_dp_spatial_mesh`` (the data x spatial mesh, ROADMAP).
 """
 
 from __future__ import annotations
@@ -29,11 +31,14 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from adunet_torch.parallel.distributed import is_distributed, process_count
+from adunet_torch.parallel.spatial import height_split
 
 __all__ = [
     "auto_data_parallel_size",
     "mesh_shape_for",
     "make_mesh",
+    "make_dp_axis_mesh",
+    "make_dp_spatial_mesh",
     "data_extent",
     "data_index",
     "data_group",
@@ -126,6 +131,31 @@ def make_mesh(n_devices: Optional[int] = None, axis_names: Sequence[str] = ("dat
                             mesh_dim_names=tuple(axis_names))
 
 
+def make_dp_axis_mesh(axis_name: str, shards: int, n_devices: Optional[int] = None,
+                      device_type: Optional[str] = None) -> DeviceMesh:
+    """2-D mesh ``("data", axis_name)`` of ``world / shards`` x ``shards``
+    processes: data parallel x a second sharding axis. ``n_devices``
+    (default: every process) above the run's process count raises, as does
+    a count that ``shards`` does not divide."""
+    world = process_count()
+    total = world if n_devices is None else int(n_devices)
+    if total > world:  # the reference's loud guard: no silent run at a fraction of the request
+        raise ValueError(f"Requested {total} devices but only {world} available.")
+    if total % shards != 0:
+        raise ValueError(f"{total} devices not divisible by {axis_name} shards={shards}.")
+    return make_mesh(total, axis_names=("data", axis_name), mesh_shape=(total // shards, shards),
+                     device_type=device_type)
+
+
+def make_dp_spatial_mesh(spatial_shards: int, n_devices: Optional[int] = None,
+                         device_type: Optional[str] = None) -> DeviceMesh:
+    """2-D mesh ``("data", "space")``: data parallel x the image height split
+    over ``spatial_shards`` processes, which divides each process's
+    activation memory for the 256-px deep configs (``data_parallel`` on it
+    runs the adaptive SR U-Net on row shards)."""
+    return make_dp_axis_mesh("space", spatial_shards, n_devices, device_type)
+
+
 def data_extent(mesh: Optional[DeviceMesh], axis: str = "data") -> int:
     """The number of data-parallel shards (1 without a mesh)."""
     return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(axis))
@@ -154,13 +184,19 @@ def _lead(batch) -> int:
 
 def shard_batch(batch, mesh: DeviceMesh, axis: str = "data"):
     """This process's rows of a global batch (an array, a tensor or a tuple
-    of them) whose leading dim the data extent divides."""
+    of them) whose leading dim the data extent divides; on a mesh with a
+    ``"space"`` axis, also its rows of each image's height (dim 1, NHWC) by
+    ``height_split``."""
     n, i = data_extent(mesh, axis), data_index(mesh, axis)
     total = _lead(batch)
     if total % n:
         raise ValueError(f"global batch {total} does not split over {n} data shards")
     per = total // n
-    return _map(lambda x: x[i * per : (i + 1) * per], batch)
+    local = _map(lambda x: x[i * per : (i + 1) * per], batch)
+    if "space" not in (mesh.mesh_dim_names or ()):
+        return local
+    shards, j = data_extent(mesh, "space"), data_index(mesh, "space")
+    return _map(lambda x: x[:, slice(*height_split(x.shape[1], shards, j))], local)
 
 
 def _pad_leading_to(x, n: int):

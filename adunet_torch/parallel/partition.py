@@ -28,7 +28,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
-from adunet_torch.parallel.mesh import make_mesh
+from adunet_torch.parallel.mesh import make_dp_axis_mesh
 
 __all__ = ["make_dp_model_mesh", "channel_partition_spec", "shard_params", "is_sharded",
            "full_tensor"]
@@ -38,13 +38,7 @@ def make_dp_model_mesh(model_shards: int, n_devices: Optional[int] = None,
                        device_type: Optional[str] = None) -> DeviceMesh:
     """A 2-D mesh ``("data", "model")`` of ``world / model_shards`` x
     ``model_shards`` processes."""
-    from adunet_torch.parallel.distributed import process_count
-
-    total = process_count() if n_devices is None else int(n_devices)
-    if total % model_shards != 0:
-        raise ValueError(f"{total} devices not divisible by model shards={model_shards}.")
-    return make_mesh(total, axis_names=("data", "model"),
-                     mesh_shape=(total // model_shards, model_shards), device_type=device_type)
+    return make_dp_axis_mesh("model", model_shards, n_devices, device_type)
 
 
 def channel_partition_spec(shape: Sequence[int], model_size: int,

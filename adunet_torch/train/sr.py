@@ -13,6 +13,19 @@ through the data-parallel module, reduces the gradients in the last
 micro-batch's backward only, and returns the metrics averaged over the
 processes: the global batch's.
 
+On a space mesh (``TrainState.space``, ``adunet_torch.parallel.spatial``)
+the train step takes each process's rows of every image (``shard_batch``):
+it learns the images' global height from the shards, degrades with
+row-sharded resizes, runs the model on the rows, and scales the loss to
+``local mean x local rows x space shards / global height``. DDP averages
+the gradients over all W = data x space processes, and the average of those
+losses over W is the global batch's mean loss, whatever rows each process
+holds: so the averaged gradient is the global loss's, and the reported loss
+(averaged over W) is the global batch's. The
+PSNR sums each image's squared error over its rows' processes. Only
+elementwise-mean losses (charbonnier, l1, mse) split so; the val, eval and
+device-cache steps take whole images.
+
 Training degrades at ``DATA_LR_SHRINK = 0.5`` whatever the model's scale
 (the reference's constant); the evaluator degrades at the scale it is given.
 
@@ -26,12 +39,14 @@ statistics and moves the BatchNorm running buffers as flax's mutable
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from adunet_torch.data.device_cache import sample_patch_batch
+from adunet_torch.losses.sr import charbonnier_loss, l1_loss, mse_loss
 from adunet_torch.metrics.psnr_ssim import (
     mse_per_image,
     msssim_power_factors_for,
@@ -55,6 +70,8 @@ __all__ = [
 ]
 
 DATA_LR_SHRINK = 0.5
+# losses that are a mean over elements: a row shard's share is its rows' mean
+_ROW_LOSSES = (charbonnier_loss, l1_loss, mse_loss)
 
 Batch = torch.Tensor | np.ndarray | Tuple
 
@@ -76,24 +93,39 @@ def _as_f01(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _lr_hr_of(batch: Batch, data_scale: float, device: torch.device
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _lr_hr_of(batch: Batch, data_scale: float, device: torch.device, space=None,
+              height: int | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """A bare array is an HR batch whose LR side is degraded on the device; an
-    ``(lr, hr)`` pair carries real LR pixels."""
+    ``(lr, hr)`` pair carries real LR pixels. With ``space``, the batch holds
+    that shard's rows of images of ``height`` rows."""
     if isinstance(batch, (tuple, list)):
         lr_batch, hr_batch = batch
         return _as_f01(_to_device(lr_batch, device)), _as_f01(_to_device(hr_batch, device))
     hr_batch = _as_f01(_to_device(batch, device))
-    return degrade(hr_batch, data_scale), hr_batch
+    return degrade(hr_batch, data_scale, space=space, height=height), hr_batch
 
 
-def sr_loss_and_metrics(loss_fn, hr: torch.Tensor, pred: torch.Tensor
+def sr_loss_and_metrics(loss_fn, hr: torch.Tensor, pred: torch.Tensor, space=None,
+                        height: int | None = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, {"psnr": batch-mean PSNR of the prediction clipped to [0, 1]})."""
+    """(loss, {"psnr": batch-mean PSNR of the prediction clipped to [0, 1]}).
+    With ``space``, hr and pred hold that shard's rows of images of
+    ``height`` rows: the loss is the shard's share (module docstring) and the
+    PSNR the whole images'."""
     loss = loss_fn(hr, pred)
+    if space is not None:
+        if loss_fn not in _ROW_LOSSES:
+            raise NotImplementedError("on a space mesh the SR step takes an elementwise-mean "
+                                      "loss (charbonnier, l1 or mse)")
+        loss = loss * (hr.shape[1] * space.shards / height)
     with torch.no_grad():
         clipped = torch.clamp(pred.to(torch.float32), 0.0, 1.0)
-        metrics = {"psnr": torch.mean(psnr(hr.to(torch.float32), clipped))}
+        if space is None:
+            metrics = {"psnr": torch.mean(psnr(hr.to(torch.float32), clipped))}
+        else:
+            sq = space.sum(torch.square(hr.to(torch.float32) - clipped).sum(dim=(1, 2, 3)))
+            mse = sq / (height * hr.shape[2] * hr.shape[3])
+            metrics = {"psnr": torch.mean(10.0 * (torch.log(1.0 / mse) / math.log(10.0)))}
     return loss, metrics
 
 
@@ -108,17 +140,22 @@ def _split(batch: Batch, k: int) -> Sequence[Batch]:
     return [batch[i * m : (i + 1) * m] for i in range(k)]
 
 
-def _update(state: TrainState, loss_fn, pairs, k: int) -> Dict[str, torch.Tensor]:
+def _update(state: TrainState, loss_fn, pairs, k: int, height: int | None = None
+            ) -> Dict[str, torch.Tensor]:
     """Forward + backward over the k (lr, hr) micro-batches produced by
     ``pairs``, then ONE update on the mean of their gradients (each
     micro-loss is scaled by 1/k, so the accumulated ``.grad`` is the mean).
-    Returns the metrics averaged over the micro-batches."""
+    Returns the metrics averaged over the micro-batches. On a space mesh
+    ``height`` is the images' global height."""
+    space = state.space
     state.optimizer.zero_grad(set_to_none=True)
     sums: Dict[str, torch.Tensor] = {}
     for i, (lr_b, hr_b) in enumerate(pairs):
         # across processes, only the last micro-batch's backward reduces
         with state.no_sync() if i < k - 1 else contextlib.nullcontext():
-            loss, metrics = sr_loss_and_metrics(loss_fn, hr_b, state.train_module(lr_b))
+            pred = (state.train_module(lr_b) if space is None
+                    else state.train_module(lr_b, height=height))
+            loss, metrics = sr_loss_and_metrics(loss_fn, hr_b, pred, space, height)
             (loss / k if k > 1 else loss).backward()
         for name, value in {"loss": loss.detach(), **metrics}.items():
             value = value.to(torch.float32)
@@ -143,8 +180,13 @@ def make_sr_train_step(model, loss_fn: Callable, data_scale: float = DATA_LR_SHR
         del rng  # SR training is deterministic given the batch
         dev = _device_of(state.model)
         micro = _split(batch, grad_accum) if grad_accum > 1 else [batch]
-        pairs = (_lr_hr_of(mb, data_scale, dev) for mb in micro)
-        return state, _update(state, loss_fn, pairs, grad_accum)
+        space = state.space
+        height = None
+        if space is not None:  # the rows' global height, from every shard's count
+            hr_leaf = batch[1] if isinstance(batch, (tuple, list)) else batch
+            height = space.global_height(hr_leaf.shape[1], dev)
+        pairs = (_lr_hr_of(mb, data_scale, dev, space, height) for mb in micro)
+        return state, _update(state, loss_fn, pairs, grad_accum, height)
 
     return step
 
@@ -224,6 +266,10 @@ def make_sr_device_cache_train_step(model, loss_fn: Callable, images_u8: torch.T
 
     def step(state: TrainState, batch, rng: torch.Generator):
         del batch  # the corpus lives on the device; rng is the data source
+        if state.space is not None:
+            raise NotImplementedError("the device-cache step samples whole patches; on a space "
+                                      "mesh feed make_sr_train_step each process's rows "
+                                      "(shard_batch)")
         if rng is None:
             raise ValueError("the device-cache step needs a torch.Generator on the corpus's device")
         hr = sample_patch_batch(images_u8, rng, batch_size, patch_size)

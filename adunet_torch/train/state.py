@@ -36,6 +36,11 @@ class TrainState:
         data-parallel wrapper)."""
         return self.model if self.parallel is None else self.parallel.module
 
+    @property
+    def space(self):
+        """The ``SpaceShard`` of a space mesh's row-sharded training, or None."""
+        return None if self.parallel is None else self.parallel.space
+
     def no_sync(self):
         """Context of a backward whose gradients are not reduced across
         processes yet (every micro-batch of an accumulated step but the

@@ -121,7 +121,21 @@ exits non-zero without one. Every phase raises on failure:
     on the global batch; per-rank statistics shown to fail the check) and a
     ``--model_shards 2`` step to one process on the same global batch of 8
     (``ddp_ranks``);
-23. prints one JSON line with each kernel's launches, error and times, the
+23. runs ``adunet_torch.cli.run_experiment --experiment adaptive_depth
+    --scales 0.5 --mode run --auto_eval`` at full width (the H100 table's
+    batch 32, bf16, a device cache; counts set to 0 just before: 16 / 16 /
+    4 a step, 16 / 0 / 4 a forward), the port's ``plot_experiment_metrics``
+    on its evaluation (``summary_metrics.csv``; without matplotlib the CLI
+    must fail on the figures after writing it) and ``inspect`` on its
+    checkpoint (``inspect_example`` without matplotlib; 16 / 0 / 4 a
+    forward) (``sweep``);
+24. starts 2 processes on the card in a gloo group on a (1, 2) data x space
+    mesh (``--space-worker``: each holds 128 of every image's 256 rows) and
+    holds one Adam step of the float32 and bf16 flagship at batch 32 and
+    the bf16 deep config at batch 8 to one process: loss, params, launches a
+    rank (16 / 16 / 4 and 24 / 24 / 4 with K2 in its halo-row mode), peak
+    memory a rank (``space_ranks``);
+25. prints one JSON line with each kernel's launches, error and times, the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
 
 At the start of each phase it prints a host probe (a fixed numpy and Python
@@ -135,7 +149,10 @@ float32 and bf16, full and ragged row counts) and K2 at the vanilla model's
 float32 at the tuner's (4, 256, 256, 64) and (16, 256, 256, 64), and K1
 at every (rows, C) of the deep config up to C = 1024 and 2048 (bf16; float32
 and ragged row counts at the two widest), and K1 and its backward at every
-(rows, C) of the joint model's bf16 step, 2,048 x 1024 among them.
+(rows, C) of the joint model's bf16 step, 2,048 x 1024 among them. Phase 3
+also holds K2's halo-row mode (``conv64.conv3x3_rows``: 128 + 2 rows in,
+128 out) at the shapes the space mesh gives a rank, beside cuDNN's
+``F.conv2d`` with padding (0, 1).
 """
 
 from __future__ import annotations
@@ -303,6 +320,18 @@ TUNE_CONFIGS = [{"lr": 3e-4, "alpha": 1.0, "beta": 0.1, "gamma": 0.01},
 # against one at a global batch of 8, float32, Adam at the trainers' rate.
 DDP_EPOCHS, DDP_PPI = 2, 48
 RANKS_BATCH, RANKS_LR = 8, 1e-4
+# The data x space mesh: K2's halo-row mode at the rows a (1, 2) mesh gives
+# each rank of a 256-px image (128 + a neighbour row above and below), at the
+# flagship's batch in bf16 and float32 and the deep config's in bf16, 4
+# launches a step each (enc0.conv1, dec0.conv1, head.conv0 / 1); the
+# space_ranks phase's cases (scale, depth, batch, compute type); the sweep
+# phase's patches per image (8 training images: 2 steps of 32)
+K2_HALO_CASES = [((32, 130, 256, 64), 4, torch.bfloat16), ((32, 130, 256, 64), 4, torch.float32),
+                 ((8, 130, 256, 64), 4, torch.bfloat16)]
+SPACE_CASES = {"flagship_f32": (0.5, 3, 32, torch.float32),
+               "flagship_bf16": (0.5, 3, 32, torch.bfloat16),
+               "deep_bf16": (DEEP_SCALE, DEEP_DEPTH, DEEP_BATCH, torch.bfloat16)}
+SWEEP_PPI = 8
 
 TUNE_RESULT_KEYS = {"direction", "sampler", "n_trials", "n_complete", "n_pruned", "best_value",
                     "best_params", "trials"}
@@ -796,10 +825,12 @@ def _zero_counts() -> None:
     fused_norm.layer_norm_relu.launches = 0
     fused_norm.layer_norm_relu.backward_launches = 0
     conv64.conv3x3_same.launches = 0
+    conv64.conv3x3_rows.launches = 0
 
 
 def _counts() -> tuple[int, int, int]:
-    """Launches of K1's forward, K1's backward and K2."""
+    """Launches of K1's forward, K1's backward and K2 (SAME; the halo-row
+    mode counts apart, ``conv64.conv3x3_rows.launches``)."""
     return (fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches,
             conv64.conv3x3_same.launches)
 
@@ -2648,6 +2679,298 @@ def ddp_ranks(tmp: Path) -> dict:
     return out
 
 
+def check_k2_halo(gen: torch.Generator) -> list[dict]:
+    """K2's halo-row mode (``conv64.conv3x3_rows``) at the shapes a (1, 2)
+    space mesh gives each rank: 128 of 256 rows plus a neighbour row above
+    and below, at the flagship's batch (bf16 and float32) and the deep
+    config's (bf16). Held to its plain version; timed beside cuDNN's
+    ``F.conv2d`` with padding (0, 1) and its bound (the H + 2 rows read
+    once, the H rows written once)."""
+    rows_out = []
+    for shape, per_call, dtype in K2_HALO_CASES:
+        x, wt, bias = _k2_inputs(gen, shape, dtype)
+        got = conv64.conv3x3_rows(x, wt, bias)
+        want = conv64.conv3x3_rows_plain(x, wt, bias)
+        torch.cuda.synchronize()
+        err = close_enough(got, want, dtype, 1e-4, atol_bf16=K2_BF16_ATOL)
+        ms = cuda_ms(lambda: conv64.conv3x3_rows(x, wt, bias), 20)
+        dev_ms, dev_n = profiled_device_ms(lambda: conv64.conv3x3_rows(x, wt, bias),
+                                           K2_KERNEL[dtype])
+        plain = cuda_ms(lambda: conv64.conv3x3_rows_plain(x, wt, bias), 5)
+        xn = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        lib = cuda_ms(lambda: F.conv2d(xn, wt, bias, padding=(0, 1)), 20)
+        lib_dev, lib_n = profiled_device_ms(lambda: F.conv2d(xn, wt, bias, padding=(0, 1)))
+        bsz, h2, w, c = shape
+        pixels = bsz * (h2 - 2) * w
+        es = x.element_size()
+        bnd, by = bound_ms((bsz * h2 * w + pixels) * c * es + 9 * 64 * 64 * 4 + 64 * 4,
+                           2 * pixels * 64 * 64 * 9 + pixels * 64, dtype)
+        rows_out.append(dict(kernel="K2_halo", path="space", shape=list(shape),
+                             dtype=_dname(dtype), per_call=per_call, max_abs_err=err, ms=ms,
+                             device_ms=dev_ms, device_launches_recorded=dev_n, plain_ms=plain,
+                             library_ms=lib, library_device_ms=lib_dev,
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
+        log(f"[K2 halo] x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e} kernel "
+            f"{ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} launches), "
+            f"plain {plain:.4f} ms, F.conv2d padding (0, 1) (cuDNN, TF32 off) {lib:.4f} ms "
+            f"(device time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
+        del x, got, want
+    return rows_out
+
+
+def sweep(tmp: Path, ident: str) -> dict:
+    """The experiment tooling at full width: ``adunet_torch.cli.run_experiment
+    --experiment adaptive_depth --scales 0.5 --mode run --auto_eval`` (the
+    flagship, 256 px, the H100 table's batch, bf16, a device cache, 1 epoch
+    of 2 steps, then ``evaluate`` on the corpus), with the counts set to 0
+    just before: 16 K1 / 16 K1 backward / 4 K2 a step and 16 / 0 / 4 a
+    forward. Then the port's ``plot_experiment_metrics`` over the run's
+    evaluation (its ``summary_metrics.csv``; the figures need matplotlib,
+    and without it the CLI must fail on them after writing the table), and
+    ``inspect_example`` (or, where matplotlib imports, the ``inspect`` CLI)
+    on the run's best checkpoint: 16 / 0 / 4 a forward."""
+    import importlib.util
+
+    from adunet_torch.cli import inspect as inspect_cli
+    from adunet_torch.cli import plot_experiment_metrics
+    from adunet_torch.cli.evaluate import load_checkpoint_state
+    from adunet_torch.cli.run_experiment import main as sweep_main
+    from adunet_torch.experiments import EXPERIMENT2_DEPTHS, H100_BATCH_SIZES
+
+    corpus = tmp / "sweep_corpus"
+    corpus.mkdir()
+    write_corpus(corpus, 10, 512, seed=17)  # 8 train / 1 val / 1 test; 40 eval tiles
+    root = tmp / "sweep"
+    batch, depth = H100_BATCH_SIZES[0.5], EXPERIMENT2_DEPTHS[0.5]
+    args = ["--experiment", "adaptive_depth", "--scales", "0.5", "--mode", "run", "--auto_eval",
+            "--epochs", "1", "--high_res_dir", str(corpus), "--image_suffix", ".npy",
+            "--model_dir", str(root / "models"), "--log_dir", str(root / "logs"),
+            "--metadata_dir", str(root / "metadata"),
+            "--extra_args", "--device_cache", "--patches_per_image", str(SWEEP_PPI),
+            "--image_suffix", ".npy"]
+    _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        sweep_main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1, k1b, k2 = _counts()
+    for line in buf.getvalue().splitlines():
+        if line.startswith(("===", "Epoch", "Model:", "  PSNR", "Scored")) or "PSNR(Y)" in line:
+            log(f"[sweep] {line}")
+    name = f"exp_adaptive_depth_scale0.50_depth{depth}"
+    cfg = json.loads((root / "logs" / name / "config.json").read_text())
+    steps = cfg["steps_per_epoch"]
+    forwards = k1 // 16
+    if (cfg["batch_size"], cfg["mixed_precision"], cfg["n_params"], steps) != (
+            batch, True, 8_637_379, 2) or (k1, k1b, k2) != (16 * forwards, 16 * steps,
+                                                           4 * forwards):
+        raise AssertionError(f"sweep: batch {cfg['batch_size']}, bf16 {cfg['mixed_precision']}, "
+                             f"{cfg['n_params']} params, {steps} steps; launches K1 / K1 backward"
+                             f" / K2 {k1} / {k1b} / {k2} (expected 16 / 16 / 4 a step, 16 / 0 / 4 "
+                             "a forward)")
+    report = root / "logs" / "evaluation" / f"{name}_eval"
+    metrics = json.loads((report / "metrics.json").read_text())
+    if metrics["samples"] != 40 or not np.isfinite(metrics["psnr_mean"]):
+        raise AssertionError(f"sweep: the auto-eval report {metrics}")
+    # the analysis CLI over the sweep's evaluation reports
+    plots = root / "plots"
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    argv = sys.argv
+    sys.argv = ["plot_experiment_metrics", "--experiment-dir", str(root / "logs"), "--output-dir",
+                str(plots)]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            plot_experiment_metrics.main()
+        figures = sorted(p.name for p in plots.glob("*.png"))
+    except ImportError as e:  # the figures, after the table: only where matplotlib is missing
+        if has_mpl or "matplotlib" not in str(e):
+            raise
+        figures = f"none: {e}"
+    finally:
+        sys.argv = argv
+    with open(plots / "summary_metrics.csv") as f:
+        summary = list(csv.DictReader(f))
+    if len(summary) != 1 or float(summary[0]["scale"]) != 0.5 or \
+            abs(float(summary[0]["psnr_mean"]) - metrics["psnr_mean"]) > 1e-9:
+        raise AssertionError(f"summary_metrics.csv: {summary} against {metrics}")
+    # inspect on the run's best checkpoint
+    ckpt = root / "models" / f"unet_adaptive_scale0.50_depth{depth}"
+    if has_mpl:
+        _zero_counts()
+        grids = inspect_cli.main(["--model-path", str(ckpt), "--scale", "0.5", "--hr-dir",
+                                  str(corpus), "--image-suffix", ".npy", "--n-examples", "2",
+                                  "--output-dir", str(root / "inspection")])
+        n_forwards, shown = len(grids), [p.name for p in grids]
+    else:
+        _, model, _ = load_checkpoint_state(ckpt, 0.5, 256, None, best=True, device="cuda")
+        hr = np.load(sorted(corpus.glob("*.npy"))[0])[:256, :256].astype(np.float32) / 255.0
+        _zero_counts()
+        example = inspect_cli.inspect_example(model, hr, 0.5, 256)
+        n_forwards = 1
+        shown = {"peak": example["peak"], "psnr": example["psnr"], "ssim": example["ssim"],
+                 "panels": [name for name, _, _ in example["panels"]],
+                 "crops": [list(c.shape) for c in example["crops"]]}
+        if not (np.isfinite(example["psnr"]) and all(np.isfinite(img).all()
+                                                    for _, img, _ in example["panels"])):
+            raise AssertionError(f"inspect_example: {shown}")
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != (16 * n_forwards, 0, 4 * n_forwards):
+        raise AssertionError(f"inspect: launches {counts} for {n_forwards} forwards")
+    log(f"[sweep] {ident}: run_experiment adaptive_depth scale 0.5 (depth {depth}, H100 table "
+        f"batch {batch}, bf16, device cache): {steps} steps, {forwards} forwards with the "
+        f"auto-eval, K1 / K1 backward / K2 {k1} / {k1b} / {k2} (16 / 16 / 4 a step), "
+        f"{seconds:.1f} s; eval PSNR(Y) {metrics['psnr_mean']:.4f} dB over {metrics['samples']} "
+        f"tiles; summary_metrics.csv {summary[0]}; figures {figures}; inspect "
+        f"({'CLI' if has_mpl else 'inspect_example, no matplotlib'}) {shown}, launches {counts}")
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2}, "steps": steps,
+            "forwards": forwards, "seconds": seconds, "eval": metrics, "summary": summary[0],
+            "figures": figures, "inspect": shown, "matplotlib": has_mpl}
+
+
+def _space_model(case: str, device: str):
+    """A space case's model from its seed, off the identity start (the same
+    weights in every process: the draws come from seeded CPU generators)."""
+    from adunet_torch.models import build_super_resolution_unet
+
+    scale, depth, _, dtype = SPACE_CASES[case]
+    model, _ = build_super_resolution_unet(scale, depth_override=depth, dtype=dtype,
+                                           device=device, seed=3)
+    with torch.no_grad():
+        pgen = torch.Generator().manual_seed(4)
+        for p in model.parameters():
+            p.add_((0.02 * torch.randn(p.shape, generator=pgen)).to(p.device))
+    return model
+
+
+def _space_step(case: str, hr: np.ndarray, mesh=None) -> dict:
+    """One Adam step of a space case on the card (this process's rows of the
+    batch on ``mesh``), counts set to 0 just before it and read just after,
+    its peak memory, then 3 more steps timed (CUDA events)."""
+    from adunet_torch.losses import charbonnier_loss
+    from adunet_torch.parallel import data_parallel, shard_batch
+    from adunet_torch.train import create_train_state, make_optimizer, make_sr_train_step
+
+    model = _space_model(case, "cuda")
+    state = create_train_state(model, make_optimizer(model.parameters(), RANKS_LR))
+    if mesh is not None:
+        state = data_parallel(state, mesh)
+    batch = hr if mesh is None else shard_batch(hr, mesh)
+    step = make_sr_train_step(model, charbonnier_loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    _, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    out = {"loss": loss, "launches": [*_counts(), conv64.conv3x3_rows.launches],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "rows": int(batch.shape[1]),
+           "params": {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}}
+    out["ms_per_step"] = cuda_ms(lambda: step(state, batch), 3)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def space_worker(rank: int, world: int, rdv: str, inp: str, out: str) -> int:
+    """One of 2 processes on this card in a gloo group on a (1, 2) space mesh
+    (each holds 128 of the 256 rows of every image): every space case's
+    step. Rank 0 writes its params; every rank its loss, launches, memory
+    and a digest of its params."""
+    import faulthandler
+
+    import torch.distributed as dist
+    from adunet_torch.parallel import make_dp_spatial_mesh
+
+    faulthandler.enable()
+    setup_runtime()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=world)
+    data = torch.load(inp, weights_only=False)
+    res = {}
+    with deterministic_cudnn():
+        mesh = make_dp_spatial_mesh(2, device_type="cuda")
+        for case in SPACE_CASES:
+            t0 = time.perf_counter()
+            r = _space_step(case, data[case], mesh)
+            r["digest"] = sum(float(p.double().square().sum()) for p in r["params"].values())
+            if rank != 0:
+                del r["params"]
+            res[case] = r
+            print(f"[rank {rank}] {case} in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.save(res, f"{out}/space_rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def space_ranks(tmp: Path, ident: str) -> dict:
+    """The data x space mesh on the card: 2 processes share it in a gloo group
+    on a (1, 2) mesh (``--space-worker``), each on 128 of every image's 256
+    rows, against one process on the whole batch, for the float32 and bf16
+    flagship at batch 32 and the bf16 deep config (138,427,843 params) at
+    batch 8, each one Adam step from the same seeded weights under
+    deterministic cuDNN: float32 loss and params (relative L2 over all of
+    them) within 1e-5; bf16 loss within 1e-2 and params within 1e-3 (the
+    ranks' smaller convolutions take other cuDNN algorithms and the resizes
+    other sums, so bf16 activations round elsewhere; one Adam step moves an
+    element by at most the rate); both ranks the same loss and params; on
+    each rank and step K1 / K1 backward / K2 (halo-row mode) 16 / 16 / 4 on
+    the flagship and 24 / 24 / 4 on the deep config, the SAME K2 never; peak
+    memory per rank beside one process's."""
+    synth = _synth()
+    rng = np.random.default_rng(23)
+    data = {}
+    for case, (_, _, batch, _) in SPACE_CASES.items():
+        data[case] = np.stack([np.round(synth(rng, TRAIN_PATCH) * 255).astype(np.uint8)
+                               for _ in range(batch)])
+    inp = tmp / "space_in.pt"
+    torch.save(data, inp)
+    one = {}
+    with deterministic_cudnn():
+        for case in SPACE_CASES:
+            one[case] = _space_step(case, data[case])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _run_children([[sys.executable, str(ROOT / "chip_smoke.py"), "--space-worker", str(r), "2",
+                    str(tmp / "space_rdv"), str(inp), str(tmp)] for r in range(2)], timeout=500)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"space_rank{r}.pt", weights_only=False) for r in range(2)]
+    out = {"seconds": seconds}
+    for case, (_, depth, batch, dtype) in SPACE_CASES.items():
+        got, want = ranks[0][case], one[case]
+        per_step = [24, 24, 0, 4] if depth == 5 else [16, 16, 0, 4]
+        res = {"loss": got["loss"], "loss_one": want["loss"],
+               "loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+               "params_rel_l2": _rel_l2(got["params"], want["params"]),
+               "launches_per_rank": [r[case]["launches"] for r in ranks],
+               "launches_one": want["launches"],
+               "peak_gb_per_rank": [r[case]["peak_gb"] for r in ranks], "peak_gb_one": want["peak_gb"],
+               "rows_per_rank": [r[case]["rows"] for r in ranks],
+               "ms_per_step_per_rank": [r[case]["ms_per_step"] for r in ranks],
+               "ms_per_step_one": want["ms_per_step"]}
+        loss_tol, params_tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-3)
+        if not (res["loss_rel"] <= loss_tol and res["params_rel_l2"] <= params_tol
+                and ranks[1][case]["loss"] == got["loss"]
+                and ranks[1][case]["digest"] == got["digest"]
+                and all(lc == per_step for lc in res["launches_per_rank"])
+                and res["rows_per_rank"] == [128, 128]):
+            raise AssertionError(f"space_ranks {case}: {res}")
+        out[case] = res
+        log(f"[space_ranks] {ident}: {case} (batch {batch} x 256 px, {_dname(dtype)}) on a (1, 2) "
+            f"space mesh, 2 processes sharing the card over gloo: loss {got['loss']:.6f} against "
+            f"one process's {want['loss']:.6f} (rel {res['loss_rel']:.1e}), params rel L2 "
+            f"{res['params_rel_l2']:.1e}; launches a rank K1 / K1 backward / K2 / K2 halo "
+            f"{res['launches_per_rank']} (one process {want['launches']}); peak memory a rank "
+            + " / ".join(f"{v:.2f}" for v in res["peak_gb_per_rank"])
+            + f" GB against {want['peak_gb']:.2f} GB in one process; ms/step of two processes "
+            f"sharing one card (not a speed) "
+            + " / ".join(f"{v:.1f}" for v in res["ms_per_step_per_rank"])
+            + f", one process {want['ms_per_step']:.1f}")
+    return out
+
+
 def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_launches: dict,
                  seg_launches: dict, sr_launches: dict, build_s: float) -> dict:
     """One entry per kernel. ``launches`` come from the training path (device-
@@ -2726,6 +3049,7 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             entry["seg"][path] = {"launches": seg_launches[path][kid], "shapes": shapes, **sums}
         entry["streamed"] = {"launches": sr_launches["streamed"][kid]}
         entry["ddp"] = {"launches": sr_launches["ddp"][kid]}
+        entry["sweep"] = {"launches": sr_launches["sweep"][kid]}
         # the served joint forward: float32 at the serving rows and K1_JOINT_SERVED's
         per = {"K1": K1_JOINT, "K2": K2_JOINT}.get(kid, {})
         rows = [d for d in details if d["kernel"] == kid and d["dtype"] == "float32"
@@ -2761,6 +3085,21 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             per_step = K1_TRAIN if kid == "K1" else K2_TRAIN
             entry["fwd_bwd_ms"] = sum(g["fwd_bwd_ms"] * per_step[tuple(g["shape"])] for g in grad)
         out.append(entry)
+    # K2's halo-row mode: the space_ranks phase's rank 0 over its checked
+    # steps; the sums over one bf16 flagship step's launches on a rank
+    halo = [d for d in details if d["kernel"] == "K2_halo"]
+    flagship = [d for d in halo if d["dtype"] == "bfloat16" and d["shape"][0] == TRAIN_BATCH]
+    out.append({"name": "conv3x3_rows_c64", "route": "cuda", "source": "adunet_torch/csrc/conv64.cu",
+                "replaces": "adunet/kernels/conv64.py:132",
+                "launches": sum(sr_launches["space"].values()),
+                "max_abs_err": max(d["max_abs_err"] for d in halo),
+                **{k: summed(flagship, k) for k in keys}, "bound_by": flagship[0]["bound_by"],
+                "per": "launches on one rank of one bf16 flagship step on a (1, 2) space mesh "
+                       "(batch 32, 128 + 2 of 256 rows)",
+                "space": {"launches": sr_launches["space"]},
+                "rows": [{k: d[k] for k in ("shape", "dtype", "per_call", "max_abs_err", "ms",
+                                            "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "library_device_ms")} for d in halo]})
     return {"kernels": out, "build_s": build_s}
 
 
@@ -2773,6 +3112,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--ranks-worker"]:  # the ddp_ranks phase's: RANK WORLD RDV IN OUT
         rank, world, rdv, inp, out = sys.argv[2:7]
         return ranks_worker(int(rank), int(world), rdv, inp, out)
+    if sys.argv[1:2] == ["--space-worker"]:  # the space_ranks phase's: RANK WORLD RDV IN OUT
+        rank, world, rdv, inp, out = sys.argv[2:7]
+        return space_worker(int(rank), int(world), rdv, inp, out)
     setup_runtime()
     t_start = time.perf_counter()
 
@@ -2795,7 +3137,8 @@ def main() -> int:
         return fn(*args)
 
     gen = torch.Generator("cuda").manual_seed(0)
-    details = phase("k1", check_k1, gen) + phase("k2", check_k2, gen)
+    details = (phase("k1", check_k1, gen) + phase("k2", check_k2, gen)
+               + phase("k2_halo", check_k2_halo, gen))
     grads = phase("grads", check_backward, gen)
     details += phase("k1_bwd", check_k1_backward, gen)
     torch.cuda.empty_cache()
@@ -2830,6 +3173,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         dp = phase("ddp", ddp, Path(tmp), ident)
         dp_ranks = phase("ddp_ranks", ddp_ranks, Path(tmp))
+        swept = phase("sweep", sweep, Path(tmp), ident)
+        space = phase("space_ranks", space_ranks, Path(tmp), ident)
 
     seconds = time.perf_counter() - t_start
     summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
@@ -2838,14 +3183,17 @@ def main() -> int:
                "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
                "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "joint": joint,
                "joint_f32_step": joint_step, "joint_cli": joint_cli, "tune": tuned,
-               "ddp": dp, "ddp_ranks": dp_ranks, "seconds": seconds,
+               "ddp": dp, "ddp_ranks": dp_ranks, "sweep": swept, "space_ranks": space,
+               "seconds": seconds,
                "k1_bwd_ptxas": spills, "host_probes": probes}
     log("[detail] " + json.dumps(summary))
     log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
     seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}
     sr_launches = {"streamed": streamed["launches"], "vanilla_sr": vanilla["launches"],
                    "joint": joint["launches"], "joint_served": joint_cli["served_launches"],
-                   "tune": tuned["launches"], "ddp": dp["launches"],
+                   "tune": tuned["launches"], "ddp": dp["launches"], "sweep": swept["launches"],
+                   "space": {case: v["launches_per_rank"][0][3] for case, v in space.items()
+                             if case != "seconds"},
                    "deep": {kid: {k: deep[k]["launches"][kid] for k in ("remat_0", "remat_2")}
                             for kid in ("K1", "K1_bwd", "K2")}}
     print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"],
