@@ -92,4 +92,47 @@ __device__ __forceinline__ void store_vec(typename Tr::storage* p, const float (
   }
 }
 
+// ---------------------------------------------------------------- host side
+
+constexpr int kMaxDevices = 64;
+
+// The SM count of device `dev`, queried once per device.
+inline cudaError_t sm_count(int dev, int* n) {
+  static int cache[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0;
+    const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cache[dev] = sms;
+  }
+  *n = cache[dev];
+  return cudaSuccess;
+}
+
+// Makes `device` (the tensors' device, which the caller passes) current for a
+// launch where it is not, and the caller's device current again after: the
+// Python wrappers then need no device context of their own. Where `device`
+// is already current (the common case) it costs one cudaGetDevice.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) : error_(cudaGetDevice(&prev_)) {
+    if (error_ == cudaSuccess && prev_ != device) {
+      error_ = cudaSetDevice(device);
+      switched_ = error_ == cudaSuccess;
+    }
+  }
+  ~DeviceScope() {
+    if (switched_) cudaSetDevice(prev_);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+  cudaError_t error() const { return error_; }
+
+ private:
+  int prev_ = 0;
+  cudaError_t error_;
+  bool switched_ = false;
+};
+
 }  // namespace adunet

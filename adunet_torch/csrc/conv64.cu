@@ -44,7 +44,7 @@
 //   once per tile (the halo, 1.55x the tile, mostly from L2).
 // - Weights: the 9 taps' (64 co x 64 ci) bf16 matrices, 72 KB, copied to
 //   shared memory once per block, already in the 128B-swizzled K-major
-//   layout that wgmma's B descriptor reads (packed by pack_weights_bf16).
+//   layout that wgmma's B descriptor reads (packed on the card, below).
 // - A from registers: the tap (dy, dx) shifts the staged tile by whole
 //   pixels, which breaks the swizzle phase an A descriptor needs, so each
 //   lane computes its own swizzled row address and `ldmatrix` loads the
@@ -55,8 +55,19 @@
 // - Epilogue: bias added in float32, rounded to bf16 (nearest-even),
 //   staged through a swizzled shared buffer, stored 16 bytes per lane in
 //   contiguous rows.
+//
+// The weight pack, `pack_conv3x3_weights_kernel`: a call hands over the
+// weights and bias as the model holds them (OIHW, float32 or bf16; the bias
+// float32, bf16 or absent), and one small kernel on the same stream, just
+// before the conv, rounds them to the input type and lays them out as that
+// type's conv kernel reads them, into scratch the wrapper allocates. So a
+// launch is one C call with no host-side pack or cast, and packs exactly the
+// weights it is given (nothing cached to keep in step with the parameters,
+// and a CUDA graph that captures the call packs the live weights on replay).
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from libcuda at run time
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -64,6 +75,64 @@ namespace adunet {
 namespace {
 
 constexpr int kC = 64;            // input and output channels
+
+// ---------------------------------------------------------------- weight pack
+constexpr int kPackElems = 9 * kC * kC;  // the packed weights; the 64 bias values follow
+constexpr int kPackThreads = 256;
+
+template <typename Tr>
+__device__ __forceinline__ float load_param(const void* p, int i) {
+  return Tr::to_f(static_cast<const typename Tr::storage*>(p)[i]);
+}
+
+// One thread per packed element: OIHW weights of type Tw -> the layout of the
+// conv kernel for input type Tx, each value rounded to Tx (nearest even, as
+// torch's cast rounds), i.e. `pack_weights` (float32: [tap][ci][co]) or
+// `pack_weights_bf16` (bf16: [tap][co][ci], the 16-byte chunk j of row co
+// holding the input channels of chunk j ^ (co % 8)). The first 64 threads
+// also write the bias, rounded to Tx and widened to float32 (zeros without
+// one), after the weights.
+template <typename Tx, typename Tw, typename Tb>
+__global__ void __launch_bounds__(kPackThreads)
+pack_conv3x3_weights_kernel(const void* __restrict__ w, const void* __restrict__ bias,
+                            typename Tx::storage* __restrict__ wp, float* __restrict__ bp) {
+  const int i = blockIdx.x * kPackThreads + threadIdx.x;
+  if (i < kPackElems) {
+    const int t = i / (kC * kC);  // tap 3*dy + dx
+    const int r = i - t * (kC * kC);
+    int ci, co;
+    if constexpr (std::is_same<Tx, BF16>::value) {
+      co = r >> 6;
+      ci = ((((r >> 3) & 7) ^ (co & 7)) << 3) | (r & 7);
+    } else {
+      ci = r >> 6;
+      co = r & (kC - 1);
+    }
+    wp[i] = Tx::from_f(load_param<Tw>(w, (co * kC + ci) * 9 + t));
+  }
+  if (i < kC) bp[i] = bias == nullptr ? 0.f : Tx::to_f(Tx::from_f(load_param<Tb>(bias, i)));
+}
+
+template <typename Tx, typename Tw>
+cudaError_t launch_pack_w(const void* w, const void* bias, int bias_dtype, void* packed,
+                          cudaStream_t stream) {
+  auto* wp = static_cast<typename Tx::storage*>(packed);
+  float* bp = reinterpret_cast<float*>(wp + kPackElems);
+  constexpr int blocks = (kPackElems + kPackThreads - 1) / kPackThreads;
+  if (bias_dtype == kBFloat16)
+    pack_conv3x3_weights_kernel<Tx, Tw, BF16><<<blocks, kPackThreads, 0, stream>>>(w, bias, wp, bp);
+  else
+    pack_conv3x3_weights_kernel<Tx, Tw, F32><<<blocks, kPackThreads, 0, stream>>>(
+        w, bias_dtype == kFloat32 ? bias : nullptr, wp, bp);
+  return cudaGetLastError();
+}
+
+template <typename Tx>
+cudaError_t launch_pack(const void* w, int w_dtype, const void* bias, int bias_dtype,
+                        void* packed, cudaStream_t stream) {
+  return w_dtype == kBFloat16 ? launch_pack_w<Tx, BF16>(w, bias, bias_dtype, packed, stream)
+                              : launch_pack_w<Tx, F32>(w, bias, bias_dtype, packed, stream);
+}
 
 // ---------------------------------------------------------------- float32
 constexpr int kTH = 2;            // output rows per block
@@ -473,12 +542,16 @@ cudaError_t launch_bf16(const void* x, const void* w, const void* bias, void* y,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
+  // the SM count and the kernel's shared-memory limit, set once per device
+  static bool smem_set[kMaxDevices] = {};
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
+  if (e == cudaSuccess) e = sm_count(dev, &sms);
+  if (e == cudaSuccess && !smem_set[dev]) {
     e = cudaFuncSetAttribute(conv3x3_c64_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemBytes);
+    smem_set[dev] = e == cudaSuccess;
+  }
   if (e != cudaSuccess) return e;
   const int n_tiles = B * (H / kTH) * (W / kTW);
   const int grid = n_tiles < sms ? n_tiles : sms;
@@ -494,21 +567,34 @@ cudaError_t launch_bf16(const void* x, const void* w, const void* bias, void* y,
 
 // x: contiguous NHWC (B, H + 2 * halo, W, 64), y: (B, H, W, 64), both of
 // `dtype` (0 float32, 1 bf16); halo 0 is the SAME conv, 1 the halo-row mode
-// (VALID in H, SAME in W); bias: float32 (64,). w: for float32, float32 [9][64 ci][64 co] (`pack_weights`);
-// for bf16, bf16 [9][64 co][64 ci] with each 128-byte row's 16-byte chunks
-// swizzled (`pack_weights_bf16`). All pointers 16-byte aligned; H % 4 == 0
-// and W % 128 == 0 (the Python gate `supported` is stricter). Returns the
-// launch's CUDA error.
-extern "C" int adunet_conv3x3_c64(const void* x, const void* w, const void* bias, void* y, int B,
-                                  int H, int W, int halo, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || (halo != 0 && halo != 1)) return cudaErrorInvalidValue;
+// (VALID in H, SAME in W). w: contiguous OIHW (64, 64, 3, 3) of `w_dtype`;
+// bias: (64,) of `bias_dtype`, or none where `bias_dtype` is -1 (0 float32,
+// 1 bf16 for both). scratch: 9 * 64 * 64 elements of `dtype` then 64
+// float32, where the call packs the weights (rounded to `dtype`) and the
+// bias (rounded to `dtype`, then float32) before the conv reads them. All
+// pointers 16-byte aligned (w and bias: 4 bytes), on CUDA device `device`,
+// which the call makes current if it is not; H % 4 == 0 and W % 128 == 0
+// (the Python gate `supported` is stricter). Launches the pack and the conv
+// on `stream`; returns the first CUDA error.
+extern "C" int adunet_conv3x3_c64(const void* x, const void* w, int w_dtype, const void* bias,
+                                  int bias_dtype, void* scratch, void* y, int B, int H, int W,
+                                  int halo, int dtype, int device, void* stream) {
+  using adunet::kBFloat16;
+  using adunet::kFloat32;
+  if (B <= 0 || H <= 0 || W <= 0 || (halo != 0 && halo != 1) ||
+      (w_dtype != kFloat32 && w_dtype != kBFloat16) ||
+      (bias_dtype != -1 && bias_dtype != kFloat32 && bias_dtype != kBFloat16) ||
+      (dtype != kFloat32 && dtype != kBFloat16))
+    return cudaErrorInvalidValue;
+  const adunet::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case adunet::kFloat32:
-      return adunet::launch_f32(x, w, bias, y, B, H, W, halo, st);
-    case adunet::kBFloat16:
-      return adunet::tc::launch_bf16(x, w, bias, y, B, H, W, halo, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const bool bf16 = dtype == kBFloat16;
+  const void* bias_packed = static_cast<const char*>(scratch) +
+                            adunet::kPackElems * (bf16 ? 2 : 4);
+  cudaError_t e = bf16 ? adunet::launch_pack<adunet::BF16>(w, w_dtype, bias, bias_dtype, scratch, st)
+                       : adunet::launch_pack<adunet::F32>(w, w_dtype, bias, bias_dtype, scratch, st);
+  if (e != cudaSuccess) return e;
+  return bf16 ? adunet::tc::launch_bf16(x, scratch, bias_packed, y, B, H, W, halo, st)
+              : adunet::launch_f32(x, scratch, bias_packed, y, B, H, W, halo, st);
 }

@@ -460,21 +460,6 @@ layer_norm_relu_bwd_cols_kernel(const float* __restrict__ partial, int n_parts, 
 // The backward's grid holds at most this many blocks per SM (fewer where
 // fewer fit), so its scratch holds this many (2, C) partials per SM.
 constexpr int kBwdMaxBlocksPerSm = 8;
-constexpr int kMaxDevices = 64;
-
-// The SM count of device `dev`, queried once per device.
-cudaError_t sm_count(int dev, int* n) {
-  static int cache[kMaxDevices] = {};
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    int sms = 0;
-    const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    cache[dev] = sms;
-  }
-  *n = cache[dev];
-  return cudaSuccess;
-}
 
 // The number of (2, C) partials the backward's scratch must hold on the
 // current device: the most blocks its grid can have.
@@ -559,13 +544,17 @@ extern "C" int adunet_layer_norm_relu_backward_partials(void* n) {
 // x, g (the output cotangent), dx: contiguous (rows, C) of `dtype` (0
 // float32, 1 bf16); gamma, beta: float32 (C,); dparams: float32 (2, C) out,
 // dgamma then dbeta; partial: float32 scratch of
-// (adunet_layer_norm_relu_backward_partials(), 2, C). All pointers 16-byte
-// aligned. Returns the launches' CUDA error.
+// (adunet_layer_norm_relu_backward_partials(), 2, C) (the wrapper takes both
+// from one allocation). All pointers 16-byte aligned, on CUDA device
+// `device`, which the call makes current if it is not. Returns the launches'
+// CUDA error.
 extern "C" int adunet_layer_norm_relu_backward(const void* x, const void* g, const void* gamma,
                                                const void* beta, void* dx, void* dparams,
                                                void* partial, long long rows, int C, float eps,
-                                               int dtype, void* stream) {
+                                               int dtype, int device, void* stream) {
   if (rows <= 0) return cudaErrorInvalidValue;
+  const adunet::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case adunet::kFloat32:
@@ -580,10 +569,14 @@ extern "C" int adunet_layer_norm_relu_backward(const void* x, const void* g, con
 }
 
 // x, y: contiguous (rows, C) of `dtype` (0 float32, 1 bf16); gamma, beta:
-// float32 (C,). All pointers 16-byte aligned. Returns the launch's CUDA error.
+// float32 (C,). All pointers 16-byte aligned, on CUDA device `device`, which
+// the call makes current if it is not. Returns the launch's CUDA error.
 extern "C" int adunet_layer_norm_relu(const void* x, const void* gamma, const void* beta, void* y,
-                                      long long rows, int C, float eps, int dtype, void* stream) {
+                                      long long rows, int C, float eps, int dtype, int device,
+                                      void* stream) {
   if (rows <= 0) return cudaErrorInvalidValue;
+  const adunet::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case adunet::kFloat32:

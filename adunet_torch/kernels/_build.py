@@ -9,9 +9,12 @@ flags, so an edited source is never served by a stale build. It is built at
 first use (``library()``), never at import: importing this module needs no
 ``nvcc`` and no GPU.
 
-The C entry points take raw device pointers and the caller's CUDA stream and
-return ``cudaGetLastError()`` after the launch; the Python wrappers raise on
-a non-zero code (``check``). The library links against the CUDA runtime
+The C entry points take raw device pointers, the tensors' device index (the
+call makes that device current only where it is not) and the caller's CUDA
+stream (``current_stream``), and return ``cudaGetLastError()`` after the
+launch; the Python wrappers raise on a non-zero code (``check``). One launch
+is one C call: everything else a launch needs on the host (the SM count,
+kernel attributes) is asked of the runtime once per device, in C. The library links against the CUDA runtime
 only: K2's bf16 kernel gets ``cuTensorMapEncodeTiled`` from libcuda (for its
 TMA descriptor) at run time through ``cudaGetDriverEntryPoint``, so no
 ``-lcuda`` is needed.
@@ -28,7 +31,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "check", "build_dir", "last_build"]
+import torch
+
+__all__ = ["library", "check", "build_dir", "last_build", "current_stream"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("fused_norm.cu", "conv64.cu")
@@ -85,18 +90,17 @@ def _build(out: Path) -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.adunet_layer_norm_relu.argtypes = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_int, _P]
-    lib.adunet_layer_norm_relu.restype = ctypes.c_int
+    i = ctypes.c_int
+    lib.adunet_layer_norm_relu.argtypes = [_P, _P, _P, _P, ctypes.c_longlong, i,
+                                           ctypes.c_float, i, i, _P]
+    lib.adunet_layer_norm_relu.restype = i
     lib.adunet_layer_norm_relu_backward.argtypes = [_P, _P, _P, _P, _P, _P, _P,
-                                                    ctypes.c_longlong, ctypes.c_int,
-                                                    ctypes.c_float, ctypes.c_int, _P]
-    lib.adunet_layer_norm_relu_backward.restype = ctypes.c_int
+                                                    ctypes.c_longlong, i, ctypes.c_float, i, i, _P]
+    lib.adunet_layer_norm_relu_backward.restype = i
     lib.adunet_layer_norm_relu_backward_partials.argtypes = [_P]
-    lib.adunet_layer_norm_relu_backward_partials.restype = ctypes.c_int
-    lib.adunet_conv3x3_c64.argtypes = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int, _P]
-    lib.adunet_conv3x3_c64.restype = ctypes.c_int
+    lib.adunet_layer_norm_relu_backward_partials.restype = i
+    lib.adunet_conv3x3_c64.argtypes = [_P, _P, i, _P, i, _P, _P, i, i, i, i, i, i, _P]
+    lib.adunet_conv3x3_c64.restype = i
     lib.adunet_error_string.argtypes = [ctypes.c_int]
     lib.adunet_error_string.restype = ctypes.c_char_p
 
@@ -107,6 +111,8 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     that ``last_build`` holds the compiler's report (the library already
     loaded, built from the same sources, stays loaded)."""
     global _lib
+    if _lib is not None and not rebuild:  # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None or rebuild:
             digest = hashlib.sha256()
@@ -123,6 +129,13 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
                 _declare(lib)
                 _lib = lib
         return _lib
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of torch's current CUDA stream on device ``index``
+    (what ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    making a Stream object each launch)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(code: int, what: str) -> None:

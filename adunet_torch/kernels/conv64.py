@@ -15,14 +15,28 @@ Replaces the Pallas TPU kernel ``adunet/kernels/conv64.py:132``
   shared memory as ``pack_weights_bf16`` lays them out. Bound: bytes and
   operations tie, ~0.16 ms for one (32, 256, 256, 64) launch.
 
+A launch is one C call: the wrapper hands over the weight and bias as the
+model holds them (float32 parameters, whatever the compute type), and the
+call packs them on the card (``pack_conv3x3_weights_kernel``, into scratch
+allocated here) just before the conv. The weights round to x's type
+(nearest even) before they are packed, and the bias rounds to x's type and
+widens to float32, as a cast of the parameters to the compute type would, so
+the output is the same as from parameters cast by the caller.
+``pack_weights`` / ``pack_weights_bf16`` are the plain description of the
+two layouts (and the tests' oracle for the pack on the card).
+
 ``conv3x3_same`` is a ``torch.autograd.Function``, the counterpart of the
-reference's custom VJP (:191-227). It saves x and w. Its backward is the
-reference's ``_bwd`` (:203-227), which runs as XLA convolutions outside any
-Pallas kernel; here they are library convolutions on the NCHW views of the
-channels-last tensors (``aten.convolution_backward``): dx is the correlation
-of the cotangent with the flipped, io-swapped kernel, dw the contraction
-over batch and pixels, db the float32 sum over B, H and W. Each comes back
-in its input's dtype.
+reference's custom VJP (:191-227), and runs only where a gradient is wanted.
+It saves x and w. Its backward is the reference's ``_bwd`` (:203-227), which
+runs as XLA convolutions outside any Pallas kernel; here they are library
+convolutions on the NCHW views of the channels-last tensors
+(``aten.convolution_backward``, with w cast to x's type): dx is the
+correlation of the cotangent with the flipped, io-swapped kernel, dw the
+contraction over batch and pixels, db the sum over B, H and W accumulated in
+float32 as it reads the cotangent (no float32 copy of it). dw and db round to
+x's type, as the reference's ``_bwd`` rounds them to the compute type, and
+then come back in their parameters' dtype, as a cast's backward would
+return them.
 
 The gate ``supported`` is the reference's (``adunet/kernels/conv64.py:49``)
 unchanged, so the same four convs of the flagship reach the kernel; callers
@@ -105,20 +119,21 @@ def _plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, pad_h: i
     _, h, wd, _ = x.shape
     h += 2 * pad_h - 2  # output rows
     xp = F.pad(x.to(acc), (0, 0, 1, 1, pad_h, pad_h))
-    wt = w.to(acc).permute(2, 3, 1, 0)  # (3, 3, C_in, C_out)
+    wt = w.to(x.dtype).to(acc).permute(2, 3, 1, 0)  # (3, 3, C_in, C_out)
     out = None
     for dy in range(3):
         for dx in range(3):
             term = torch.matmul(xp[:, dy : dy + h, dx : dx + wd, :], wt[dy, dx])
             out = term if out is None else out + term
     if bias is not None:
-        out = out + bias.to(acc)
+        out = out + bias.to(x.dtype).to(acc)
     return out.to(x.dtype)
 
 
 def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
-    """The plain version: the explicit sum of the 9 taps' matmuls in float32
-    over a zero-padded NHWC input, plus bias, cast to x.dtype."""
+    """The plain version: the weights and bias rounded to x.dtype, then the
+    explicit sum of the 9 taps' matmuls in float32 over a zero-padded NHWC
+    input, plus bias, cast to x.dtype."""
     return _plain(x, w, bias, 1)
 
 
@@ -131,11 +146,15 @@ def conv3x3_rows_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | No
 def conv3x3_same_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                           need_dx: bool = True, need_dw: bool = True, need_db: bool = True,
                           bias_dtype: torch.dtype | None = None, pad_h: int = 1):
-    """(dx, dw, db) of the 3x3 SAME conv of NHWC ``x`` with OIHW ``w`` for
-    the NHWC output cotangent ``g``; an entry not asked for is None. db is
-    summed in float32 and returned in ``bias_dtype`` (default w's dtype).
-    ``pad_h=0`` is the halo-row mode's (dx covers x's H + 2 rows)."""
-    g = g.to(x.dtype)
+    """(dx, dw, db) of the 3x3 SAME conv of NHWC ``x`` with OIHW ``w`` (any
+    float dtype: it is cast to x's) for the NHWC output cotangent ``g``; an
+    entry not asked for is None. dx comes in x's dtype; dw rounds to x's
+    dtype and returns in w's; db is summed in float32 (the cotangent read as
+    it is, no float32 copy), rounded to x's dtype and returned in
+    ``bias_dtype`` (default w's dtype). ``pad_h=0`` is the halo-row mode's
+    (dx covers x's H + 2 rows)."""
+    if g.dtype is not x.dtype:
+        g = g.to(x.dtype)
     dx = dw = db = None
     if need_dx or need_dw:
         gn = g.permute(0, 3, 1, 2)  # NCHW views of channels-last memory
@@ -147,34 +166,58 @@ def conv3x3_same_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
         dx = dxn.permute(0, 2, 3, 1) if need_dx else None
         dw = dw.to(w.dtype) if need_dw else None
     if need_db:
-        db = g.to(_acc_dtype(g.dtype)).sum(dim=(0, 1, 2)).to(bias_dtype or w.dtype)
+        db = _bias_grad_f32(g).to(x.dtype).to(bias_dtype or w.dtype)
     return dx, dw, db
+
+
+def _bias_grad_f32(g: torch.Tensor) -> torch.Tensor:
+    """The bias gradient before any rounding: the sum of the NHWC cotangent
+    over B, H and W, accumulated in float32 (float64 for float64) as the
+    reduction reads ``g`` in its own type: no float32 copy of ``g`` is made
+    on the card."""
+    return g.sum(dim=(0, 1, 2), dtype=_acc_dtype(g.dtype))
+
+
+# bytes of the packed weights (9 x 64 x 64 of x's type) and bias (64 float32)
+_SCRATCH_BYTES = {torch.float32: 9 * 64 * 64 * 4 + 64 * 4, torch.bfloat16: 9 * 64 * 64 * 2 + 64 * 4}
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
             halo: int = 0) -> torch.Tensor:
-    """The CUDA kernel on a CUDA tensor (``halo`` 1: the halo-row mode);
-    raises on what it does not take."""
-    if x.dtype not in _DTYPE_CODES:
+    """The CUDA kernel on a CUDA tensor (``halo`` 1: the halo-row mode), one
+    C call that packs ``w`` and ``bias`` (float32 or bf16, as the model holds
+    them) on the card and runs the conv; raises on what it does not take."""
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(f"conv3x3_same: kernel takes float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    ptr = x.data_ptr()
+    if not x.is_contiguous() or ptr % 16:
         raise ValueError("conv3x3_same: kernel takes a contiguous, 16-byte aligned NHWC tensor")
-    if w.device != x.device or (bias is not None and bias.device != x.device):
+    index = x.get_device()
+    w_code = _DTYPE_CODES.get(w.dtype)
+    if w_code is None:
+        raise TypeError(f"conv3x3_same: kernel takes float32 or bfloat16 weights, got {w.dtype}")
+    if w.get_device() != index or (bias is not None and bias.get_device() != index):
         raise ValueError("conv3x3_same: weights must be on x's device")
-    wp = pack_weights_bf16(w) if x.dtype == torch.bfloat16 else pack_weights(w)
-    b = (torch.zeros(64, device=x.device) if bias is None
-         else bias.detach().to(torch.float32).contiguous())
+    if not w.is_contiguous():
+        w = w.contiguous()
+    if bias is None:
+        b_ptr, b_code = None, -1
+    else:
+        b_code = _DTYPE_CODES.get(bias.dtype)
+        if b_code is None:
+            raise TypeError(f"conv3x3_same: kernel takes a float32 or bfloat16 bias, got {bias.dtype}")
+        if not bias.is_contiguous():
+            bias = bias.contiguous()
+        b_ptr = bias.data_ptr()
     bsz, h, wd, _ = x.shape
     h -= 2 * halo  # output rows
-    y = torch.empty((bsz, h, wd, 64), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.adunet_conv3x3_c64(
-            x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
-            bsz, h, wd, halo, _DTYPE_CODES[x.dtype], stream,
-        )
-    _build.check(code, "conv3x3_rows" if halo else "conv3x3_same")
+    y = x.new_empty((bsz, h, wd, 64))
+    scratch = x.new_empty(_SCRATCH_BYTES[x.dtype], dtype=torch.uint8)
+    _build.check(_build.library().adunet_conv3x3_c64(
+        ptr, w.data_ptr(), w_code, b_ptr, b_code, scratch.data_ptr(), y.data_ptr(),
+        bsz, h, wd, halo, code, index, _build.current_stream(index)),
+        "conv3x3_rows" if halo else "conv3x3_same")
     if halo:
         conv3x3_rows.launches += 1
     else:
@@ -207,17 +250,31 @@ class _Conv3x3Rows(_Conv3x3Same):
     halo = 1
 
 
+def _run(fn: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, halo: int):
+    """The Function where a gradient is wanted, else the kernel (CUDA) or
+    the plain version (CPU) without it; raises for any other device."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                        or (bias is not None and bias.requires_grad))
+    function = _Conv3x3Rows if halo else _Conv3x3Same
+    if x.is_cuda:
+        return function.apply(x, w, bias) if grad else _launch(x, w, bias, halo)
+    if x.device.type != "cpu":
+        raise ValueError(f"{fn}: no kernel for device {x.device}")
+    if grad:
+        return function.apply(x, w, bias)
+    return (conv3x3_rows_plain if halo else conv3x3_same_plain)(x, w, bias)
+
+
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """3x3 SAME conv of NHWC ``x`` with OIHW ``w`` at a ``supported`` shape;
-    differentiable in x, w and bias.
+    differentiable in x, w and bias. ``w`` and ``bias`` may be float32 or
+    bf16 whatever x's type (they round to it, as a cast would).
 
     CUDA: float32 or bf16 ``x``, contiguous; anything else raises. CPU: the
     plain version. ``conv3x3_same.launches`` counts kernel launches."""
-    if not supported(tuple(x.shape), tuple(w.shape)):
+    if not supported(x.shape, w.shape):
         raise ValueError(f"conv3x3_same: unsupported shapes x={tuple(x.shape)} w={tuple(w.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"conv3x3_same: no kernel for device {x.device}")
-    return _Conv3x3Same.apply(x, w, bias)
+    return _run("conv3x3_same", x, w, bias, 0)
 
 
 def conv3x3_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
@@ -226,11 +283,9 @@ def conv3x3_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) ->
     ``supported``; differentiable in x, w and bias. As ``conv3x3_same``
     otherwise; ``conv3x3_rows.launches`` counts kernel launches."""
     out_shape = (x.shape[0], x.shape[1] - 2, *x.shape[2:])
-    if x.dim() != 4 or not supported(out_shape, tuple(w.shape)):
+    if x.dim() != 4 or not supported(out_shape, w.shape):
         raise ValueError(f"conv3x3_rows: unsupported shapes x={tuple(x.shape)} w={tuple(w.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"conv3x3_rows: no kernel for device {x.device}")
-    return _Conv3x3Rows.apply(x, w, bias)
+    return _run("conv3x3_rows", x, w, bias, 1)
 
 
 conv3x3_same.launches = 0

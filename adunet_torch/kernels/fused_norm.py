@@ -93,41 +93,54 @@ def layer_norm_relu_backward(x, gamma, beta, g, eps: float = 1e-3):
     return dx.to(x.dtype), dgamma, dbeta
 
 
-def _check_inputs(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> int:
-    """C of a CUDA tensor the kernels take; raises on anything else."""
-    c = x.shape[-1]
-    if x.dtype not in _DTYPE_CODES:
+_F32 = torch.float32
+_SUPPORTED = frozenset(SUPPORTED_CHANNELS)
+
+
+def _params_f32(gamma: torch.Tensor, beta: torch.Tensor, c: int, index: int):
+    """gamma and beta as the kernels read them, contiguous float32 (C,) on
+    device ``index``: the model's own parameters as they are (one branch each),
+    anything else cast; raises on a wrong shape or device."""
+    if gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError(f"layer_norm_relu: gamma/beta must be ({c},)")
+    if gamma.get_device() != index or beta.get_device() != index:
+        raise ValueError("layer_norm_relu: gamma/beta must be on x's device")
+    if gamma.dtype is not _F32 or not gamma.is_contiguous():
+        gamma = gamma.to(_F32).contiguous()
+    if beta.dtype is not _F32 or not beta.is_contiguous():
+        beta = beta.to(_F32).contiguous()
+    return gamma, beta
+
+
+def _check_x(x: torch.Tensor) -> tuple[int, int]:
+    """(C, dtype code) of a CUDA tensor the kernels take; raises on anything else."""
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(f"layer_norm_relu: kernel takes float32 or bfloat16, got {x.dtype}")
-    if c not in SUPPORTED_CHANNELS:
+    c = x.shape[-1]
+    if c not in _SUPPORTED:
         raise ValueError(f"layer_norm_relu: kernel takes C in {SUPPORTED_CHANNELS}, got {c}")
     if not x.is_contiguous():
         raise ValueError("layer_norm_relu: kernel takes a contiguous (..., C) tensor")
-    if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
-        raise ValueError(f"layer_norm_relu: gamma/beta must be ({c},)")
-    if gamma.device != x.device or beta.device != x.device:
-        raise ValueError("layer_norm_relu: gamma/beta must be on x's device")
-    return c
+    return c, code
 
 
 def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
-    """The forward kernel on a CUDA tensor; raises on what it does not take."""
-    c = _check_inputs(x, gamma, beta)
-    g = gamma.to(torch.float32).contiguous()
-    b = beta.to(torch.float32).contiguous()
+    """The forward kernel on a CUDA tensor, one C call; raises on what it
+    does not take."""
+    c, code = _check_x(x)
+    index = x.get_device()
+    gamma, beta = _params_f32(gamma, beta, c, index)
     y = torch.empty_like(x)
     rows = x.numel() // c
     if rows == 0:
         return y
-    if x.data_ptr() % 16:
+    ptr = x.data_ptr()
+    if ptr % 16:
         raise ValueError("layer_norm_relu: kernel takes a 16-byte aligned tensor")
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.adunet_layer_norm_relu(
-            x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
-            rows, c, float(eps), _DTYPE_CODES[x.dtype], stream,
-        )
-    _build.check(code, "layer_norm_relu")
+    _build.check(_build.library().adunet_layer_norm_relu(
+        ptr, gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), rows, c, eps, code, index,
+        _build.current_stream(index)), "layer_norm_relu")
     layer_norm_relu.launches += 1
     return y
 
@@ -152,33 +165,41 @@ def _n_partials(lib, device: torch.device) -> int:
 def _launch_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                      g: torch.Tensor, eps: float):
     """The backward kernel on CUDA tensors: (dx, dgamma, dbeta) as
-    ``layer_norm_relu_backward`` returns them; raises on what it does not take."""
-    c = _check_inputs(x, gamma, beta)
-    if tuple(g.shape) != tuple(x.shape) or g.device != x.device:
+    ``layer_norm_relu_backward`` returns them, one C call; raises on what it
+    does not take. The (2, C) sums and the kernel's per-block partials share
+    one float32 allocation, and dgamma / dbeta of float32 parameters are
+    views of its first rows."""
+    c, code = _check_x(x)
+    index = x.get_device()
+    if g.shape != x.shape or g.get_device() != index:
         raise ValueError("layer_norm_relu: the cotangent must match x's shape and device")
-    g = g.to(x.dtype).contiguous()
-    ga = gamma.to(torch.float32).contiguous()
-    be = beta.to(torch.float32).contiguous()
+    if g.dtype is not x.dtype or not g.is_contiguous():
+        g = g.to(x.dtype).contiguous()
+    ga, be = _params_f32(gamma, beta, c, index)
     dx = torch.empty_like(x)
     rows = x.numel() // c
     if rows == 0:
         return dx, torch.zeros_like(gamma), torch.zeros_like(beta)
-    if x.data_ptr() % 16 or g.data_ptr() % 16:
+    xp, gp = x.data_ptr(), g.data_ptr()
+    if xp % 16 or gp % 16:
         raise ValueError("layer_norm_relu: kernel takes 16-byte aligned tensors")
-    dparams = torch.empty(2, c, dtype=torch.float32, device=x.device)
     lib = _build.library()
-    with torch.cuda.device(x.device):
-        partial = torch.empty(_n_partials(lib, x.device), 2, c, dtype=torch.float32,
-                              device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.adunet_layer_norm_relu_backward(
-            x.data_ptr(), g.data_ptr(), ga.data_ptr(), be.data_ptr(), dx.data_ptr(),
-            dparams.data_ptr(), partial.data_ptr(), rows, c, float(eps),
-            _DTYPE_CODES[x.dtype], stream,
-        )
-    _build.check(code, "layer_norm_relu backward")
+    n = _partials_per_device.get(index)
+    if n is None:
+        with torch.cuda.device(index):
+            n = _n_partials(lib, x.device)
+    sums = x.new_empty((n + 1) * 2 * c, dtype=_F32)  # dgamma, dbeta, then the partials
+    base = sums.data_ptr()
+    _build.check(lib.adunet_layer_norm_relu_backward(
+        xp, gp, ga.data_ptr(), be.data_ptr(), dx.data_ptr(), base, base + 8 * c, rows, c, eps,
+        code, index, _build.current_stream(index)), "layer_norm_relu backward")
     layer_norm_relu.backward_launches += 1
-    return dx, dparams[0].to(gamma.dtype), dparams[1].to(beta.dtype)
+    dgamma, dbeta = sums.narrow(0, 0, c), sums.narrow(0, c, c)
+    if gamma.dtype is not _F32:
+        dgamma = dgamma.to(gamma.dtype)
+    if beta.dtype is not _F32:
+        dbeta = dbeta.to(beta.dtype)
+    return dx, dgamma, dbeta
 
 
 class _LayerNormReLU(torch.autograd.Function):
@@ -207,12 +228,19 @@ def layer_norm_relu(
     x, gamma and beta.
 
     CUDA: float32 or bf16 ``x``, contiguous, C in ``SUPPORTED_CHANNELS``;
-    anything else raises. CPU: the plain versions. ``layer_norm_relu.launches``
-    counts forward kernel launches, ``layer_norm_relu.backward_launches``
-    backward kernel launches."""
-    if x.device.type not in ("cpu", "cuda"):
+    anything else raises. CPU: the plain versions. Where no gradient is
+    wanted (grad mode off, or no input requires one, as in serving) the
+    kernel or plain version runs without the autograd Function.
+    ``layer_norm_relu.launches`` counts forward kernel launches,
+    ``layer_norm_relu.backward_launches`` backward kernel launches."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                        or beta.requires_grad)
+    if x.is_cuda:
+        return _LayerNormReLU.apply(x, gamma, beta, eps) if grad else _launch(x, gamma, beta, eps)
+    if x.device.type != "cpu":
         raise ValueError(f"layer_norm_relu: no kernel for device {x.device}")
-    return _LayerNormReLU.apply(x, gamma, beta, eps)
+    return _LayerNormReLU.apply(x, gamma, beta, eps) if grad else \
+        layer_norm_relu_plain(x, gamma, beta, eps)
 
 
 layer_norm_relu.launches = 0

@@ -11,8 +11,10 @@ from adunet_torch.nn.blocks import (
 )
 from adunet_torch.nn.depth_policy import (
     custom_depth_from_scale,
+    depth_and_sizes,
     encoder_sizes,
     estimate_bottleneck_size,
+    infer_depth_from_scale,
 )
 
 __all__ = [
@@ -23,7 +25,9 @@ __all__ = [
     "Conv",
     "ConvBlock",
     "LayerNormReLU",
+    "infer_depth_from_scale",
     "custom_depth_from_scale",
+    "depth_and_sizes",
     "estimate_bottleneck_size",
     "encoder_sizes",
 ]

@@ -18,7 +18,10 @@ Port of ``adunet/nn/blocks.py``:
 
 Parameters are float32 whatever the compute dtype. A conv casts its weight
 and bias to the activations' dtype (flax's ``kernel.astype(dtype)``), and the
-gradients reach the float32 parameters back through those casts.
+gradients reach the float32 parameters back through those casts; K2 takes
+the float32 parameters uncast and rounds them the same way on the card
+(its Function rounds their gradients to the compute dtype, then widens
+them, as the cast's backward would).
 - ``BatchNorm``     ← flax's ``nn.BatchNorm`` as ``ConvBlock`` configures it
   (:143-149), written out (not ``nn.BatchNorm2d``) because flax's semantics
   differ from torch's: statistics over (N, H, W) in float32 with the fast
@@ -86,17 +89,17 @@ class Conv(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        b = self.bias.to(x.dtype)
+        w, b = self.weight, self.bias  # K2 takes them as they are and rounds them itself
         if self.space is not None and w.shape[-1] == 3:
             xp = self.space.halo(x, 1)
-            if supported(tuple(x.shape), tuple(w.shape)):
+            if supported(x.shape, w.shape):
                 return conv3x3_rows(xp, w, b)
-            y = F.conv2d(xp.permute(0, 3, 1, 2), w, b, padding=(0, 1))
+            y = F.conv2d(xp.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype), padding=(0, 1))
             return y.permute(0, 2, 3, 1)
-        if supported(tuple(x.shape), tuple(w.shape)):
+        if supported(x.shape, w.shape):
             return conv3x3_same(x.contiguous(), w, b)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=w.shape[-1] // 2)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype),
+                     padding=w.shape[-1] // 2)
         return y.permute(0, 2, 3, 1)
 
 

@@ -20,7 +20,12 @@ exits non-zero without one. Every phase raises on failure:
    wrapper's host cost exceeds the kernel), the plain version and one
    PyTorch library call that computes the same function (a yardstick only:
    the port never calls it; events and device time) beside the least time
-   the card could take;
+   the card could take; beside each row, the host's cost of one call of the
+   wrapper (``host_us``: the median over 5 runs of the wall time a call of
+   20 back-to-back calls from an idle device) and the device kernels one
+   call launches (the profiler, every kernel name: the phase fails unless
+   K1 launches 1, K1's backward 2 and K2 at most 2, its weight pack and the
+   conv);
 4. holds each autograd Function's gradients (K1: dx, dgamma, dbeta; K2: dx,
    dw, db) against autograd through the plain version on the same CUDA
    tensors, at the training shapes in bf16 and the serving shapes in
@@ -91,7 +96,11 @@ exits non-zero without one. Every phase raises on failure:
     bf16, Adam 1e-4; a seeded random ``residual_rgb``) on synthetic lesion
     pairs at batch 8 x 256 px (counts set to 0 just before: 28 K1, 28 K1
     backward and 5 K2 per step), checks every gradient and the falling loss,
-    and times the step beside its peak memory and device idle share;
+    and times the step beside its peak memory and device idle share; then
+    captures one forward + backward of the same model (no optimizer step) in
+    a CUDA graph and replays it 3 times under deterministic cuDNN, each
+    replay's outputs and gradients bit-equal to an eager run's (``graph``;
+    the counters count the capture: 28 / 28 / 5);
 18. takes one float32 step of the joint model at batch 1 x 256 px on the
     card and on the CPU from the same params and compares them as phase 8
     does;
@@ -232,6 +241,8 @@ K1_BWD_INSTANCES = {(c, t) for c in fused_norm.SUPPORTED_CHANNELS for t in ("F32
 # a few times the largest this script has read (its K2 lines print the term
 # each run needs; PERF.md, "K2, the bf16 tolerance"). K1's bf16 keeps 1e-6.
 K2_BF16_ATOL = 1e-5
+# the host's cost of a kernel call (host_us): runs of back-to-back calls
+HOST_CALLS, HOST_RUNS = 20, 5
 K2_PER_CALL = sum(K2_SERVE.values())  # 4
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS, TIMED_STEPS = 32, 256, 6, 5
 
@@ -423,7 +434,7 @@ def _device_us(evt) -> float:
 
 
 def profiled_device_ms(fn, kernel_name: str | None = None, iters: int = 20,
-                       per_run: int = 1) -> tuple[float | None, int]:
+                       per_run: int = 1, totals: dict | None = None) -> tuple[float | None, int]:
     """Device time per run of ``fn`` over ``iters`` runs under
     ``torch.profiler`` (no host cost included), and the number of kernel
     launches the profiler recorded: of the kernels whose names contain
@@ -435,7 +446,10 @@ def profiled_device_ms(fn, kernel_name: str | None = None, iters: int = 20,
     comes only from a session that recorded each of its ``iters * per_run``
     launches, the time of every kernel from a session that recorded any.
     If none did, the time is None ("not measured"); no host-clock time ever
-    stands in for it."""
+    stands in for it. ``totals``, where given, receives under
+    ``"kernels_per_run"`` the count of every device kernel (no name filter)
+    per run in the session the time comes from, and under ``"by_name"`` the
+    device time per run of each kernel name there (None where none came)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -452,10 +466,59 @@ def profiled_device_ms(fn, kernel_name: str | None = None, iters: int = 20,
         if kernel_name is not None and count > want:
             raise AssertionError(f"profiler saw {count} launches of {kernel_name}, expected {want}")
         if hits and (kernel_name is None or count == want):
+            if totals is not None:
+                every = [e for e in prof.key_averages()
+                         if str(getattr(e, "device_type", "")).endswith("CUDA")]
+                totals["kernels_per_run"] = sum(e.count for e in every) / iters
+                totals["by_name"] = {e.key: _device_us(e) / iters / 1e3 for e in every}
             return sum(_device_us(e) for e in hits) / iters / 1e3, count
     log(f"[profiler] 3 sessions recorded {count} launches of {kernel_name or 'any kernel'} "
         f"(made {want if kernel_name else 'some'}): device time not measured")
+    if totals is not None:
+        totals["kernels_per_run"], totals["by_name"] = None, None
     return None, count
+
+
+def host_us(fn) -> float:
+    """The host's cost of one call of ``fn``: the median over HOST_RUNS runs of
+    the wall time a call of HOST_CALLS back-to-back calls, each run started
+    from an idle device and ended by one synchronize. Where the kernel takes
+    longer on the card than its call on the host, this is the device's time."""
+    fn()
+    per_call = []
+    for _ in range(HOST_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+    return float(np.median(per_call))
+
+
+def launch_cost(kid: str, fn, kernel_name: str, per_run: int = 1) -> dict:
+    """The device time of ``kernel_name`` per call of ``fn`` (profiler), the
+    device kernels a call of every name, and the host's cost of a call
+    (``host_us``). Raises where a call launches other than the kernels its
+    wrapper should: K1 1, K1 backward 2 (rows and column sums), K2 (both
+    modes) at most 2 (the weight pack and the conv). A session whose count
+    is not a whole number a call dropped records and is repeated, up to 3
+    in all. Where the profiler recorded no session, the count is not
+    measured and the check fails."""
+    totals: dict = {}
+    for _ in range(3):  # a session that dropped a record counts a fraction a call
+        dev_ms, dev_n = profiled_device_ms(fn, kernel_name, per_run=per_run, totals=totals)
+        per_call = totals["kernels_per_run"]
+        if per_call is not None and float(per_call).is_integer():
+            break
+    allowed = {"K1": (1, 1), "K1_bwd": (2, 2), "K2": (1, 2), "K2_halo": (1, 2)}[kid]
+    if per_call is None or not allowed[0] <= per_call <= allowed[1]:
+        raise AssertionError(f"{kid}: {per_call} device kernels a call (profiler), expected "
+                             f"{allowed[0]}..{allowed[1]}: {totals['by_name']}")
+    others = {k: v for k, v in (totals["by_name"] or {}).items() if kernel_name not in k}
+    return {"device_ms": dev_ms, "device_launches_recorded": dev_n,
+            "device_kernels_per_call": per_call, "other_kernels_device_ms": others,
+            "host_us": host_us(fn)}
 
 
 def _ms(v: float | None) -> str:
@@ -476,13 +539,16 @@ def close_enough(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype, atol
     return err.max().item()
 
 
-def grad_close(what: str, got: torch.Tensor, want: torch.Tensor, rel: float) -> float:
+def grad_close(what: str, got: torch.Tensor, want: torch.Tensor, rel: float,
+               rounded_to: torch.dtype | None = None) -> float:
     """Max |got - want| / max |want|; raises past ``rel`` or past one bf16 ulp
-    relative per element plus ``rel * max|want|`` for bf16 tensors."""
+    relative per element plus ``rel * max|want|`` for bf16 tensors, or for
+    float32 ones whose values were rounded to bf16 (``rounded_to``: K2's dw
+    and db of float32 parameters with bf16 activations)."""
     g, w = got.to(torch.float32), want.to(torch.float32)
     scale = w.abs().max().clamp_min(1e-30)
     err = (g - w).abs()
-    ulp = (2.0**-7) * w.abs() if got.dtype == torch.bfloat16 else 0.0
+    ulp = (2.0**-7) * w.abs() if torch.bfloat16 in (got.dtype, rounded_to) else 0.0
     if got.dtype != want.dtype or not bool(torch.all(err <= ulp + rel * scale)) \
             or not bool(torch.isfinite(g).all()):
         raise AssertionError(f"{what}: gradient disagrees with autograd through the plain "
@@ -508,9 +574,11 @@ def _k1_inputs(gen, rows, c, dtype):
 
 
 def _k2_inputs(gen, shape, dtype):
+    """x of ``dtype``; the weight and bias float32, as the model holds them
+    (K2 rounds them to x's type itself)."""
     x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-    wt = (torch.randn(64, 64, 3, 3, generator=gen, device="cuda") * 0.05).to(dtype)
-    bias = (torch.randn(64, generator=gen, device="cuda") * 0.1).to(dtype)
+    wt = torch.randn(64, 64, 3, 3, generator=gen, device="cuda") * 0.05
+    bias = torch.randn(64, generator=gen, device="cuda") * 0.1
     return x, wt, bias
 
 
@@ -557,8 +625,9 @@ def check_k1(gen: torch.Generator) -> list[dict]:
         n_flip = int(((got > 0) != (want > 0)).sum())
         gl, bl = g.to(dtype), b.to(dtype)
         ms = cuda_ms(lambda: fused_norm.layer_norm_relu(x, g, b), 50)
-        dev_ms, dev_n = profiled_device_ms(lambda: fused_norm.layer_norm_relu(x, g, b),
-                                           "layer_norm_relu_kernel")
+        cost = launch_cost("K1", lambda: fused_norm.layer_norm_relu(x, g, b),
+                           "layer_norm_relu_kernel")
+        dev_ms, dev_n = cost["device_ms"], cost["device_launches_recorded"]
         plain = cuda_ms(lambda: fused_norm.layer_norm_relu_plain(x, g, b), 10)
         lib = cuda_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)), 50)
         lib_dev, lib_n = profiled_device_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)))
@@ -566,13 +635,14 @@ def check_k1(gen: torch.Generator) -> list[dict]:
         bnd, by = bound_ms(2 * rows * c * es + 2 * c * 4, 9 * rows * c, dtype)
         rows_out.append(dict(kernel="K1", path=path, shape=[rows, c], dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=err, mask_disagreements=n_flip,
-                             ms=ms, device_ms=dev_ms,
-                             device_launches_recorded=dev_n, plain_ms=plain, library_ms=lib,
+                             ms=ms, **cost, plain_ms=plain, library_ms=lib,
                              library_device_ms=lib_dev, library_kernels_recorded=lib_n,
                              bound_ms=bnd, bound_by=by))
         log(f"[K1] {path} rows={rows} C={c} {dtype}: max|err|={err:.2e}, mask disagreements "
             f"{n_flip}; kernel {ms:.4f} ms "
-            f"(events; profiler device time {_ms(dev_ms)} over {dev_n} launches), plain "
+            f"(events; profiler device time {_ms(dev_ms)} over {dev_n} launches; host "
+            f"{cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
+            f"kernels a call), plain "
             f"{plain:.4f} ms, F.layer_norm+relu {lib:.4f} ms (device time {_ms(lib_dev)}), "
             f"bound {bnd:.4f} ms ({by})")
         del x, got, want
@@ -605,24 +675,26 @@ def check_k2(gen: torch.Generator) -> list[dict]:
                      "past_1e-6": int((excess > 1e-6).sum()), "elements": excess.numel()}
             del excess
         ms = cuda_ms(lambda: conv64.conv3x3_same(x, wt, bias), 20)
-        dev_ms, dev_n = profiled_device_ms(lambda: conv64.conv3x3_same(x, wt, bias),
-                                           K2_KERNEL[dtype])
+        cost = launch_cost("K2", lambda: conv64.conv3x3_same(x, wt, bias), K2_KERNEL[dtype])
+        dev_ms, dev_n = cost["device_ms"], cost["device_launches_recorded"]
         plain = cuda_ms(lambda: conv64.conv3x3_same_plain(x, wt, bias), 5)
-        xn = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-        lib = cuda_ms(lambda: F.conv2d(xn, wt, bias, padding=1), 20)
-        lib_dev, lib_n = profiled_device_ms(lambda: F.conv2d(xn, wt, bias, padding=1))
+        # cuDNN takes the parameters in x's type: cast here, outside the timing
+        xn, wl, bl = x.permute(0, 3, 1, 2), wt.to(dtype), bias.to(dtype)  # NCHW view
+        lib = cuda_ms(lambda: F.conv2d(xn, wl, bl, padding=1), 20)
+        lib_dev, lib_n = profiled_device_ms(lambda: F.conv2d(xn, wl, bl, padding=1))
         bnd, by = _k2_bound(shape, dtype)
         rows_out.append(dict(kernel="K2", path=path, shape=list(shape), dtype=_dname(dtype),
-                             per_call=per_call, max_abs_err=err, **extra, ms=ms,
-                             device_ms=dev_ms, device_launches_recorded=dev_n, plain_ms=plain,
-                             library_ms=lib, library_device_ms=lib_dev,
+                             per_call=per_call, max_abs_err=err, **extra, ms=ms, **cost,
+                             plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
                              library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
         needed = (f" (absolute term needed {extra['abs_term_needed']:.3e}; {extra['past_1e-6']} "
                   f"of {extra['elements']} past 1e-6)" if extra else "")
         log(f"[K2] {path} x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e}{needed} "
             f"kernel {ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} "
-            f"launches), plain {plain:.4f} ms, F.conv2d (cuDNN, TF32 off) {lib:.4f} ms (device "
-            f"time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
+            f"launches, other kernels {cost['other_kernels_device_ms']}; host "
+            f"{cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
+            f"kernels a call), plain {plain:.4f} ms, F.conv2d (cuDNN, TF32 off) {lib:.4f} ms "
+            f"(device time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
         del x, got, want
     return rows_out
 
@@ -703,7 +775,8 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
             raise AssertionError(f"{what}: dgamma / dbeta differ between two runs")
         del got, want, again, flips
         ms = cuda_ms(bwd, 20)
-        dev_ms, dev_n = profiled_device_ms(bwd, K1_BWD_KERNEL, per_run=2)
+        cost = launch_cost("K1_bwd", bwd, K1_BWD_KERNEL, per_run=2)
+        dev_ms, dev_n = cost["device_ms"], cost["device_launches_recorded"]
         plain = cuda_ms(lambda: fused_norm.layer_norm_relu_backward(x, a, b, gy), 3)
         xl = x.detach().requires_grad_(True)
         al, bl = (t.to(dtype).requires_grad_(True) for t in (a, b))
@@ -722,15 +795,17 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
         rows_out.append(dict(kernel="K1_bwd", path=path, shape=[rows, c], dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=dx_abs,
                              rel_err={"dx": dx_rel, "dgamma": dg_rel, "dbeta": db_rel},
-                             mask_disagreements=n_flip, rows_left_out=n_out, ms=ms,
-                             device_ms=dev_ms, device_launches_recorded=dev_n, plain_ms=plain,
+                             mask_disagreements=n_flip, rows_left_out=n_out, ms=ms, **cost,
+                             plain_ms=plain,
                              library_ms=lib, library_device_ms=lib_dev,
                              library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
                              prior_device_ms=prior))
         log(f"[K1 bwd] {path} rows={rows} C={c} {dtype}: rel err dx {dx_rel:.1e} (max |err| "
             f"{dx_abs:.2e}), dgamma {dg_rel:.1e}, dbeta {db_rel:.1e}; mask disagreements "
             f"{n_flip} ({n_out} rows left out); kernel {ms:.4f} ms (events; profiler device "
-            f"time {_ms(dev_ms)} over {dev_n} launches; before the redesign {_ms(prior)}), "
+            f"time {_ms(dev_ms)} over {dev_n} launches; before the redesign {_ms(prior)}; host "
+            f"{cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
+            f"kernels a call), "
             f"plain {plain:.4f} ms, library backward {lib:.4f} ms (device time {_ms(lib_dev)}), "
             f"bound {bnd:.4f} ms ({by})")
         del x, gy, xl, yl
@@ -776,7 +851,8 @@ def check_backward(gen: torch.Generator) -> list[dict]:
             names, rels = ("dx", "dw", "db"), (1e-4, 1e-3, 1e-3)
 
             def lib_fn(x_, a_, b_):
-                return F.conv2d(x_.permute(0, 3, 1, 2), a_, b_, padding=1).permute(0, 2, 3, 1)
+                return F.conv2d(x_.permute(0, 3, 1, 2), a_.to(x_.dtype), b_.to(x_.dtype),
+                                padding=1).permute(0, 2, 3, 1)
         inputs = [t.requires_grad_(True) for t in (x, a, b)]
         gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
         got = _fwd_bwd(fn, inputs, gy)
@@ -795,7 +871,8 @@ def check_backward(gen: torch.Generator) -> list[dict]:
             del flips
         else:
             errs = {"dx": grad_close(f"K2 {path} dx", got[0], want[0], rels[0])}
-            errs.update({n: grad_close(f"{kid} {path} {n}", g_, w_, r)
+            # dw, db: float32 parameters' gradients, rounded to x's type
+            errs.update({n: grad_close(f"{kid} {path} {n}", g_, w_, r, rounded_to=dtype)
                          for n, g_, w_, r in zip(names[1:], got[1:], want[1:], rels[1:])})
         del got, want
         ms = cuda_ms(lambda: _fwd_bwd(fn, inputs, gy), 10)
@@ -2053,6 +2130,93 @@ def joint_card_vs_cpu_step() -> dict:
             "param_far_share": far}
 
 
+def graph_capture(ident: str) -> dict:
+    """One bf16 forward + backward of the joint model (train_joint's defaults,
+    as the joint phase builds it, with its loss; no optimizer step) at batch
+    8 x 256 px, captured in a CUDA graph (``torch.cuda.graph``) after three
+    eager runs on a side stream, and replayed 3 times, all under
+    ``deterministic_cudnn()``. Each replay's loss, SR and mask outputs and
+    every parameter's gradient must equal an eager run's on the same inputs
+    bit for bit. Where one does not, cuDNN may have picked another algorithm
+    under capture: it is then held to the card-vs-card tolerances this
+    script uses for bf16 (1e-2 relative on the loss and outputs, as the space
+    mesh's bf16 check; 2e-2 relative L2 on each gradient, as the BatchNorm
+    gradients), and each tensor that differed is named. The launch counters
+    count the capture (28 K1, 28 K1 backward, 5 K2: the Python code runs
+    once), not the replays, which launch the same kernels without it.
+    Replay ms against eager ms (host clock, each ending in a synchronize)."""
+    from adunet_torch.models import build_joint_unet
+    from adunet_torch.train.joint import _batch_of
+
+    images, masks = _joint_batches(1, JOINT_BATCH, seed=81)[0]
+    model, _ = build_joint_unet(0.5, dtype=torch.bfloat16, device="cuda", seed=0)
+    _random_head(model)
+    sr_loss, seg_loss = _joint_losses()
+    params = [(n, p) for n, p in model.named_parameters()]
+    device = images.device
+
+    def fwd_bwd():
+        for _, p in params:
+            p.grad = None
+        lr, hr, m = _batch_of((images, masks), device, 0.5)
+        sr, seg = model(lr)
+        loss = sr_loss(hr, sr) + seg_loss(m, seg)
+        loss.backward()
+        return {"loss": loss.detach(), "sr": sr.detach(), "mask": seg.detach()}
+
+    def snapshot(out):
+        return {**{k: v.clone() for k, v in out.items()},
+                **{f"grad {n}": p.grad.clone() for n, p in params}}
+
+    with deterministic_cudnn():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fwd_bwd()
+        torch.cuda.current_stream().wait_stream(side)
+        eager = snapshot(fwd_bwd())
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        _zero_counts()
+        # thread_local: a thread of an earlier phase cannot void the capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            static = fwd_bwd()
+        torch.cuda.synchronize()
+        counts = _counts()
+        if counts != JOINT_PER_STEP:
+            raise AssertionError(f"graph: the capture counted {counts} K1 / K1 backward / K2 "
+                                 f"launches, expected {JOINT_PER_STEP}")
+        replays = []
+        for i in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            got = {**static, **{f"grad {n}": p.grad for n, p in params}}
+            differ = {k: _rel_l2({k: got[k]}, {k: v}) for k, v in eager.items()
+                      if not torch.equal(got[k], v)}
+            if differ:
+                worst = {k: e for k, e in differ.items()
+                         if e > (2e-2 if k.startswith("grad") else 1e-2)}
+                log(f"[graph] replay {i}: {len(differ)} of {len(eager)} tensors not bit-equal to "
+                    f"eager (cuDNN's algorithm under capture; relative L2): {differ}")
+                if worst:
+                    raise AssertionError(f"graph: replay {i} differs from eager past the bf16 "
+                                         f"card-vs-card tolerances: {worst}")
+            replays.append({"bit_equal": not differ, "differ": differ})
+        eager_ms = _timed_steps(fwd_bwd, 5)
+        replay_ms = _timed_steps(graph.replay, 5)
+    log(f"[graph] {ident}: joint bf16 forward + backward at batch {JOINT_BATCH} x {JOINT_SIZE} "
+        f"px captured ({counts[0]} K1, {counts[1]} K1 backward, {counts[2]} K2 launches counted "
+        f"once, at the capture: replays launch the same kernels uncounted); {len(replays)} "
+        f"replays {'bit-equal to' if all(r['bit_equal'] for r in replays) else 'within tolerance of'}"
+        f" eager over the loss, both outputs and {len(params)} gradients; replay {replay_ms:.3f} "
+        f"ms against eager {eager_ms:.3f} ms")
+    del graph, static, eager, model
+    torch.cuda.empty_cache()
+    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "replays": replays,
+            "replay_ms": replay_ms, "eager_ms": eager_ms, "tensors": len(params) + 3}
+
+
 # config.json and result.json keys of the reference's train_joint
 # (adunet/cli/train_joint.py:149-157, 200-210)
 JOINT_CONFIG_KEYS = [
@@ -2694,12 +2858,12 @@ def check_k2_halo(gen: torch.Generator) -> list[dict]:
         torch.cuda.synchronize()
         err = close_enough(got, want, dtype, 1e-4, atol_bf16=K2_BF16_ATOL)
         ms = cuda_ms(lambda: conv64.conv3x3_rows(x, wt, bias), 20)
-        dev_ms, dev_n = profiled_device_ms(lambda: conv64.conv3x3_rows(x, wt, bias),
-                                           K2_KERNEL[dtype])
+        cost = launch_cost("K2_halo", lambda: conv64.conv3x3_rows(x, wt, bias), K2_KERNEL[dtype])
+        dev_ms, dev_n = cost["device_ms"], cost["device_launches_recorded"]
         plain = cuda_ms(lambda: conv64.conv3x3_rows_plain(x, wt, bias), 5)
-        xn = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-        lib = cuda_ms(lambda: F.conv2d(xn, wt, bias, padding=(0, 1)), 20)
-        lib_dev, lib_n = profiled_device_ms(lambda: F.conv2d(xn, wt, bias, padding=(0, 1)))
+        xn, wl, bl = x.permute(0, 3, 1, 2), wt.to(dtype), bias.to(dtype)  # as check_k2's
+        lib = cuda_ms(lambda: F.conv2d(xn, wl, bl, padding=(0, 1)), 20)
+        lib_dev, lib_n = profiled_device_ms(lambda: F.conv2d(xn, wl, bl, padding=(0, 1)))
         bsz, h2, w, c = shape
         pixels = bsz * (h2 - 2) * w
         es = x.element_size()
@@ -2707,11 +2871,13 @@ def check_k2_halo(gen: torch.Generator) -> list[dict]:
                            2 * pixels * 64 * 64 * 9 + pixels * 64, dtype)
         rows_out.append(dict(kernel="K2_halo", path="space", shape=list(shape),
                              dtype=_dname(dtype), per_call=per_call, max_abs_err=err, ms=ms,
-                             device_ms=dev_ms, device_launches_recorded=dev_n, plain_ms=plain,
+                             **cost, plain_ms=plain,
                              library_ms=lib, library_device_ms=lib_dev,
                              library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
         log(f"[K2 halo] x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e} kernel "
-            f"{ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} launches), "
+            f"{ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} launches; "
+            f"host {cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
+            f"kernels a call), "
             f"plain {plain:.4f} ms, F.conv2d padding (0, 1) (cuDNN, TF32 off) {lib:.4f} ms "
             f"(device time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
         del x, got, want
@@ -2975,10 +3141,13 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
                  seg_launches: dict, sr_launches: dict, build_s: float) -> dict:
     """One entry per kernel. ``launches`` come from the training path (device-
     cache steps); ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
-    ``library_ms`` and ``library_device_ms`` are summed over the kernel's
-    launches in one bf16 training step (per-shape time x launches per step),
-    ``ms`` from CUDA events and ``device_ms`` from the profiler (null where
-    it recorded no full session at some shape); ``serve``
+    ``library_ms``, ``library_device_ms`` and ``host_us`` are summed over the
+    kernel's launches in one bf16 training step (per-shape time x launches
+    per step), ``ms`` from CUDA events, ``device_ms`` from the profiler (null
+    where it recorded no full session at some shape) and ``host_us`` the
+    wall time a call of back-to-back calls (``host_us``);
+    ``device_kernels_per_call`` is the most device kernels one call of the
+    wrapper launched at any shape (profiler, every kernel name); ``serve``
     holds the same sums at the float32 serving shapes (one forward; serving
     runs no backward, so K1_bwd's serving launches are 0); ``seg`` holds, for
     the bf16 protocol and vanilla segmentation phases, their launches, the
@@ -3004,7 +3173,8 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
                    "adunet/kernels/fused_norm.py:109"),
         "K2": ("conv3x3_same_c64", "adunet_torch/csrc/conv64.cu", "adunet/kernels/conv64.py:132"),
     }
-    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms")
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms",
+            "host_us")
 
     def summed(rows, key):  # None where the profiler measured no device time
         vals = [d[key] for d in rows]
@@ -3037,6 +3207,8 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             "max_abs_err": max(d["max_abs_err"] for d in details if d["kernel"] == kid),
             **{k: summed(train, k) for k in keys},
             "bound_by": max(train, key=lambda d: d["bound_ms"] * d["per_call"])["bound_by"],
+            "device_kernels_per_call": max(d["device_kernels_per_call"] for d in details
+                                           if d["kernel"] == kid),
             "per": "launches of one bf16 training step of the flagship (batch 32, 256 px)",
             "serve": {"launches": serve_launches[kid], **{k: summed(serve, k) for k in keys}},
             "seg": {},
@@ -3050,6 +3222,8 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
         entry["streamed"] = {"launches": sr_launches["streamed"][kid]}
         entry["ddp"] = {"launches": sr_launches["ddp"][kid]}
         entry["sweep"] = {"launches": sr_launches["sweep"][kid]}
+        entry["graph"] = {"launches": sr_launches["graph"][kid],
+                          "per": "the capture of one joint bf16 forward + backward"}
         # the served joint forward: float32 at the serving rows and K1_JOINT_SERVED's
         per = {"K1": K1_JOINT, "K2": K2_JOINT}.get(kid, {})
         rows = [d for d in details if d["kernel"] == kid and d["dtype"] == "float32"
@@ -3094,12 +3268,14 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
                 "launches": sum(sr_launches["space"].values()),
                 "max_abs_err": max(d["max_abs_err"] for d in halo),
                 **{k: summed(flagship, k) for k in keys}, "bound_by": flagship[0]["bound_by"],
+                "device_kernels_per_call": max(d["device_kernels_per_call"] for d in halo),
                 "per": "launches on one rank of one bf16 flagship step on a (1, 2) space mesh "
                        "(batch 32, 128 + 2 of 256 rows)",
                 "space": {"launches": sr_launches["space"]},
                 "rows": [{k: d[k] for k in ("shape", "dtype", "per_call", "max_abs_err", "ms",
                                             "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms", "library_device_ms")} for d in halo]})
+                                            "library_ms", "library_device_ms", "host_us",
+                                            "device_kernels_per_call")} for d in halo]})
     return {"kernels": out, "build_s": build_s}
 
 
@@ -3166,6 +3342,7 @@ def main() -> int:
         vanilla_step = phase("vanilla_sr_f32_step", vanilla_card_vs_cpu_step)
         sr_cli = phase("sr_cli", sr_entry_points, Path(tmp), streamed.pop("ckpt_dir"))
         joint = phase("joint", train_joint, ident)
+        captured = phase("graph", graph_capture, ident)
         joint_step = phase("joint_f32_step", joint_card_vs_cpu_step)
         joint_cli = phase("joint_cli", joint_entry_points, Path(tmp),
                           seg_cli["protocol"].pop("ckpt_dir"))
@@ -3182,7 +3359,8 @@ def main() -> int:
                "train_sr": entry, "seg_train": seg, "seg_f32_step": seg_step,
                "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
                "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "joint": joint,
-               "joint_f32_step": joint_step, "joint_cli": joint_cli, "tune": tuned,
+               "graph": captured, "joint_f32_step": joint_step, "joint_cli": joint_cli,
+               "tune": tuned,
                "ddp": dp, "ddp_ranks": dp_ranks, "sweep": swept, "space_ranks": space,
                "seconds": seconds,
                "k1_bwd_ptxas": spills, "host_probes": probes}
@@ -3192,6 +3370,7 @@ def main() -> int:
     sr_launches = {"streamed": streamed["launches"], "vanilla_sr": vanilla["launches"],
                    "joint": joint["launches"], "joint_served": joint_cli["served_launches"],
                    "tune": tuned["launches"], "ddp": dp["launches"], "sweep": swept["launches"],
+                   "graph": captured["launches"],
                    "space": {case: v["launches_per_rank"][0][3] for case, v in space.items()
                              if case != "seconds"},
                    "deep": {kid: {k: deep[k]["launches"][kid] for k in ("remat_0", "remat_2")}

@@ -96,7 +96,9 @@ def substituted(src: str, subs: list[tuple[str, str]], name: str) -> str:
 
 
 def build(sources: dict[str, tuple[str, str]]) -> tuple[dict, dict]:
-    """{name: (fused_norm.cu text, common.cuh text)} -> libraries, ptxas logs."""
+    """{name: (fused_norm.cu text, common.cuh text)} -> libraries, ptxas logs.
+    A library's ``takes_device`` says whether its entry points take the
+    device index (this checkout's do; a parent's from before they did not)."""
     nvcc = _build._nvcc()
     procs = {}
     for name, (src, common) in sources.items():
@@ -115,10 +117,12 @@ def build(sources: dict[str, tuple[str, str]]) -> tuple[dict, dict]:
             raise SystemExit(f"nvcc failed for {name}:\n{logs[name][-4000:]}")
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         p = ctypes.c_void_p
+        lib.takes_device = "int dtype, int device, void* stream" in sources[name][0]
+        dev = [ctypes.c_int] if lib.takes_device else []
         lib.adunet_layer_norm_relu.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int,
-                                               ctypes.c_float, ctypes.c_int, p]
+                                               ctypes.c_float, ctypes.c_int, *dev, p]
         lib.adunet_layer_norm_relu_backward.argtypes = [p] * 7 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, *dev, p]
         lib.adunet_layer_norm_relu_backward_partials.argtypes = [p]
         libs[name] = lib
     return libs, logs
@@ -151,10 +155,12 @@ def launcher(lib, n_part: int, x, g, a, b):
     part = torch.empty(n_part, 2, c, device="cuda")
     code = 1 if x.dtype == torch.bfloat16 else 0
 
+    dev = [x.get_device()] if lib.takes_device else []
+
     def run():
         err = lib.adunet_layer_norm_relu_backward(
             x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(), dx.data_ptr(), dp.data_ptr(),
-            part.data_ptr(), rows, c, 1e-3, code, torch.cuda.current_stream().cuda_stream)
+            part.data_ptr(), rows, c, 1e-3, code, *dev, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"CUDA error {err}")
     return run, dx, dp

@@ -131,6 +131,112 @@ def test_conv3x3_without_bias_has_no_bias_grad(conv_inputs):
     assert dx.shape == xt.shape and dw.shape == wt.shape
 
 
+def _within_bf16_ulp(got: torch.Tensor, want: np.ndarray, atol: float = 1e-5) -> None:
+    """|got - want| <= one bf16 ulp (2^-7 relative to |want|) + ``atol``."""
+    err = np.abs(got.detach().float().numpy() - want)
+    assert np.all(err <= 2.0**-7 * np.abs(want) + atol), (err - 2.0**-7 * np.abs(want)).max()
+
+
+def _bf16_case(conv_inputs, halo):
+    """bf16 x (H + 2 rows in the halo-row mode) and cotangent, float32 OIHW
+    weight and bias, from the module's seeded inputs."""
+    x, w_hwio, b, g = conv_inputs
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    if halo:
+        xb = torch.nn.functional.pad(xb, (0, 0, 0, 0, 1, 1), value=0.5)
+    w = torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
+    return xb, w, torch.from_numpy(b), torch.from_numpy(g).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("halo", [0, 1])
+def test_conv3x3_takes_float32_parameters_as_a_cast_would(conv_inputs, halo):
+    """The model hands K2 its float32 weight and bias uncast with bf16
+    activations. Output and gradients must be what they were through
+    parameters cast to bf16 by the caller (autograd's cast rounding dw and db
+    to bf16 and widening them back): tolerance 0, bit for bit, on the CPU
+    path (the plain version forward, the Function's backward)."""
+    fn = tconv.conv3x3_rows if halo else tconv.conv3x3_same
+    xb, w, b, g = _bf16_case(conv_inputs, halo)
+    leaves = [t.clone().requires_grad_(True) for t in (xb, w, b)]
+    y = fn(*leaves)
+    got = torch.autograd.grad(y, leaves, g)
+    ref = [t.clone().requires_grad_(True) for t in (xb, w, b)]
+    y_cast = fn(ref[0], ref[1].to(torch.bfloat16), ref[2].to(torch.bfloat16))
+    want = torch.autograd.grad(y_cast, ref, g)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, y_cast)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.float32]
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+    # dw and db hold bf16 values: rounded to the compute type, then widened
+    assert torch.equal(got[1], got[1].to(torch.bfloat16).float())
+    assert torch.equal(got[2], got[2].to(torch.bfloat16).float())
+
+
+def test_conv3x3_float32_parameters_match_jax_bf16(conv_inputs):
+    """The same route against the reference's custom VJP as flax calls it
+    (kernel and bias cast to bf16; Pallas interpreted off the TPU): output,
+    dx, dw and db within one bf16 ulp plus 1e-5 (float32 sums in another
+    order, rounded to bf16; an output near 0 keeps their float32
+    difference, as ``chip_smoke.K2_BF16_ATOL`` says)."""
+    _, w_hwio, b, _ = conv_inputs
+    xb, w, bt, gb = _bf16_case(conv_inputs, 0)
+    leaves = [t.clone().requires_grad_(True) for t in (xb, w, bt)]
+    y = tconv.conv3x3_same(*leaves)
+    dx, dw, db = torch.autograd.grad(y, leaves, gb)
+    bf = jnp.bfloat16
+    want_y, vjp = jax.vjp(jconv.conv3x3_same, jnp.asarray(xb.float().numpy()).astype(bf),
+                          jnp.asarray(w_hwio).astype(bf), jnp.asarray(b).astype(bf))
+    jdx, jdw, jdb = (np.asarray(t, np.float32)
+                     for t in vjp(jnp.asarray(gb.float().numpy()).astype(bf)))
+    _within_bf16_ulp(y, np.asarray(want_y, np.float32))
+    _within_bf16_ulp(dx, jdx)
+    _within_bf16_ulp(dw, jdw.transpose(3, 2, 0, 1))
+    _within_bf16_ulp(db, jdb)
+    assert np.abs(jdw).max() > 1.0
+
+
+def test_bias_gradient_sums_the_bf16_cotangent_in_float32(conv_inputs):
+    """db reads the bf16 cotangent as it is and accumulates in float32
+    (``sum(dtype=float32)``, no float32 copy): before its rounding to x's
+    type it is within 1e-6 relative of a float64 sum of the same values;
+    after it, that float32 sum rounded to bf16, in the bias's dtype."""
+    xb, w, _, gb = _bf16_case(conv_inputs, 0)
+    g = torch.cat([gb] * 4) * 3.0 + 0.25  # 4 images; a mean away from 0
+    x = torch.cat([xb] * 4)
+    want = g.double().sum(dim=(0, 1, 2))
+    db32 = tconv._bias_grad_f32(g)
+    assert db32.dtype == torch.float32
+    assert float(((db32.double() - want).abs() / want.abs()).max()) <= 1e-6
+    for bias_dtype in (torch.float32, torch.bfloat16):
+        db = tconv.conv3x3_same_backward(x, w, g, False, False, True, bias_dtype)[2]
+        assert db.dtype == bias_dtype
+        assert torch.equal(db, db32.to(torch.bfloat16).to(bias_dtype))
+
+
+@pytest.mark.parametrize("kernel", ["layer_norm_relu", "conv3x3_same", "conv3x3_rows"])
+def test_no_grad_path_equals_the_function_path(conv_inputs, kernel):
+    """Where no gradient is wanted (grad mode off, or no input requiring
+    one) each wrapper runs its kernel, here its plain version, without the
+    autograd Function: the same values, no graph node, no launch counted."""
+    if kernel == "layer_norm_relu":
+        x, gamma, beta, _ = _norm_inputs((2, 3, 5, 64), seed=5)
+        args = [torch.from_numpy(t) for t in (x, gamma, beta)]
+        fn = tnorm.layer_norm_relu
+    else:
+        xb, w, b, _ = _bf16_case(conv_inputs, kernel == "conv3x3_rows")
+        args, fn = [xb, w, b], getattr(tconv, kernel)
+    counters = lambda: (tnorm.layer_norm_relu.launches, tnorm.layer_norm_relu.backward_launches,  # noqa: E731
+                        tconv.conv3x3_same.launches, tconv.conv3x3_rows.launches)
+    before = counters()
+    with torch.no_grad():
+        off = fn(*[t.clone().requires_grad_(True) for t in args])
+    plain = fn(*args)
+    on = fn(args[0].clone().requires_grad_(True), *args[1:])
+    assert off.grad_fn is None and plain.grad_fn is None and on.grad_fn is not None
+    assert torch.equal(off, on.detach()) and torch.equal(plain, on.detach())
+    assert counters() == before
+
+
 def test_layer_norm_relu_gradcheck_f64():
     gen = torch.Generator().manual_seed(0)
     x = (torch.randn(3, 5, 8, generator=gen, dtype=torch.float64) * 2 + 0.3).requires_grad_(True)

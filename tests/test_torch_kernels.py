@@ -199,6 +199,88 @@ def test_backward_scratch_size_is_asked_once_per_device(monkeypatch):
     assert len(calls) == 2
 
 
+class _RecordingLib:
+    """A stand-in for the loaded kernel library: records each C call (name,
+    arguments) and returns 0, CUDA's success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("adunet_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def recording_lib(monkeypatch):
+    """The wrappers' launch functions run on CPU tensors (device index -1)
+    against ``_RecordingLib``, with stream handle 1234 and the backward's
+    scratch size (8 partials) already known for that index."""
+    from adunet_torch.kernels import _build
+
+    lib = _RecordingLib()
+    monkeypatch.setattr(_build, "library", lambda rebuild=False: lib)
+    monkeypatch.setattr(_build, "current_stream", lambda index: 1234)
+    monkeypatch.setattr(tnorm, "_partials_per_device", {-1: 8})
+    return lib
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_launches_are_one_c_call_each(recording_lib, dtype):
+    """A forward launch and a backward launch make exactly one C call each,
+    pass float32 gamma / beta as they are (no copy), the device index and
+    the stream; the backward's dgamma / dbeta are views of the one float32
+    allocation whose rest is the kernel's scratch of partials."""
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    x = torch.zeros(96, 64, dtype=dtype)
+    g, b = torch.ones(64), torch.zeros(64)
+    before = (tnorm.layer_norm_relu.launches, tnorm.layer_norm_relu.backward_launches)
+    y = tnorm._launch(x, g, b, 1e-3)
+    assert recording_lib.calls == [("adunet_layer_norm_relu", (
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), 96, 64, 1e-3, code, -1, 1234))]
+    gy = torch.zeros(96, 64, dtype=dtype)
+    dx, dgamma, dbeta = tnorm._launch_backward(x, g, b, gy, 1e-3)
+    name, args = recording_lib.calls[1]
+    assert len(recording_lib.calls) == 2 and name == "adunet_layer_norm_relu_backward"
+    assert args[:5] == (x.data_ptr(), gy.data_ptr(), g.data_ptr(), b.data_ptr(), dx.data_ptr())
+    assert args[7:] == (96, 64, 1e-3, code, -1, 1234)
+    assert (dgamma.data_ptr(), dbeta.data_ptr(), args[6]) == (args[5], args[5] + 256, args[5] + 512)
+    assert dgamma.untyped_storage().data_ptr() == dbeta.untyped_storage().data_ptr()
+    assert dgamma.untyped_storage().nbytes() == (8 + 1) * 2 * 64 * 4
+    assert (dgamma.dtype, dgamma.shape, dbeta.shape) == (torch.float32, (64,), (64,))
+    assert (tnorm.layer_norm_relu.launches,
+            tnorm.layer_norm_relu.backward_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("halo", [0, 1])
+def test_k2_launch_is_one_c_call_with_the_parameters_as_held(recording_lib, halo, dtype, bias):
+    """A K2 launch (either mode) is one C call handed the float32 weight and
+    bias as the model holds them (their own storage, no cast or pack on the
+    host; -1 for no bias), scratch for the pack on the card (9 x 64 x 64 of
+    x's type, then 64 float32), the device index and the stream."""
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    x = torch.zeros(2, 16 + 2 * halo, 128, 64, dtype=dtype)
+    w = torch.zeros(64, 64, 3, 3)
+    b = torch.zeros(64) if bias else None
+    counter = tconv.conv3x3_rows if halo else tconv.conv3x3_same
+    before = counter.launches
+    y = tconv._launch(x, w, b, halo)
+    assert [c[0] for c in recording_lib.calls] == ["adunet_conv3x3_c64"]
+    args = recording_lib.calls[0][1]
+    assert args[:5] == (x.data_ptr(), w.data_ptr(), 0, b.data_ptr() if bias else None,
+                        0 if bias else -1)
+    assert args[5] not in (0, None, x.data_ptr(), w.data_ptr(), y.data_ptr())
+    assert args[6:] == (y.data_ptr(), 2, 16, 128, halo, code, -1, 1234)
+    assert (tuple(y.shape), y.dtype, counter.launches) == ((2, 16, 128, 64), dtype, before + 1)
+
+
 @pytest.mark.parametrize("x_shape, w_hwio", [
     ((2, 16, 128, 64), (3, 3, 64, 64)),
     ((8, 256, 256, 64), (3, 3, 64, 64)),

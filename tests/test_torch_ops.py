@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from adunet import ops as jops
 from adunet.nn import depth_policy as jdp
+from adunet_torch import nn as tnn
 from adunet_torch import ops as tops
 from adunet_torch.nn import depth_policy as tdp
 
@@ -110,3 +111,40 @@ def test_depth_policy_grid():
                 jdp.estimate_bottleneck_size(256, scale, depth)
     with pytest.raises(ValueError):
         tdp.custom_depth_from_scale(1.2)
+
+
+_SCALES = [float(s) for s in np.round(np.arange(0.06, 0.99, 0.01), 2)] + [0.25, 0.45, 0.051, 0.999]
+
+
+@pytest.mark.parametrize("min_depth, max_depth", [(1, 4), (1, 1), (2, 3), (3, 7), (0, 2), (5, 4)])
+def test_infer_depth_from_scale_grid(min_depth, max_depth):
+    """The design-table policy against ``adunet.nn.depth_policy`` at every
+    scale of the grid (and the table's edges 0.25 / 0.45), for each pair of
+    depth bounds, an inverted pair among them."""
+    for scale in _SCALES:
+        assert tdp.infer_depth_from_scale(scale, min_depth, max_depth) == \
+            jdp.infer_depth_from_scale(scale, min_depth, max_depth), scale
+
+
+@pytest.mark.parametrize("min_res, max_depth", [(21, 7), (21, 3), (1, 7), (64, 7), (256, 5),
+                                                (300, 7), (21, 1), (0, 12)])
+def test_depth_and_sizes_grid(min_res, max_depth):
+    """``depth_and_sizes`` against the reference's at every scale of the grid
+    and at 1.0 / 1.5 (which it takes: only ``infer_depth_from_scale`` and
+    ``custom_depth_from_scale`` check the scale), for each bound."""
+    for scale in _SCALES + [1.0, 1.5]:
+        assert tdp.depth_and_sizes(scale, min_res, max_depth) == \
+            jdp.depth_and_sizes(scale, min_res, max_depth), scale
+
+
+@pytest.mark.parametrize("scale", [0.05, 0.0, -0.5, 1.0, 1.2])
+def test_infer_depth_from_scale_raises_outside_the_open_interval(scale):
+    """Both packages refuse a scale outside (0.05, 1) with the same message."""
+    with pytest.raises(ValueError) as want:
+        jdp.infer_depth_from_scale(scale)
+    with pytest.raises(ValueError) as got:
+        tdp.infer_depth_from_scale(scale)
+    assert str(got.value) == str(want.value)
+    # exported from adunet_torch.nn, as the reference's from adunet.nn
+    assert (tnn.infer_depth_from_scale, tnn.depth_and_sizes) == \
+        (tdp.infer_depth_from_scale, tdp.depth_and_sizes)
