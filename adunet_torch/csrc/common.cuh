@@ -92,6 +92,41 @@ __device__ __forceinline__ void store_vec(typename Tr::storage* p, const float (
   }
 }
 
+// ---------------------------------------------------------------- column sums
+// The second pass of the backward kernels' deterministic reductions: each
+// block of the first pass wrote one float32 partial row, and column j of the
+// result is the sum over rows p < n_parts of partial[p * stride + j], in a
+// fixed order. A block of 32 x kColSlices threads owns 32 columns from
+// `col0 + 32 * blockIdx.x`; thread (slice, lane) sums the rows p = slice,
+// slice + 32, ... of its column in order of p, and slice 0 then adds the 32
+// slices in order and hands the sum to `store(j, sum)`. (One thread per
+// column walking every partial in turn is a chain of dependent loads, ~50 us
+// at ~1,000 partials.) Columns at or past `col0 + width` are skipped.
+constexpr int kColSlices = 32;
+
+template <typename Store>
+__device__ __forceinline__ void column_sum(const float* __restrict__ partial, int n_parts,
+                                           size_t stride, int col0, int width, Store store) {
+  __shared__ float s_sum[kColSlices][33];
+  const int lane = threadIdx.x & 31;
+  const int slice = threadIdx.x >> 5;
+  const int j = col0 + blockIdx.x * 32 + lane;
+  const bool live = j < col0 + width;
+  float s = 0.f;
+  if (live) {
+#pragma unroll 4
+    for (int p = slice; p < n_parts; p += kColSlices) s += partial[static_cast<size_t>(p) * stride + j];
+  }
+  s_sum[slice][lane] = s;
+  __syncthreads();
+  if (slice == 0 && live) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kColSlices; ++i) t += s_sum[i][lane];
+    store(j, t);
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
 constexpr int kMaxDevices = 64;
@@ -108,6 +143,13 @@ inline cudaError_t sm_count(int dev, int* n) {
   }
   *n = cache[dev];
   return cudaSuccess;
+}
+
+// The current device (which the C entry made the tensors') and its SM count.
+inline cudaError_t device_sms(int* dev, int* sms) {
+  cudaError_t e = cudaGetDevice(dev);
+  if (e == cudaSuccess) e = sm_count(*dev, sms);
+  return e;
 }
 
 // Makes `device` (the tensors' device, which the caller passes) current for a

@@ -428,33 +428,12 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
   }
 }
 
-// out[j] = sum over p < n_parts of partial[p][j], in a fixed order: a block
-// of 32 x 32 threads owns 32 columns; thread (slice, lane) sums the partials
-// p = slice, slice + 32, ... of column lane in order of p, and slice 0 then
-// adds the 32 slices in order. (One thread per column walking every partial
-// in turn is a chain of dependent loads, ~50 us at ~1,000 partials.)
-constexpr int kColSlices = 32;
-
+// dgamma / dbeta: the column sums of the blocks' (2, C) partials, in a fixed
+// order (`column_sum`, common.cuh).
 __global__ void __launch_bounds__(32 * kColSlices)
 layer_norm_relu_bwd_cols_kernel(const float* __restrict__ partial, int n_parts, int width,
                                 float* __restrict__ out) {
-  __shared__ float s_sum[kColSlices][33];
-  const int lane = threadIdx.x & 31;
-  const int slice = threadIdx.x >> 5;
-  const int j = blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (j < width) {
-#pragma unroll 4
-    for (int p = slice; p < n_parts; p += kColSlices) s += partial[static_cast<size_t>(p) * width + j];
-  }
-  s_sum[slice][lane] = s;
-  __syncthreads();
-  if (slice == 0 && j < width) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < kColSlices; ++i) t += s_sum[i][lane];
-    out[j] = t;
-  }
+  column_sum(partial, n_parts, width, 0, width, [out](int j, float v) { out[j] = v; });
 }
 
 // The backward's grid holds at most this many blocks per SM (fewer where
@@ -465,8 +444,7 @@ constexpr int kBwdMaxBlocksPerSm = 8;
 // current device: the most blocks its grid can have.
 cudaError_t bwd_max_blocks(int* blocks) {
   int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = sm_count(dev, &sms);
+  const cudaError_t e = device_sms(&dev, &sms);
   *blocks = kBwdMaxBlocksPerSm * sms;
   return e;
 }
@@ -482,8 +460,7 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* gamma, const vo
   // blocks of this kernel that fit on one SM at once, per device (0: not yet asked)
   static int per_sm[kMaxDevices] = {};
   int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = sm_count(dev, &sms);
+  cudaError_t e = device_sms(&dev, &sms);
   if (e != cudaSuccess) return e;
   if (per_sm[dev] == 0) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B::kSmemBytes);

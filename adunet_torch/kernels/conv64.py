@@ -27,16 +27,28 @@ two layouts (and the tests' oracle for the pack on the card).
 
 ``conv3x3_same`` is a ``torch.autograd.Function``, the counterpart of the
 reference's custom VJP (:191-227), and runs only where a gradient is wanted.
-It saves x and w. Its backward is the reference's ``_bwd`` (:203-227), which
-runs as XLA convolutions outside any Pallas kernel; here they are library
-convolutions on the NCHW views of the channels-last tensors
-(``aten.convolution_backward``, with w cast to x's type): dx is the
-correlation of the cotangent with the flipped, io-swapped kernel, dw the
-contraction over batch and pixels, db the sum over B, H and W accumulated in
-float32 as it reads the cotangent (no float32 copy of it). dw and db round to
-x's type, as the reference's ``_bwd`` rounds them to the compute type, and
-then come back in their parameters' dtype, as a cast's backward would
-return them.
+It saves x and w. Its backward, ``conv3x3_same_backward``, is the
+reference's ``_bwd`` (:203-227), which runs as XLA convolutions outside any
+Pallas kernel there; here it is one C call of four device kernels in the
+same source (``adunet_conv3x3_c64_backward``):
+
+- dx, the correlation of the cotangent with the flipped, io-swapped kernel:
+  the weight pack in flip mode (``pack_weights_flipped`` /
+  ``pack_weights_flipped_bf16`` are its plain layouts), then the forward
+  kernel of x's type run on the cotangent;
+- dw and db: a persistent grid over cotangent tiles (bf16: ``wgmma`` with
+  the shifted x from registers and the cotangent from shared memory;
+  float32: CUDA cores, no TF32) whose blocks each write one float32 partial
+  of the 9 x 64 x 64 dw sums and the 64 db sums, then a fixed-order sum of
+  the partials (no atomics: two calls give the same bits), which rounds dw
+  to x's type, then to w's, and db to x's type, then to the bias's, as the
+  reference's ``_bwd`` rounds them to the compute type and a cast's backward
+  widens them.
+
+``conv3x3_same_backward_plain`` is its plain version (explicit taps in
+float32, float64 for float64 inputs), which the CPU path runs.
+``conv3x3_same_backward.launches`` counts the backward's C calls in the
+SAME mode and ``conv3x3_same_backward.rows_launches`` in the halo-row mode.
 
 The gate ``supported`` is the reference's (``adunet/kernels/conv64.py:49``)
 unchanged, so the same four convs of the flagship reach the kernel; callers
@@ -48,13 +60,16 @@ below, a CUDA tensor launches the kernel or raises.
 split over the processes of a space mesh (``adunet_torch.parallel.spatial``):
 its input holds H + 2 rows, the top and bottom ones the neighbours' edge rows
 (zeros at the image's border), and it writes H rows, SAME in W and VALID in
-H. The gate applies to the output's shape. Its backward pads H by 0, so dx
-covers all H + 2 input rows and the exchange sends the halo rows' share back
-to their owners. ``conv3x3_rows.launches`` counts its launches apart from
+H. The gate applies to the output's shape. Its backward covers all H + 2
+input rows with dx, and the exchange sends the halo rows' share back
+to their owners (there dx is a full correlation in H: the cotangent's H
+rows give H + 2). ``conv3x3_rows.launches`` counts its launches apart from
 ``conv3x3_same.launches``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -65,10 +80,13 @@ __all__ = [
     "conv3x3_same",
     "conv3x3_same_plain",
     "conv3x3_same_backward",
+    "conv3x3_same_backward_plain",
     "conv3x3_rows",
     "conv3x3_rows_plain",
     "pack_weights",
     "pack_weights_bf16",
+    "pack_weights_flipped",
+    "pack_weights_flipped_bf16",
     "supported",
 ]
 
@@ -109,6 +127,25 @@ def pack_weights_bf16(w: torch.Tensor) -> torch.Tensor:
     return torch.gather(taps, 2, src[None, :, :, None].expand(9, 64, 8, 8)).reshape(9, 64, 64)
 
 
+def _flipped(w: torch.Tensor) -> torch.Tensor:
+    """The OIHW kernel of the backward's dx: w flipped in H and W with its
+    input and output channels swapped (the reference's ``w_flip``)."""
+    return w.flip(2, 3).transpose(0, 1)
+
+
+def pack_weights_flipped(w: torch.Tensor) -> torch.Tensor:
+    """``pack_weights`` of the flipped, io-swapped kernel: float32 (9, C_in,
+    C_out) of the correlation that gives dx (packed tap t reads w's tap 8 - t,
+    C_in and C_out swapped), as the pack's flip mode writes it."""
+    return pack_weights(_flipped(w))
+
+
+def pack_weights_flipped_bf16(w: torch.Tensor) -> torch.Tensor:
+    """``pack_weights_bf16`` of the flipped, io-swapped kernel (the bf16
+    pack's flip mode)."""
+    return pack_weights_bf16(_flipped(w))
+
+
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """float32, or float64 for float64 inputs (so gradcheck sees full precision)."""
     return torch.promote_types(dtype, torch.float32)
@@ -143,31 +180,54 @@ def conv3x3_rows_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | No
     return _plain(x, w, bias, 0)
 
 
+def conv3x3_same_backward_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                                need_dx: bool = True, need_dw: bool = True,
+                                need_db: bool = True, bias_dtype: torch.dtype | None = None,
+                                pad_h: int = 1):
+    """The backward's plain version: the kernels' arithmetic with explicit
+    taps in float32 (float64 for float64 inputs). dx is the plain conv of
+    ``g`` (cast to x's dtype) with the flipped, io-swapped ``w`` rounded to
+    x's dtype (padded by 1 row for SAME; ``pad_h=0``, the halo-row mode, pads
+    ``g`` by 2 rows so dx covers x's H + 2 rows), in x's dtype; dw the nine
+    matmuls of the shifted, zero-padded x with ``g``, rounded to x's dtype and
+    returned in w's (OIHW); db ``_bias_grad_f32`` rounded to x's dtype and
+    returned in ``bias_dtype`` (default w's dtype). Any 3x3 channel counts."""
+    if g.dtype is not x.dtype:
+        g = g.to(x.dtype)
+    dx = dw = db = None
+    if need_dx:
+        dx = _plain(g, _flipped(w), None, 2 - pad_h)
+    if need_dw:
+        acc = _acc_dtype(x.dtype)
+        _, h, wd, c_out = g.shape
+        xp = F.pad(x.to(acc), (0, 0, 1, 1, pad_h, pad_h))
+        gm = g.to(acc).reshape(-1, c_out)
+        taps = [xp[:, dy: dy + h, dx_: dx_ + wd, :].reshape(-1, x.shape[-1]).T @ gm
+                for dy in range(3) for dx_ in range(3)]  # (C_in, C_out) each
+        dw = torch.stack(taps).reshape(3, 3, x.shape[-1], c_out).permute(3, 2, 0, 1)
+        dw = dw.to(x.dtype).to(w.dtype).contiguous()
+    if need_db:
+        db = _bias_grad_f32(g).to(x.dtype).to(bias_dtype or w.dtype)
+    return dx, dw, db
+
+
 def conv3x3_same_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                           need_dx: bool = True, need_dw: bool = True, need_db: bool = True,
                           bias_dtype: torch.dtype | None = None, pad_h: int = 1):
     """(dx, dw, db) of the 3x3 SAME conv of NHWC ``x`` with OIHW ``w`` (any
     float dtype: it is cast to x's) for the NHWC output cotangent ``g``; an
     entry not asked for is None. dx comes in x's dtype; dw rounds to x's
-    dtype and returns in w's; db is summed in float32 (the cotangent read as
-    it is, no float32 copy), rounded to x's dtype and returned in
-    ``bias_dtype`` (default w's dtype). ``pad_h=0`` is the halo-row mode's
-    (dx covers x's H + 2 rows)."""
-    if g.dtype is not x.dtype:
-        g = g.to(x.dtype)
-    dx = dw = db = None
-    if need_dx or need_dw:
-        gn = g.permute(0, 3, 1, 2)  # NCHW views of channels-last memory
-        xn = x.permute(0, 3, 1, 2)
-        dxn, dw, _ = torch.ops.aten.convolution_backward(
-            gn, xn, w.to(x.dtype), None, [1, 1], [pad_h, 1], [1, 1], False, [0, 0], 1,
-            [need_dx, need_dw, False],
-        )
-        dx = dxn.permute(0, 2, 3, 1) if need_dx else None
-        dw = dw.to(w.dtype) if need_dw else None
-    if need_db:
-        db = _bias_grad_f32(g).to(x.dtype).to(bias_dtype or w.dtype)
-    return dx, dw, db
+    dtype and returns in w's; db is summed in float32, rounded to x's dtype
+    and returned in ``bias_dtype`` (default w's dtype). ``pad_h=0`` is the
+    halo-row mode's (dx covers x's H + 2 rows).
+
+    CUDA: the backward kernels, one C call (``supported`` shapes, float32 or
+    bf16 x; anything else raises). CPU: ``conv3x3_same_backward_plain``."""
+    if x.is_cuda:
+        return _launch_backward(x, w, g, need_dx, need_dw, need_db, bias_dtype, 1 - pad_h)
+    if x.device.type != "cpu":
+        raise ValueError(f"conv3x3_same_backward: no kernel for device {x.device}")
+    return conv3x3_same_backward_plain(x, w, g, need_dx, need_dw, need_db, bias_dtype, pad_h)
 
 
 def _bias_grad_f32(g: torch.Tensor) -> torch.Tensor:
@@ -223,6 +283,72 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     else:
         conv3x3_same.launches += 1
     return y
+
+
+# the backward's scratch: the flipped weights' room (as the C entry lays it
+# out), then one float32 partial row (9 x 64 x 64 dw, 64 db) per block
+_BWD_PACK_BYTES = 9 * 64 * 64 * 4 + 64 * 4
+_PARTIAL_FLOATS = 9 * 64 * 64 + 64
+_partials_per_device: dict[int, int] = {}
+
+
+def _n_partials(lib, index: int) -> int:
+    """The partial rows the backward's scratch must hold on device ``index``
+    (the most blocks its wgrad grid can have), asked of the library once per
+    device."""
+    n = _partials_per_device.get(index)
+    if n is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _build.check(lib.adunet_conv3x3_c64_backward_partials(ctypes.addressof(out)),
+                         "conv3x3_same_backward")
+        n = _partials_per_device[index] = out.value
+    return n
+
+
+def _launch_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, need_dx: bool,
+                     need_dw: bool, need_db: bool, bias_dtype: torch.dtype | None, halo: int):
+    """The backward kernels on CUDA tensors, one C call: (dx, dw, db) as
+    ``conv3x3_same_backward`` returns them; raises on what they do not take."""
+    what = "conv3x3_rows backward" if halo else "conv3x3_same backward"
+    code = _DTYPE_CODES.get(x.dtype)
+    w_code = _DTYPE_CODES.get(w.dtype)
+    db_dtype = bias_dtype or w.dtype
+    if code is None or w_code is None or (need_db and db_dtype not in _DTYPE_CODES):
+        raise TypeError(f"{what}: kernels take float32 or bfloat16 x, w and bias, got "
+                        f"{x.dtype}, {w.dtype}, {db_dtype}")
+    bsz, hx, wd, _ = x.shape
+    h = hx - 2 * halo
+    index = x.get_device()
+    if (tuple(g.shape) != (bsz, h, wd, 64) or not supported((bsz, h, wd, 64), w.shape)
+            or g.get_device() != index or w.get_device() != index):
+        raise ValueError(f"{what}: unsupported shapes or devices x={tuple(x.shape)} "
+                         f"w={tuple(w.shape)} g={tuple(g.shape)}")
+    if g.dtype is not x.dtype or not g.is_contiguous():
+        g = g.to(x.dtype).contiguous()
+    if not w.is_contiguous():
+        w = w.contiguous()
+    if not x.is_contiguous() or x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError(f"{what}: kernels take contiguous, 16-byte aligned NHWC tensors")
+    if not (need_dx or need_dw or need_db):
+        return None, None, None
+    lib = _build.library()
+    n = _n_partials(lib, index) if need_dw or need_db else 0
+    scratch = x.new_empty(_BWD_PACK_BYTES + n * _PARTIAL_FLOATS * 4, dtype=torch.uint8)
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty(w.shape, dtype=w.dtype, device=x.device) if need_dw else None
+    db = x.new_empty(64, dtype=db_dtype) if need_db else None
+    _build.check(lib.adunet_conv3x3_c64_backward(
+        x.data_ptr(), w.data_ptr(), w_code, g.data_ptr(), int(need_dx), int(need_dw),
+        int(need_db), scratch.data_ptr(), None if dx is None else dx.data_ptr(),
+        None if dw is None else dw.data_ptr(), None if db is None else db.data_ptr(),
+        _DTYPE_CODES.get(db_dtype, -1), bsz, h, wd, halo, code, index,
+        _build.current_stream(index)), what)
+    if halo:
+        conv3x3_same_backward.rows_launches += 1
+    else:
+        conv3x3_same_backward.launches += 1
+    return dx, dw, db
 
 
 class _Conv3x3Same(torch.autograd.Function):
@@ -290,3 +416,5 @@ def conv3x3_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) ->
 
 conv3x3_same.launches = 0
 conv3x3_rows.launches = 0
+conv3x3_same_backward.launches = 0
+conv3x3_same_backward.rows_launches = 0

@@ -4,14 +4,16 @@ Port of ``adunet/nn/blocks.py``:
 - ``Conv``          ← ``conv3x3`` :59 / ``conv1x1`` :73 / ``PallasConv3x3`` :35.
   A SAME, stride-1 conv with bias and an OIHW ``weight``. A 3x3 conv at a
   shape the K2 gate accepts runs the K2 kernel (``conv3x3_same``, an
-  autograd Function); every other conv goes to ``F.conv2d`` on the NHWC
+  autograd Function whose backward, ``conv3x3_same_backward``, runs K2's
+  backward kernels for dx, dw and db: no cuDNN call); every other conv
+  goes to ``F.conv2d`` on the NHWC
   tensor's NCHW view (a contiguous NHWC tensor permuted is an NCHW tensor in
   channels_last memory format, so no copy is made). On a space mesh
   (``space``, set by ``adunet_torch.parallel.spatial.attach``) x holds this
   process's rows of the image: a 3x3 conv takes one row of each neighbour
   (``SpaceShard.halo``) and runs VALID in H, SAME in W: K2's halo-row mode
-  (``conv3x3_rows``) where the gate takes the output's shape, else
-  ``F.conv2d`` with padding (0, 1).
+  (``conv3x3_rows``, its backward's dx on all H + 2 input rows) where the
+  gate takes the output's shape, else ``F.conv2d`` with padding (0, 1).
 - ``LayerNormReLU`` ← ``FusedLayerNormReLU`` :87 — K1 (``layer_norm_relu``,
   an autograd Function), eps 1e-3, with flax's ``scale``/``bias`` as
   ``weight``/``bias``.

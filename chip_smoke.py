@@ -11,7 +11,8 @@ exits non-zero without one. Every phase raises on failure:
 1. builds the CUDA kernels from ``adunet_torch/csrc`` with ``nvcc`` (again
    if the library came from the build cache) and fails if ptxas's report
    shows a byte of spill in any of the 16 instantiations of K1's backward
-   row kernel;
+   row kernel or in any kernel of K2's backward's dw + db (the two wgrad
+   kernels and their sum);
 2. prints the card's name and power limit (``nvidia-smi``);
 3. holds each kernel's forward against its plain PyTorch version on the
    card, at every shape the flagship's float32 serving forward (batch 8) and
@@ -33,7 +34,13 @@ exits non-zero without one. Every phase raises on failure:
    kernel alone against ``layer_norm_relu_backward`` at the same shapes
    (counting the ReLU mask elements on which the two disagree), checks that
    its dgamma / dbeta repeat bit for bit, and times it beside its bytes
-   bound, the plain backward and the library's backward;
+   bound, the plain backward and the library's backward; then holds K2's
+   backward kernels alone (``conv3x3_same_backward``: dx, dw, db, one C
+   call of 4 device kernels) against ``conv3x3_same_backward_plain`` at
+   every shape K2 runs with a gradient, both types and both modes, checks
+   that two calls give the same bits, and times them beside their bound,
+   the plain version and the route the port took before (cuDNN's
+   ``convolution_backward``);
 5. serves the trained flagship artifact over HTTP (launch counts set to 0
    just before, read just after: 16 K1 + 4 K2 per device call, no K1
    backward);
@@ -43,7 +50,7 @@ exits non-zero without one. Every phase raises on failure:
    params, Adam 1e-4; a seeded random 1x1 head in place of the zero one)
    on a device cache of synthetic images for a few device-cache steps at
    batch 32 x 256 px (counts set to 0 just before: 16 K1 forward, 16 K1
-   backward and 4 K2 per step),
+   backward, 4 K2 and 4 K2 backward per step),
    checks that every parameter gets a finite, nonzero gradient in the first
    step and that the loss falls by a quarter over the steps, and times the
    step;
@@ -146,6 +153,13 @@ exits non-zero without one. Every phase raises on failure:
     memory a rank (``space_ranks``);
 25. prints one JSON line with each kernel's launches, error and times, the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
+
+Every phase that counts launches also counts K2's backward
+(``conv64.conv3x3_same_backward.launches``; the halo-row mode's apart): one
+for each K2 launch that runs with a gradient, so 4 a flagship, deep or
+space-rank step, 5 a joint step and the graph's capture, 2 a vanilla SR or
+protocol seg step, 2 per lane per tuner training step, and none on a
+forward without a gradient.
 
 At the start of each phase it prints a host probe (a fixed numpy and Python
 timing, the load average, the live threads, torch's CPU threads), and
@@ -278,19 +292,21 @@ K2_DEEP = {(DEEP_BATCH, 256, 256, 64): 4}
 K1_WIDE = ([((rows, c), torch.float32) for rows, c in K1_DEEP if c >= 1024]
            + [((rows - 3, c), dtype) for rows, c in K1_DEEP if c >= 1024
               for dtype in (torch.bfloat16, torch.float32)])
-# launches per training step (K1, K1 backward, K2) without and with
-# remat_levels=2: the recompute runs the forward of enc0/1 and dec0/1 again
-DEEP_PER_STEP = {None: (24, 24, 4), 2: (32, 24, 6)}
-# The streamed flagship: (K1, K1 backward, K2) per step, and the steps timed
-STREAM_PER_STEP, STREAM_STEPS = (16, 16, 4), 20
+# launches per training step (K1, K1 backward, K2, K2 backward) without and
+# with remat_levels=2: the recompute runs the forward of enc0/1 and dec0/1
+# again, not their backward
+DEEP_PER_STEP = {None: (24, 24, 4, 4), 2: (32, 24, 6, 4)}
+# The streamed flagship: (K1, K1 backward, K2, K2 backward) per step, and the
+# steps timed
+STREAM_PER_STEP, STREAM_STEPS = (16, 16, 4, 4), 20
 # The vanilla SR U-Net (base 64, depth 4: 34,525,251 params) at batch 8 x 256
 # px: no LayerNorm; enc0.conv1 and dec0.conv1 run K2
 VANILLA_SR_PARAMS = 34_525_251
 K2_VANILLA_SR = {(8, 256, 256, 64): 2}
-# launches per step (K1, K1 backward, K2)
-SEG_PER_STEP = {"protocol": (0, 0, sum(K2_PROTOCOL.values())),
+# launches per step (K1, K1 backward, K2, K2 backward)
+SEG_PER_STEP = {"protocol": (0, 0, sum(K2_PROTOCOL.values()), sum(K2_PROTOCOL.values())),
                 "vanilla": (sum(K1_VANILLA.values()), sum(K1_VANILLA.values()),
-                            sum(K2_VANILLA.values()))}
+                            sum(K2_VANILLA.values()), sum(K2_VANILLA.values()))}
 
 # The joint SR + segmentation U-Net at train_joint's defaults (scale 0.5, base
 # 64, 256 px: depth 4 from the depth policy, 50,273,348 params) in bf16 at
@@ -307,9 +323,11 @@ K2_JOINT = {(JOINT_BATCH, 256, 256, 64): 5}
 # The served joint forward runs K1 in float32 at K1_JOINT's rows: the serving
 # checks hold the first four, and this one the bottleneck's
 K1_JOINT_SERVED = {(2_048, 1024): K1_JOINT[(2_048, 1024)]}
-# launches (K1, K1 backward, K2) per training step and per served forward
-JOINT_PER_STEP = (sum(K1_JOINT.values()), sum(K1_JOINT.values()), sum(K2_JOINT.values()))
-JOINT_PER_FORWARD = (JOINT_PER_STEP[0], 0, JOINT_PER_STEP[2])
+# launches (K1, K1 backward, K2, K2 backward) per training step and per
+# served forward
+JOINT_PER_STEP = (sum(K1_JOINT.values()), sum(K1_JOINT.values()), sum(K2_JOINT.values()),
+                  sum(K2_JOINT.values()))
+JOINT_PER_FORWARD = (JOINT_PER_STEP[0], 0, JOINT_PER_STEP[2], 0)
 
 # The tuner (adunet_torch.cli.tune): the vanilla SR U-Net (base 64, depth 4)
 # trains in float32 at 256 px and batch 4, 8 or 16; enc0.conv1 and dec0.conv1
@@ -352,28 +370,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def check_k1_bwd_spills(build_log: str) -> list[dict]:
-    """Registers, stack frame and spills of each instantiation of K1's
-    backward row kernel, from ptxas's report in the build log (``-Xptxas
-    -v``: a "Function properties for <name>" line, then the stack and spill
-    line, then the registers line). Raises if an instantiation is missing
-    from the report or spills any bytes."""
-    found, name = {}, None
+def _ptxas_functions(build_log: str) -> list[dict]:
+    """Each kernel of ptxas's report in the build log (``-Xptxas -v``: a
+    "Function properties for <name>" line, then the stack and spill line,
+    then the registers line): its mangled name, stack frame, spill stores
+    and loads, and registers."""
+    found = []
     for line in build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = m.group(1)
+            found.append({"name": m.group(1)})
             continue
-        inst = re.search(r"layer_norm_relu_bwd_rows_kernelI\w*?_\d+(F32|BF16)ELi(\d+)E", name or "")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if inst and m:
-            found[(int(inst.group(2)), inst.group(1))] = dict(
-                C=int(inst.group(2)), type=inst.group(1), stack=int(m.group(1)),
-                spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        if found and m:
+            found[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
-        if inst and m and (int(inst.group(2)), inst.group(1)) in found:
-            found[(int(inst.group(2)), inst.group(1))]["registers"] = int(m.group(1))
+        if found and m and "registers" not in found[-1]:
+            found[-1]["registers"] = int(m.group(1))
+    return [f for f in found if "stack" in f]
+
+
+def check_k1_bwd_spills(build_log: str) -> list[dict]:
+    """Registers, stack frame and spills of each instantiation of K1's
+    backward row kernel, from ptxas's report in the build log. Raises if an
+    instantiation is missing from the report or spills any bytes."""
+    found = {}
+    for f in _ptxas_functions(build_log):
+        inst = re.search(r"layer_norm_relu_bwd_rows_kernelI\w*?_\d+(F32|BF16)ELi(\d+)E", f["name"])
+        if inst:
+            found[(int(inst.group(2)), inst.group(1))] = dict(
+                C=int(inst.group(2)), type=inst.group(1), stack=f["stack"],
+                spill_stores=f["spill_stores"], spill_loads=f["spill_loads"],
+                registers=f.get("registers"))
     rows = [found[k] for k in sorted(found)]
     for r in rows:
         log(f"[spill] K1 backward C={r['C']} {r['type']}: {r.get('registers')} registers, stack "
@@ -386,6 +416,35 @@ def check_k1_bwd_spills(build_log: str) -> list[dict]:
     if spilled:
         raise AssertionError(f"K1 backward spills: {spilled}")
     return rows
+
+
+# the kernels of K2's backward that must not spill (mangled-name parts)
+K2_BWD_KERNELS = ("conv3x3_c64_wgrad_wgmma_kernel", "conv3x3_c64_wgrad_kernel",
+                  "conv3x3_c64_wgrad_reduce_kernel")
+
+
+def check_k2_bwd_spills(build_log: str) -> list[dict]:
+    """Registers and spills of every kernel of K2's backward that the build
+    compiled for it (the wgrad kernels and their sum's instantiations), from
+    ptxas's report as ``check_k1_bwd_spills`` reads it. Raises if either
+    wgrad kernel is missing from the report or any of them spills."""
+    found = []
+    for f in _ptxas_functions(build_log):
+        # the mangled name's length prefix keeps one kernel's name from matching another's
+        kernel = next((k for k in K2_BWD_KERNELS if re.search(rf"\d{k}", f["name"])), None)
+        if kernel:
+            found.append(dict(kernel=kernel, **f))
+    for r in found:
+        log(f"[spill] K2 backward {r['kernel']} ({r['name']}): {r.get('registers')} registers, "
+            f"stack {r['stack']} bytes, spill stores {r['spill_stores']} bytes, spill loads "
+            f"{r['spill_loads']} bytes")
+    missing = set(K2_BWD_KERNELS) - {r["kernel"] for r in found}
+    if missing:
+        raise AssertionError(f"ptxas reported no {sorted(missing)}")
+    spilled = [r for r in found if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"K2 backward spills: {spilled}")
+    return found
 
 
 def host_probe(phase: str) -> dict:
@@ -496,12 +555,14 @@ def host_us(fn) -> float:
     return float(np.median(per_call))
 
 
-def launch_cost(kid: str, fn, kernel_name: str, per_run: int = 1) -> dict:
-    """The device time of ``kernel_name`` per call of ``fn`` (profiler), the
-    device kernels a call of every name, and the host's cost of a call
-    (``host_us``). Raises where a call launches other than the kernels its
-    wrapper should: K1 1, K1 backward 2 (rows and column sums), K2 (both
-    modes) at most 2 (the weight pack and the conv). A session whose count
+def launch_cost(kid: str, fn, kernel_name: str | None, per_run: int = 1) -> dict:
+    """The device time of ``kernel_name`` (None: of every kernel) per call of
+    ``fn`` (profiler), the device kernels a call of every name, and the
+    host's cost of a call (``host_us``). Raises where a call launches other
+    than the kernels its wrapper should: K1 1, K1 backward 2 (rows and column
+    sums), K2 (both modes) at most 2 (the weight pack and the conv), K2's
+    backward (both modes) 4 (the flip pack, the dx conv, the dw + db
+    partials and their sum). A session whose count
     is not a whole number a call dropped records and is repeated, up to 3
     in all. Where the profiler recorded no session, the count is not
     measured and the check fails."""
@@ -511,11 +572,13 @@ def launch_cost(kid: str, fn, kernel_name: str, per_run: int = 1) -> dict:
         per_call = totals["kernels_per_run"]
         if per_call is not None and float(per_call).is_integer():
             break
-    allowed = {"K1": (1, 1), "K1_bwd": (2, 2), "K2": (1, 2), "K2_halo": (1, 2)}[kid]
+    allowed = {"K1": (1, 1), "K1_bwd": (2, 2), "K2": (1, 2), "K2_halo": (1, 2),
+               "K2_bwd": (4, 4), "K2_bwd_halo": (4, 4)}[kid]
     if per_call is None or not allowed[0] <= per_call <= allowed[1]:
         raise AssertionError(f"{kid}: {per_call} device kernels a call (profiler), expected "
                              f"{allowed[0]}..{allowed[1]}: {totals['by_name']}")
-    others = {k: v for k, v in (totals["by_name"] or {}).items() if kernel_name not in k}
+    others = {k: v for k, v in (totals["by_name"] or {}).items()
+              if kernel_name is not None and kernel_name not in k}
     return {"device_ms": dev_ms, "device_launches_recorded": dev_n,
             "device_kernels_per_call": per_call, "other_kernels_device_ms": others,
             "host_us": host_us(fn)}
@@ -825,8 +888,9 @@ def check_backward(gen: torch.Generator) -> list[dict]:
     formulas round to bf16 from float32 values that differ in the last
     bits); parameter gradients 1e-3 (float32 sums over up to 2,097,152 rows
     or pixels in another order, plus one bf16 ulp for K2's bf16 dw / db).
-    K2's float32 dx / dw come from cuDNN (TF32 off), whose FFT and Winograd
-    algorithms keep ~1e-5 relative, so dx is held at 1e-4 there. K1's dx is
+    K2's dx is held at 1e-4: its backward's dx runs K2's forward kernel on
+    the cotangent, whose float32 sums (and tensor-core sums in bf16) run in
+    another order than the plain matmuls'. K1's dx is
     compared outside the rows where the kernel's and the plain forward's ReLU
     masks disagree (``k1_dx_close``)."""
     out = []
@@ -889,6 +953,100 @@ def check_backward(gen: torch.Generator) -> list[dict]:
     return out
 
 
+def _k2_bwd_cases():
+    """(x's shape, launches a step of its path, dtype, path, halo) of K2's
+    backward: every shape K2 runs with a gradient (``serve`` bf16 is the
+    deep config's, the joint model's, the vanilla SR and protocol models'
+    (8, 256, 256, 64)), and the space mesh's halo-row shapes."""
+    return ([(s, n, torch.bfloat16, "train", 0) for s, n in K2_TRAIN.items()]
+            + [(s, 0, torch.float32, "serve", 0) for s in K2_SERVE]
+            + [(s, n, torch.bfloat16, "serve", 0) for s, n in K2_DEEP.items()]
+            + [(s, n, dtype, "vanilla", 0) for s, n in K2_VANILLA.items()
+               for dtype in (torch.bfloat16, torch.float32)]
+            + [(s, n, torch.float32, "tune", 0) for s, n in K2_TUNE.items()]
+            + [(s, n, dtype, "space", 1) for s, n, dtype in K2_HALO_CASES])
+
+
+def k2_library_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, pad_h: int):
+    """What the port ran for K2's backward before its kernels, a yardstick
+    only: cuDNN's ``convolution_backward`` on the NCHW views (w cast to x's
+    type) for dx and dw, and db summed in float32 from the cotangent."""
+    dxn, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.to(x.dtype), None, [1, 1], [pad_h, 1],
+        [1, 1], False, [0, 0], 1, [True, True, False])
+    return dxn, dw, g.sum(dim=(0, 1, 2), dtype=torch.float32)
+
+
+def _k2_bwd_bound(x_shape, dtype, halo: int) -> tuple[float, str]:
+    """x, g and dx read or written once in x's type, the float32 weight and
+    dw, db; dx's taps over every x pixel (the halo-row mode's x holds H + 2
+    rows) and dw's over every g pixel."""
+    bsz, hx, w, c = x_shape
+    px_x, px_g = bsz * hx * w, bsz * (hx - 2 * halo) * w
+    es = torch.empty((), dtype=dtype).element_size()
+    return bound_ms((2 * px_x + px_g) * c * es + 2 * 9 * 64 * 64 * 4 + 64 * 4,
+                    2 * 9 * 64 * 64 * (px_x + px_g) + px_g * 64, dtype)
+
+
+def check_k2_backward(gen: torch.Generator) -> list[dict]:
+    """K2's backward kernels (``conv64.conv3x3_same_backward``, one C call of
+    4 device kernels) against ``conv3x3_same_backward_plain`` on the same
+    CUDA tensors at every shape K2 runs with a gradient, both types and both
+    modes: dx at 1e-4 relative to max |dx| (plus one bf16 ulp per element in
+    bf16), dw and db at 1e-3 (plus one bf16 ulp where rounded to bf16):
+    ``check_backward``'s tolerances. dx, dw and db must be bit-equal over two
+    calls. Timed beside the bound, the plain version and the route the port
+    took before (``k2_library_backward``: cuDNN)."""
+    rows_out = []
+    for x_shape, per_call, dtype, path, halo in _k2_bwd_cases():
+        kid = "K2_bwd_halo" if halo else "K2_bwd"
+        x, wt, _ = _k2_inputs(gen, x_shape, dtype)
+        g_shape = (x_shape[0], x_shape[1] - 2 * halo, *x_shape[2:])
+        gy = torch.randn(*g_shape, generator=gen, device="cuda").to(dtype)
+        pad_h = 1 - halo
+
+        def bwd():
+            return conv64.conv3x3_same_backward(x, wt, gy, bias_dtype=torch.float32, pad_h=pad_h)
+
+        def plain_bwd():
+            return conv64.conv3x3_same_backward_plain(x, wt, gy, bias_dtype=torch.float32,
+                                                      pad_h=pad_h)
+
+        got = bwd()
+        want = plain_bwd()
+        again = bwd()
+        torch.cuda.synchronize()
+        what = f"{kid} {path} {'x'.join(map(str, x_shape))} {dtype}"
+        errs = {"dx": grad_close(what + " dx", got[0], want[0], 1e-4)}
+        errs.update({n: grad_close(f"{what} {n}", a, b, 1e-3, rounded_to=dtype)
+                     for n, a, b in (("dw", got[1], want[1]), ("db", got[2], want[2]))})
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{what}: dx / dw / db differ between two calls")
+        abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        del got, want, again
+        ms = cuda_ms(bwd, 20)
+        cost = launch_cost(kid, bwd, None)
+        plain = cuda_ms(plain_bwd, 3)
+        lib = cuda_ms(lambda: k2_library_backward(x, wt, gy, pad_h), 20)
+        lib_dev, lib_n = profiled_device_ms(lambda: k2_library_backward(x, wt, gy, pad_h))
+        bnd, by = _k2_bwd_bound(x_shape, dtype, halo)
+        rows_out.append(dict(kernel=kid, path=path, shape=list(x_shape), dtype=_dname(dtype),
+                             per_call=per_call, max_abs_err=abs_err, rel_err=errs, ms=ms, **cost,
+                             plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
+        log(f"[K2 bwd] {path} x={'x'.join(map(str, x_shape))} {dtype}{' halo' if halo else ''}: "
+            f"rel err " + ", ".join(f"{n} {e:.1e}" for n, e in errs.items())
+            + f" (max |err| {abs_err:.2e}), dx / dw / db bit-equal over two calls; kernels "
+            f"{ms:.4f} ms (events; profiler device time {_ms(cost['device_ms'])}, every kernel of "
+            f"the call; host {cost['host_us']:.2f} us a call, "
+            f"{cost['device_kernels_per_call']:g} device kernels a call), plain {plain:.4f} ms, "
+            f"cuDNN convolution_backward + float32 sum {lib:.4f} ms (device time {_ms(lib_dev)}), "
+            f"bound {bnd:.4f} ms ({by})")
+        del x, gy
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def _post_npy(url: str, arr: np.ndarray) -> np.ndarray:
     buf = io.BytesIO()
     np.save(buf, arr)
@@ -903,13 +1061,20 @@ def _zero_counts() -> None:
     fused_norm.layer_norm_relu.backward_launches = 0
     conv64.conv3x3_same.launches = 0
     conv64.conv3x3_rows.launches = 0
+    conv64.conv3x3_same_backward.launches = 0
+    conv64.conv3x3_same_backward.rows_launches = 0
 
 
-def _counts() -> tuple[int, int, int]:
-    """Launches of K1's forward, K1's backward and K2 (SAME; the halo-row
-    mode counts apart, ``conv64.conv3x3_rows.launches``)."""
+# the kernels ``_counts`` counts, in its order
+COUNTED = ("K1", "K1_bwd", "K2", "K2_bwd")
+
+
+def _counts() -> tuple[int, int, int, int]:
+    """Launches of K1's forward, K1's backward, K2 and K2's backward (SAME;
+    the halo-row mode counts apart, ``conv64.conv3x3_rows.launches`` and
+    ``conv64.conv3x3_same_backward.rows_launches``)."""
     return (fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches,
-            conv64.conv3x3_same.launches)
+            conv64.conv3x3_same.launches, conv64.conv3x3_same_backward.launches)
 
 
 def serve_flagship(call) -> dict:
@@ -949,10 +1114,11 @@ def serve_flagship(call) -> dict:
         server.batcher.close()
         server.server_close()
         thread.join(timeout=30)
-    k1, k1b, k2 = _counts()
+    k1, k1b, k2, k2b = _counts()
     calls = stats["device_calls"]
-    log(f"[serve] stats {stats}; K1 launches {k1}, K2 launches {k2}, K1 backward {k1b}")
-    if calls < 1 or k1 != K1_PER_CALL * calls or k2 != K2_PER_CALL * calls or k1b:
+    log(f"[serve] stats {stats}; K1 launches {k1}, K2 launches {k2}, K1 backward {k1b}, K2 "
+        f"backward {k2b}")
+    if calls < 1 or k1 != K1_PER_CALL * calls or k2 != K2_PER_CALL * calls or k1b or k2b:
         raise AssertionError(f"expected {K1_PER_CALL} K1 and {K2_PER_CALL} K2 launches per "
                              f"device call; got {k1} and {k2} over {calls} calls")
     if stats["images"] != 12 or stats["batched_rows"] != 12:
@@ -971,7 +1137,8 @@ def serve_flagship(call) -> dict:
     if not worst <= 1e-5:
         raise AssertionError(f"served answers differ from the direct call by {worst:.3e}")
     log(f"[serve] 12 images over {calls} device calls; max |served - direct| {worst:.2e}")
-    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2}, "device_calls": calls}
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b},
+            "device_calls": calls}
 
 
 def _synth():
@@ -1088,15 +1255,16 @@ def train_flagship(tmp: Path, ident: str) -> dict:
             if bad:
                 raise AssertionError(f"parameters without a finite nonzero gradient: {bad}")
     torch.cuda.synchronize()
-    k1, k1b, k2 = _counts()
-    if (k1, k1b, k2) != (16 * TRAIN_STEPS, 16 * TRAIN_STEPS, 4 * TRAIN_STEPS):
-        raise AssertionError(f"expected {16 * TRAIN_STEPS} K1, {16 * TRAIN_STEPS} K1 backward "
-                             f"and {4 * TRAIN_STEPS} K2 launches over {TRAIN_STEPS} steps; "
-                             f"got {k1}, {k1b} and {k2}")
+    k1, k1b, k2, k2b = _counts()
+    if (k1, k1b, k2, k2b) != (16 * TRAIN_STEPS, 16 * TRAIN_STEPS, 4 * TRAIN_STEPS,
+                              4 * TRAIN_STEPS):
+        raise AssertionError(f"expected {16 * TRAIN_STEPS} K1, {16 * TRAIN_STEPS} K1 backward, "
+                             f"{4 * TRAIN_STEPS} K2 and {4 * TRAIN_STEPS} K2 backward launches "
+                             f"over {TRAIN_STEPS} steps; got {k1}, {k1b}, {k2} and {k2b}")
     losses = [float(v) for v in losses]
     log(f"[train] {TRAIN_STEPS} steps, losses {', '.join(f'{v:.5f}' for v in losses)}; "
         f"every parameter had a finite nonzero gradient after step 1; K1 {k1}, K1 backward "
-        f"{k1b}, K2 {k2} launches")
+        f"{k1b}, K2 {k2}, K2 backward {k2b} launches")
     # each step samples its own patches; the drop from the random head's
     # residual is far larger than the spread between batches
     if not all(np.isfinite(losses)) or not losses[-1] < 0.75 * losses[0]:
@@ -1108,7 +1276,7 @@ def train_flagship(tmp: Path, ident: str) -> dict:
         f"peak device memory {peak_gb:.2f} GB")
     del cache, state, model
     torch.cuda.empty_cache()
-    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2}, "steps": TRAIN_STEPS,
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b}, "steps": TRAIN_STEPS,
             "losses": losses,
             "ms_per_step": ms,
             "img_per_s": TRAIN_BATCH * 1e3 / ms, "peak_gb": peak_gb, "depth": info["depth"]}
@@ -1184,7 +1352,7 @@ def train_entry_point(tmp: Path) -> dict:
     with contextlib.redirect_stdout(buf):
         result = train_main(args)
     seconds = time.perf_counter() - t0
-    k1, k1b, k2 = _counts()
+    k1, k1b, k2, k2b = _counts()
     printed = buf.getvalue()
     for line in printed.splitlines():
         log(f"[train_sr] {line}")
@@ -1194,9 +1362,10 @@ def train_entry_point(tmp: Path) -> dict:
     rows = (run_dir / "epoch_metrics.csv").read_text().strip().splitlines()
     steps = epochs * cfg["steps_per_epoch"]
     forwards = steps + epochs * 1 + 2  # train, val (4 tiles), eval
-    if (k1, k1b, k2) != (16 * forwards, 16 * steps, 4 * forwards):
+    if (k1, k1b, k2, k2b) != (16 * forwards, 16 * steps, 4 * forwards, 4 * steps):
         raise AssertionError(f"train_sr: expected {16 * forwards} K1 / {16 * steps} K1 backward "
-                             f"/ {4 * forwards} K2 launches, got {k1} / {k1b} / {k2}")
+                             f"/ {4 * forwards} K2 / {4 * steps} K2 backward launches, got {k1} / "
+                             f"{k1b} / {k2} / {k2b}")
     if (cfg["steps_per_epoch"], cfg["n_params"], len(rows)) != (2, 8_637_379, epochs + 1):
         raise AssertionError(f"train_sr wrote {cfg['steps_per_epoch']} steps/epoch, "
                              f"{cfg['n_params']} params, {len(rows)} CSV lines")
@@ -1220,10 +1389,11 @@ def train_entry_point(tmp: Path) -> dict:
     if not matches["best"] or matches["latest"] != (best == latest):
         raise AssertionError(f"restored checkpoints vs live params: {matches} (best {best}, "
                              f"latest {latest})")
-    log(f"[train_sr] {epochs} epochs in {seconds:.1f} s; K1 {k1}, K1 backward {k1b}, K2 {k2} "
-        f"launches; best epoch "
+    log(f"[train_sr] {epochs} epochs in {seconds:.1f} s; K1 {k1}, K1 backward {k1b}, K2 {k2}, "
+        f"K2 backward {k2b} launches; best epoch "
         f"{best}, latest {latest}; restored best == live params, latest == live: {matches['latest']}")
-    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2}, "seconds": seconds, "best": best,
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b}, "seconds": seconds,
+            "best": best,
             "latest": latest,
             "eval": {k: v["psnr_mean"] for k, v in result["eval"].items()}}
 
@@ -1293,10 +1463,10 @@ def train_seg(kind: str, dtype: torch.dtype, ident: str) -> dict:
                 raise AssertionError(f"{kind}: parameters without a finite nonzero gradient: {bad}")
     torch.cuda.synchronize()
     counts = _counts()
-    want = tuple(SEG_PER_STEP[kind][j] * SEG_STEPS for j in range(3))
+    want = tuple(n * SEG_STEPS for n in SEG_PER_STEP[kind])
     if counts != want:
-        raise AssertionError(f"{kind} {dtype}: expected {want} K1 / K1 backward / K2 launches "
-                             f"over {SEG_STEPS} steps, got {counts}")
+        raise AssertionError(f"{kind} {dtype}: expected {want} K1 / K1 backward / K2 / K2 "
+                             f"backward launches over {SEG_STEPS} steps, got {counts}")
     still = [n for n, b in model.named_buffers() if torch.equal(b, buffers0[n])]
     if still or (kind == "protocol") != bool(buffers0):
         raise AssertionError(f"{kind}: BatchNorm buffers that did not move: {still}")
@@ -1304,7 +1474,7 @@ def train_seg(kind: str, dtype: torch.dtype, ident: str) -> dict:
     log(f"[seg {kind}] {dtype}, {n_params:,} params, {SEG_STEPS} steps at batch {SEG_BATCH} x "
         f"{SEG_SIZE} px: losses {', '.join(f'{v:.4f}' for v in losses)}; finite nonzero gradients "
         f"after step 1; {len(buffers0)} BatchNorm buffers moved; K1 {counts[0]}, K1 backward "
-        f"{counts[1]}, K2 {counts[2]} launches")
+        f"{counts[1]}, K2 {counts[2]}, K2 backward {counts[3]} launches")
     # two alternating batches, augmented anew each step: compare the means of
     # the first and last two steps
     if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
@@ -1315,7 +1485,7 @@ def train_seg(kind: str, dtype: torch.dtype, ident: str) -> dict:
         f"{ms:.3f} ms/step ({SEG_BATCH * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB")
     del state, model, batches
     torch.cuda.empty_cache()
-    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "steps": SEG_STEPS,
+    return {"launches": dict(zip(COUNTED, counts)), "steps": SEG_STEPS,
             "losses": losses, "ms_per_step": ms, "img_per_s": SEG_BATCH * 1e3 / ms,
             "peak_gb": peak_gb, "n_params": n_params}
 
@@ -1446,11 +1616,12 @@ def seg_entry_points(tmp: Path) -> dict:
         counts = _counts()
         for line in buf.getvalue().splitlines():
             log(f"[{kind} cli] {line}")
-        k1, k1b, k2 = SEG_PER_STEP[kind]
-        want = (k1 * forwards[kind], k1b * epochs * steps, k2 * forwards[kind])
+        k1, k1b, k2, k2b = SEG_PER_STEP[kind]
+        want = (k1 * forwards[kind], k1b * epochs * steps, k2 * forwards[kind],
+                k2b * epochs * steps)
         if counts != want:
-            raise AssertionError(f"{kind} CLI: expected {want} K1 / K1 backward / K2 launches, "
-                                 f"got {counts}")
+            raise AssertionError(f"{kind} CLI: expected {want} K1 / K1 backward / K2 / K2 "
+                                 f"backward launches, got {counts}")
         run_dir = Path(result["run_dir"])
         cfg = json.loads((run_dir / "config.json").read_text())
         rows = (run_dir / "epoch_metrics.csv").read_text().strip().splitlines()
@@ -1471,9 +1642,10 @@ def seg_entry_points(tmp: Path) -> dict:
         if latest != [epochs] * len(ckpts):
             raise AssertionError(f"{kind} CLI checkpoints: latest steps {latest}")
         log(f"[{kind} cli] {epochs} epochs in {seconds:.1f} s; K1 {counts[0]}, K1 backward "
-            f"{counts[1]}, K2 {counts[2]} launches; config.json keys and CSV as the reference's; "
+            f"{counts[1]}, K2 {counts[2]}, K2 backward {counts[3]} launches; config.json keys and "
+            f"CSV as the reference's; "
             f"checkpoints at epoch {epochs}")
-        out[kind] = {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "seconds": seconds,
+        out[kind] = {"launches": dict(zip(COUNTED, counts)), "seconds": seconds,
                      "csv_header": rows[0].split(",")}
         if kind == "protocol":  # exported and served by the joint_cli phase
             out[kind]["ckpt_dir"] = str(result["ckpt_dir"])
@@ -1558,7 +1730,7 @@ def streamed_flagship(tmp: Path, ident: str) -> dict:
             "--image_suffix", ".npy", "--model_dir", str(tmp / "models_streamed"),
             "--log_dir", str(tmp / "logs"), "--run_name", "streamed", "--seed", "11"])
     seconds = time.perf_counter() - t0
-    k1, k1b, k2 = _counts()
+    k1, k1b, k2, k2b = _counts()
     printed = buf.getvalue()
     for line in printed.splitlines():
         log(f"[streamed cli] {line}")
@@ -1568,10 +1740,12 @@ def streamed_flagship(tmp: Path, ident: str) -> dict:
     if (cfg["low_res_mode"], cfg["uint8_feed"], cfg["device_cache"]) != \
             ("synthetic_patches", True, False) or printed.count("PSNR(Y)") != 2:
         raise AssertionError(f"streamed train_sr: config {cfg}")
-    if (k1, k1b, k2) != (16 * forwards, 16 * steps, 4 * forwards):
+    if (k1, k1b, k2, k2b) != (16 * forwards, 16 * steps, 4 * forwards, 4 * steps):
         raise AssertionError(f"streamed train_sr: expected {16 * forwards} K1 / {16 * steps} K1 "
-                             f"backward / {4 * forwards} K2 launches, got {k1} / {k1b} / {k2}")
-    log(f"[streamed cli] 2 epochs in {seconds:.1f} s; K1 {k1}, K1 backward {k1b}, K2 {k2}")
+                             f"backward / {4 * forwards} K2 / {4 * steps} K2 backward launches, "
+                             f"got {k1} / {k1b} / {k2} / {k2b}")
+    log(f"[streamed cli] 2 epochs in {seconds:.1f} s; K1 {k1}, K1 backward {k1b}, K2 {k2}, K2 "
+        f"backward {k2b}")
 
     paths = sorted(str(p) for p in corpus.glob("*.npy"))
     model, _ = build_super_resolution_unet(0.5, depth_override=3, dtype=torch.bfloat16,
@@ -1609,8 +1783,8 @@ def streamed_flagship(tmp: Path, ident: str) -> dict:
     feed_ms = waited[0] / (2 * STREAM_STEPS) * 1e3
     want = tuple(n * STREAM_STEPS for n in STREAM_PER_STEP)
     if counts != want:
-        raise AssertionError(f"streamed step: expected {want} K1 / K1 backward / K2 launches over "
-                             f"{STREAM_STEPS} steps, got {counts}")
+        raise AssertionError(f"streamed step: expected {want} K1 / K1 backward / K2 / K2 "
+                             f"backward launches over {STREAM_STEPS} steps, got {counts}")
     idle = device_idle(run_streamed, 16)
     idle_cached = device_idle(run_cached, 16)
     feed.close()
@@ -1636,12 +1810,13 @@ def streamed_flagship(tmp: Path, ident: str) -> dict:
         + ("the feed paces the step" if paced else "the feed does not pace the step"))
     del cache, state, model, feed
     torch.cuda.empty_cache()
-    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "steps": STREAM_STEPS,
+    return {"launches": dict(zip(COUNTED, counts)), "steps": STREAM_STEPS,
             "ms_per_step": ms, "ms_runs": ms_streamed, "img_per_s": TRAIN_BATCH * 1e3 / ms,
             "device_cache_ms_per_step": ms_c, "device_cache_ms_runs": ms_cached,
             "host_feed_share": ms / ms_c - 1.0, "feed_wait_ms_per_step": feed_ms,
             "idle": idle, "idle_device_cache": idle_cached,
-            "feed_paces_step": paced, "cli_seconds": seconds, "cli_launches": [k1, k1b, k2],
+            "feed_paces_step": paced, "cli_seconds": seconds,
+            "cli_launches": [k1, k1b, k2, k2b],
             "ckpt_dir": result["ckpt_dir"]}
 
 
@@ -1705,7 +1880,8 @@ def deep_config(tmp: Path, ident: str) -> dict:
         want = tuple(n * DEEP_STEPS for n in DEEP_PER_STEP[levels])
         if counts != want:
             raise AssertionError(f"deep config remat_levels={levels}: expected {want} K1 / K1 "
-                                 f"backward / K2 launches over {DEEP_STEPS} steps, got {counts}")
+                                 f"backward / K2 / K2 backward launches over {DEEP_STEPS} steps, "
+                                 f"got {counts}")
         losses = [float(v) for v in losses]
         if not all(np.isfinite(losses)):
             raise AssertionError(f"deep config: non-finite losses {losses}")
@@ -1714,7 +1890,7 @@ def deep_config(tmp: Path, ident: str) -> dict:
         # of every convolution (the recompute of remat is not counted)
         share = 3.0 * fwd_flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
         key = f"remat_{levels or 0}"
-        out[key] = {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)),
+        out[key] = {"launches": dict(zip(COUNTED, counts)),
                     "per_step": list(DEEP_PER_STEP[levels]), "ms_per_step": ms,
                     "img_per_s": DEEP_BATCH * 1e3 / ms, "peak_gb": peak_gb,
                     "conv_tflop_per_step": 3.0 * fwd_flops / 1e12, "bf16_peak_share": share,
@@ -1723,7 +1899,8 @@ def deep_config(tmp: Path, ident: str) -> dict:
             f"batch {DEEP_BATCH} x 256 px, remat_levels={levels}: {ms:.3f} ms/step "
             f"({DEEP_BATCH * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB; launches "
             f"per step K1 {counts[0] // DEEP_STEPS}, K1 backward {counts[1] // DEEP_STEPS}, K2 "
-            f"{counts[2] // DEEP_STEPS}; conv FLOPs {3.0 * fwd_flops / 1e12:.3f} TFLOP per step "
+            f"{counts[2] // DEEP_STEPS}, K2 backward {counts[3] // DEEP_STEPS}; conv FLOPs "
+            f"{3.0 * fwd_flops / 1e12:.3f} TFLOP per step "
             f"(3 x forward), {share:.2%} of the bf16 peak; losses "
             + ", ".join(f"{v:.5f}" for v in losses))
         del state, model, step
@@ -1816,9 +1993,10 @@ def vanilla_sr(ident: str) -> dict:
     torch.cuda.synchronize()
     counts = _counts()
     per = sum(K2_VANILLA_SR.values())
-    if counts != (0, 0, per * SEG_STEPS):
-        raise AssertionError(f"vanilla SR: expected (0, 0, {per * SEG_STEPS}) K1 / K1 backward / K2 "
-                             f"launches over {SEG_STEPS} steps, got {counts}")
+    if counts != (0, 0, per * SEG_STEPS, per * SEG_STEPS):
+        raise AssertionError(f"vanilla SR: expected (0, 0, {per * SEG_STEPS}, {per * SEG_STEPS}) "
+                             f"K1 / K1 backward / K2 / K2 backward launches over {SEG_STEPS} "
+                             f"steps, got {counts}")
     still = [n for n, b in model.named_buffers() if torch.equal(b, buffers0[n])]
     if still:
         raise AssertionError(f"vanilla SR: BatchNorm buffers that did not move: {still}")
@@ -1826,7 +2004,7 @@ def vanilla_sr(ident: str) -> dict:
     log(f"[vanilla sr] bf16, {n_params:,} params, combined loss (seeded VGG19), {SEG_STEPS} steps "
         f"at batch {SEG_BATCH} x 256 px: losses {', '.join(f'{v:.4f}' for v in losses)}; finite "
         f"nonzero gradients after step 1; {len(buffers0)} BatchNorm buffers moved; K1 {counts[0]}, "
-        f"K1 backward {counts[1]}, K2 {counts[2]} launches")
+        f"K1 backward {counts[1]}, K2 {counts[2]}, K2 backward {counts[3]} launches")
     if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
         raise AssertionError(f"vanilla SR: the training loss did not fall: {losses}")
     ms = cuda_ms(lambda: step(state, batches[0]), TIMED_STEPS)
@@ -1835,7 +2013,7 @@ def vanilla_sr(ident: str) -> dict:
         f"{ms:.3f} ms/step ({SEG_BATCH * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB")
     del state, model, batches
     torch.cuda.empty_cache()
-    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "steps": SEG_STEPS,
+    return {"launches": dict(zip(COUNTED, counts)), "steps": SEG_STEPS,
             "losses": losses, "ms_per_step": ms, "img_per_s": SEG_BATCH * 1e3 / ms,
             "peak_gb": peak_gb, "n_params": n_params}
 
@@ -1920,11 +2098,12 @@ def sr_entry_points(tmp: Path, ckpt_dir: str) -> dict:
     # 16 images: 13 train (1 step of 8), 2 val, 1 test; forwards: 2 train
     # steps, 2 val batches, then the val and test evaluation
     if list(cfg) != ["run_name", "loss", "epochs_ran", "best_epoch", "results", "created_at"] \
-            or cfg["epochs_ran"] != 2 or counts != (0, 0, 2 * 6) \
+            or cfg["epochs_ran"] != 2 or counts != (0, 0, 2 * 6, 2 * 2) \
             or CheckpointManager(result["ckpt_dir"]).latest_step() != 2:
         raise AssertionError(f"train_sr_vanilla: config {cfg}, launches {counts}")
     out["vanilla_cli"] = {"seconds": seconds, "launches": list(counts), "results": cfg["results"]}
-    log(f"[vanilla sr cli] 2 epochs in {seconds:.1f} s; K2 {counts[2]} launches; results "
+    log(f"[vanilla sr cli] 2 epochs in {seconds:.1f} s; K2 {counts[2]}, K2 backward {counts[3]} "
+        f"launches; results "
         f"{cfg['results']}")
 
     # evaluate: the reference's three report files
@@ -2058,8 +2237,8 @@ def train_joint(ident: str) -> dict:
     counts = _counts()
     want = tuple(n * JOINT_STEPS for n in JOINT_PER_STEP)
     if counts != want:
-        raise AssertionError(f"joint: expected {want} K1 / K1 backward / K2 launches over "
-                             f"{JOINT_STEPS} steps, got {counts}")
+        raise AssertionError(f"joint: expected {want} K1 / K1 backward / K2 / K2 backward "
+                             f"launches over {JOINT_STEPS} steps, got {counts}")
     losses = [float(m["loss"]) for m in metrics]
     log(f"[joint] {n_params:,} params, depth {info['depth']}, bottleneck "
         f"{info['bottleneck_size']} px, bf16, {JOINT_STEPS} steps at batch {JOINT_BATCH} x "
@@ -2067,7 +2246,7 @@ def train_joint(ident: str) -> dict:
         f"{float(metrics[0]['sr_loss']):.5f} -> {float(metrics[-1]['sr_loss']):.5f}, seg "
         f"{float(metrics[0]['seg_loss']):.5f} -> {float(metrics[-1]['seg_loss']):.5f}); finite "
         f"nonzero gradients after step 1; K1 {counts[0]}, K1 backward {counts[1]}, K2 "
-        f"{counts[2]} launches")
+        f"{counts[2]}, K2 backward {counts[3]} launches")
     # two alternating batches: compare the means of the first and last two steps
     if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
         raise AssertionError(f"joint: the training loss did not fall: {losses}")
@@ -2080,7 +2259,7 @@ def train_joint(ident: str) -> dict:
         f"device idle {idle_str} over 3 steps under the profiler")
     del state, model, step, batches
     torch.cuda.empty_cache()
-    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "steps": JOINT_STEPS,
+    return {"launches": dict(zip(COUNTED, counts)), "steps": JOINT_STEPS,
             "per_step": list(JOINT_PER_STEP), "losses": losses, "ms_per_step": ms,
             "img_per_s": JOINT_BATCH * 1e3 / ms, "peak_gb": peak_gb, "n_params": n_params,
             "depth": info["depth"], "idle": idle}
@@ -2142,8 +2321,9 @@ def graph_capture(ident: str) -> dict:
     script uses for bf16 (1e-2 relative on the loss and outputs, as the space
     mesh's bf16 check; 2e-2 relative L2 on each gradient, as the BatchNorm
     gradients), and each tensor that differed is named. The launch counters
-    count the capture (28 K1, 28 K1 backward, 5 K2: the Python code runs
-    once), not the replays, which launch the same kernels without it.
+    count the capture (28 K1, 28 K1 backward, 5 K2, 5 K2 backward: the
+    Python code runs once), not the replays, which launch the same kernels
+    without it.
     Replay ms against eager ms (host clock, each ending in a synchronize)."""
     from adunet_torch.models import build_joint_unet
     from adunet_torch.train.joint import _batch_of
@@ -2185,8 +2365,8 @@ def graph_capture(ident: str) -> dict:
         torch.cuda.synchronize()
         counts = _counts()
         if counts != JOINT_PER_STEP:
-            raise AssertionError(f"graph: the capture counted {counts} K1 / K1 backward / K2 "
-                                 f"launches, expected {JOINT_PER_STEP}")
+            raise AssertionError(f"graph: the capture counted {counts} K1 / K1 backward / K2 / "
+                                 f"K2 backward launches, expected {JOINT_PER_STEP}")
         replays = []
         for i in range(3):
             graph.replay()
@@ -2206,14 +2386,15 @@ def graph_capture(ident: str) -> dict:
         eager_ms = _timed_steps(fwd_bwd, 5)
         replay_ms = _timed_steps(graph.replay, 5)
     log(f"[graph] {ident}: joint bf16 forward + backward at batch {JOINT_BATCH} x {JOINT_SIZE} "
-        f"px captured ({counts[0]} K1, {counts[1]} K1 backward, {counts[2]} K2 launches counted "
+        f"px captured ({counts[0]} K1, {counts[1]} K1 backward, {counts[2]} K2, {counts[3]} K2 "
+        f"backward launches counted "
         f"once, at the capture: replays launch the same kernels uncounted); {len(replays)} "
         f"replays {'bit-equal to' if all(r['bit_equal'] for r in replays) else 'within tolerance of'}"
         f" eager over the loss, both outputs and {len(params)} gradients; replay {replay_ms:.3f} "
         f"ms against eager {eager_ms:.3f} ms")
     del graph, static, eager, model
     torch.cuda.empty_cache()
-    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "replays": replays,
+    return {"launches": dict(zip(COUNTED, counts)), "replays": replays,
             "replay_ms": replay_ms, "eager_ms": eager_ms, "tensors": len(params) + 3}
 
 
@@ -2266,10 +2447,10 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
         log(f"[joint cli] {line}")
     forwards = epochs * steps + epochs  # train steps and val batches
     want = (JOINT_PER_STEP[0] * forwards, JOINT_PER_STEP[1] * epochs * steps,
-            JOINT_PER_STEP[2] * forwards)
+            JOINT_PER_STEP[2] * forwards, JOINT_PER_STEP[3] * epochs * steps)
     if counts != want:
-        raise AssertionError(f"train_joint: expected {want} K1 / K1 backward / K2 launches, "
-                             f"got {counts}")
+        raise AssertionError(f"train_joint: expected {want} K1 / K1 backward / K2 / K2 backward "
+                             f"launches, got {counts}")
     run_dir = Path(result["run_dir"])
     cfg = json.loads((run_dir / "config.json").read_text())
     res = json.loads((run_dir / "result.json").read_text())
@@ -2283,10 +2464,11 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
         raise AssertionError(f"train_joint: non-finite final metrics {res['final_metrics']}")
     events = sorted(p.name for p in run_dir.glob("events.out.tfevents.*"))
     log(f"[joint cli] {epochs} epochs in {seconds:.1f} s; K1 {counts[0]}, K1 backward "
-        f"{counts[1]}, K2 {counts[2]} launches; config.json and result.json keys as the "
+        f"{counts[1]}, K2 {counts[2]}, K2 backward {counts[3]} launches; config.json and "
+        f"result.json keys as the "
         f"reference's; TensorBoard event files: {len(events)} (none where tensorboardX is "
         "not installed)")
-    out = {"launches": dict(zip(("K1", "K1_bwd", "K2"), counts)), "seconds": seconds,
+    out = {"launches": dict(zip(COUNTED, counts)), "seconds": seconds,
            "final_metrics": res["final_metrics"], "tb_event_files": len(events)}
     del result
     torch.cuda.empty_cache()
@@ -2303,7 +2485,7 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
     counts = _counts()
     if counts != JOINT_PER_FORWARD:
         raise AssertionError(f"joint artifact: expected {JOINT_PER_FORWARD} K1 / K1 backward / "
-                             f"K2 launches per forward, got {counts}")
+                             f"K2 / K2 backward launches per forward, got {counts}")
     if not (served["sr"].shape == x.shape and served["mask"].shape == x.shape[:3] + (1,)
             and np.isfinite(served["mask"]).all() and 0 <= served["mask"].min()
             and served["mask"].max() <= 1 and 0 <= served["sr"].min() and served["sr"].max() <= 1):
@@ -2331,7 +2513,7 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
     if not max(errs.values()) <= 1e-5:
         raise AssertionError(f"served joint outputs differ from the checkpoint's model with "
                              f"dequantized weights: {errs}")
-    out["served_launches"] = dict(zip(("K1", "K1_bwd", "K2"), counts))
+    out["served_launches"] = dict(zip(COUNTED, counts))
     out["served_max_abs_err"] = errs
     del live, sr, mask
     torch.cuda.empty_cache()
@@ -2367,13 +2549,14 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
     return out
 
 
-def _trial_k2(trials, n_train: int, n_val: int, per_forward) -> int:
+def _trial_k2(trials, n_train: int, n_val: int, per_forward, backward: bool = False) -> int:
     """K2 launches of a study's trials: ``per_forward(params)`` per training
-    step and per validation forward, for each epoch a trial reported."""
+    step and per validation forward, for each epoch a trial reported (its
+    backward's, ``backward``: per training step only)."""
     total = 0
     for t in trials:
         b = int(t["params"]["batch_size"])
-        forwards = math.ceil(n_train / b) + math.ceil(n_val / b)
+        forwards = math.ceil(n_train / b) + (0 if backward else math.ceil(n_val / b))
         total += per_forward(t["params"]) * len(t["intermediate"]) * forwards
     return total
 
@@ -2439,6 +2622,7 @@ def tune(tmp: Path, ident: str) -> dict:
                 or not all(np.isfinite(values)) or payload["best_value"] is None):
             raise AssertionError(f"tune {mode}: results {payload}")
         k2 = _trial_k2(trials, TUNE_TRAIN, TUNE_VAL, lambda p: K2_TUNE_PER_FORWARD)
+        k2b = _trial_k2(trials, TUNE_TRAIN, TUNE_VAL, lambda p: K2_TUNE_PER_FORWARD, True)
         if mode == "sequential":
             ckpt_dir = models / "unet_vanilla_tuned_best"
             config = json.loads((ckpt_dir / "config.json").read_text())
@@ -2448,18 +2632,20 @@ def tune(tmp: Path, ident: str) -> dict:
                     or not (ckpt_dir / str(best) / "state.pt").exists()
                     or payload["retrain"]["checkpoint"] != str(ckpt_dir)):
                 raise AssertionError(f"tune retrain: config {config}, best step {best}")
-            k2 += _trial_k2([{"params": config, "intermediate": [0]}], TUNE_TRAIN, TUNE_VAL,
-                            lambda p: K2_TUNE_PER_FORWARD)
-        if counts != (0, 0, k2):
-            raise AssertionError(f"tune {mode}: expected (0, 0, {k2}) K1 / K1 backward / K2 "
-                                 f"launches, got {counts}")
+            retrain = [{"params": config, "intermediate": [0]}]
+            k2 += _trial_k2(retrain, TUNE_TRAIN, TUNE_VAL, lambda p: K2_TUNE_PER_FORWARD)
+            k2b += _trial_k2(retrain, TUNE_TRAIN, TUNE_VAL, lambda p: K2_TUNE_PER_FORWARD, True)
+        if counts != (0, 0, k2, k2b):
+            raise AssertionError(f"tune {mode}: expected (0, 0, {k2}, {k2b}) K1 / K1 backward / "
+                                 f"K2 / K2 backward launches, got {counts}")
         log(f"[tune {mode}] 3 trials x 2 epochs{' + 1-epoch retrain' if mode == 'sequential' else ''}"
             f" in {seconds:.1f} s: states {states}, batch sizes "
             f"{[t['params']['batch_size'] for t in trials]}, best val loss "
             f"{payload['best_value']:.6f}; K1 {counts[0]}, K1 backward {counts[1]}, K2 {counts[2]} "
-            f"launches (2 per lane per training step and validation forward)")
+            f"launches (2 per lane per training step and validation forward), K2 backward "
+            f"{counts[3]} (2 per lane per training step)")
         out["studies"][mode] = {"seconds": seconds, "states": states,
-                                "launches": dict(zip(("K1", "K1_bwd", "K2"), counts))}
+                                "launches": dict(zip(COUNTED, counts))}
     out["launches"] = out["studies"]["sequential"]["launches"]
 
     # lanes against single lanes, with cuDNN's deterministic algorithms as the
@@ -2479,8 +2665,11 @@ def tune(tmp: Path, ident: str) -> dict:
         counts = _counts()
         want = K2_TUNE_PER_FORWARD * len(TUNE_CONFIGS) * epochs * sum(
             math.ceil(n / batch) for n in TUNE_LANE_SPLIT)
-        if counts != (0, 0, want):
-            raise AssertionError(f"tune lanes: expected (0, 0, {want}) launches, got {counts}")
+        want_bwd = K2_TUNE_PER_FORWARD * len(TUNE_CONFIGS) * epochs * math.ceil(
+            TUNE_LANE_SPLIT[0] / batch)
+        if counts != (0, 0, want, want_bwd):
+            raise AssertionError(f"tune lanes: expected (0, 0, {want}, {want_bwd}) launches, got "
+                                 f"{counts}")
         singles, singles_s = [], []
         for cfg in TUNE_CONFIGS:
             t0 = time.perf_counter()
@@ -2490,12 +2679,13 @@ def tune(tmp: Path, ident: str) -> dict:
     worst = float(np.max(np.abs(lanes_np - singles_np) / np.abs(singles_np)))
     log(f"[tune lanes] {len(TUNE_CONFIGS)} lanes x {epochs} epochs at batch {batch}: curves "
         f"{np.round(lanes_np, 6).tolist()}; worst relative difference from single lanes "
-        f"{worst:.3e}; K2 {counts[2]} launches; {ident}: group {group_s:.3f} s against "
+        f"{worst:.3e}; K2 {counts[2]}, K2 backward {counts[3]} launches; {ident}: group "
+        f"{group_s:.3f} s against "
         f"{sum(singles_s):.3f} s for the single lanes in turn ({sum(singles_s) / group_s:.3f}x)")
     if not worst <= 1e-6 or not np.all(np.isfinite(lanes_np)):
         raise AssertionError(f"tune lanes differ from single lanes: {worst:.3e}")
     out["lanes"] = {"curves": curves, "worst_rel_diff": worst, "group_s": group_s,
-                    "singles_s": singles_s, "launches": dict(zip(("K1", "K1_bwd", "K2"), counts))}
+                    "singles_s": singles_s, "launches": dict(zip(COUNTED, counts))}
 
     # the float32 lane step at the search space's batch sizes, as the CLI runs it
     out["step"] = {}
@@ -2537,14 +2727,17 @@ def tune(tmp: Path, ident: str) -> dict:
     payload = json.loads(results.read_text())
     trials = payload["trials"]
     k2 = _trial_k2(trials, 16, 8, lambda p: _seg_k2_per_forward(p, 256))
+    k2b = _trial_k2(trials, 16, 8, lambda p: _seg_k2_per_forward(p, 256), True)
     if (set(payload) != TUNE_RESULT_KEYS or any(t["state"] != "COMPLETE" for t in trials)
-            or not 0.0 <= payload["best_value"] <= 1.0 or counts != (0, 0, k2)):
-        raise AssertionError(f"tune seg: results {payload}, launches {counts} (K2 expected {k2})")
+            or not 0.0 <= payload["best_value"] <= 1.0 or counts != (0, 0, k2, k2b)):
+        raise AssertionError(f"tune seg: results {payload}, launches {counts} (K2 expected {k2}, "
+                             f"K2 backward {k2b})")
     log(f"[tune seg] 2 trials x 1 epoch in {seconds:.1f} s: params "
         f"{[t['params'] for t in trials]}, best val Dice {payload['best_value']:.4f}; K1 "
-        f"{counts[0]}, K1 backward {counts[1]}, K2 {counts[2]} launches (expected {k2})")
+        f"{counts[0]}, K1 backward {counts[1]}, K2 {counts[2]}, K2 backward {counts[3]} launches "
+        f"(expected {k2}, {k2b})")
     out["seg"] = {"seconds": seconds, "params": [t["params"] for t in trials],
-                  "launches": dict(zip(("K1", "K1_bwd", "K2"), counts))}
+                  "launches": dict(zip(COUNTED, counts))}
     torch.cuda.empty_cache()
     return out
 
@@ -2598,8 +2791,8 @@ def ddp(tmp: Path, ident: str) -> dict:
     1 -m adunet_torch.cli.train_sr`` (through this script's ``--ddp-worker``,
     which reads the launches) on the bf16 flagship at batch 32 x 256 px from
     a device cache, and the same command without torchrun. NCCL must join at
-    world 1 and DDP wrap the model; K1 / K1 backward / K2 launch 16 / 16 / 4
-    a step in both runs; ms/step from each run's ``epoch_metrics.csv`` (its
+    world 1 and DDP wrap the model; K1 / K1 backward / K2 / K2 backward launch
+    16 / 16 / 4 / 4 a step in both runs; ms/step from each run's ``epoch_metrics.csv`` (its
     last epoch: the first includes cuDNN's and the allocator's warm-up)."""
     corpus = tmp / "ddp_corpus"
     corpus.mkdir()
@@ -2642,24 +2835,27 @@ def ddp(tmp: Path, ident: str) -> dict:
     for mode, info in runs.items():
         steps = DDP_EPOCHS * info["steps_per_epoch"]
         forwards = steps + DDP_EPOCHS + 2  # train, val (4 tiles, one batch), eval (val, test)
-        want = [16 * forwards, 16 * steps, 4 * forwards]
+        want = [16 * forwards, 16 * steps, 4 * forwards, 4 * steps]
         if info["launches"] != want or info["updates"] != steps:
-            raise AssertionError(f"{mode}: {info['launches']} launches (K1 / K1 backward / K2) "
-                                 f"and {info['updates']} updates; expected {want} and {steps}")
+            raise AssertionError(f"{mode}: {info['launches']} launches (K1 / K1 backward / K2 / "
+                                 f"K2 backward) and {info['updates']} updates; expected {want} "
+                                 f"and {steps}")
         if not all(np.isfinite(info["loss"])):
             raise AssertionError(f"{mode}: non-finite training loss {info['loss']}")
         extra = forwards - steps  # forwards without a backward
-        k1, k1b, k2 = info["launches"]
-        per_step[mode] = [(k1 - 16 * extra) / steps, k1b / steps, (k2 - 4 * extra) / steps]
+        k1, k1b, k2, k2b = info["launches"]
+        per_step[mode] = [(k1 - 16 * extra) / steps, k1b / steps, (k2 - 4 * extra) / steps,
+                          k2b / steps]
     ms_t, ms_p = t["ms_per_step"][-1], p["ms_per_step"][-1]
     log(f"[ddp] {ident}: backend {t['backend']}, world {t['world']}, model wrapped in "
         f"{t['wrapped']}; flagship bf16 batch {TRAIN_BATCH} x {TRAIN_PATCH} px, device cache, "
         f"{DDP_EPOCHS} x {t['steps_per_epoch']} steps: {ms_t:.3f} ms/step under torchrun, "
         f"{ms_p:.3f} without ({100 * (ms_t / ms_p - 1):+.2f} %; last epoch, epoch_metrics.csv); "
-        f"K1 / K1 backward / K2 per step {'/'.join(f'{v:g}' for v in per_step['torchrun'])} "
+        f"K1 / K1 backward / K2 / K2 backward per step "
+        f"{'/'.join(f'{v:g}' for v in per_step['torchrun'])} "
         f"(without torchrun {'/'.join(f'{v:g}' for v in per_step['plain'])}); losses "
         f"{t['loss']} / {p['loss']}; {t['seconds']:.1f} / {p['seconds']:.1f} s a run")
-    return {"launches": dict(zip(("K1", "K1_bwd", "K2"), t["launches"])),
+    return {"launches": dict(zip(COUNTED, t["launches"])),
             "per_step": per_step["torchrun"], "backend": t["backend"], "world": t["world"],
             "ms_per_step": {"torchrun": t["ms_per_step"], "plain": p["ms_per_step"]},
             "loss": {"torchrun": t["loss"], "plain": p["loss"]},
@@ -2921,7 +3117,7 @@ def sweep(tmp: Path, ident: str) -> dict:
         sweep_main(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    k1, k1b, k2 = _counts()
+    k1, k1b, k2, k2b = _counts()
     for line in buf.getvalue().splitlines():
         if line.startswith(("===", "Epoch", "Model:", "  PSNR", "Scored")) or "PSNR(Y)" in line:
             log(f"[sweep] {line}")
@@ -2930,12 +3126,12 @@ def sweep(tmp: Path, ident: str) -> dict:
     steps = cfg["steps_per_epoch"]
     forwards = k1 // 16
     if (cfg["batch_size"], cfg["mixed_precision"], cfg["n_params"], steps) != (
-            batch, True, 8_637_379, 2) or (k1, k1b, k2) != (16 * forwards, 16 * steps,
-                                                           4 * forwards):
+            batch, True, 8_637_379, 2) or (k1, k1b, k2, k2b) != (16 * forwards, 16 * steps,
+                                                                 4 * forwards, 4 * steps):
         raise AssertionError(f"sweep: batch {cfg['batch_size']}, bf16 {cfg['mixed_precision']}, "
                              f"{cfg['n_params']} params, {steps} steps; launches K1 / K1 backward"
-                             f" / K2 {k1} / {k1b} / {k2} (expected 16 / 16 / 4 a step, 16 / 0 / 4 "
-                             "a forward)")
+                             f" / K2 / K2 backward {k1} / {k1b} / {k2} / {k2b} (expected 16 / 16 "
+                             "/ 4 / 4 a step, 16 / 0 / 4 / 0 a forward)")
     report = root / "logs" / "evaluation" / f"{name}_eval"
     metrics = json.loads((report / "metrics.json").read_text())
     if metrics["samples"] != 40 or not np.isfinite(metrics["psnr_mean"]):
@@ -2983,15 +3179,16 @@ def sweep(tmp: Path, ident: str) -> dict:
             raise AssertionError(f"inspect_example: {shown}")
     torch.cuda.synchronize()
     counts = _counts()
-    if counts != (16 * n_forwards, 0, 4 * n_forwards):
+    if counts != (16 * n_forwards, 0, 4 * n_forwards, 0):
         raise AssertionError(f"inspect: launches {counts} for {n_forwards} forwards")
     log(f"[sweep] {ident}: run_experiment adaptive_depth scale 0.5 (depth {depth}, H100 table "
         f"batch {batch}, bf16, device cache): {steps} steps, {forwards} forwards with the "
-        f"auto-eval, K1 / K1 backward / K2 {k1} / {k1b} / {k2} (16 / 16 / 4 a step), "
+        f"auto-eval, K1 / K1 backward / K2 / K2 backward {k1} / {k1b} / {k2} / {k2b} (16 / 16 / "
+        f"4 / 4 a step), "
         f"{seconds:.1f} s; eval PSNR(Y) {metrics['psnr_mean']:.4f} dB over {metrics['samples']} "
         f"tiles; summary_metrics.csv {summary[0]}; figures {figures}; inspect "
         f"({'CLI' if has_mpl else 'inspect_example, no matplotlib'}) {shown}, launches {counts}")
-    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2}, "steps": steps,
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b}, "steps": steps,
             "forwards": forwards, "seconds": seconds, "eval": metrics, "summary": summary[0],
             "figures": figures, "inspect": shown, "matplotlib": has_mpl}
 
@@ -3031,7 +3228,8 @@ def _space_step(case: str, hr: np.ndarray, mesh=None) -> dict:
     _, metrics = step(state, batch)
     loss = float(metrics["loss"])
     torch.cuda.synchronize()
-    out = {"loss": loss, "launches": [*_counts(), conv64.conv3x3_rows.launches],
+    out = {"loss": loss, "launches": [*_counts(), conv64.conv3x3_rows.launches,
+                                      conv64.conv3x3_same_backward.rows_launches],
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "rows": int(batch.shape[1]),
            "params": {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}}
     out["ms_per_step"] = cuda_ms(lambda: step(state, batch), 3)
@@ -3082,9 +3280,10 @@ def space_ranks(tmp: Path, ident: str) -> dict:
     ranks' smaller convolutions take other cuDNN algorithms and the resizes
     other sums, so bf16 activations round elsewhere; one Adam step moves an
     element by at most the rate); both ranks the same loss and params; on
-    each rank and step K1 / K1 backward / K2 (halo-row mode) 16 / 16 / 4 on
-    the flagship and 24 / 24 / 4 on the deep config, the SAME K2 never; peak
-    memory per rank beside one process's."""
+    each rank and step K1 / K1 backward / K2 / K2 backward (halo-row mode)
+    16 / 16 / 4 / 4 on the flagship and 24 / 24 / 4 / 4 on the deep config,
+    the SAME K2 and its backward never; peak memory per rank beside one
+    process's."""
     synth = _synth()
     rng = np.random.default_rng(23)
     data = {}
@@ -3106,7 +3305,7 @@ def space_ranks(tmp: Path, ident: str) -> dict:
     out = {"seconds": seconds}
     for case, (_, depth, batch, dtype) in SPACE_CASES.items():
         got, want = ranks[0][case], one[case]
-        per_step = [24, 24, 0, 4] if depth == 5 else [16, 16, 0, 4]
+        per_step = [24, 24, 0, 0, 4, 4] if depth == 5 else [16, 16, 0, 0, 4, 4]
         res = {"loss": got["loss"], "loss_one": want["loss"],
                "loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
                "params_rel_l2": _rel_l2(got["params"], want["params"]),
@@ -3127,8 +3326,9 @@ def space_ranks(tmp: Path, ident: str) -> dict:
         log(f"[space_ranks] {ident}: {case} (batch {batch} x 256 px, {_dname(dtype)}) on a (1, 2) "
             f"space mesh, 2 processes sharing the card over gloo: loss {got['loss']:.6f} against "
             f"one process's {want['loss']:.6f} (rel {res['loss_rel']:.1e}), params rel L2 "
-            f"{res['params_rel_l2']:.1e}; launches a rank K1 / K1 backward / K2 / K2 halo "
-            f"{res['launches_per_rank']} (one process {want['launches']}); peak memory a rank "
+            f"{res['params_rel_l2']:.1e}; launches a rank K1 / K1 backward / K2 / K2 backward / "
+            f"K2 halo / K2 halo backward {res['launches_per_rank']} (one process "
+            f"{want['launches']}); peak memory a rank "
             + " / ".join(f"{v:.2f}" for v in res["peak_gb_per_rank"])
             + f" GB against {want['peak_gb']:.2f} GB in one process; ms/step of two processes "
             f"sharing one card (not a speed) "
@@ -3172,6 +3372,8 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
         "K1_bwd": ("layer_norm_relu_backward", "adunet_torch/csrc/fused_norm.cu",
                    "adunet/kernels/fused_norm.py:109"),
         "K2": ("conv3x3_same_c64", "adunet_torch/csrc/conv64.cu", "adunet/kernels/conv64.py:132"),
+        "K2_bwd": ("conv3x3_same_c64_backward", "adunet_torch/csrc/conv64.cu",
+                   "adunet/kernels/conv64.py:203"),
     }
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms",
             "host_us")
@@ -3187,13 +3389,15 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
                                              for v, d in zip(vals, rows))
 
     # (rows' path, launches per step of each kernel) of the bf16 segmentation steps
-    seg_paths = {"protocol": ("serve", {"K2": K2_PROTOCOL}),
+    seg_paths = {"protocol": ("serve", {"K2": K2_PROTOCOL, "K2_bwd": K2_PROTOCOL}),
                  "vanilla": ("vanilla", {"K1": K1_VANILLA, "K1_bwd": K1_VANILLA,
-                                         "K2": K2_VANILLA})}
+                                         "K2": K2_VANILLA, "K2_bwd": K2_VANILLA})}
     # the same for the SR paths of this script's later phases
-    sr_paths = {"deep": ("deep", "serve", {"K1": K1_DEEP, "K1_bwd": K1_DEEP, "K2": K2_DEEP}),
-                "vanilla_sr": (None, "serve", {"K2": K2_VANILLA_SR}),
-                "joint": ("joint", "serve", {"K1": K1_JOINT, "K1_bwd": K1_JOINT, "K2": K2_JOINT})}
+    sr_paths = {"deep": ("deep", "serve", {"K1": K1_DEEP, "K1_bwd": K1_DEEP, "K2": K2_DEEP,
+                                           "K2_bwd": K2_DEEP}),
+                "vanilla_sr": (None, "serve", {"K2": K2_VANILLA_SR, "K2_bwd": K2_VANILLA_SR}),
+                "joint": ("joint", "serve", {"K1": K1_JOINT, "K1_bwd": K1_JOINT, "K2": K2_JOINT,
+                                             "K2_bwd": K2_JOINT})}
 
     out = []
     for kid, (name, src, replaces) in meta.items():
@@ -3232,7 +3436,7 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
                                  "shapes": [d["shape"] for d in rows],
                                  **({k: summed_at(rows, k, per) for k in keys} if per else {})}
         for path, (k1_rows, k2_rows, per) in sr_paths.items():
-            rows_path = k2_rows if kid == "K2" else k1_rows
+            rows_path = k2_rows if kid in ("K2", "K2_bwd") else k1_rows
             rows = [d for d in details if d["kernel"] == kid and d["path"] == rows_path
                     and d["dtype"] == "bfloat16"]
             sums = {k: summed_at(rows, k, per[kid]) for k in keys} if kid in per else {}
@@ -3241,7 +3445,7 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
         # the tuner's float32 lane steps: per launch at batch 4 and 16 (path
         # "tune") and 8 (the float32 serving row), with forward + backward
         rows = [d for d in details if d["kernel"] == kid and d["dtype"] == "float32"
-                and (d["path"] == "tune" or (d["path"] == "serve" and kid == "K2"))]
+                and (d["path"] == "tune" or (d["path"] == "serve" and kid in ("K2", "K2_bwd")))]
         fb = {tuple(g["shape"]): g["fwd_bwd_ms"] for g in grads
               if g["kernel"] == kid and g["dtype"] == "float32" and g["path"] in ("tune", "serve")}
         entry["tune"] = {"launches": sr_launches["tune"][kid],
@@ -3259,23 +3463,28 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             per_step = K1_TRAIN if kid == "K1" else K2_TRAIN
             entry["fwd_bwd_ms"] = sum(g["fwd_bwd_ms"] * per_step[tuple(g["shape"])] for g in grad)
         out.append(entry)
-    # K2's halo-row mode: the space_ranks phase's rank 0 over its checked
-    # steps; the sums over one bf16 flagship step's launches on a rank
-    halo = [d for d in details if d["kernel"] == "K2_halo"]
-    flagship = [d for d in halo if d["dtype"] == "bfloat16" and d["shape"][0] == TRAIN_BATCH]
-    out.append({"name": "conv3x3_rows_c64", "route": "cuda", "source": "adunet_torch/csrc/conv64.cu",
-                "replaces": "adunet/kernels/conv64.py:132",
-                "launches": sum(sr_launches["space"].values()),
-                "max_abs_err": max(d["max_abs_err"] for d in halo),
-                **{k: summed(flagship, k) for k in keys}, "bound_by": flagship[0]["bound_by"],
-                "device_kernels_per_call": max(d["device_kernels_per_call"] for d in halo),
-                "per": "launches on one rank of one bf16 flagship step on a (1, 2) space mesh "
-                       "(batch 32, 128 + 2 of 256 rows)",
-                "space": {"launches": sr_launches["space"]},
-                "rows": [{k: d[k] for k in ("shape", "dtype", "per_call", "max_abs_err", "ms",
-                                            "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms", "library_device_ms", "host_us",
-                                            "device_kernels_per_call")} for d in halo]})
+    # K2's halo-row mode and its backward: the space_ranks phase's rank 0 over
+    # its checked steps; the sums over one bf16 flagship step's launches on a
+    # rank
+    for kid, name, replaces, counted in (
+            ("K2_halo", "conv3x3_rows_c64", "adunet/kernels/conv64.py:132", "space"),
+            ("K2_bwd_halo", "conv3x3_rows_c64_backward", "adunet/kernels/conv64.py:203",
+             "space_bwd")):
+        halo = [d for d in details if d["kernel"] == kid]
+        flagship = [d for d in halo if d["dtype"] == "bfloat16" and d["shape"][0] == TRAIN_BATCH]
+        out.append({"name": name, "route": "cuda", "source": "adunet_torch/csrc/conv64.cu",
+                    "replaces": replaces,
+                    "launches": sum(sr_launches[counted].values()),
+                    "max_abs_err": max(d["max_abs_err"] for d in halo),
+                    **{k: summed(flagship, k) for k in keys}, "bound_by": flagship[0]["bound_by"],
+                    "device_kernels_per_call": max(d["device_kernels_per_call"] for d in halo),
+                    "per": "launches on one rank of one bf16 flagship step on a (1, 2) space "
+                           "mesh (batch 32, 128 + 2 of 256 rows)",
+                    "space": {"launches": sr_launches[counted]},
+                    "rows": [{k: d[k] for k in ("shape", "dtype", "per_call", "max_abs_err", "ms",
+                                                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms", "library_device_ms", "host_us",
+                                                "device_kernels_per_call")} for d in halo]})
     return {"kernels": out, "build_s": build_s}
 
 
@@ -3304,6 +3513,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("---"):
             log(f"[ptxas] {line.strip()}")
     spills = check_k1_bwd_spills(_build.last_build["log"])
+    k2_bwd_spills = check_k2_bwd_spills(_build.last_build["log"])
 
     ident = gpu_identity().splitlines()[0]
     log(f"[gpu] {ident}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3317,6 +3527,7 @@ def main() -> int:
                + phase("k2_halo", check_k2_halo, gen))
     grads = phase("grads", check_backward, gen)
     details += phase("k1_bwd", check_k1_backward, gen)
+    details += phase("k2_bwd", check_k2_backward, gen)
     torch.cuda.empty_cache()
 
     call, _ = load_artifact(ARTIFACT, device="cuda")
@@ -3363,7 +3574,7 @@ def main() -> int:
                "tune": tuned,
                "ddp": dp, "ddp_ranks": dp_ranks, "sweep": swept, "space_ranks": space,
                "seconds": seconds,
-               "k1_bwd_ptxas": spills, "host_probes": probes}
+               "k1_bwd_ptxas": spills, "k2_bwd_ptxas": k2_bwd_spills, "host_probes": probes}
     log("[detail] " + json.dumps(summary))
     log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
     seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}
@@ -3371,10 +3582,12 @@ def main() -> int:
                    "joint": joint["launches"], "joint_served": joint_cli["served_launches"],
                    "tune": tuned["launches"], "ddp": dp["launches"], "sweep": swept["launches"],
                    "graph": captured["launches"],
-                   "space": {case: v["launches_per_rank"][0][3] for case, v in space.items()
+                   "space": {case: v["launches_per_rank"][0][4] for case, v in space.items()
                              if case != "seconds"},
+                   "space_bwd": {case: v["launches_per_rank"][0][5] for case, v in space.items()
+                                 if case != "seconds"},
                    "deep": {kid: {k: deep[k]["launches"][kid] for k in ("remat_0", "remat_2")}
-                            for kid in ("K1", "K1_bwd", "K2")}}
+                            for kid in COUNTED}}
     print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"],
                                   seg_launches, sr_launches, build_s)))
     print(ident)

@@ -23,7 +23,9 @@ It times
 steps with CUDA events after a warm-up, then traces a few steps with
 ``torch.profiler`` and prints the device time per step of the kernels'
 forward (K1, K2) and of K1's backward kernels by their device kernels'
-names, of K2's autograd backward (``_Conv3x3SameBackward``, cuDNN), of
+names, of K2's autograd backward (``_Conv3x3SameBackward``: its flip
+pack, dx on K2's forward kernel, dw + db and their sum) and its dw + db
+kernels alone, of
 cuDNN's convolutions forward and backward, of
 the other operators, the device's busy and idle share, and the card's name
 and power limit. ``--json PATH`` also writes the full result as JSON.
@@ -71,9 +73,10 @@ from adunet_torch.utils import gpu_identity  # noqa: E402
 GROUPS = {
     "K1 forward (kernel)": ("kernel", "layer_norm_relu_kernel"),
     "K1 backward (kernels: rows, column sums)": ("kernel", "layer_norm_relu_bwd"),
-    "K2 forward (bf16 tensor-core kernel)": ("kernel", "conv3x3_c64_wgmma_kernel"),
-    "K2 forward (float32 kernel)": ("kernel", "conv3x3_c64_kernel"),
-    "K2 backward (cuDNN)": ("op", "autograd::engine::evaluate_function: _Conv3x3SameBackward"),
+    "K2 forward bf16 kernel (forward and the backward's dx)": ("kernel", "conv3x3_c64_wgmma_kernel"),
+    "K2 forward float32 kernel (forward and the backward's dx)": ("kernel", "conv3x3_c64_kernel"),
+    "K2 backward (all its kernels)": ("op", "autograd::engine::evaluate_function: _Conv3x3SameBackward"),
+    "K2 backward dw + db (wgrad kernels, their sum)": ("kernel", "conv3x3_c64_wgrad"),
     "cuDNN conv forward (other convs)": ("op", "aten::cudnn_convolution"),
     "conv backward (all convs)": ("op", "aten::convolution_backward"),
     "resize matmuls": ("op", "aten::bmm"),

@@ -10,13 +10,16 @@ are timed on the same inputs in the same way:
 
 - the flagship (scale 0.5, depth 3) from a device cache at batch 32 x 256
   px, with the device time of every copy kernel in one profiled step (a
-  float32 copy of K2's cotangent shows there as four launches);
+  float32 copy of K2's cotangent shows there as four launches) and the
+  step's ``aten::convolution_backward`` calls (K2's four run the port's
+  backward kernels where the checkout has them, cuDNN's otherwise);
 - the deep config (scale 0.8, depth 5) at batch 8, without remat;
 - the joint SR + segmentation U-Net at ``train_joint``'s defaults, batch 8;
 - the vanilla segmentation U-Net (base 32, depth 4) with flips, batch 8.
 
-Each step's launches a step (K1 / K1 backward / K2, as ``PERF.md`` lists
-them) are checked, then it is timed in ROUNDS rounds of 5 steps (CUDA
+Each step's launches a step (K1 / K1 backward / K2 / K2 backward, as
+``PERF.md`` lists them; a checkout without K2's backward kernels counts
+none of those) are checked, then it is timed in ROUNDS rounds of 5 steps (CUDA
 events; the median and the least round are kept: a step the host paces
 moves with the host's other load) and its idle share read under the
 profiler over 3 steps. ``--cells`` picks some of the four. To compare two commits on
@@ -61,6 +64,7 @@ def main(argv: list[str] | None = None) -> int:
     import torch
 
     from adunet_torch.data import load_device_cache
+    from adunet_torch.kernels import conv64
     from adunet_torch.losses import charbonnier_loss
     from adunet_torch.models import build_joint_unet, build_super_resolution_unet
     from adunet_torch.train import (create_train_state, make_joint_train_step, make_optimizer,
@@ -73,6 +77,8 @@ def main(argv: list[str] | None = None) -> int:
     cs.setup_runtime()
     ident = cs.gpu_identity().splitlines()[0]
     gen = torch.Generator("cuda").manual_seed(0)
+    # a checkout before K2's backward kernels: its backward is cuDNN's, uncounted
+    k2_bwd_kernels = hasattr(conv64, "conv3x3_same_backward_plain")
 
     def sr_step(cache, scale, depth, batch):
         model, _ = build_super_resolution_unet(scale, depth_override=depth, dtype=torch.bfloat16,
@@ -102,7 +108,7 @@ def main(argv: list[str] | None = None) -> int:
     out = {"root": str(root)}
     with tempfile.TemporaryDirectory(prefix="step_ab_") as tmp:
         cache = load_device_cache(cs.write_corpus(Path(tmp), 16, 512, seed=5), "cuda")
-        cells = {"flagship": (lambda: sr_step(cache, 0.5, 3, cs.TRAIN_BATCH), (16, 16, 4)),
+        cells = {"flagship": (lambda: sr_step(cache, 0.5, 3, cs.TRAIN_BATCH), cs.STREAM_PER_STEP),
                  "deep": (lambda: sr_step(cache, cs.DEEP_SCALE, cs.DEEP_DEPTH, cs.DEEP_BATCH),
                           cs.DEEP_PER_STEP[None]),
                  "joint": (joint_step, cs.JOINT_PER_STEP),
@@ -116,9 +122,11 @@ def main(argv: list[str] | None = None) -> int:
                 step()
             torch.cuda.synchronize()
             counts = cs._counts()
+            if not k2_bwd_kernels:
+                per_step = (*per_step[:3], 0)
             if counts != tuple(n * STEPS for n in per_step):
-                raise AssertionError(f"{name}: {counts} K1 / K1 backward / K2 launches over "
-                                     f"{STEPS} steps, expected {per_step} a step")
+                raise AssertionError(f"{name}: {counts} K1 / K1 backward / K2 / K2 backward "
+                                     f"launches over {STEPS} steps, expected {per_step} a step")
             rounds = sorted(cs.cuda_ms(step, TIMED) for _ in range(ROUNDS))
             ms = rounds[ROUNDS // 2]
             idle = cs.device_idle(step, IDLE_STEPS)
@@ -130,11 +138,17 @@ def main(argv: list[str] | None = None) -> int:
                 cell["copy_kernels_ms"] = {k: v for k, v in (totals["by_name"] or {}).items()
                                            if "copy" in k.lower()}
                 cell["copy_ms"] = sum(cell["copy_kernels_ms"].values())
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                    step()
+                    torch.cuda.synchronize()
+                cell["convolution_backward_calls"] = sum(
+                    e.count for e in prof.key_averages() if e.key == "aten::convolution_backward")
             out[name] = cell
             idle_s = "not measured" if idle["idle_share"] is None else f"{idle['idle_share']:.2%}"
             cs.log(f"[step ab] {ident} {root.name}: {name} {ms:.3f} ms/step (median of {ROUNDS} "
                    f"rounds; least {rounds[0]:.3f}), device idle {idle_s}"
-                   + (f", copy kernels {cell['copy_ms']:.3f} ms of device time"
+                   + (f", copy kernels {cell['copy_ms']:.3f} ms of device time, "
+                      f"{cell['convolution_backward_calls']} aten::convolution_backward calls"
                       if "copy_ms" in cell else ""))
             del step
             torch.cuda.empty_cache()

@@ -279,3 +279,89 @@ def test_clipped_residual_add_splits_ties_like_jax():
     # forward values are a plain clamp's
     v = torch.from_numpy(np.random.default_rng(0).normal(size=(64,)).astype(np.float32))
     assert torch.equal(clipped_residual_add(v, v * 0.5), torch.clamp(v + v * 0.5, 0.0, 1.0))
+
+
+# K2's backward on the CPU is its plain version (the kernels' arithmetic with
+# explicit taps). Tolerances: against the reference's custom VJP, float32
+# 2e-4 absolute on dx / dw and 1e-4 relative on db (as above); against the
+# route the port took before its kernels (aten.convolution_backward) and
+# between the two modes, float64 at 1e-10 (the same sums in another order).
+
+def _oihw(w_hwio):
+    return torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_conv3x3_backward_plain_matches_jax_vjp(conv_inputs, with_bias):
+    x, w_hwio, b, g = conv_inputs
+    bias = jnp.asarray(b if with_bias else np.zeros_like(b))
+    _, vjp = jax.vjp(jconv.conv3x3_same, jnp.asarray(x), jnp.asarray(w_hwio), bias)
+    want_dx, want_dw, want_db = (np.asarray(t) for t in vjp(jnp.asarray(g)))
+    dx, dw, db = tconv.conv3x3_same_backward_plain(
+        torch.from_numpy(x), _oihw(w_hwio), torch.from_numpy(g), need_db=with_bias,
+        bias_dtype=torch.float32 if with_bias else None)
+    np.testing.assert_allclose(dx.numpy(), want_dx, atol=2e-4)
+    np.testing.assert_allclose(dw.numpy(), want_dw.transpose(3, 2, 0, 1), atol=2e-4)
+    if with_bias:
+        np.testing.assert_allclose(db.numpy(), want_db, rtol=1e-4)
+    else:
+        assert db is None
+
+
+def _f64_case(seed, halo):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(2, 16 + 2 * halo, 128, 64)))
+    w = torch.from_numpy(rng.normal(size=(64, 64, 3, 3)) * 0.05)
+    g = torch.from_numpy(rng.normal(size=(2, 16, 128, 64)))
+    return x, w, g
+
+
+@pytest.mark.parametrize("halo", [0, 1])
+def test_conv3x3_backward_plain_matches_the_library_route_f64(halo):
+    """In float64 the plain backward equals cuDNN's formulation, which the
+    port ran before its kernels (here on the CPU: aten.convolution_backward
+    on the NCHW views, padding (1 - halo, 1))."""
+    x, w, g = _f64_case(11 + halo, halo)
+    dx, dw, db = tconv.conv3x3_same_backward_plain(x, w, g, pad_h=1 - halo)
+    ldx, ldw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None, [1, 1], [1 - halo, 1], [1, 1],
+        False, [0, 0], 1, [True, True, False])
+    assert dx.shape == x.shape and dw.shape == w.shape and db.dtype == torch.float64
+    torch.testing.assert_close(dx, ldx.permute(0, 2, 3, 1), atol=1e-10, rtol=1e-10)
+    torch.testing.assert_close(dw, ldw, atol=1e-10, rtol=1e-10)
+    torch.testing.assert_close(db, g.sum(dim=(0, 1, 2)), atol=1e-10, rtol=1e-10)
+
+
+def test_conv3x3_rows_backward_is_the_same_backward_of_the_whole_rows():
+    """The halo-row conv of x's H + 2 rows is rows 1..H of the SAME conv of
+    those rows, so its backward is the SAME backward with the cotangent
+    zero-padded by a row above and below: dx on all H + 2 rows, dw, db."""
+    x, w, g = _f64_case(13, 1)
+    halo = tconv.conv3x3_same_backward_plain(x, w, g, pad_h=0)
+    same = tconv.conv3x3_same_backward_plain(x, w, torch.nn.functional.pad(g, (0, 0, 0, 0, 1, 1)))
+    for a, b in zip(halo, same):
+        torch.testing.assert_close(a, b, atol=1e-10, rtol=1e-10)
+
+
+@pytest.mark.parametrize("need", [(True, False, False), (False, True, False), (False, False, True),
+                                  (True, True, False), (False, True, True), (True, False, True)])
+def test_conv3x3_backward_computes_only_what_is_asked(conv_inputs, need):
+    """autograd asks for dx without dw and dw without dx: each entry not
+    asked for is None, each asked for is what the full backward returns."""
+    xb, w, _, gb = _bf16_case(conv_inputs, 0)
+    full = tconv.conv3x3_same_backward(xb, w, gb)
+    got = tconv.conv3x3_same_backward(xb, w, gb, *need)
+    for asked, a, f in zip(need, got, full):
+        assert (a is not None) == asked
+        if asked:
+            assert torch.equal(a, f)
+
+
+def test_conv3x3_rows_gradcheck_f64():
+    """The halo-row Function's backward formula (dx on all H + 2 rows)
+    against finite differences at a small shape."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 6, 5, 3, generator=gen, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(2, 3, 3, 3, generator=gen, dtype=torch.float64, requires_grad=True)
+    b = torch.randn(2, generator=gen, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(tconv._Conv3x3Rows.apply, (x, w, b))

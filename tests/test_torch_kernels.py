@@ -336,3 +336,68 @@ def test_kernel_sources_name_what_they_replace():
     assert 'extern "C" int adunet_layer_norm_relu_backward(' in k1
     # the bf16 path says how it reaches its bound: TMA and wgmma
     assert "TMA" in k2 and "wgmma" in k2
+
+
+def test_pack_weights_flipped_swaps_taps_and_channels(conv_data):
+    """The backward's dx kernel: packed tap t, input channel i, output
+    channel o hold the weight's tap 8 - t, output channel i, input channel o."""
+    _, w_hwio, _ = conv_data
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
+    packed = tconv.pack_weights_flipped(w_oihw).numpy()
+    t, i, o = np.meshgrid(np.arange(9), np.arange(64), np.arange(64), indexing="ij")
+    want = w_oihw.numpy()[i, o, (8 - t) // 3, (8 - t) % 3]
+    np.testing.assert_array_equal(packed, want)
+
+
+def test_pack_weights_flipped_bf16_is_the_bf16_pack_of_the_flipped_kernel(conv_data):
+    _, w_hwio, _ = conv_data
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
+    flipped = torch.from_numpy(np.ascontiguousarray(
+        w_oihw.numpy()[:, :, ::-1, ::-1].transpose(1, 0, 2, 3)))
+    got = tconv.pack_weights_flipped_bf16(w_oihw)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, tconv.pack_weights_bf16(flipped))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("halo", [0, 1])
+def test_k2_backward_launch_is_one_c_call(recording_lib, monkeypatch, halo, dtype):
+    """A K2 backward on CUDA tensors (here the launch function on CPU
+    tensors against a stand-in library) is one C call: the weight as the
+    model holds it, the cotangent, the flags, one scratch of the flipped
+    weights' room plus a float32 partial row per block, dx / dw / db
+    allocated in x's, w's and the bias's types, the cotangent's H rows, the
+    mode, the device index and the stream; its counter moves by one."""
+    monkeypatch.setattr(tconv, "_partials_per_device", {-1: 8})
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    x = torch.zeros(2, 16 + 2 * halo, 128, 64, dtype=dtype)
+    w = torch.zeros(64, 64, 3, 3)
+    g = torch.zeros(2, 16, 128, 64, dtype=dtype)
+    before = (tconv.conv3x3_same_backward.launches, tconv.conv3x3_same_backward.rows_launches)
+    dx, dw, db = tconv._launch_backward(x, w, g, True, True, True, torch.bfloat16, halo)
+    assert [c[0] for c in recording_lib.calls] == ["adunet_conv3x3_c64_backward"]
+    args = recording_lib.calls[0][1]
+    assert args[:7] == (x.data_ptr(), w.data_ptr(), 0, g.data_ptr(), 1, 1, 1)
+    assert args[8:] == (dx.data_ptr(), dw.data_ptr(), db.data_ptr(), 1, 2, 16, 128, halo, code,
+                        -1, 1234)
+    assert (dx.shape, dx.dtype, dw.shape, dw.dtype, db.shape, db.dtype) == (
+        x.shape, dtype, w.shape, torch.float32, (64,), torch.bfloat16)
+    after = (tconv.conv3x3_same_backward.launches, tconv.conv3x3_same_backward.rows_launches)
+    assert after == (before[0] + 1 - halo, before[1] + halo)
+    # dx alone: no partials, null dw / db
+    recording_lib.calls.clear()
+    dx, dw, db = tconv._launch_backward(x, w, g, True, False, False, None, halo)
+    args = recording_lib.calls[0][1]
+    assert (dw, db) == (None, None) and args[4:7] == (1, 0, 0) and args[9:11] == (None, None)
+
+
+def test_k2_backward_refuses_what_the_kernels_do_not_take(recording_lib):
+    x = torch.zeros(2, 16, 128, 64)
+    w = torch.zeros(64, 64, 3, 3)
+    with pytest.raises(TypeError):
+        tconv._launch_backward(x.double(), w, x.double(), True, True, True, None, 0)
+    with pytest.raises(ValueError, match="unsupported"):
+        tconv._launch_backward(x, w, torch.zeros(2, 14, 128, 64), True, True, True, None, 0)
+    with pytest.raises(ValueError, match="no kernel"):
+        tconv.conv3x3_same_backward(x.to("meta"), w.to("meta"), x.to("meta"))
+    assert recording_lib.calls == []
