@@ -93,7 +93,7 @@ __device__ __forceinline__ void store_vec(typename Tr::storage* p, const float (
 }
 
 // ---------------------------------------------------------------- column sums
-// The second pass of the backward kernels' deterministic reductions: each
+// The second pass of K1's backward's deterministic reduction: each
 // block of the first pass wrote one float32 partial row, and column j of the
 // result is the sum over rows p < n_parts of partial[p * stride + j], in a
 // fixed order. A block of 32 x kColSlices threads owns 32 columns from

@@ -33,49 +33,64 @@
 // ~20 FMAs. The thread's channels are {4g..4g+3} and {32+4g..32+4g+3}, which
 // keeps the weight loads of a warp free of bank conflicts.
 //
-// bf16, `conv3x3_c64_wgmma_kernel` (an implicit GEMM on the tensor cores):
-// a persistent grid, one block per SM, walks 4-row x 64-column output tiles.
-// - Input by TMA: one 4-D tensor-map box {64 ch, 66 cols, 6 rows, 1 image}
-//   from (0, x0-1, y0-1, b) brings the tile and its halo; the copy engine
-//   fills the out-of-image part (negative coordinates included) with zeros,
-//   so SAME padding costs nothing. A row of 64 bf16 is 128 bytes, staged
-//   with the 128-byte swizzle. Two stages on mbarriers: the next tile's load
-//   runs under this tile's math. Each input pixel is read from device memory
-//   once per tile (the halo, 1.55x the tile, mostly from L2).
-// - Weights: the 9 taps' (64 co x 64 ci) bf16 matrices, 72 KB, copied to
-//   shared memory once per block, already in the 128B-swizzled K-major
-//   layout that wgmma's B descriptor reads (packed on the card, below).
-// - A from registers: the tap (dy, dx) shifts the staged tile by whole
-//   pixels, which breaks the swizzle phase an A descriptor needs, so each
-//   lane computes its own swizzled row address and `ldmatrix` loads the
-//   m16n8k16 A fragments that `wgmma.mma_async ... m64n64k16` takes from
-//   registers. Two warpgroups each own 2 x 64 output pixels: 9 taps x 4
-//   K=16 steps x 2 = 72 wgmma per tile, float32 accumulators in registers.
-//   The next tap's fragments load while this tap's 8 wgmma run.
-// - Epilogue: bias added in float32, rounded to bf16 (nearest-even),
-//   staged through a swizzled shared buffer, stored 16 bytes per lane in
-//   contiguous rows.
+// bf16, `conv3x3_c64_wgmma_kernel` (an implicit GEMM on the tensor cores,
+// designed for Hopper): a persistent grid, one block per SM, warp-
+// specialised. Both bounds tie, so the design keeps the tensor cores and the
+// loads busy at once:
+// - A producer warpgroup (one thread issues, the others give their
+//   registers to the consumers by setmaxnreg) loads the weights once per
+//   block by bulk copy: the 9 taps' (64 co x 64 ci) bf16 matrices, 72 KB,
+//   already in the 128B-swizzled K-major layout wgmma's B descriptor reads
+//   (packed on the card, below). Then it keeps a ring of three TMA stages
+//   of input in flight: one 4-D tensor-map box {64 ch, 66 cols, 6 rows, 1
+//   image} from (0, x0-1, y0+row_off, b) brings a 4-row x 64-column tile
+//   and its halo; the copy engine fills the out-of-image part (negative
+//   coordinates included) with zeros, so SAME padding costs nothing. A row
+//   of 64 bf16 is 128 bytes, staged with the 128-byte swizzle; each input
+//   pixel comes from device memory once per tile (the halo, 1.55x the
+//   tile, mostly from L2). Each stage has a full and an empty mbarrier: no
+//   block-wide barrier in the loop.
+// - Two consumer warpgroups take the block's tiles in turn, each a tile of
+//   its own (ping-pong), so one's epilogue runs under the other's wgmma. A
+//   tile is 9 taps x 4 K=16 steps x 4 rows = 144 `wgmma.mma_async ...
+//   m64n64k16`, all queued before the first wait, with both operands read
+//   from shared memory: the tap (dy, dx) shifts the staged tile by whole
+//   pixels, a multiple of the 128-byte swizzle row, and wgmma swizzles by
+//   the address bits as TMA does, so A's descriptor simply starts at the
+//   shifted pixel (no ldmatrix, no register copy of A). Per output, the
+//   float32 accumulation runs over taps 0..8, then K-steps 0..3, as the
+//   first bf16 kernel's did, so the outputs are the same bits.
+// - The stage goes back to the producer as soon as the tile's wgmma are
+//   done. Epilogue from registers: bias added in float32, rounded to bf16
+//   (nearest-even), three shuffles within each quad of lanes turn the
+//   accumulator layout into 16-byte chunks of channels, stored with 16-byte
+//   stores (a warp writes 8 pixels x 64 contiguous bytes each).
 //
 // The backward (the reference's custom VJP `_bwd`, adunet/kernels/conv64.py
 // :203-227, which runs as XLA convolutions there) is three more passes,
 // launched by one C call, `adunet_conv3x3_c64_backward`:
 // - dx is the correlation of the cotangent g with the spatially flipped,
-//   io-swapped kernel: the pack in flip mode (tap 8 - t, ci and co swapped,
-//   no bias), then the forward kernel of x's type run on g. In the halo-row
-//   mode dx covers all H + 2 input rows: a full correlation in H, so the
-//   input row origin is a signed offset (-1 SAME, 0 the halo forward, -2
-//   the halo dx) and the bf16 kernel's last 4-row tile can be ragged (H + 2
-//   is 2 mod 4), its stores guarded by row.
+//   io-swapped kernel. float32: the pack in flip mode (tap 8 - t, ci and co
+//   swapped, no bias), then the float32 forward kernel on g. bf16: the pack
+//   in the forward's layout and the forward kernel's dx instantiation on g,
+//   which reads B, tap t, as the pack's tap 8 - t through an MN-major
+//   descriptor (wgmma's transpose bit): the pack's row co, 128 bytes of
+//   input channels, is a K row of dx's GEMM. In the halo-row mode dx covers
+//   all H + 2 input rows: a full correlation in H, so the input row origin
+//   is a signed offset (-1 SAME, 0 the halo forward, -2 the halo dx) and the
+//   bf16 kernel's last 4-row tile can be ragged (H + 2 is 2 mod 4), its
+//   stores guarded by row.
 // - dw[ky][kx][ci][co] = sum over b, y, x of x[b][y + ky + row_off][x + kx -
-//   1][ci] * g[b][y][x][co], and db[co] = sum of g: a persistent grid over
-//   cotangent tiles, `conv3x3_c64_wgrad_wgmma_kernel` (bf16, tensor cores)
-//   or `conv3x3_c64_wgrad_kernel` (float32, CUDA cores, no TF32). Each
-//   block keeps all 9 x 64 x 64 dw sums of its tiles in registers (three
-//   warpgroups of three taps each), sums db from the g tiles it already
-//   holds, and writes one float32 partial row; the split over tiles is fixed
-//   by the shape and the SM count.
+//   1][ci] * g[b][y][x][co], and db[co] = sum of g. float32:
+//   `conv3x3_c64_wgrad_kernel` (CUDA cores, no TF32), a persistent grid
+//   over cotangent tiles whose blocks keep all 9 x 64 x 64 dw sums of their
+//   tiles in registers and write one float32 partial row each. bf16:
+//   `conv3x3_c64_wgrad_wgmma_kernel` (below), warp-specialised as the
+//   forward kernel, whose blocks sum their rows within a cluster of
+//   kCluster blocks in distributed shared memory and write one partial row
+//   a cluster. The split over tiles is fixed by the shape and the device.
 // - `conv3x3_c64_wgrad_reduce_kernel` sums the partial rows in a fixed order
-//   (`column_sum`, common.cuh) and rounds dw to x's type, then to w's, and
+//   and rounds dw to x's type, then to w's, and
 //   db to x's type, then to the bias's, as the reference's `_bwd` rounds
 //   them to the compute type and a cast's backward widens them. No atomics:
 //   two calls give the same bits.
@@ -95,12 +110,15 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from libcuda at run time
 #include <stdint.h>
 
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace adunet {
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kC = 64;            // input and output channels
 
@@ -439,27 +457,53 @@ cudaError_t launch_wgrad_f32(const void* x, const void* g, float* partial, int B
 namespace tc {
 
 constexpr int kTH = 4;                                   // output rows per tile
-constexpr int kTW = 64;                                  // output columns per tile
+constexpr int kTW = 64;                                  // output columns per tile: one wgmma M
 constexpr int kBoxW = kTW + 2;                           // staged columns (halo included)
 constexpr int kBoxH = kTH + 2;                           // staged rows
 constexpr int kPixBytes = kC * 2;                        // one staged pixel: 128 bytes
 constexpr int kBoxBytes = kBoxW * kBoxH * kPixBytes;     // 50,688
 constexpr int kStageBytes = (kBoxBytes + 1023) / 1024 * 1024;
-constexpr int kStages = 2;
 constexpr int kTapBytes = kC * kC * 2;                   // one tap's 64 x 64 bf16
 constexpr int kWBytes = 9 * kTapBytes;                   // 73,728
-constexpr int kThreads = 256;                            // two warpgroups
-constexpr int kOutBytes = kTH * kTW * kPixBytes;         // the tile's bf16 output
-constexpr int kSmemBytes = 1024 + kWBytes + kStages * kStageBytes + kOutBytes + kC * 4 + kStages * 8;
+// the forward (and the backward's dx): two consumer warpgroups, each on a
+// tile of its own, and a producer warpgroup (the last; one thread issues
+// the loads), three stages; a stage goes back to the producer as soon as
+// its tile's wgmma are done (the output leaves from registers). The
+// register file is four quadrants of 16K, a warp in each in turn: the
+// producer gives up registers to the consumers (setmaxnreg), one producer
+// and two consumer warps a quadrant.
+constexpr int kConsumers = 2;
+constexpr int kStages = 3;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(kProducerRegs + kConsumers * kConsumerRegs <= 512, "a quadrant's registers");
+constexpr int kSmemBytes = 1024 + kWBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
 static_assert(kSmemBytes <= 232448, "more shared memory than a Hopper block may use");
-// dw + db: a stage holds the x box above, then the 4 x 64-pixel g tile
-constexpr int kGBoxBytes = kTH * kTW * kPixBytes;        // 32,768
-constexpr int kWgStageBytes = kStageBytes + kGBoxBytes;
-constexpr int kWgThreads = 384;                          // three warpgroups
+// dw + db: 2-row x 64-column cotangent tiles; a stage holds the x rows and
+// columns their taps read (4 x 66 pixels), then the 2 x 64-pixel g tile;
+// three consumer warpgroups (one per dy) and a producer warpgroup, four
+// stages; the registers as above, three consumer warps a quadrant
+constexpr int kWgTH = 2;
+constexpr int kWgBoxBytes = kBoxW * (kWgTH + 2) * kPixBytes;  // 33,792
+constexpr int kWgXBytes = (kWgBoxBytes + 1023) / 1024 * 1024;
+constexpr int kGBoxBytes = kWgTH * kTW * kPixBytes;      // 16,384
+constexpr int kWgStageBytes = kWgXBytes + kGBoxBytes;
+constexpr int kWgStages = 4;
+constexpr int kWgConsumers = 3;
+constexpr int kWgThreads = 128 * (kWgConsumers + 1);
+constexpr int kWgConsumerRegs = 152;
+static_assert(kProducerRegs + kWgConsumers * kWgConsumerRegs <= 512, "a quadrant's registers");
 constexpr int kDbGroups = 8;                             // db: pixel groups of warpgroups 0-1
-constexpr int kWgSmemBytes = 1024 + kStages * kWgStageBytes + kDbGroups * kC * 4 + kStages * 8;
+constexpr int kWgSmemBytes = 1024 + kWgStages * kWgStageBytes + kDbGroups * kC * 4 + 2 * kWgStages * 8;
 static_assert(kWgSmemBytes <= 232448, "more shared memory than a Hopper block may use");
-static_assert(kTH == 2 * (kThreads / 128) && kTW == 64, "each warpgroup owns two 64-pixel rows");
+// the blocks of a cluster sum their dw + db in distributed shared memory:
+// each parks its sums (dw rows of kParkRow floats, padded against bank
+// conflicts, then db) over its stages, and the cluster writes one row
+constexpr int kCluster = 4;
+constexpr int kParkRow = kC + 8;
+constexpr int kParkFloats = 9 * kC * kParkRow + kC;
+static_assert(kParkFloats * 4 <= kWgStages * kWgStageBytes, "the parked sums fit in the stages");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -474,19 +518,21 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// The wait's loop lies inside one asm block: a loop in C++ around try_wait
+// is a divergent path to the compiler, and wgmma after one are serialized.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar), "r"(parity)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -498,31 +544,29 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
+// a contiguous global -> shared copy of `bytes` (a multiple of 16) on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // wgmma shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row
-// groups 1024 bytes apart (the leading offset is unused in this layout).
+// groups 1024 bytes apart (the leading offset is unused in this layout). The
+// swizzle is a function of the address bits, as TMA's is, so a descriptor
+// may start at any 128-byte row of a 1024-byte aligned buffer: a tap's
+// shift by whole pixels is an offset of the start address (base offset 0).
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// The same for an MN-major operand (wgmma's transpose bit): 64 N values of a
-// K row are 128 contiguous bytes, 8 K rows a 1024-byte swizzle atom, K
+// The same for an MN-major operand (wgmma's transpose bit): 64 M or N values
+// of a K row are 128 contiguous bytes, 8 K rows a 1024-byte swizzle atom, K
 // groups of 8 rows 1024 bytes apart. The stride between 8-row groups and
-// the one between 64-value N blocks (unused at N = 64) are both 1024 bytes.
+// the one between 64-value blocks (unused at 64) are both 1024 bytes.
 __device__ __forceinline__ uint64_t make_desc_mn(uint32_t addr) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (static_cast<uint64_t>(1024 >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
@@ -546,72 +590,75 @@ __device__ __forceinline__ void fence_operands(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x 64, float32, in registers) += A (64 x 16 bf16, registers) x B (16 x 64 bf16, smem)
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t desc_b) {
+// D (64 x 64, float32, in registers) += A (64 x 16 bf16) x B (16 x 64 bf16),
+// both from shared memory; kTA / kTB: A / B MN-major (`make_desc_mn`)
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
+      "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D (64 x 64, float32) += A (64 x 16 bf16, registers) x B (16 x 64 bf16,
-// smem, MN-major: `make_desc_mn`)
-__device__ __forceinline__ void wgmma_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
 }
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-// The A fragments of one tap for this lane: two 64-pixel rows x 4 K=16 steps.
-// Lane l addresses pixel column 16*warp + (l & 15) and 16-byte chunk
-// 2*ks + (l >> 4) of the staged pixel the tap reads; the swizzle XORs the
-// chunk with the staged pixel's index mod 8 (its 128-byte row mod 8).
-__device__ __forceinline__ void load_tap(uint32_t (&a)[2][4][4], uint32_t in_base, int row0,
-                                         int col, int hi, int tap) {
-  const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int p = (row0 + mt + dy) * kBoxW + col + dx;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint32_t chunk = static_cast<uint32_t>((2 * ks + hi) ^ (p & 7));
-      ldmatrix_x4(in_base + p * kPixBytes + (chunk << 4), a[mt][ks]);
-    }
-  }
+// this warpgroup's registers a thread, lowered or raised (all its warps)
+template <int kRegs>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kRegs));
 }
 
-// Output row r reads input rows r + dy + row_off (as the float32 kernel);
-// the last tile row may hold fewer than kTH output rows (H % kTH != 0: the
-// halo-row mode's dx), whose missing rows are computed and not stored.
+// v[k]'s of one quad (four lanes, lane q = lane % 4) transposed by halves:
+// lo's word p is lane p's v[q], hi's word p lane p's v[4 + q]. Three xor
+// shuffles a half; the word indices that differ by lane are picked by
+// selects, so no register array is indexed at run time.
+__device__ __forceinline__ uint32_t pick4(const uint32_t* v, int k) {
+  return k == 0 ? v[0] : k == 1 ? v[1] : k == 2 ? v[2] : v[3];
+}
+__device__ __forceinline__ void quad_transpose(const uint32_t (&v)[8], int q, uint4& lo, uint4& hi) {
+  // index q keeps the lane's own word; index q ^ i receives lane q ^ i's word q
+  uint32_t ta[4] = {v[0], v[1], v[2], v[3]}, tc[4] = {v[4], v[5], v[6], v[7]};
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {
+    const uint32_t ra = __shfl_xor_sync(0xffffffffu, pick4(v, q ^ i), i);
+    const uint32_t rc = __shfl_xor_sync(0xffffffffu, pick4(v + 4, q ^ i), i);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k == (q ^ i)) {
+        ta[k] = ra;
+        tc[k] = rc;
+      }
+    }
+  }
+  lo = make_uint4(ta[0], ta[1], ta[2], ta[3]);
+  hi = make_uint4(tc[0], tc[1], tc[2], tc[3]);
+}
+
+// `conv3x3_c64_wgmma_kernel`: K2's bf16 forward (kDx false) and the
+// backward's dx (kDx true). Output row r reads input rows r + dy + row_off;
+// H need not be a multiple of kTH (the halo-row mode's dx): the rows of the
+// last tile past H are computed and not stored. kDx reads B, tap t, as the
+// forward's packed tap 8 - t, transposed (MN-major): dx's weight for
+// (cotangent channel co, input channel ci) is w[co][ci] of the flipped tap,
+// which is the forward pack's row co, column ci.
+template <bool kDx>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_c64_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const uint4* __restrict__ wpk,     // pack_weights_bf16, 72 KB
@@ -623,151 +670,158 @@ conv3x3_c64_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* s_w = smem;
   unsigned char* s_in = s_w + kWBytes;
-  unsigned char* s_out = s_in + kStages * kStageBytes;
-  float* s_bias = reinterpret_cast<float*>(s_out + kOutBytes);
-  uint64_t* s_bar = reinterpret_cast<uint64_t*>(s_bias + kC);
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_in + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* wbar = empty + kStages;
 
   const int tid = threadIdx.x;
   const int tiles_x = W / kTW;
   const int per_img = tiles_x * ((H + kTH - 1) / kTH);
 
-  auto issue = [&](int stage, int tile) {
-    const int b = tile / per_img;
-    const int r = tile - b * per_img;
-    const int ty = r / tiles_x;
-    const int tx = r - ty * tiles_x;
-    const uint32_t bar = smem_u32(&s_bar[stage]);
-    mbar_expect_tx(bar, kBoxBytes);
-    // tile row ty's input rows start at its first output row + row_off
-    tma_load_4d(smem_u32(s_in + stage * kStageBytes), &xmap, bar, 0, tx * kTW - 1,
-                ty * kTH + row_off, b);
-  };
-
   if (tid == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) mbar_init(smem_u32(&s_bar[s]), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-#pragma unroll
     for (int s = 0; s < kStages; ++s) {
-      const int t = blockIdx.x + s * gridDim.x;
-      if (t < n_tiles) issue(s, t);
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 128);  // every thread of the consumer
     }
+    mbar_init(smem_u32(wbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = tid; i < kWBytes / 16; i += kThreads) reinterpret_cast<uint4*>(s_w)[i] = wpk[i];
-  if (tid < kC) s_bias[tid] = bias[tid];
-  // the weights were written by ordinary stores; wgmma reads them through the async proxy
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
 
-  const int wg = tid >> 7;            // this warpgroup's output rows: 2*wg, 2*wg + 1
-  const int warp = (tid >> 5) & 3;    // its 16 pixels of each 64-pixel row
-  const int lane = tid & 31;
-  const int a_col = 16 * warp + (lane & 15);
-  const int a_hi = lane >> 4;
-  const uint64_t desc_w = make_desc(smem_u32(s_w));
-  unsigned char* out_buf = s_out + wg * (kOutBytes / 2);
-
-  int it = 0;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
-    const int stage = it % kStages;
-    mbar_wait(smem_u32(&s_bar[stage]), (it / kStages) & 1);
-    const uint32_t in_base = smem_u32(s_in + stage * kStageBytes);
-
-    float acc[2][32];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
-    uint32_t a[2][2][4][4];
-    load_tap(a[0], in_base, 2 * wg, a_col, a_hi, 0);
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      fence_operands(acc[0]);
-      fence_operands(acc[1]);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          wgmma_m64n64k16(acc[mt], a[tap & 1][mt][ks],
-                          desc_w + static_cast<uint64_t>((tap * kTapBytes + ks * 32) >> 4));
-      wgmma_commit();
-      if (tap < 8) {
-        wgmma_wait<1>();  // the previous tap's wgmma no longer read a[(tap + 1) & 1]
-        load_tap(a[(tap + 1) & 1], in_base, 2 * wg, a_col, a_hi, tap + 1);
+  // the warpgroup, uniform over each warp to the compiler (a branch on it
+  // is not divergent, so the wgmma behind it are not serialized)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (wg == kConsumers) {  // the producer warpgroup: one thread issues every load
+    regs_dec<kProducerRegs>();
+    if (tid == 128 * kConsumers) {
+      mbar_expect_tx(smem_u32(wbar), kWBytes);
+#pragma unroll 1
+      for (int t = 0; t < 9; ++t)
+        bulk_load(smem_u32(s_w + t * kTapBytes), wpk + t * (kTapBytes / 16), kTapBytes,
+                  smem_u32(wbar));
+      int i = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(smem_u32(&empty[s]), (i / kStages - 1) & 1);
+        const int b = tile / per_img;
+        const int r = tile - b * per_img;
+        const int ty = r / tiles_x;
+        mbar_expect_tx(smem_u32(&full[s]), kBoxBytes);
+        // tile row ty's input rows start at its first output row + row_off
+        tma_load_4d(smem_u32(s_in + s * kStageBytes), &xmap, smem_u32(&full[s]), 0,
+                    (r - ty * tiles_x) * kTW - 1, ty * kTH + row_off, b);
       }
     }
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();           // consumer wg: every kConsumers-th tile of the block's
+  const int warp = (tid >> 5) & 3;    // its 16 pixels of each 64-pixel row
+  const int lane = tid & 31;
+  float bcol[16];                     // the bias of this lane's output channels 8j + 2(lane & 3) + e
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 v = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * (lane & 3));
+    bcol[2 * j] = v.x;
+    bcol[2 * j + 1] = v.y;
+  }
+  // descriptors of the weights (K-major, or MN-major for the dx) and of
+  // stage 0; a tap, K-step or stage is a constant offset of their address
+  const uint64_t desc_w = kDx ? make_desc_mn(smem_u32(s_w)) : make_desc(smem_u32(s_w));
+  const uint64_t desc_in = make_desc(smem_u32(s_in));
+  mbar_wait(smem_u32(wbar), 0);
+
+  int i = wg;
+  for (int tile = blockIdx.x + wg * gridDim.x; tile < n_tiles;
+       tile += kConsumers * gridDim.x, i += kConsumers) {
+    const int s = i % kStages;
+    const uint64_t desc_a = desc_in + static_cast<uint64_t>(s * (kStageBytes >> 4));
+    mbar_wait(smem_u32(&full[s]), (i / kStages) & 1);
+
+    // per output row, in this order: taps 0..8, K-steps 0..3 (each 16 input
+    // channels), into one float32 accumulator. A, the tile row shifted by
+    // the tap, starts at its staged pixel: no register copy of it is made.
+    float acc[kTH][32];
+#pragma unroll
+    for (int r = 0; r < kTH; ++r) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k) acc[r][k] = 0.f;
+      fence_operands(acc[r]);
+    }
+    wgmma_fence();
+    // a loop over the taps, not unrolled: each descriptor is made where it
+    // is used (unrolled, the compiler keeps them all live over the tile loop)
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap - 3 * dy;
+      const uint64_t a_tap = desc_a + (((dy * kBoxW + dx) * kPixBytes) >> 4);
+      const uint64_t b_tap = desc_w + (kDx ? ((8 - tap) * kTapBytes) >> 4 : (tap * kTapBytes) >> 4);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t desc_b = b_tap + (kDx ? (ks * 2048) >> 4 : (ks * 32) >> 4);
+#pragma unroll
+        for (int r = 0; r < kTH; ++r)
+          wgmma_ss<0, kDx ? 1 : 0>(acc[r], a_tap + ((r * kBoxW * kPixBytes + ks * 32) >> 4), desc_b);
+      }
+      wgmma_commit();
+    }
     wgmma_wait<0>();
-    fence_operands(acc[0]);
-    fence_operands(acc[1]);
+#pragma unroll
+    for (int r = 0; r < kTH; ++r) fence_operands(acc[r]);
+    mbar_arrive(smem_u32(&empty[s]));  // this thread's wgmma are done with the stage
 
-    __syncthreads();  // every warp is done with this stage: refill it
-    if (tid == 0 && tile + kStages * static_cast<int>(gridDim.x) < n_tiles)
-      issue(stage, tile + kStages * gridDim.x);
-
-    // epilogue: bias, bf16, through the swizzled staging buffer
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = mt * 64 + 16 * warp + (lane >> 2) + 8 * h;
-          const int col = 8 * j + 2 * (lane & 3);
-          const unsigned lo = BF16::from_f(acc[mt][4 * j + 2 * h] + s_bias[col]);
-          const unsigned hi = BF16::from_f(acc[mt][4 * j + 2 * h + 1] + s_bias[col + 1]);
-          *reinterpret_cast<uint32_t*>(out_buf + m * kPixBytes + ((j ^ (m & 7)) << 4) +
-                                       4 * (lane & 3)) = lo | (hi << 16);
-        }
-    bar_sync(1 + wg, 128);
+    // epilogue, from registers: bias, bf16, and 16-byte stores. Lane q of a
+    // quad holds, for its pixel, the bf16 pairs of channels 8j + 2q (j =
+    // 0..7); three shuffles in the quad give it channels 8q ... 8q + 7 and
+    // 32 + 8q ... 32 + 8q + 7, so a warp's store writes 8 pixels x 64 bytes.
     const int b = tile / per_img;
-    const int r = tile - b * per_img;
-    const int y0 = (r / tiles_x) * kTH + 2 * wg;
-    const int x0 = (r % tiles_x) * kTW;
+    const int rem = tile - b * per_img;
+    const int ty = rem / tiles_x;
+    const int q = lane & 3;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int q = i * 128 + (tid & 127);
-      const int m = q >> 3;
-      const int c = q & 7;
-      if (y0 + (m >> 6) >= H) continue;  // past the last row of a ragged tile
-      const uint4 v = *reinterpret_cast<const uint4*>(out_buf + m * kPixBytes + ((c ^ (m & 7)) << 4));
-      const size_t pix = (static_cast<size_t>(b) * H + y0 + (m >> 6)) * W + x0 + (m & 63);
-      *reinterpret_cast<uint4*>(y + pix * kC + c * 8) = v;
+    for (int r = 0; r < kTH; ++r) {
+      const int yy = ty * kTH + r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = static_cast<uint32_t>(BF16::from_f(acc[r][4 * j + 2 * h] + bcol[2 * j])) |
+                 (static_cast<uint32_t>(BF16::from_f(acc[r][4 * j + 2 * h + 1] + bcol[2 * j + 1]))
+                  << 16);
+        uint4 lo, hi;  // channels 8q ..., 32 + 8q ...: word p from lane p's v[q], v[4 + q]
+        quad_transpose(v, q, lo, hi);
+        if (yy < H) {
+          const size_t pix = (static_cast<size_t>(b) * H + yy) * W + (rem - ty * tiles_x) * kTW +
+                             16 * warp + (lane >> 2) + 8 * h;
+          *reinterpret_cast<uint4*>(y + pix * kC + 8 * q) = lo;
+          *reinterpret_cast<uint4*>(y + pix * kC + 32 + 8 * q) = hi;
+        }
+      }
     }
   }
 }
 
 // `conv3x3_c64_wgrad_wgmma_kernel`: dw + db on the tensor cores. A
-// persistent grid, one block per SM, walks 4-row x 64-column cotangent
-// tiles; per tile one TMA pair brings the g tile (4 x 64 pixels) and the x
-// rows and columns its taps read (the forward's 6 x 66 box, zero-filled
-// outside the image), two stages on mbarriers. Per tap the tile is a GEMM
-// dw_t (64 ci x 64 co) += x_t^T (64 ci x 256 pixels) g (256 pixels x 64
-// co), in 16 K-steps of 16 pixels:
-// - B = g, unshifted, read by wgmma from shared memory through an MN-major
-//   descriptor (its transpose bit): a staged pixel is a K row of 64 output
-//   channels, 128 bytes, as TMA's 128-byte swizzle lays it.
-// - A = x_t^T, shifted by the tap by whole pixels, which breaks the swizzle
-//   phase a descriptor needs: each lane addresses its staged pixel and
-//   channel chunk itself and `ldmatrix.trans` turns the [pixel][channel]
-//   rows into the A fragments (warp w: input channels 16w..16w+15).
-// Warpgroup dy owns taps (dy, 0..2): three 64 x 64 float32 accumulators a
-// thread (96 registers), kept over all the block's tiles; the three taps'
-// fragments for the next K-step load while this step's wgmma run. Warpgroups
-// 0-1 also sum the g tile's columns (db: lane = a pair of output channels,
-// warp = one of 8 pixel groups) while the last wgmma of the tile run. At
-// the end each block writes its partial row: [tap][ci][co] dw, then db.
-__device__ __forceinline__ void load_wgrad_step(uint32_t (&a)[3][4], uint32_t x_base, int dy,
-                                                int pix, int chunk, int ks) {
-  const int row = ks >> 2;          // the K-step's tile row
-  const int col = 16 * (ks & 3);    // and its first column
-#pragma unroll
-  for (int dx = 0; dx < 3; ++dx) {
-    const int p = (row + dy) * kBoxW + col + pix + dx;  // staged x pixel of tap (dy, dx)
-    ldmatrix_x4_trans(x_base + p * kPixBytes + ((chunk ^ (p & 7)) << 4), a[dx]);
-  }
-}
-
+// persistent grid of clusters walks 2-row x 64-column cotangent tiles; per
+// tile the producer's TMA pair brings the g tile (2 x 64 pixels) and the x
+// rows and columns its taps read (4 x 66 pixels, zero-filled outside the
+// image) into one of four stages. Per tap the tile is a GEMM dw_t (64 ci x
+// 64 co) += x_t^T (64 ci x 128 pixels) g (128 pixels x 64 co), in 8
+// K-steps of 16 pixels, both operands read by wgmma from shared memory
+// through MN-major descriptors (a staged pixel is a K row of 64 channels):
+// B = g unshifted, A = x at the pixel the tap shifts to. Consumer
+// warpgroup dy owns taps (dy, 0..2): three 64 x 64 float32 accumulators a
+// thread (96 registers), kept over all the block's tiles. A stage goes back
+// to the producer one tile late, once the next tile's wgmma are queued, so
+// the tensor cores do not drain between tiles. Warpgroups 0-1 also sum the
+// g tile's columns (db: lane = a pair of output channels, warp = one of 8
+// pixel groups) while the wgmma run. At the end
+// each block parks its sums in its shared memory and the kCluster blocks of
+// a cluster add them in distributed shared memory, block q's after block q
+// - 1's, block r owning 1/kCluster of the columns: one partial row a
+// cluster, [tap][ci][co] dw, then db.
 __global__ void __launch_bounds__(kWgThreads, 1)
 conv3x3_c64_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                                const __grid_constant__ CUtensorMap gmap,
@@ -775,102 +829,105 @@ conv3x3_c64_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                                int n_tiles, int need_dw) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  float* s_db = reinterpret_cast<float*>(smem + kStages * kWgStageBytes);  // [8][64]
-  uint64_t* s_bar = reinterpret_cast<uint64_t*>(s_db + kDbGroups * kC);
+  float* s_db = reinterpret_cast<float*>(smem + kWgStages * kWgStageBytes);  // [8][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_db + kDbGroups * kC);
+  uint64_t* empty = full + kWgStages;
 
   const int tid = threadIdx.x;
   const int tiles_x = W / kTW;
-  const int per_img = tiles_x * (H / kTH);
-
-  auto issue = [&](int stage, int tile) {
-    const int b = tile / per_img;
-    const int r = tile - b * per_img;
-    const int ty = r / tiles_x;
-    const int tx = r - ty * tiles_x;
-    unsigned char* st = smem + stage * kWgStageBytes;
-    const uint32_t bar = smem_u32(&s_bar[stage]);
-    mbar_expect_tx(bar, need_dw ? kBoxBytes + kGBoxBytes : kGBoxBytes);
-    if (need_dw)
-      tma_load_4d(smem_u32(st), &xmap, bar, 0, tx * kTW - 1, ty * kTH + row_off, b);
-    tma_load_4d(smem_u32(st + kStageBytes), &gmap, bar, 0, tx * kTW, ty * kTH, b);
-  };
+  const int per_img = tiles_x * (H / kWgTH);
 
   if (tid == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) mbar_init(smem_u32(&s_bar[s]), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      const int t = blockIdx.x + s * gridDim.x;
-      if (t < n_tiles) issue(s, t);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 128 * kWgConsumers);  // every consumer thread
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int wg = tid >> 7;            // dy of this warpgroup's taps
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);  // dy of its taps; uniform, as above
   const int warp = (tid >> 5) & 3;    // its input channels 16 * warp ...
   const int lane = tid & 31;
-  const int a_pix = (lane & 7) + 8 * (lane >> 4);  // ldmatrix row: pixel of the K-step
-  const int a_chunk = 2 * warp + ((lane >> 3) & 1);  // and its 8-channel chunk
-  const int db_pair = tid & 31;       // db (tid < 256): output channels 2 * db_pair, + 1
-  const int db_group = tid >> 5;      // over the tile's pixels p with p % 8 == db_group
-
   float acc[3][32];
 #pragma unroll
   for (int t = 0; t < 3; ++t)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+    for (int k = 0; k < 32; ++k) acc[t][k] = 0.f;
   float db0 = 0.f, db1 = 0.f;
+  const int db_pair = tid & 31;       // db (tid < 256): output channels 2 * db_pair, + 1
+  const int db_group = tid >> 5;      // over the tile's pixels p with p % 8 == db_group
 
-  auto sum_db = [&](const unsigned char* g_tile) {
-#pragma unroll 8
-    for (int k = 0; k < kTH * kTW / kDbGroups; ++k) {
-      const int p = db_group + kDbGroups * k;  // p % 8 == db_group: the swizzle phase
-      const uint32_t v = *reinterpret_cast<const uint32_t*>(
-          g_tile + p * kPixBytes + (((db_pair >> 2) ^ db_group) << 4) + 4 * (db_pair & 3));
-      db0 += __uint_as_float(v << 16);
-      db1 += __uint_as_float(v & 0xffff0000u);
-    }
-  };
-
-  int it = 0;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
-    const int stage = it % kStages;
-    mbar_wait(smem_u32(&s_bar[stage]), (it / kStages) & 1);
-    unsigned char* st = smem + stage * kWgStageBytes;
-    if (need_dw) {
-      const uint32_t x_base = smem_u32(st);
-      const uint64_t desc_g = make_desc_mn(smem_u32(st + kStageBytes));
-      uint32_t a[2][3][4];
-      load_wgrad_step(a[0], x_base, wg, a_pix, a_chunk, 0);
-#pragma unroll
-      for (int ks = 0; ks < kTH * kTW / 16; ++ks) {
-#pragma unroll
-        for (int t = 0; t < 3; ++t) fence_operands(acc[t]);
-        wgmma_fence();
-#pragma unroll
-        for (int t = 0; t < 3; ++t)  // K-step ks: 16 pixels, 2,048 bytes of g
-          wgmma_m64n64k16_tb(acc[t], a[ks & 1][t], desc_g + static_cast<uint64_t>((ks * 2048) >> 4));
-        wgmma_commit();
-        if (ks + 1 < kTH * kTW / 16) {
-          wgmma_wait<1>();  // the previous step's wgmma no longer read a[(ks + 1) & 1]
-          load_wgrad_step(a[(ks + 1) & 1], x_base, wg, a_pix, a_chunk, ks + 1);
-        }
+  if (wg == kWgConsumers) {  // the producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (tid == 128 * kWgConsumers) {
+      int i = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+        const int s = i % kWgStages;
+        if (i >= kWgStages) mbar_wait(smem_u32(&empty[s]), (i / kWgStages - 1) & 1);
+        const int b = tile / per_img;
+        const int r = tile - b * per_img;
+        const int ty = r / tiles_x;
+        const int tx = r - ty * tiles_x;
+        unsigned char* st = smem + s * kWgStageBytes;
+        const uint32_t bar = smem_u32(&full[s]);
+        mbar_expect_tx(bar, need_dw ? kWgBoxBytes + kGBoxBytes : kGBoxBytes);
+        if (need_dw)
+          tma_load_4d(smem_u32(st), &xmap, bar, 0, tx * kTW - 1, ty * kWgTH + row_off, b);
+        tma_load_4d(smem_u32(st + kWgXBytes), &gmap, bar, 0, tx * kTW, ty * kWgTH, b);
       }
-      if (tid < 2 * 128) sum_db(st + kStageBytes);
-      wgmma_wait<0>();
-#pragma unroll
-      for (int t = 0; t < 3; ++t) fence_operands(acc[t]);
-    } else if (tid < 2 * 128) {
-      sum_db(st + kStageBytes);
     }
-    __syncthreads();  // every warp is done with this stage: refill it
-    if (tid == 0 && tile + kStages * static_cast<int>(gridDim.x) < n_tiles)
-      issue(stage, tile + kStages * gridDim.x);
-  }
+  } else {
+    regs_inc<kWgConsumerRegs>();
+    auto sum_db = [&](const unsigned char* g_tile) {
+#pragma unroll 8
+      for (int k = 0; k < kWgTH * kTW / kDbGroups; ++k) {
+        const int p = db_group + kDbGroups * k;  // p % 8 == db_group: the swizzle phase
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(
+            g_tile + p * kPixBytes + (((db_pair >> 2) ^ db_group) << 4) + 4 * (db_pair & 3));
+        db0 += __uint_as_float(v << 16);
+        db1 += __uint_as_float(v & 0xffff0000u);
+      }
+    };
+    int i = 0, held = -1;  // held: the stage of the last tile, not yet given back
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const int s = i % kWgStages;
+      mbar_wait(smem_u32(&full[s]), (i / kWgStages) & 1);
+      unsigned char* st = smem + s * kWgStageBytes;
+      if (need_dw) {
+        const uint64_t desc_x = make_desc_mn(smem_u32(st));
+        const uint64_t desc_g = make_desc_mn(smem_u32(st + kWgXBytes));
+        wgmma_fence();
+#pragma unroll 1
+        for (int row = 0; row < kWgTH; ++row) {  // K-steps 4 row ... 4 row + 3: a tile row
+          const uint64_t x_row = desc_x + ((((row + wg) * kBoxW) * kPixBytes) >> 4);
+          const uint64_t g_row = desc_g + ((row * 4 * 2048) >> 4);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {  // 16 pixels from column 16 c
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)  // the staged x pixel of tap (wg, dx) for the first
+              wgmma_ss<1, 1>(acc[dx], x_row + (((16 * c + dx) * kPixBytes) >> 4),
+                             g_row + ((c * 2048) >> 4));
+          }
+        }
+        wgmma_commit();
+        if (wg < 2) sum_db(st + kWgXBytes);
+        wgmma_wait<1>();  // the last tile's wgmma are done: its stage may go
+      } else if (wg < 2) {
+        sum_db(st + kWgXBytes);
+      }
+      if (held >= 0) mbar_arrive(smem_u32(&empty[held]));  // this thread is done with it
+      held = s;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < 3; ++t) fence_operands(acc[t]);
 
-  float* out = partial + static_cast<size_t>(blockIdx.x) * kPartial;
-  if (need_dw) {
+    // park: dw in padded rows over the stages (every consumer is past its
+    // last tile), db's 8 pixel groups summed in order
+    float* park = reinterpret_cast<float*>(smem);
+    bar_sync(1, 128 * kWgConsumers);
 #pragma unroll
     for (int t = 0; t < 3; ++t)
 #pragma unroll
@@ -879,21 +936,49 @@ conv3x3_c64_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int h = 0; h < 2; ++h) {
           const int ci = 16 * warp + (lane >> 2) + 8 * h;
           const int co = 8 * j + 2 * (lane & 3);
-          *reinterpret_cast<float2*>(out + ((3 * wg + t) * kC + ci) * kC + co) =
+          *reinterpret_cast<float2*>(park + ((3 * wg + t) * kC + ci) * kParkRow + co) =
               make_float2(acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
         }
-  }
-  if (tid < 2 * 128) {
-    s_db[db_group * kC + 2 * db_pair] = db0;
-    s_db[db_group * kC + 2 * db_pair + 1] = db1;
-  }
-  __syncthreads();
-  if (tid < kC) {
-    float s = 0.f;
+    if (wg < 2) {
+      s_db[db_group * kC + 2 * db_pair] = db0;
+      s_db[db_group * kC + 2 * db_pair + 1] = db1;
+    }
+    bar_sync(1, 128 * kWgConsumers);
+    if (tid < kC) {
+      float sum = 0.f;
 #pragma unroll
-    for (int q = 0; q < kDbGroups; ++q) s += s_db[q * kC + tid];
-    out[9 * kC * kC + tid] = s;
+      for (int q = 0; q < kDbGroups; ++q) sum += s_db[q * kC + tid];
+      park[9 * kC * kParkRow + tid] = sum;
+    }
   }
+
+  // the cluster's sum: block `rank` adds float4 column groups [v0, v1) of
+  // every block's parked sums, block 0's first
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  {
+    float* park = reinterpret_cast<float*>(smem);
+    const int rank = static_cast<int>(cluster.block_rank());
+    constexpr int kVecs = kPartial / 4;
+    const int v0 = rank * kVecs / kCluster, v1 = (rank + 1) * kVecs / kCluster;
+    float* out = partial + static_cast<size_t>(blockIdx.x / kCluster) * kPartial;
+    for (int v = v0 + tid; v < v1; v += kWgThreads) {
+      const int j = 4 * v;  // column j: tap j / 4096, ci j / 64 % 64, co j % 64; then db
+      const int at = j < 9 * kC * kC ? (j >> 6) * kParkRow + (j & (kC - 1))
+                                     : 9 * kC * kParkRow + j - 9 * kC * kC;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q) {
+        const float4 u = *reinterpret_cast<const float4*>(cluster.map_shared_rank(park + at, q));
+        sum.x += u.x;
+        sum.y += u.y;
+        sum.z += u.z;
+        sum.w += u.w;
+      }
+      *reinterpret_cast<float4*>(out + j) = sum;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -939,46 +1024,98 @@ cudaError_t encode_nhwc(CUtensorMap* map, const void* base, int B, int rows, int
   return cudaSuccess;
 }
 
-// y: (B, H, W, 64) from x: (B, Hin, W, 64), input row origin `row_off`; H
-// need not be a multiple of the tile's 4 rows.
-cudaError_t launch_bf16(const void* x, const void* w, const void* bias, void* y, int B, int H,
-                        int Hin, int W, int row_off, cudaStream_t stream) {
-  if (W % kTW != 0) return cudaErrorInvalidValue;
-  CUtensorMap map;
-  cudaError_t e = encode_nhwc(&map, x, B, Hin, W, kBoxW, kBoxH);
-  // the SM count and the kernel's shared-memory limit, set once per device
+// The SM count and the kernel's shared-memory limit (set once per device),
+// and the grid: one block per SM, or half a block per tile where there are
+// fewer (each block's two consumers take a tile each).
+template <bool kDx>
+cudaError_t launch_conv(const CUtensorMap& xmap, const void* w, const void* bias, void* y, int H,
+                        int W, int row_off, int n_tiles, cudaStream_t stream) {
   static bool smem_set[kMaxDevices] = {};
   int dev = 0, sms = 0;
-  if (e == cudaSuccess) e = device_sms(&dev, &sms);
-  if (e == cudaSuccess) e = smem_limit_once(conv3x3_c64_wgmma_kernel, kSmemBytes, dev, smem_set);
+  cudaError_t e = device_sms(&dev, &sms);
+  if (e == cudaSuccess) e = smem_limit_once(conv3x3_c64_wgmma_kernel<kDx>, kSmemBytes, dev, smem_set);
   if (e != cudaSuccess) return e;
-  const int n_tiles = B * ((H + kTH - 1) / kTH) * (W / kTW);
-  const int grid = n_tiles < sms ? n_tiles : sms;
-  conv3x3_c64_wgmma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      map, static_cast<const uint4*>(w), static_cast<const float*>(bias),
+  const int want = (n_tiles + kConsumers - 1) / kConsumers;
+  conv3x3_c64_wgmma_kernel<kDx><<<want < sms ? want : sms, kThreads, kSmemBytes, stream>>>(
+      xmap, static_cast<const uint4*>(w), static_cast<const float*>(bias),
       static_cast<unsigned short*>(y), H, W, row_off, n_tiles);
   return cudaGetLastError();
 }
 
-// dw + db partials from x: (B, Hx, W, 64) and g: (B, H, W, 64), x's row
-// origin `row_off` (-1 SAME, 0 halo-row mode).
-cudaError_t launch_wgrad_bf16(const void* x, const void* g, float* partial, int B, int H, int Hx,
-                              int W, int row_off, int need_dw, cudaStream_t stream) {
-  if (H % kTH != 0 || W % kTW != 0) return cudaErrorInvalidValue;
-  CUtensorMap xmap, gmap;
-  cudaError_t e = encode_nhwc(&xmap, x, B, Hx, W, kBoxW, kBoxH);
-  if (e == cudaSuccess) e = encode_nhwc(&gmap, g, B, H, W, kTW, kTH);
-  static bool smem_set[kMaxDevices] = {};
-  int dev = 0, sms = 0;
-  if (e == cudaSuccess) e = device_sms(&dev, &sms);
-  if (e == cudaSuccess)
-    e = smem_limit_once(conv3x3_c64_wgrad_wgmma_kernel, kWgSmemBytes, dev, smem_set);
+// y: (B, H, W, 64) from x: (B, Hin, W, 64), input row origin `row_off`; H
+// need not be a multiple of the tile's 4 rows. `dx`: the backward's dx,
+// the weights read as their flipped, io-swapped kernel.
+cudaError_t launch_bf16(const void* x, const void* w, const void* bias, void* y, int B, int H,
+                        int Hin, int W, int row_off, bool dx, cudaStream_t stream) {
+  if (W % kTW != 0) return cudaErrorInvalidValue;
+  CUtensorMap xmap;
+  const cudaError_t e = encode_nhwc(&xmap, x, B, Hin, W, kBoxW, kBoxH);
   if (e != cudaSuccess) return e;
-  const int n_tiles = B * (H / kTH) * (W / kTW);
-  const int grid = n_tiles < sms ? n_tiles : sms;
-  conv3x3_c64_wgrad_wgmma_kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(
-      xmap, gmap, partial, H, W, row_off, n_tiles, need_dw);
-  return cudaGetLastError();
+  const int n_tiles = B * ((H + kTH - 1) / kTH) * (W / kTW);
+  return dx ? launch_conv<true>(xmap, w, bias, y, H, W, row_off, n_tiles, stream)
+            : launch_conv<false>(xmap, w, bias, y, H, W, row_off, n_tiles, stream);
+}
+
+// The most clusters of the wgrad kernel the device runs at once (its
+// shared-memory limit set first), asked once per device: the grid's
+// clusters, and the partial rows the backward's scratch holds.
+cudaError_t wgrad_clusters(int dev, int sms, int* n) {
+  static int cache[kMaxDevices] = {};
+  if (cache[dev] == 0) {
+    cudaError_t e = cudaFuncSetAttribute(conv3x3_c64_wgrad_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
+    if (e != cudaSuccess) return e;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(sms / kCluster * kCluster);
+    cfg.blockDim = dim3(kWgThreads);
+    cfg.dynamicSmemBytes = kWgSmemBytes;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, conv3x3_c64_wgrad_wgmma_kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters <= 0) return cudaErrorInvalidConfiguration;
+    cache[dev] = clusters;
+  }
+  *n = cache[dev];
+  return cudaSuccess;
+}
+
+// dw + db partial rows from x: (B, Hx, W, 64) and g: (B, H, W, 64), x's row
+// origin `row_off` (-1 SAME, 0 halo-row mode): one row a cluster, their
+// number written to *n_parts.
+cudaError_t launch_wgrad_bf16(const void* x, const void* g, float* partial, int B, int H, int Hx,
+                              int W, int row_off, int need_dw, int* n_parts, cudaStream_t stream) {
+  if (H % kWgTH != 0 || W % kTW != 0) return cudaErrorInvalidValue;
+  CUtensorMap xmap, gmap;
+  cudaError_t e = encode_nhwc(&xmap, x, B, Hx, W, kBoxW, kWgTH + 2);
+  if (e == cudaSuccess) e = encode_nhwc(&gmap, g, B, H, W, kTW, kWgTH);
+  int dev = 0, sms = 0, clusters = 0;
+  if (e == cudaSuccess) e = device_sms(&dev, &sms);
+  if (e == cudaSuccess) e = wgrad_clusters(dev, sms, &clusters);
+  if (e != cudaSuccess) return e;
+  const int n_tiles = B * (H / kWgTH) * (W / kTW);
+  const int want = (n_tiles + kCluster - 1) / kCluster;
+  *n_parts = want < clusters ? want : clusters;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(*n_parts * kCluster);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = kWgSmemBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, conv3x3_c64_wgrad_wgmma_kernel, xmap, gmap, partial, H, W,
+                            row_off, n_tiles, need_dw);
 }
 
 }  // namespace tc
@@ -986,31 +1123,68 @@ cudaError_t launch_wgrad_bf16(const void* x, const void* g, float* partial, int 
 // ---------------------------------------------------------------- dw, db: the sum
 // Column j of the partial rows: dw of tap j / 4096, input channel j / 64 %
 // 64, output channel j % 64 (written to OIHW), then db. Each sum rounds to
-// x's type Tx, then to the gradient's own type (w's Tw, the bias's Tb).
+// x's type Tx, then to the gradient's own type (w's Tw, the bias's Tb). A
+// block of 32 x kSumSlices threads owns 32 groups of 4 columns from group
+// `v0 + 32 * blockIdx.x`, read 16 bytes at a time; thread (slice, lane)
+// adds the rows p = slice, slice + kSumSlices, ... of its group in order of
+// p, and slice 0 then adds the slices in order: a fixed order, so two calls
+// give the same bits. (A few dozen rows: 8 slices keep the grid small.)
+constexpr int kSumSlices = 8;
+
 template <typename Tx, typename Tw, typename Tb>
-__global__ void __launch_bounds__(32 * kColSlices)
-conv3x3_c64_wgrad_reduce_kernel(const float* __restrict__ partial, int n_parts, int col0,
-                                int width, typename Tw::storage* __restrict__ dw,
+__global__ void __launch_bounds__(32 * kSumSlices)
+conv3x3_c64_wgrad_reduce_kernel(const float4* __restrict__ partial, int n_parts, int v0, int v_end,
+                                typename Tw::storage* __restrict__ dw,
                                 typename Tb::storage* __restrict__ db) {
-  column_sum(partial, n_parts, kPartial, col0, width, [dw, db](int j, float v) {
-    const float r = Tx::to_f(Tx::from_f(v));
+  __shared__ float4 s_sum[kSumSlices][32];
+  const int lane = threadIdx.x & 31;
+  const int slice = threadIdx.x >> 5;
+  const int v = v0 + blockIdx.x * 32 + lane;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (v < v_end) {
+#pragma unroll 4
+    for (int p = slice; p < n_parts; p += kSumSlices) {
+      const float4 u = partial[static_cast<size_t>(p) * (kPartial / 4) + v];
+      sum.x += u.x;
+      sum.y += u.y;
+      sum.z += u.z;
+      sum.w += u.w;
+    }
+  }
+  s_sum[slice][lane] = sum;
+  __syncthreads();
+  if (slice != 0 || v >= v_end) return;
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kSumSlices; ++i) {
+    const float4 u = s_sum[i][lane];
+    t[0] += u.x;
+    t[1] += u.y;
+    t[2] += u.z;
+    t[3] += u.w;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = 4 * v + k;
+    const float r = Tx::to_f(Tx::from_f(t[k]));
     if (j < 9 * kC * kC) {
-      const int t = j >> 12, ci = (j >> 6) & (kC - 1), co = j & (kC - 1);
-      dw[(co * kC + ci) * 9 + t] = Tw::from_f(r);
+      const int tap = j >> 12, ci = (j >> 6) & (kC - 1), co = j & (kC - 1);
+      dw[(co * kC + ci) * 9 + tap] = Tw::from_f(r);
     } else {
       db[j - 9 * kC * kC] = Tb::from_f(r);
     }
-  });
+  }
 }
 
 template <typename Tx, typename Tw, typename Tb>
 cudaError_t launch_reduce(const float* partial, int n_parts, int need_dw, int need_db, void* dw,
                           void* db, cudaStream_t stream) {
-  const int col0 = need_dw ? 0 : 9 * kC * kC;
-  const int width = (need_dw ? 9 * kC * kC : 0) + (need_db ? kC : 0);
-  conv3x3_c64_wgrad_reduce_kernel<Tx, Tw, Tb><<<(width + 31) / 32, 32 * kColSlices, 0, stream>>>(
-      partial, n_parts, col0, width, static_cast<typename Tw::storage*>(dw),
-      static_cast<typename Tb::storage*>(db));
+  const int v0 = need_dw ? 0 : 9 * kC * kC / 4;
+  const int v_end = (need_db ? kPartial : 9 * kC * kC) / 4;
+  conv3x3_c64_wgrad_reduce_kernel<Tx, Tw, Tb>
+      <<<(v_end - v0 + 31) / 32, 32 * kSumSlices, 0, stream>>>(
+          reinterpret_cast<const float4*>(partial), n_parts, v0, v_end,
+          static_cast<typename Tw::storage*>(dw), static_cast<typename Tb::storage*>(db));
   return cudaGetLastError();
 }
 
@@ -1024,9 +1198,10 @@ cudaError_t dispatch_reduce(const float* partial, int n_parts, int need_dw, int 
   return launch_reduce<Tx, F32, F32>(partial, n_parts, need_dw, need_db, dw, db, stream);
 }
 
-// The backward's scratch: the flipped weights (9 * 64 * 64 of x's type,
+// The backward's scratch: the packed weights (9 * 64 * 64 of x's type,
 // then 64 float32 zeros: the pack's bias) in the first kBwdPackBytes, then
-// the float32 partial rows of dw + db, one per block of the wgrad grid.
+// the float32 partial rows of dw + db: one per block of the float32 wgrad
+// grid, one per cluster of the bf16 one.
 constexpr size_t kBwdPackBytes = kPackElems * 4 + kC * 4;
 
 }  // namespace
@@ -1063,17 +1238,19 @@ extern "C" int adunet_conv3x3_c64(const void* x, const void* w, int w_dtype, con
                        : adunet::launch_pack<adunet::F32>(w, w_dtype, bias, bias_dtype, scratch, 0, st);
   if (e != cudaSuccess) return e;
   const int Hin = H + 2 * halo, row_off = halo - 1;
-  return bf16 ? adunet::tc::launch_bf16(x, scratch, bias_packed, y, B, H, Hin, W, row_off, st)
+  return bf16 ? adunet::tc::launch_bf16(x, scratch, bias_packed, y, B, H, Hin, W, row_off, false, st)
               : adunet::launch_f32(x, scratch, bias_packed, y, B, H, Hin, W, row_off, st);
 }
 
 // Writes to *n (an int) the number of float32 partial rows (9 * 64 * 64 dw
 // sums, then 64 db sums, each) that adunet_conv3x3_c64_backward's scratch
-// must hold on the current device: its wgrad grid's most blocks, one per SM.
-// Returns the CUDA error.
-extern "C" int adunet_conv3x3_c64_backward_partials(void* n) {
+// must hold on the current device for x of `dtype` (0 float32, 1 bf16): the
+// float32 wgrad grid's most blocks (one per SM), or the bf16 one's most
+// clusters (as many as the device runs at once). Returns the CUDA error.
+extern "C" int adunet_conv3x3_c64_backward_partials(void* n, int dtype) {
   int dev = 0, sms = 0;
-  const cudaError_t e = adunet::device_sms(&dev, &sms);
+  cudaError_t e = adunet::device_sms(&dev, &sms);
+  if (e == cudaSuccess && dtype == adunet::kBFloat16) e = adunet::tc::wgrad_clusters(dev, sms, &sms);
   *static_cast<int*>(n) = sms;
   return e;
 }
@@ -1087,12 +1264,14 @@ extern "C" int adunet_conv3x3_c64_backward_partials(void* n) {
 // - dw: OIHW of `w_dtype`, the float32 sum rounded to `dtype`, then to w's;
 // - db: (64,) of `db_dtype`, the float32 sum of g rounded to `dtype`, then
 //   to db's.
-// scratch: 147,712 bytes (the flipped weights), then, where dw or db is
-// asked, adunet_conv3x3_c64_backward_partials() rows of 36,928 float32. All
-// pointers 16-byte aligned (w: 4 bytes), on CUDA device `device`, which the
-// call makes current if it is not; H % 4 == 0 and W % 128 == 0. Launches the
-// flip pack and the dx conv, then the dw + db partials and their sum, on
-// `stream`; asks the runtime for nothing a CUDA graph's capture forbids.
+// scratch: 147,712 bytes (the packed weights), then, where dw or db is
+// asked, adunet_conv3x3_c64_backward_partials(dtype) rows of 36,928 float32.
+// All pointers 16-byte aligned (w: 4 bytes), on CUDA device `device`, which
+// the call makes current if it is not; H % 4 == 0 and W % 128 == 0.
+// Launches the weight pack (float32: in flip mode; bf16: the forward's
+// layout, which the dx kernel reads transposed) and the dx conv, then the dw
+// + db partials and their sum, on `stream`; asks the runtime for nothing a
+// CUDA graph's capture forbids once the device's first call is made.
 // Returns the first CUDA error.
 extern "C" int adunet_conv3x3_c64_backward(const void* x, const void* w, int w_dtype, const void* g,
                                            int need_dx, int need_dw, int need_db, void* scratch,
@@ -1113,27 +1292,29 @@ extern "C" int adunet_conv3x3_c64_backward(const void* x, const void* w, int w_d
   cudaError_t e = cudaSuccess;
   if (need_dx) {  // the forward kernel on g with the flipped kernel: Hx rows from H
     const void* zeros = static_cast<const char*>(scratch) + adunet::kPackElems * (bf16 ? 2 : 4);
-    e = bf16 ? adunet::launch_pack<adunet::BF16>(w, w_dtype, nullptr, -1, scratch, 1, st)
+    e = bf16 ? adunet::launch_pack<adunet::BF16>(w, w_dtype, nullptr, -1, scratch, 0, st)
              : adunet::launch_pack<adunet::F32>(w, w_dtype, nullptr, -1, scratch, 1, st);
     if (e != cudaSuccess) return e;
     const int row_off = halo ? -2 : -1;
-    e = bf16 ? adunet::tc::launch_bf16(g, scratch, zeros, dx, B, Hx, H, W, row_off, st)
+    e = bf16 ? adunet::tc::launch_bf16(g, scratch, zeros, dx, B, Hx, H, W, row_off, true, st)
              : adunet::launch_f32(g, scratch, zeros, dx, B, Hx, H, W, row_off, st);
     if (e != cudaSuccess) return e;
   }
   if (!need_dw && !need_db) return cudaSuccess;
   float* partial = reinterpret_cast<float*>(static_cast<char*>(scratch) + adunet::kBwdPackBytes);
-  int dev = 0, sms = 0;
-  e = adunet::device_sms(&dev, &sms);
-  if (e != cudaSuccess) return e;
   const int row_off = halo - 1;
-  e = bf16 ? adunet::tc::launch_wgrad_bf16(x, g, partial, B, H, Hx, W, row_off, need_dw, st)
-           : adunet::launch_wgrad_f32(x, g, partial, B, H, Hx, W, row_off, need_dw, st);
+  int n_parts = 0;  // the wgrad grid's partial rows
+  if (bf16) {
+    e = adunet::tc::launch_wgrad_bf16(x, g, partial, B, H, Hx, W, row_off, need_dw, &n_parts, st);
+  } else {  // one per block: one per tile up to one per SM
+    int dev = 0, sms = 0;
+    e = adunet::device_sms(&dev, &sms);
+    const int tiles = B * (H / adunet::wg32::kRows) * (W / adunet::wg32::kCols);
+    n_parts = tiles < sms ? tiles : sms;
+    if (e == cudaSuccess)
+      e = adunet::launch_wgrad_f32(x, g, partial, B, H, Hx, W, row_off, need_dw, st);
+  }
   if (e != cudaSuccess) return e;
-  // the wgrad grids' blocks: one per tile up to one per SM
-  const int tiles = bf16 ? B * (H / adunet::tc::kTH) * (W / adunet::tc::kTW)
-                         : B * (H / adunet::wg32::kRows) * (W / adunet::wg32::kCols);
-  const int n_parts = tiles < sms ? tiles : sms;
   return bf16 ? adunet::dispatch_reduce<adunet::BF16>(partial, n_parts, need_dw, need_db, dw,
                                                       w_dtype, db, db_dtype, st)
               : adunet::dispatch_reduce<adunet::F32>(partial, n_parts, need_dw, need_db, dw,

@@ -104,7 +104,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.adunet_conv3x3_c64_backward.argtypes = [_P, _P, i, _P, i, i, i, _P, _P, _P, _P, i, i, i,
                                                 i, i, i, i, _P]
     lib.adunet_conv3x3_c64_backward.restype = i
-    lib.adunet_conv3x3_c64_backward_partials.argtypes = [_P]
+    lib.adunet_conv3x3_c64_backward_partials.argtypes = [_P, i]
     lib.adunet_conv3x3_c64_backward_partials.restype = i
     lib.adunet_error_string.argtypes = [ctypes.c_int]
     lib.adunet_error_string.restype = ctypes.c_char_p

@@ -10,10 +10,14 @@ Replaces the Pallas TPU kernel ``adunet/kernels/conv64.py:132``
   and 64 float32 accumulators per thread. Bound: operations, 73,728 FLOP per
   output pixel at 67 TFLOP/s, e.g. ~0.58 ms for one (8, 256, 256, 64) launch.
 - bf16: an implicit GEMM on the tensor cores (``wgmma``, float32
-  accumulators), a persistent grid over 4 x 64-pixel tiles whose input and
-  halo arrive by TMA (zero-filled outside the image) and whose weights sit in
-  shared memory as ``pack_weights_bf16`` lays them out. Bound: bytes and
-  operations tie, ~0.16 ms for one (32, 256, 256, 64) launch.
+  accumulators, both operands read from shared memory), a persistent,
+  warp-specialised grid over 4 x 64-pixel tiles: a producer warpgroup keeps
+  a ring of three TMA stages of input and halo in flight (zero-filled
+  outside the image) and loads the weights, laid out as ``pack_weights_bf16``
+  lays them, once per block; two consumer warpgroups each take tiles of
+  their own, so one's epilogue (bias, bf16, stores from registers) runs
+  under the other's ``wgmma``. Bound: bytes and operations tie, ~0.16 ms for
+  one (32, 256, 256, 64) launch.
 
 A launch is one C call: the wrapper hands over the weight and bias as the
 model holds them (float32 parameters, whatever the compute type), and the
@@ -33,17 +37,20 @@ Pallas kernel there; here it is one C call of four device kernels in the
 same source (``adunet_conv3x3_c64_backward``):
 
 - dx, the correlation of the cotangent with the flipped, io-swapped kernel:
-  the weight pack in flip mode (``pack_weights_flipped`` /
-  ``pack_weights_flipped_bf16`` are its plain layouts), then the forward
-  kernel of x's type run on the cotangent;
+  float32, the weight pack in flip mode (``pack_weights_flipped`` is its
+  plain layout), then the forward kernel run on the cotangent; bf16, the
+  weights packed as for the forward and the forward kernel run on the
+  cotangent reading tap 8 - t of the pack transposed (an MN-major wgmma
+  operand: the pack's row of an output channel is a K row of dx's GEMM);
 - dw and db: a persistent grid over cotangent tiles (bf16: ``wgmma`` with
-  the shifted x from registers and the cotangent from shared memory;
-  float32: CUDA cores, no TF32) whose blocks each write one float32 partial
-  of the 9 x 64 x 64 dw sums and the 64 db sums, then a fixed-order sum of
-  the partials (no atomics: two calls give the same bits), which rounds dw
-  to x's type, then to w's, and db to x's type, then to the bias's, as the
-  reference's ``_bwd`` rounds them to the compute type and a cast's backward
-  widens them.
+  the shifted x and the cotangent from shared memory, clusters of blocks
+  whose sums meet in distributed shared memory; float32: CUDA cores, no
+  TF32) that writes float32 partial rows of the 9 x 64 x 64 dw sums and the
+  64 db sums (one a cluster in bf16, one a block in float32), then a
+  fixed-order sum of the rows (no atomics: two calls give the same bits),
+  which rounds dw to x's type, then to w's, and db to x's type, then to the
+  bias's, as the reference's ``_bwd`` rounds them to the compute type and a
+  cast's backward widens them.
 
 ``conv3x3_same_backward_plain`` is its plain version (explicit taps in
 float32, float64 for float64 inputs), which the CPU path runs.
@@ -86,7 +93,6 @@ __all__ = [
     "pack_weights",
     "pack_weights_bf16",
     "pack_weights_flipped",
-    "pack_weights_flipped_bf16",
     "supported",
 ]
 
@@ -138,12 +144,6 @@ def pack_weights_flipped(w: torch.Tensor) -> torch.Tensor:
     C_out) of the correlation that gives dx (packed tap t reads w's tap 8 - t,
     C_in and C_out swapped), as the pack's flip mode writes it."""
     return pack_weights(_flipped(w))
-
-
-def pack_weights_flipped_bf16(w: torch.Tensor) -> torch.Tensor:
-    """``pack_weights_bf16`` of the flipped, io-swapped kernel (the bf16
-    pack's flip mode)."""
-    return pack_weights_bf16(_flipped(w))
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -285,24 +285,25 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     return y
 
 
-# the backward's scratch: the flipped weights' room (as the C entry lays it
-# out), then one float32 partial row (9 x 64 x 64 dw, 64 db) per block
+# the backward's scratch: the packed weights' room (as the C entry lays it
+# out), then float32 partial rows (9 x 64 x 64 dw, 64 db): one per block of
+# the float32 wgrad grid, one per cluster of the bf16 one
 _BWD_PACK_BYTES = 9 * 64 * 64 * 4 + 64 * 4
 _PARTIAL_FLOATS = 9 * 64 * 64 + 64
-_partials_per_device: dict[int, int] = {}
+_partials_per_device: dict[tuple[int, int], int] = {}
 
 
-def _n_partials(lib, index: int) -> int:
+def _n_partials(lib, index: int, code: int) -> int:
     """The partial rows the backward's scratch must hold on device ``index``
-    (the most blocks its wgrad grid can have), asked of the library once per
-    device."""
-    n = _partials_per_device.get(index)
+    for x of type ``code`` (the most rows its wgrad grid can write), asked
+    of the library once per device and type."""
+    n = _partials_per_device.get((index, code))
     if n is None:
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
-            _build.check(lib.adunet_conv3x3_c64_backward_partials(ctypes.addressof(out)),
+            _build.check(lib.adunet_conv3x3_c64_backward_partials(ctypes.addressof(out), code),
                          "conv3x3_same_backward")
-        n = _partials_per_device[index] = out.value
+        n = _partials_per_device[(index, code)] = out.value
     return n
 
 
@@ -333,7 +334,7 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, need_dx:
     if not (need_dx or need_dw or need_db):
         return None, None, None
     lib = _build.library()
-    n = _n_partials(lib, index) if need_dw or need_db else 0
+    n = _n_partials(lib, index, code) if need_dw or need_db else 0
     scratch = x.new_empty(_BWD_PACK_BYTES + n * _PARTIAL_FLOATS * 4, dtype=torch.uint8)
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty(w.shape, dtype=w.dtype, device=x.device) if need_dw else None

@@ -249,6 +249,25 @@ K1_BWD_PRIOR_MS = {
     ("wide", 89_885, 1024, "float32"): 0.3857, ("wide", 57_797, 2048, "bfloat16"): 0.8375,
     ("wide", 57_797, 2048, "float32"): 1.1541,
 }
+# K2's bf16 kernels' profiler device times per call before their redesign
+# for Hopper (the forward and the backward's dx in one kernel, the wgrad with
+# its cluster sum; PERF.md §6: this script's and scripts/torch_launch_ab.py's
+# runs on NVIDIA H100 80GB HBM3, 700.00 W, at the commit before it), keyed
+# (kernel, path, shape): printed beside this run's
+K2_PRIOR_MS = {
+    ("K2", "serve", (8, 256, 256, 64)): 0.0868, ("K2", "train", (32, 256, 256, 64)): 0.3252,
+    ("K2", "vanilla", (8, 128, 128, 64)): 0.0254,
+    ("K2_halo", "space", (32, 130, 256, 64)): 0.1642, ("K2_halo", "space", (8, 130, 256, 64)): 0.0477,
+    ("K2_bwd", "train", (32, 256, 256, 64)): 0.5726, ("K2_bwd", "serve", (8, 256, 256, 64)): 0.1672,
+    ("K2_bwd", "vanilla", (8, 128, 128, 64)): 0.0628,
+    ("K2_bwd_halo", "space", (32, 130, 256, 64)): 0.3094,
+    ("K2_bwd_halo", "space", (8, 130, 256, 64)): 0.0988,
+}
+# the device kernels of a K2 backward call, by a part of their names
+K2_BWD_PARTS = {"pack": ("pack_conv3x3_weights_kernel",),
+                "dx": ("conv3x3_c64_wgmma_kernel", "conv3x3_c64_kernel"),
+                "wgrad": ("conv3x3_c64_wgrad_wgmma_kernel", "conv3x3_c64_wgrad_kernel"),
+                "sum": ("conv3x3_c64_wgrad_reduce_kernel",)}
 # the backward's row kernel is built for these (C, type) pairs
 K1_BWD_INSTANCES = {(c, t) for c in fused_norm.SUPPORTED_CHANNELS for t in ("F32", "BF16")}
 # K2 bf16 against its plain version: the absolute term beside one bf16 ulp,
@@ -418,16 +437,19 @@ def check_k1_bwd_spills(build_log: str) -> list[dict]:
     return rows
 
 
-# the kernels of K2's backward that must not spill (mangled-name parts)
-K2_BWD_KERNELS = ("conv3x3_c64_wgrad_wgmma_kernel", "conv3x3_c64_wgrad_kernel",
-                  "conv3x3_c64_wgrad_reduce_kernel")
+# the kernels of K2 that must not spill (mangled-name parts): the bf16
+# tensor-core kernel of the forward and of the backward's dx, and the
+# backward's dw + db kernels and their sum
+K2_BWD_KERNELS = ("conv3x3_c64_wgmma_kernel", "conv3x3_c64_wgrad_wgmma_kernel",
+                  "conv3x3_c64_wgrad_kernel", "conv3x3_c64_wgrad_reduce_kernel")
 
 
 def check_k2_bwd_spills(build_log: str) -> list[dict]:
     """Registers and spills of every kernel of K2's backward that the build
-    compiled for it (the wgrad kernels and their sum's instantiations), from
-    ptxas's report as ``check_k1_bwd_spills`` reads it. Raises if either
-    wgrad kernel is missing from the report or any of them spills."""
+    compiled for it (the bf16 conv kernel, which also runs the forward, in
+    its forward and dx instantiations, the wgrad kernels and their sum's
+    instantiations), from ptxas's report as ``check_k1_bwd_spills`` reads
+    it. Raises if one of them is missing from the report or any spills."""
     found = []
     for f in _ptxas_functions(build_log):
         # the mangled name's length prefix keeps one kernel's name from matching another's
@@ -561,7 +583,7 @@ def launch_cost(kid: str, fn, kernel_name: str | None, per_run: int = 1) -> dict
     host's cost of a call (``host_us``). Raises where a call launches other
     than the kernels its wrapper should: K1 1, K1 backward 2 (rows and column
     sums), K2 (both modes) at most 2 (the weight pack and the conv), K2's
-    backward (both modes) 4 (the flip pack, the dx conv, the dw + db
+    backward (both modes) 4 (the weight pack, the dx conv, the dw + db
     partials and their sum). A session whose count
     is not a whole number a call dropped records and is repeated, up to 3
     in all. Where the profiler recorded no session, the count is not
@@ -581,7 +603,7 @@ def launch_cost(kid: str, fn, kernel_name: str | None, per_run: int = 1) -> dict
               if kernel_name is not None and kernel_name not in k}
     return {"device_ms": dev_ms, "device_launches_recorded": dev_n,
             "device_kernels_per_call": per_call, "other_kernels_device_ms": others,
-            "host_us": host_us(fn)}
+            "by_name_device_ms": totals["by_name"], "host_us": host_us(fn)}
 
 
 def _ms(v: float | None) -> str:
@@ -746,15 +768,18 @@ def check_k2(gen: torch.Generator) -> list[dict]:
         lib = cuda_ms(lambda: F.conv2d(xn, wl, bl, padding=1), 20)
         lib_dev, lib_n = profiled_device_ms(lambda: F.conv2d(xn, wl, bl, padding=1))
         bnd, by = _k2_bound(shape, dtype)
+        prior = K2_PRIOR_MS.get(("K2", path, tuple(shape))) if dtype == torch.bfloat16 else None
         rows_out.append(dict(kernel="K2", path=path, shape=list(shape), dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=err, **extra, ms=ms, **cost,
                              plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
-                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
+                             prior_device_ms=prior))
         needed = (f" (absolute term needed {extra['abs_term_needed']:.3e}; {extra['past_1e-6']} "
                   f"of {extra['elements']} past 1e-6)" if extra else "")
+        before = f", before the redesign {_ms(prior)}" if prior else ""
         log(f"[K2] {path} x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e}{needed} "
             f"kernel {ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} "
-            f"launches, other kernels {cost['other_kernels_device_ms']}; host "
+            f"launches{before}, other kernels {cost['other_kernels_device_ms']}; host "
             f"{cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
             f"kernels a call), plain {plain:.4f} ms, F.conv2d (cuDNN, TF32 off) {lib:.4f} ms "
             f"(device time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
@@ -988,6 +1013,24 @@ def _k2_bwd_bound(x_shape, dtype, halo: int) -> tuple[float, str]:
                     2 * 9 * 64 * 64 * (px_x + px_g) + px_g * 64, dtype)
 
 
+def k2_bwd_parts(by_name: dict | None) -> dict | None:
+    """A K2 backward call's device time per call split by its device
+    kernels (``K2_BWD_PARTS``: the weight pack, the dx conv, the dw + db
+    partials, their sum), from the profiler's times by kernel name; None
+    where the profiler measured none. A kernel none of the parts names
+    raises."""
+    if by_name is None:
+        return None
+    parts = dict.fromkeys(K2_BWD_PARTS, 0.0)
+    for name, ms in by_name.items():
+        part = next((p for p, subs in K2_BWD_PARTS.items() if any(sub in name for sub in subs)),
+                    None)
+        if part is None:
+            raise AssertionError(f"K2 backward: device kernel {name} is none of {K2_BWD_PARTS}")
+        parts[part] += ms
+    return parts
+
+
 def check_k2_backward(gen: torch.Generator) -> list[dict]:
     """K2's backward kernels (``conv64.conv3x3_same_backward``, one C call of
     4 device kernels) against ``conv3x3_same_backward_plain`` on the same
@@ -1030,15 +1073,22 @@ def check_k2_backward(gen: torch.Generator) -> list[dict]:
         lib = cuda_ms(lambda: k2_library_backward(x, wt, gy, pad_h), 20)
         lib_dev, lib_n = profiled_device_ms(lambda: k2_library_backward(x, wt, gy, pad_h))
         bnd, by = _k2_bwd_bound(x_shape, dtype, halo)
+        prior = (K2_PRIOR_MS.get((kid, path, tuple(x_shape)))
+                 if dtype == torch.bfloat16 else None)
+        parts = k2_bwd_parts(cost["by_name_device_ms"])
         rows_out.append(dict(kernel=kid, path=path, shape=list(x_shape), dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=abs_err, rel_err=errs, ms=ms, **cost,
                              plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
-                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
+                             prior_device_ms=prior, device_ms_by_part=parts))
+        split = ("not measured" if parts is None
+                 else ", ".join(f"{k} {_ms(v)}" for k, v in parts.items()))
+        before = f"; before the redesign {_ms(prior)}" if prior else ""
         log(f"[K2 bwd] {path} x={'x'.join(map(str, x_shape))} {dtype}{' halo' if halo else ''}: "
             f"rel err " + ", ".join(f"{n} {e:.1e}" for n, e in errs.items())
             + f" (max |err| {abs_err:.2e}), dx / dw / db bit-equal over two calls; kernels "
             f"{ms:.4f} ms (events; profiler device time {_ms(cost['device_ms'])}, every kernel of "
-            f"the call; host {cost['host_us']:.2f} us a call, "
+            f"the call: {split}{before}; host {cost['host_us']:.2f} us a call, "
             f"{cost['device_kernels_per_call']:g} device kernels a call), plain {plain:.4f} ms, "
             f"cuDNN convolution_backward + float32 sum {lib:.4f} ms (device time {_ms(lib_dev)}), "
             f"bound {bnd:.4f} ms ({by})")
@@ -3065,13 +3115,18 @@ def check_k2_halo(gen: torch.Generator) -> list[dict]:
         es = x.element_size()
         bnd, by = bound_ms((bsz * h2 * w + pixels) * c * es + 9 * 64 * 64 * 4 + 64 * 4,
                            2 * pixels * 64 * 64 * 9 + pixels * 64, dtype)
+        prior = (K2_PRIOR_MS.get(("K2_halo", "space", tuple(shape)))
+                 if dtype == torch.bfloat16 else None)
         rows_out.append(dict(kernel="K2_halo", path="space", shape=list(shape),
                              dtype=_dname(dtype), per_call=per_call, max_abs_err=err, ms=ms,
                              **cost, plain_ms=plain,
                              library_ms=lib, library_device_ms=lib_dev,
-                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
+                             prior_device_ms=prior))
+        before = f", before the redesign {_ms(prior)}" if prior else ""
         log(f"[K2 halo] x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e} kernel "
-            f"{ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} launches; "
+            f"{ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} launches"
+            f"{before}; "
             f"host {cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
             f"kernels a call), "
             f"plain {plain:.4f} ms, F.conv2d padding (0, 1) (cuDNN, TF32 off) {lib:.4f} ms "

@@ -100,7 +100,7 @@ class _Halo:
         return self.xp
 
 
-def run(root: Path) -> list[dict]:
+def run(root: Path, kinds: set[str] | None = None) -> list[dict]:
     sys.path.insert(0, str(root))  # that checkout's adunet_torch, before any other
     cs = _load_chip_smoke()
 
@@ -129,6 +129,8 @@ def run(root: Path) -> list[dict]:
              + [("K2_bwd_halo" if halo else "K2_bwd", (shape, n, dtype, path))
                 for shape, n, dtype, path, halo in cs._k2_bwd_cases()])
     for i, (kind, (shape, _, dtype, path)) in enumerate(cases):
+        if kinds is not None and kind not in kinds:
+            continue
         gen = torch.Generator("cuda").manual_seed(1000 + i)
         row = {"root": str(root), "kernel": kind, "path": path, "shape": list(shape),
                "dtype": cs._dname(dtype)}
@@ -285,10 +287,14 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--root", default=str(HERE), help="checkout whose kernels run")
     ap.add_argument("--json", default=None, help="append the rows to a JSON list in this file")
     ap.add_argument("--compare", default=None, help="compare the runs in this JSON file")
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated rows to run (K1, K1_bwd, K2, K2_halo, K2_bwd, "
+                         "K2_bwd_halo; default all); each row keeps its seed")
     args = ap.parse_args(argv)
     if args.compare:
         return compare(Path(args.compare))
-    rows = run(Path(args.root).resolve())
+    kinds = set(args.kernels.split(",")) if args.kernels else None
+    rows = run(Path(args.root).resolve(), kinds)
     if args.json:
         path = Path(args.json)
         prior = json.loads(path.read_text()) if path.exists() else []

@@ -52,6 +52,9 @@ def test_k1_bwd_spill_check_fails_on_a_spill_or_a_missing_instantiation(report, 
         chip_smoke.check_k1_bwd_spills(report)
 
 
+# K2's bf16 conv kernel in its forward and dx instantiations, then the wgrad kernels
+_CONV = ["_ZN6adunet41_GLOBAL__N__63a33b8c_9_conv64_cu_a7a950122tc24conv3x3_c64_wgmma_kernelIL"
+         f"b{dx}EEEv14CUtensorMap_stS3_PK5uint4PKfiiii" for dx in (0, 1)]
 _WGRAD = {"conv3x3_c64_wgrad_wgmma_kernel":
           "_ZN6adunet41_GLOBAL__N__63a33b8c_9_conv64_cu_a7a950122tc30conv3x3_c64_wgrad_wgmma_"
           "kernelE14CUtensorMap_stS2_Pfiiiii",
@@ -64,13 +67,15 @@ _WGRAD = {"conv3x3_c64_wgrad_wgmma_kernel":
 
 
 def _k2_report(spill_at=None, missing=None) -> str:
-    """A conv64.cu report with K2's forward kernel (spilling, which this check
-    ignores) and the backward's dw + db kernels but ``missing``, ``spill_at``
-    spilling 16 bytes."""
+    """A conv64.cu report with K2's float32 forward kernel (spilling, which
+    this check ignores), its bf16 conv kernel (forward and dx) and the
+    backward's dw + db kernels but ``missing``, ``spill_at`` spilling 16
+    bytes."""
     lines = ["--- conv64.cu"]
-    lines += _properties("_ZN6adunet41_GLOBAL__N__63a33b8c_9_conv64_cu_a7a950122tc24conv3x3_c64_"
-                         "wgmma_kernelE14CUtensorMap_stPK5uint4PKfPtiiii", 8, 173)
-    for kernel, name in _WGRAD.items():
+    lines += _properties("_ZN6adunet41_GLOBAL__N__63a33b8c_9_conv64_cu_a7a9501218conv3x3_c64_"
+                         "kernelEPKfS2_S2_Pfiiiii", 8, 128)
+    named = [("conv3x3_c64_wgmma_kernel", name) for name in _CONV] + list(_WGRAD.items())
+    for kernel, name in named:
         if kernel != missing:
             lines += _properties(name, 16 if kernel == spill_at else 0, 160)
     return "\n".join(lines)
@@ -80,13 +85,16 @@ def test_k2_bwd_spill_check_reads_every_wgrad_kernel(capsys):
     rows = chip_smoke.check_k2_bwd_spills(_k2_report())
     assert {r["kernel"] for r in rows} == set(chip_smoke.K2_BWD_KERNELS)
     assert all(r["registers"] == 160 and r["spill_stores"] == 0 for r in rows)
-    assert capsys.readouterr().out.count("[spill] K2 backward") == 3
+    # the bf16 conv kernel's forward and dx instantiations, the wgrad kernels and their sum
+    assert capsys.readouterr().out.count("[spill] K2 backward") == 5
 
 
 @pytest.mark.parametrize("report, message", [
     (_k2_report(spill_at="conv3x3_c64_wgrad_wgmma_kernel"), "spills"),
     (_k2_report(spill_at="conv3x3_c64_wgrad_kernel"), "spills"),
     (_k2_report(missing="conv3x3_c64_wgrad_kernel"), "no"),
+    (_k2_report(spill_at="conv3x3_c64_wgmma_kernel"), "spills"),
+    (_k2_report(missing="conv3x3_c64_wgmma_kernel"), "no"),
 ])
 def test_k2_bwd_spill_check_fails_on_a_spill_or_a_missing_kernel(report, message):
     with pytest.raises(AssertionError, match=message):

@@ -11,6 +11,8 @@ the CPU path runs, are held against the JAX reference:
   (1, 16, 128, 64), atol 1e-4 (576-term float32 sums in another order).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -349,14 +351,24 @@ def test_pack_weights_flipped_swaps_taps_and_channels(conv_data):
     np.testing.assert_array_equal(packed, want)
 
 
-def test_pack_weights_flipped_bf16_is_the_bf16_pack_of_the_flipped_kernel(conv_data):
+@pytest.mark.parametrize("ks", [0, 1, 2, 3])
+def test_bf16_dx_reads_the_forward_pack_transposed_as_the_flipped_kernel(conv_data, ks):
+    """The bf16 dx kernel reads B from the forward's pack (no flipped copy)
+    through an MN-major, 128-byte-swizzle descriptor at tap 8 - t, K-step ks:
+    a numpy model of that descriptor. K row k (the pack's row 16 ks + k, w's
+    output channel) and N value n (w's input channel) lie at byte a = 8192
+    (8 - t) + 2048 ks + 128 k + 2 n before the swizzle, which moves a to a ^
+    (((a >> 7) & 7) << 4). What it reads is the flipped, io-swapped kernel's
+    tap t, K-step ks."""
     _, w_hwio, _ = conv_data
     w_oihw = torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
-    flipped = torch.from_numpy(np.ascontiguousarray(
-        w_oihw.numpy()[:, :, ::-1, ::-1].transpose(1, 0, 2, 3)))
-    got = tconv.pack_weights_flipped_bf16(w_oihw)
-    assert got.dtype == torch.bfloat16
-    assert torch.equal(got, tconv.pack_weights_bf16(flipped))
+    words = tconv.pack_weights_bf16(w_oihw).contiguous().view(torch.int16).numpy().reshape(-1)
+    t, k, n = np.meshgrid(np.arange(9), np.arange(16), np.arange(64), indexing="ij")
+    logical = 8192 * (8 - t) + 2048 * ks + 128 * k + 2 * n
+    read = words[(logical ^ (((logical >> 7) & 7) << 4)) // 2]  # (tap, K = dx's in, N = dx's out)
+    flipped = w_oihw.flip(2, 3).transpose(0, 1).to(torch.bfloat16)  # OIHW of dx's conv
+    want = flipped.permute(2, 3, 1, 0).reshape(9, 64, 64)[:, 16 * ks: 16 * ks + 16]  # [t][in][out]
+    np.testing.assert_array_equal(read, want.contiguous().view(torch.int16).numpy())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -368,8 +380,8 @@ def test_k2_backward_launch_is_one_c_call(recording_lib, monkeypatch, halo, dtyp
     weights' room plus a float32 partial row per block, dx / dw / db
     allocated in x's, w's and the bias's types, the cotangent's H rows, the
     mode, the device index and the stream; its counter moves by one."""
-    monkeypatch.setattr(tconv, "_partials_per_device", {-1: 8})
     code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    monkeypatch.setattr(tconv, "_partials_per_device", {(-1, code): 8})
     x = torch.zeros(2, 16 + 2 * halo, 128, 64, dtype=dtype)
     w = torch.zeros(64, 64, 3, 3)
     g = torch.zeros(2, 16, 128, 64, dtype=dtype)
@@ -389,6 +401,45 @@ def test_k2_backward_launch_is_one_c_call(recording_lib, monkeypatch, halo, dtyp
     dx, dw, db = tconv._launch_backward(x, w, g, True, False, False, None, halo)
     args = recording_lib.calls[0][1]
     assert (dw, db) == (None, None) and args[4:7] == (1, 0, 0) and args[9:11] == (None, None)
+
+
+@pytest.mark.parametrize("dtype, rows", [(torch.float32, 132), (torch.bfloat16, 33),
+                                         (torch.bfloat16, 17)])
+def test_k2_backward_scratch_holds_the_partial_rows_c_reports(recording_lib, monkeypatch,
+                                                              dtype, rows):
+    """The backward's scratch is the packed weights' room and exactly the
+    partial rows the library reports for x's type (one a block of the
+    float32 wgrad grid, one a cluster of the bf16 one), asked once per
+    device and type with the type's code; dx alone allocates no rows."""
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    asked = []
+
+    def partials(addr, type_code):
+        asked.append(type_code)
+        ctypes.c_int.from_address(addr).value = rows if type_code == code else 1
+        return 0
+
+    recording_lib.adunet_conv3x3_c64_backward_partials = partials
+    monkeypatch.setattr(tconv, "_partials_per_device", {})
+    sizes = []
+    new_empty = torch.Tensor.new_empty
+
+    def spy(self, size, *args, **kwargs):
+        out = new_empty(self, size, *args, **kwargs)
+        if out.dtype == torch.uint8:
+            sizes.append(out.numel())
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "new_empty", spy)
+    x = torch.zeros(2, 16, 128, 64, dtype=dtype)
+    w = torch.zeros(64, 64, 3, 3)
+    for _ in range(2):
+        tconv._launch_backward(x, w, x, True, True, True, None, 0)
+    tconv._launch_backward(x, w, x, True, False, False, None, 0)
+    assert asked == [code]
+    pack = 9 * 64 * 64 * 4 + 64 * 4
+    assert sizes == [pack + rows * (9 * 64 * 64 + 64) * 4] * 2 + [pack]
+    assert [c[0] for c in recording_lib.calls] == ["adunet_conv3x3_c64_backward"] * 3
 
 
 def test_k2_backward_refuses_what_the_kernels_do_not_take(recording_lib):

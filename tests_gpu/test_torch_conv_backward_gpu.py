@@ -1,8 +1,9 @@
 """K2's backward kernels on the card (``conv64.conv3x3_same_backward``).
 
-Each call of the backward on CUDA tensors is one C call of the flip pack and
-the forward kernel on the cotangent (dx), the dw + db partials and their
-fixed-order sum. These tests hold it against ``conv3x3_same_backward_plain``
+Each call of the backward on CUDA tensors is one C call of the weight pack
+and the forward kernel on the cotangent (dx; bf16 reads the forward's pack
+transposed, float32 a flipped pack), the dw + db partials (bf16: one row a
+cluster of blocks) and their fixed-order sum. These tests hold it against ``conv3x3_same_backward_plain``
 on the same tensors: both types, the SAME and the halo-row mode (whose dx
 has H + 2 rows, a ragged last tile for the bf16 kernel), every ``need_*``
 subset, float32 and bf16 parameters, two calls bit for bit, a CUDA graph of
@@ -55,7 +56,11 @@ def _inputs(gen, shape, dtype, halo, w_dtype=torch.float32):
     return x, w, g
 
 
-CASES = [((2, 16, 128, 64), 0), ((3, 24, 256, 64), 0), ((2, 16, 128, 64), 1), ((1, 32, 256, 64), 1)]
+# the last two: more tiles than a grid (320 of 4 x 64 pixels: not a multiple
+# of one block per SM, nor of the bf16 wgrad's clusters' blocks), and fewer
+# tiles than SMs (108; the halo dx's 126, its last tile row ragged)
+CASES = [((2, 16, 128, 64), 0), ((3, 24, 256, 64), 0), ((2, 16, 128, 64), 1), ((1, 32, 256, 64), 1),
+         ((5, 64, 256, 64), 0), ((3, 24, 384, 64), 1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -148,6 +153,34 @@ def test_graph_capture_replays_eager(cuda, dtype):
     def run():  # fresh leaves on the running stream, no graph kept alive after
         leaves = [t.detach().requires_grad_(True) for t in (x, w, bias)]
         y = conv64.conv3x3_same(*leaves)
+        return (y.detach(), *torch.autograd.grad(y, leaves, g))
+
+    eager = [t.clone() for t in run()]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graph_capture_replays_eager_in_the_halo_row_mode(cuda, dtype):
+    """As above through ``conv3x3_rows``: the halo dx's ragged last tile and,
+    in bf16, the wgrad's cluster launch captured in a CUDA graph."""
+    x, w, g = _inputs(cuda, (2, 64, 256, 64), dtype, 1)
+    bias = torch.randn(64, generator=cuda, device="cuda")
+
+    def run():
+        leaves = [t.detach().requires_grad_(True) for t in (x, w, bias)]
+        y = conv64.conv3x3_rows(*leaves)
         return (y.detach(), *torch.autograd.grad(y, leaves, g))
 
     eager = [t.clone() for t in run()]

@@ -61,11 +61,13 @@ def test_layer_norm_relu_nd_input(cuda):
 
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 16, 128, 64), (3, 24, 384, 64), (2, 64, 256, 64)])
+@pytest.mark.parametrize("shape", [(1, 16, 128, 64), (3, 24, 384, 64), (2, 64, 256, 64),
+                                   (5, 64, 256, 64)])
 def test_conv3x3_matches_plain(cuda, dtype, shape, bias):
     """At the smallest gated shape, at W = 384 (three 128-column blocks of the
-    gate) and over several tiles per image, with and without bias; one
-    launch per call."""
+    gate) and over several tiles per image, with and without bias; the last
+    has 320 tiles of 4 x 64 pixels, more than one a consumer of a grid of one
+    block per SM, not a multiple of it; one launch per call."""
     x = torch.randn(*shape, generator=cuda, device="cuda").to(dtype)
     w = (torch.randn(64, 64, 3, 3, generator=cuda, device="cuda") * 0.05).to(dtype)
     b = (torch.randn(64, generator=cuda, device="cuda") * 0.1).to(dtype) if bias else None
@@ -90,6 +92,22 @@ def test_conv3x3_bf16_zero_fill_at_edges(cuda):
     w = (torch.randn(64, 64, 3, 3, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
     got = conv64.conv3x3_same(x, w, None)
     want = conv64.conv3x3_same_plain(x, w, None)
+    assert torch.equal(got, want)
+    assert int((got != 0).sum()) == int((want != 0).sum()) > 0
+
+
+def test_conv3x3_rows_bf16_zero_fill_at_edges(cuda):
+    """The halo-row mode's one-hot check: an input 1 in each halo row (the
+    neighbours' rows) and at the image's corners reaches exactly the output
+    rows a VALID conv in H gives it, bit for bit as the plain version."""
+    h, wd = 16, 128
+    spots = [(0, 0), (0, wd - 1), (h + 1, 0), (h + 1, wd - 1), (1, 64), (h, 63)]
+    x = torch.zeros(len(spots), h + 2, wd, 64, device="cuda", dtype=torch.bfloat16)
+    for i, (yy, xx) in enumerate(spots):
+        x[i, yy, xx, i * 7 % 64] = 1.0
+    w = (torch.randn(64, 64, 3, 3, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
+    got = conv64.conv3x3_rows(x, w, None)
+    want = conv64.conv3x3_rows_plain(x, w, None)
     assert torch.equal(got, want)
     assert int((got != 0).sum()) == int((want != 0).sum()) > 0
 
