@@ -16,13 +16,13 @@ Subpackages
 - ``ops``      — fractional resize (matmul), LR degradation, luma, residual add
 - ``nn``       — depth policies and building blocks (ConvBlock)
 - ``kernels``  — CUDA kernels as autograd Functions: fused LayerNorm+ReLU (K1),
-  64->64 3x3 conv (K2)
+  64->64 3x3 conv (K2); their forwards as ``torch.library`` ops for programs
 - ``models``   — adaptive SR U-Net
 - ``losses``   — SR losses (charbonnier, l1, mse, SSIM) and the PSNR metric
 - ``data``     — image IO, grid eval patches, the device-resident corpus
 - ``train``    — Adam and schedules, SR train/val/eval steps, checkpoints, fit
 - ``configs``  — the SR trainer's config
-- ``export``   — loading int8 weight-file serving artifacts
+- ``export``   — serving programs (``torch.export``) and artifacts
 - ``metrics``  — PSNR / SSIM / MS-SSIM
 - ``evaluate`` — the Y-channel SR evaluator
 - ``utils``    — device resolution, runtime switches, splits

@@ -6,11 +6,13 @@ Port of ``adunet/cli/export_model.py`` with the same flags, plus
 segmentation U-Net or the joint SR + segmentation U-Net from the checkpoint
 directory's ``config.json`` (``train_sr``, ``train_seg`` and
 ``train_joint`` write it there) and loads its best checkpoint (the latest
-with ``--latest``). The artifact is the port's weight file
-(``adunet_torch.export.save_artifact``): no StableHLO program can be lowered
-without JAX, so ``--platforms`` changes nothing: when given, it is recorded
-as ``platforms_requested`` in the manifest, and the artifact loads only in the port
-(``adunet_torch.export.load_artifact``, ``adunet_torch.cli.serve``,
+with ``--latest``). The artifact (``adunet_torch.export.save_artifact``)
+is the port's serving program ``model.pt2``, a ``torch.export`` program
+exported on ``--device`` (the manifest's ``platforms``; it runs on either
+device), beside its weights file; it has no StableHLO program, so
+``--platforms`` changes nothing: when given, it is recorded as
+``platforms_requested`` in the manifest, and the artifact loads only in the
+port (``adunet_torch.export.load_artifact``, ``adunet_torch.cli.serve``,
 ``adunet_torch.cli.restore --from-export``).
 
     python -m adunet_torch.cli.export_model --workload joint \\
@@ -43,7 +45,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Tile-batch size the artifact serves.")
     parser.add_argument("--platforms", type=str, default=None,
                         help="Accepted for the reference's flags and recorded in the manifest "
-                             "as platforms_requested; ignored: the artifact has no program.")
+                             "as platforms_requested; ignored: the program is exported on "
+                             "--device and runs on either device.")
     parser.add_argument("--quantize", choices=["int8"], default=None,
                         help="Weight-only quantization: conv kernels as int8 + per-channel "
                              "scales (~4x smaller artifact).")

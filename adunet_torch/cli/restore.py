@@ -7,10 +7,10 @@ column right-aligned; an image smaller than a tile reflect-padded), restored
 linearly inside the overlap. Inputs are degraded at ``--scale`` first unless
 ``--assume-lr`` says they already are low resolution. The weights come from
 a ``train_sr`` checkpoint directory (``--model-path``; the best checkpoint,
-or the latest with ``--latest``) or from an int8 weight-file serving
-artifact (``--from-export``, read by ``adunet_torch.export.load_artifact``;
-an artifact with its weights baked into StableHLO is refused with the
-server's error). Outputs are ``<stem>_restored.png`` where cv2 is
+or the latest with ``--latest``) or from a serving artifact
+(``--from-export``, read by ``adunet_torch.export.load_artifact``: the
+port's program, or a reference int8 weight file; an artifact with its
+weights baked into StableHLO is refused with the server's error). Outputs are ``<stem>_restored.png`` where cv2 is
 importable, else ``.npy``. ``--device`` is ``cuda`` by default (raises
 without a GPU) or ``cpu``.
 
@@ -21,7 +21,6 @@ without a GPU) or ``cpu``.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 from pathlib import Path
 from typing import Callable, List, Optional
 
@@ -152,7 +151,7 @@ def _export_forward(args: argparse.Namespace):
     in_shape = manifest.get("input_shape")
     if in_shape:  # the artifact's tile size and batch win over the flags
         args.batch_size, args.patch_size = int(in_shape[0]), int(in_shape[1])
-    dev = next(call.model.parameters()).device
+    dev = call.device
 
     def forward(tiles: np.ndarray) -> np.ndarray:
         if not args.assume_lr:
@@ -167,6 +166,7 @@ def _export_forward(args: argparse.Namespace):
 def main(argv: Optional[List[str]] = None) -> List[Path]:
     args = parse_args(argv)
     from adunet_torch.data import find_images, load_rgb_image_full
+    from adunet_torch.data.io import cv2  # None without OpenCV, decided at its import
 
     files = find_images(args.input_dir, args.image_suffix, args.limit)
     if args.from_export is not None:
@@ -180,15 +180,12 @@ def main(argv: Optional[List[str]] = None) -> List[Path]:
 
     out_dir = args.output_dir.expanduser()
     out_dir.mkdir(parents=True, exist_ok=True)
-    have_cv2 = importlib.util.find_spec("cv2") is not None
     written = []
     for path in files:
         restored = restore_image(load_rgb_image_full(path), forward, args.patch_size, args.overlap,
                                  args.batch_size)
         target = out_dir / (Path(path).stem + "_restored.png")
-        if have_cv2:
-            import cv2
-
+        if cv2 is not None:
             cv2.imwrite(str(target), np.round(restored * 255.0).astype(np.uint8)[..., ::-1])
         else:
             target = target.with_suffix(".npy")

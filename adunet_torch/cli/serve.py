@@ -1,5 +1,6 @@
-"""HTTP model server over an SR or segmentation serving artifact, on the
-port's model.
+"""HTTP model server over an SR or segmentation serving artifact: the port's
+program (``model.pt2``), or, for a reference int8 artifact, the port's model
+rebuilt from its weights (``adunet_torch.export.load_artifact``).
 
 Port of ``adunet/cli/serve.py``: the same endpoints (``GET /v1/health``,
 ``GET /v1/metadata`` with the manifest and live serving stats,
@@ -40,7 +41,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Serve an adunet SR or segmentation artifact "
                                                  "with the PyTorch port.")
     parser.add_argument("--artifact", type=str, required=True,
-                        help="Artifact directory (manifest.json + weights.npz).")
+                        help="Artifact directory (manifest.json, the program model.pt2 "
+                             "and weights.npz; a reference int8 artifact has no program).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Torch device for the model (default cuda; 'cpu' to run on the CPU).")
     parser.add_argument("--host", type=str, default="127.0.0.1")

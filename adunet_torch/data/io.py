@@ -5,8 +5,11 @@ Port of ``adunet/data/io.py`` (``read_image_size``, ``_read_rgb``,
 its square resize, ``load_image_stack`` (a directory of square-resized
 images, the vanilla SR trainer's), and for segmentation ``_read_gray``,
 ``_nearest_resize``, ``load_mask``, ``load_label_mask``). ``.npy`` arrays are
-always read; PNG / JPEG need cv2 (BGR→RGB) or, without it, PIL, each
-imported at first use. Without either a PNG / JPEG raises. Resizes go
+always read; PNG / JPEG need cv2 (BGR→RGB) or, without it, PIL. Which of
+the two there is, is decided once, when this module is imported, as the
+reference decides (``adunet/data/io.py:19-32``): decode threads must not
+probe for cv2 while another thread is still importing it. Without either a
+PNG / JPEG raises. Resizes go
 through cv2 where it is importable, as in the reference, and otherwise
 through the same sampling matrices the reference falls back to
 (``adunet_torch.ops.resize.resize_matrix``), so a batch is byte for byte the
@@ -15,13 +18,21 @@ reference's on the same host.
 
 from __future__ import annotations
 
-import importlib.util
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
 from adunet_torch.utils.misc import sorted_alphanumeric
+
+try:
+    import cv2
+except ImportError:
+    cv2 = None
+try:
+    from PIL import Image
+except ImportError:
+    Image = None
 
 __all__ = [
     "read_image_size",
@@ -34,10 +45,6 @@ __all__ = [
 ]
 
 
-def _have(module: str) -> bool:
-    return importlib.util.find_spec(module) is not None
-
-
 def read_image_size(path: str | Path) -> tuple:
     """(height, width) of an image without decoding its pixels where the
     format allows it: ``.npy`` reads the array header (mmap), PIL the file
@@ -46,9 +53,7 @@ def read_image_size(path: str | Path) -> tuple:
     if path.suffix == ".npy":
         arr = np.load(str(path), mmap_mode="r")
         return (arr.shape[0], arr.shape[1])
-    if _have("PIL"):
-        from PIL import Image
-
+    if Image is not None:
         with Image.open(path) as im:
             width, height = im.size
         return (height, width)
@@ -62,16 +67,12 @@ def _read_rgb(path: Path) -> np.ndarray:
         if arr.ndim == 2:
             arr = np.stack([arr] * 3, axis=-1)
         return arr
-    if _have("cv2"):
-        import cv2
-
+    if cv2 is not None:
         img = cv2.imread(str(path), cv2.IMREAD_COLOR)
         if img is None:
             raise FileNotFoundError(f"image failed to decode: {path}")
         return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    if _have("PIL"):
-        from PIL import Image
-
+    if Image is not None:
         with Image.open(path) as im:
             return np.asarray(im.convert("RGB"))
     raise RuntimeError(f"no image decoder for {path} (need cv2 or PIL; .npy needs neither)")
@@ -108,9 +109,7 @@ def load_rgb_image(path: str | Path, size: int, interp: str = "area") -> np.ndar
     cv2_interp = {"area": "INTER_AREA", "linear": "INTER_LINEAR"}
     if interp not in cv2_interp:
         raise ValueError(f"unknown interp {interp!r} (expected area|linear)")
-    if _have("cv2"):
-        import cv2
-
+    if cv2 is not None:
         img = cv2.resize(img, (size, size), interpolation=getattr(cv2, cv2_interp[interp]))
         return _to_float01(img)
     img = _to_float01(img)
@@ -140,15 +139,11 @@ def _read_gray(path: Path) -> np.ndarray:
     path = Path(path)
     if path.suffix == ".npy":
         arr = np.load(str(path))
-    elif _have("cv2"):
-        import cv2
-
+    elif cv2 is not None:
         arr = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
         if arr is None:
             raise FileNotFoundError(f"mask failed to decode: {path}")
-    elif _have("PIL"):
-        from PIL import Image
-
+    elif Image is not None:
         with Image.open(path) as im:
             arr = np.asarray(im.convert("L"))
     else:
@@ -161,9 +156,7 @@ def _read_gray(path: Path) -> np.ndarray:
 def _nearest_resize(arr: np.ndarray, size: int) -> np.ndarray:
     if arr.shape[:2] == (size, size):
         return arr
-    if _have("cv2") and arr.dtype != np.int64:
-        import cv2
-
+    if cv2 is not None and arr.dtype != np.int64:
         return cv2.resize(arr, (size, size), interpolation=cv2.INTER_NEAREST)
     ys = (np.arange(size) * arr.shape[0] // size).clip(0, arr.shape[0] - 1)
     xs = (np.arange(size) * arr.shape[1] // size).clip(0, arr.shape[1] - 1)

@@ -7,24 +7,32 @@ kernel, when quantized, as an int8 ``q`` plus a float32 per-output-channel
 ``scale`` (``quantize_params_int8``, :32).
 
 - ``save_artifact`` writes the port's artifacts: ``"format":
-  "adunet_torch.weights"``, no ``model.stablehlo`` (there is no JAX to lower
-  a program with), so they load only in the port, as the manifest says.
-  Without ``quantize`` the leaves are the float32 weights, the counterpart
-  of the reference's float32 program. A segmentation model's BatchNorm
-  statistics go into the weights file as the extra leaves ``s0..sM`` (the
+  "adunet_torch.weights"``, the serving program ``model.pt2``
+  (``adunet_torch.export.program``: a ``torch.export`` program with the
+  weights, and a segmentation model's BatchNorm statistics, inside; int8
+  weights as int8 buffers with ``quantize``), exported on the model's device
+  (``"platforms"`` in the manifest), beside the weights file. Without
+  ``quantize`` the leaves are the float32 weights, the counterpart of the
+  reference's float32 program. A segmentation model's BatchNorm statistics
+  go into the weights file too, as the extra leaves ``s0..sM`` (the
   ``batch_stats`` tree in flattening order; ``batch_stats_leaves`` in the
   manifest), where the reference bakes them into its program (:164-199).
-- ``load_artifact`` reads the manifest's ``model`` (``adaptive_sr_unet``,
-  ``adaptive_seg_unet`` or ``joint_sr_seg_unet``), dequantizes the leaves as
-  ``q.astype(f32) * scale`` (``_dequantize_params``, :55) and builds that
-  model on the device. It loads the port's artifacts and the reference's
-  int8 SR and joint ones (it never reads their StableHLO program). A
-  reference float32 artifact has its weights only inside the program, and a
-  reference seg artifact its BatchNorm statistics: both are refused.
+  The artifacts load only in the port (no ``model.stablehlo``).
+- ``load_artifact`` runs an artifact's program where it has one
+  (``"program_file"``), with no model code. Otherwise it reads the
+  manifest's ``model`` (``adaptive_sr_unet``, ``adaptive_seg_unet`` or
+  ``joint_sr_seg_unet``), dequantizes the leaves as ``q.astype(f32) *
+  scale`` (``_dequantize_params``, :55) and builds that model on the device:
+  the reference's int8 SR and joint artifacts (it never reads their
+  StableHLO program) and the port's artifacts from before it wrote
+  programs. A reference float32 artifact has its weights only inside the
+  program, and a reference seg artifact its BatchNorm statistics: both are
+  refused.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 from pathlib import Path
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
@@ -33,9 +41,7 @@ import numpy as np
 import torch
 
 from adunet_torch.convert import flax_trees_from_state_dict, model_leaf_paths, state_dict_from_flax
-from adunet_torch.models.joint import JointSRSegUNet
-from adunet_torch.models.seg_adaptive import AdaptiveSegUNet
-from adunet_torch.models.sr_adaptive import AdaptiveSRUNet
+from adunet_torch.export import program
 from adunet_torch.utils.runtime import resolve_device
 
 __all__ = ["MANIFEST_FILE", "WEIGHTS_FILE", "FORMAT", "quantize_params_int8", "save_artifact",
@@ -44,9 +50,13 @@ __all__ = ["MANIFEST_FILE", "WEIGHTS_FILE", "FORMAT", "quantize_params_int8", "s
 MANIFEST_FILE = "manifest.json"
 WEIGHTS_FILE = "weights.npz"
 FORMAT = "adunet_torch.weights"
-_PROGRAM_FILE = "model.stablehlo"
-_MODELS = {AdaptiveSRUNet: "adaptive_sr_unet", AdaptiveSegUNet: "adaptive_seg_unet",
-           JointSRSegUNet: "joint_sr_seg_unet"}
+_STABLEHLO_FILE = "model.stablehlo"
+# the models by class name (imported only to rebuild one: a program needs none)
+_MODELS = {"AdaptiveSRUNet": "adaptive_sr_unet", "AdaptiveSegUNet": "adaptive_seg_unet",
+           "JointSRSegUNet": "joint_sr_seg_unet"}
+_EXPORTS = {"adaptive_sr_unet": program.export_sr_forward,
+            "adaptive_seg_unet": program.export_seg_forward,
+            "joint_sr_seg_unet": program.export_joint_forward}
 
 
 def quantize_params_int8(params: Mapping[str, Any]) -> Dict[str, Any]:
@@ -63,8 +73,8 @@ def quantize_params_int8(params: Mapping[str, Any]) -> Dict[str, Any]:
         if w.ndim != 4:
             out[key] = w
             continue
-        scale = np.maximum(np.abs(w).max(axis=(0, 1, 2)) / 127.0, 1e-12).astype(np.float32)
-        out[key] = {"q": np.clip(np.round(w / scale), -127, 127).astype(np.int8), "scale": scale}
+        q, scale = program.quantize_int8(w)
+        out[key] = {"q": q, "scale": scale}
     return out
 
 
@@ -100,11 +110,13 @@ def save_artifact(model: torch.nn.Module, out_dir: str | Path, image_size: int,
     image_size, 3) float32 inputs into ``out_dir``; returns it.
 
     ``quantize="int8"`` stores conv kernels as int8 + per-channel scales;
-    None stores the float32 weights. The manifest carries the model's name,
-    depth and (SR and joint) scale, its parameter count, and ``meta``."""
+    None stores the float32 weights. The program is exported on the model's
+    device. The manifest carries the model's name, depth and (SR and joint)
+    scale, its parameter count, the program's file and platform, and
+    ``meta``."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantization mode: {quantize}")
-    name = _MODELS.get(type(model))
+    name = _MODELS.get(type(model).__name__)
     if name is None:
         raise ValueError(f"{type(model).__name__} has no serving artifact")
     params, batch_stats = flax_trees_from_state_dict(model.state_dict())
@@ -114,18 +126,25 @@ def save_artifact(model: torch.nn.Module, out_dir: str | Path, image_size: int,
     stats_paths = model_leaf_paths(model, collection="batch_stats")
     leaves.update({f"s{i}": _get(batch_stats, p) for i, p in enumerate(stats_paths)})
 
+    exported = _EXPORTS[name](model, image_size, batch_size, quantize)
+
     out_dir = Path(out_dir).expanduser()
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / _PROGRAM_FILE).unlink(missing_ok=True)  # no stale program beside these weights
+    (out_dir / _STABLEHLO_FILE).unlink(missing_ok=True)  # no stale reference program
     np.savez(out_dir / WEIGHTS_FILE, **leaves)
+    torch.export.save(exported, str(out_dir / program.PROGRAM_FILE))
     manifest: Dict[str, Any] = {
         "format": FORMAT,
         "loads_in": "adunet_torch only: no StableHLO program; load with "
-                    "adunet_torch.export.load_artifact",
+                    "adunet_torch.export.load_artifact, or the program alone with "
+                    "adunet_torch.export.program.Program",
         "model": name,
         "input_shape": [int(batch_size), int(image_size), int(image_size), 3],
         "input_dtype": "float32",
-        "artifact_bytes": (out_dir / WEIGHTS_FILE).stat().st_size,
+        "artifact_bytes": ((out_dir / WEIGHTS_FILE).stat().st_size
+                           + (out_dir / program.PROGRAM_FILE).stat().st_size),
+        "program_file": program.PROGRAM_FILE,
+        "platforms": [next(model.parameters()).device.type],
         "weights_file": WEIGHTS_FILE,
         "weights_leaves": len(leaves) - len(stats_paths),
         "batch_stats_leaves": len(stats_paths),
@@ -184,6 +203,8 @@ def _scale(manifest: Dict[str, Any], path: Path) -> float:
 def _make_model(name: str, depth: int, scale: Optional[float], device,
                 params: Optional[Dict[str, Any]] = None) -> torch.nn.Module:
     """The artifact's model; with ``params``, its widths read from them."""
+    from adunet_torch.models import AdaptiveSegUNet, AdaptiveSRUNet, JointSRSegUNet
+
     def width(*block: str, default: int = 64) -> int:
         return default if params is None else int(_get(params, block + ("kernel",)).shape[-1])
 
@@ -200,8 +221,6 @@ def _make_model(name: str, depth: int, scale: Optional[float], device,
 def _read_leaves(base: Path, manifest: Dict[str, Any], name: str, scale: Optional[float]
                  ) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
     """(dequantized param tree, batch_stats tree, depth) of an artifact."""
-    if "depth" not in manifest:
-        raise ValueError(f"artifact at {base} names no 'depth' in its {MANIFEST_FILE}")
     quantized = manifest.get("format") != FORMAT or bool(manifest.get("quantization"))
     n, depth = int(manifest["weights_leaves"]), int(manifest["depth"])
     skeleton = _make_model(name, depth, scale, "meta")
@@ -226,27 +245,55 @@ def _read_leaves(base: Path, manifest: Dict[str, Any], name: str, scale: Optiona
     return _dequantize(params), batch_stats, depth
 
 
-def load_artifact(
-    path: str | Path, device: str | torch.device = "cuda"
-) -> Tuple[Callable[[np.ndarray], Any], Dict[str, Any]]:
-    """Build the artifact's model on ``device`` and return ``(call, manifest)``.
-
-    ``call(tiles)`` takes float32 numpy (B, P, P, 3) and returns float32
-    numpy (``adunet/export/aot.py:151-232``): the clipped restoration (SR),
-    the eval-mode probability mask (seg), or ``{"sr": clipped, "mask":
-    probabilities}`` (joint). It runs under ``torch.inference_mode()``,
-    entered in the calling thread (the mode is thread-local). ``call.model``
-    is the model."""
-    dev = resolve_device(device)
-    base, manifest = _read_manifest(path)
-    name = manifest.get("model", "adaptive_sr_unet")
-    scale = None if name == "adaptive_seg_unet" else _scale(manifest, base)
+def _rebuild(base: Path, manifest: Dict[str, Any], name: str, scale: Optional[float],
+             dev: torch.device) -> torch.nn.Module:
+    """The artifact's model, built from its weights file on ``dev``, in eval mode."""
     params, batch_stats, depth = _read_leaves(base, manifest, name, scale)
     model = _make_model(name, depth, scale, dev, params).eval()
     model.load_state_dict(state_dict_from_flax(params, batch_stats), strict=True)
     n_params = sum(p.numel() for p in model.parameters())
     if "param_count" in manifest and int(manifest["param_count"]) != n_params:
         raise ValueError(f"manifest param_count {manifest['param_count']} != model's {n_params}")
+    return model
+
+
+class _ProgramCall(program.Program):
+    """An artifact's program; ``model`` is the model its weights file
+    rebuilds, built at first use: running the program needs no model code."""
+
+    def __init__(self, path: Path, device: torch.device, rebuild: Callable[[], torch.nn.Module]):
+        super().__init__(path, device)
+        self._rebuild = rebuild
+
+    @functools.cached_property
+    def model(self) -> torch.nn.Module:
+        return self._rebuild()
+
+
+def load_artifact(
+    path: str | Path, device: str | torch.device = "cuda"
+) -> Tuple[Callable[[np.ndarray], Any], Dict[str, Any]]:
+    """Load the artifact onto ``device``: its program where it has one, else
+    its model rebuilt from the weights file; return ``(call, manifest)``.
+
+    ``call(tiles)`` takes float32 numpy (B, P, P, 3) and returns float32
+    numpy (``adunet/export/aot.py:151-232``): the clipped restoration (SR),
+    the eval-mode probability mask (seg), or ``{"sr": clipped, "mask":
+    probabilities}`` (joint). It runs under ``torch.inference_mode()``,
+    entered in the calling thread (the mode is thread-local). ``call.model``
+    is the model (for a program, rebuilt from the weights file when first
+    read), ``call.device`` the device; a program's call is a
+    ``program.Program`` (``call.module`` runs on device tensors)."""
+    dev = resolve_device(device)
+    base, manifest = _read_manifest(path)
+    name = manifest.get("model", "adaptive_sr_unet")
+    scale = None if name == "adaptive_seg_unet" else _scale(manifest, base)
+    if "depth" not in manifest:
+        raise ValueError(f"artifact at {base} names no 'depth' in its {MANIFEST_FILE}")
+    rebuild = functools.partial(_rebuild, base, manifest, name, scale, dev)
+    if manifest.get("program_file"):
+        return _ProgramCall(base / manifest["program_file"], dev, rebuild), manifest
+    model = rebuild()
     patch = tuple(manifest["input_shape"][1:]) if "input_shape" in manifest else None
 
     def host(t: torch.Tensor, clip: bool = False) -> np.ndarray:
@@ -264,4 +311,5 @@ def load_artifact(
             return host(out, clip=name == "adaptive_sr_unet")
 
     call.model = model
+    call.device = dev
     return call, manifest

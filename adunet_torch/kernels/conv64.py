@@ -398,9 +398,13 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) ->
     bf16 whatever x's type (they round to it, as a cast would).
 
     CUDA: float32 or bf16 ``x``, contiguous; anything else raises. CPU: the
-    plain version. ``conv3x3_same.launches`` counts kernel launches."""
+    plain version. While ``torch.export`` traces a program, the op
+    ``adunet_torch::conv3x3_c64`` (``kernels/ops.py``) stands in the graph.
+    ``conv3x3_same.launches`` counts kernel launches."""
     if not supported(x.shape, w.shape):
         raise ValueError(f"conv3x3_same: unsupported shapes x={tuple(x.shape)} w={tuple(w.shape)}")
+    if torch.compiler.is_exporting():
+        return torch.ops.adunet_torch.conv3x3_c64(x, w, bias)
     return _run("conv3x3_same", x, w, bias, 0)
 
 

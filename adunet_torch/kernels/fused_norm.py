@@ -230,9 +230,14 @@ def layer_norm_relu(
     CUDA: float32 or bf16 ``x``, contiguous, C in ``SUPPORTED_CHANNELS``;
     anything else raises. CPU: the plain versions. Where no gradient is
     wanted (grad mode off, or no input requires one, as in serving) the
-    kernel or plain version runs without the autograd Function.
+    kernel or plain version runs without the autograd Function. While
+    ``torch.export`` traces a program, the op ``adunet_torch::layer_norm_relu``
+    (``kernels/ops.py``) stands in the graph, and runs the kernel or the plain
+    version by device when the program runs.
     ``layer_norm_relu.launches`` counts forward kernel launches,
     ``layer_norm_relu.backward_launches`` backward kernel launches."""
+    if torch.compiler.is_exporting():
+        return torch.ops.adunet_torch.layer_norm_relu(x, gamma, beta, eps)
     grad = torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                         or beta.requires_grad)
     if x.is_cuda:

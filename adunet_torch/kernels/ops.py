@@ -1,0 +1,75 @@
+"""K1 and K2's forwards as ``torch.library`` custom ops, for programs.
+
+An exported program (``torch.export``, ``adunet_torch.export.program``)
+cannot hold the kernels' ctypes calls: a launch reads ``data_ptr()`` of
+tensors that are fake while the program is traced. These ops give the two
+forward kernels a name in the graph instead, and dispatch by device when the
+program runs:
+
+- ``adunet_torch::layer_norm_relu(Tensor x, Tensor gamma, Tensor beta, float eps) -> Tensor``
+  (K1, ``fused_norm.layer_norm_relu``);
+- ``adunet_torch::conv3x3_c64(Tensor x, Tensor w, Tensor? bias) -> Tensor``
+  (K2 in its SAME mode, ``conv64.conv3x3_same``; the halo-row mode serves no
+  program).
+
+CUDA runs the kernel (the wrappers' ``_launch``: one C call, the launch
+counters bumped as in eager) or raises; CPU runs the plain version; the fake
+kernels give the output's shape and type and read no data. No autograd
+formula is registered, so differentiating through a program raises: a
+program serves, as the reference's StableHLO programs do.
+
+The eager wrappers call these ops only while ``torch.compiler.is_exporting()``
+is true; an eager call keeps its one C call with no dispatcher in front.
+Importing this module (``adunet_torch.kernels`` does) registers the ops,
+which a process must do before it loads a program.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import Tensor
+
+from adunet_torch.kernels import conv64, fused_norm
+
+__all__ = ["layer_norm_relu", "conv3x3_c64"]
+
+
+@torch.library.custom_op("adunet_torch::layer_norm_relu", mutates_args=(), device_types="cpu")
+def layer_norm_relu(x: Tensor, gamma: Tensor, beta: Tensor, eps: float) -> Tensor:
+    return fused_norm.layer_norm_relu_plain(x, gamma, beta, eps)
+
+
+@layer_norm_relu.register_kernel("cuda")
+def _layer_norm_relu_cuda(x: Tensor, gamma: Tensor, beta: Tensor, eps: float) -> Tensor:
+    return fused_norm._launch(x.contiguous(), gamma, beta, eps)
+
+
+@layer_norm_relu.register_fake
+def _layer_norm_relu_fake(x: Tensor, gamma: Tensor, beta: Tensor, eps: float) -> Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _gate(x: Tensor, w: Tensor) -> None:
+    if not conv64.supported(x.shape, w.shape):
+        raise ValueError(f"adunet_torch::conv3x3_c64: unsupported shapes x={tuple(x.shape)} "
+                         f"w={tuple(w.shape)}")
+
+
+@torch.library.custom_op("adunet_torch::conv3x3_c64", mutates_args=(), device_types="cpu")
+def conv3x3_c64(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
+    _gate(x, w)
+    return conv64.conv3x3_same_plain(x, w, bias)
+
+
+@conv3x3_c64.register_kernel("cuda")
+def _conv3x3_c64_cuda(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
+    _gate(x, w)
+    return conv64._launch(x.contiguous(), w, bias)
+
+
+@conv3x3_c64.register_fake
+def _conv3x3_c64_fake(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
+    _gate(x, w)
+    return x.new_empty((x.shape[0], x.shape[1], x.shape[2], w.shape[0]))

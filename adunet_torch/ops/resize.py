@@ -30,6 +30,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 __all__ = ["resize", "resize_by_scale", "resize_to_match", "scaled_size", "resize_matrix"]
 
@@ -126,8 +127,11 @@ def resize_matrix(
 def _device_matrix(in_size: int, out_size: int, method: str, antialias: bool,
                    device: torch.device) -> torch.Tensor:
     # made outside inference mode even when first asked for while serving: an
-    # inference tensor cannot be saved for backward, and training reuses it
-    with torch.inference_mode(False):
+    # inference tensor cannot be saved for backward, and training reuses it;
+    # and outside any dispatch mode, so that while torch.export traces it is a
+    # real tensor, which the program takes as a lifted constant (a fake one
+    # cached here would reach every later call)
+    with torch.inference_mode(False), _disable_current_modes():
         return torch.from_numpy(resize_matrix(in_size, out_size, method, antialias)).to(device)
 
 

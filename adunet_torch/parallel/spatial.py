@@ -45,6 +45,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 from adunet_torch.nn.blocks import BatchNorm, Conv, ConvTranspose
 from adunet_torch.ops.resize import resize_matrix
@@ -147,7 +148,9 @@ class SpaceShard:
 def _device_band(in_h: int, out_h: int, method: str, antialias: bool, shards: int, index: int,
                  device: torch.device) -> torch.Tensor:
     band = _row_plan(in_h, out_h, method, antialias, shards)[1][index]
-    with torch.inference_mode(False):  # reusable by a training step after serving
+    # reusable by a training step after serving; real even under a trace (as
+    # adunet_torch.ops.resize._device_matrix)
+    with torch.inference_mode(False), _disable_current_modes():
         return torch.from_numpy(band).to(device)
 
 

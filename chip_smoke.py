@@ -45,7 +45,13 @@ exits non-zero without one. Every phase raises on failure:
    just before, read just after: 16 K1 + 4 K2 per device call, no K1
    backward);
 6. re-derives the flagship's pinned eval numbers on the 48-tile seed-777
-   corpus and times the serving forward;
+   corpus; exports the flagship as an int8 serving program on the card
+   (``program``: ``adunet_torch.export.program``, its graph holding 16 K1
+   and 4 K2 ops and no plain decomposition), runs it in a fresh process
+   that imports no model code (16 K1 and 4 K2 launches a call, output held
+   to the weights path at 1e-5), serves it over HTTP as in 5 and re-derives
+   the pinned numbers from it, and times its forward beside the weights
+   path's; then times the serving forward;
 7. trains the flagship (scale 0.5, depth 3, base 64, bf16 compute, f32
    params, Adam 1e-4; a seeded random 1x1 head in place of the zero one)
    on a device cache of synthetic images for a few device-cache steps at
@@ -113,9 +119,10 @@ exits non-zero without one. Every phase raises on failure:
     does;
 19. runs ``train_joint`` for 2 epochs at full width (its ``config.json`` and
     ``result.json`` keys as the reference's), ``export_model --workload joint
-    --quantize int8`` and one forward of the artifact on the card (28 K1, no
-    K1 backward, 5 K2), then exports phase 12's protocol checkpoint, serves it
-    over HTTP and holds the masks to the checkpoint's live model;
+    --quantize int8`` and one forward of its program on the card (28 K1, no
+    K1 backward, 5 K2), then exports phase 12's protocol checkpoint, serves
+    its program over HTTP (2 K2 and no K1 a device call) and holds the masks
+    to the checkpoint's live model;
 20. drives the tuner (``adunet_torch.cli.tune``) at full width: a 3-trial,
     2-epoch vanilla SR study (float32, base 64, 256 px, on 20 synthetic
     images) with a 1-epoch retrain, the same study with
@@ -1127,10 +1134,12 @@ def _counts() -> tuple[int, int, int, int]:
             conv64.conv3x3_same.launches, conv64.conv3x3_same_backward.launches)
 
 
-def serve_flagship(call) -> dict:
-    """The serving path: the HTTP server over the flagship artifact on the card."""
+def serve_flagship(call, artifact: Path = ARTIFACT) -> dict:
+    """The serving path: the HTTP server over the flagship artifact on the
+    card (``artifact``: the committed weights file, or the program phase's);
+    ``call`` is the same artifact loaded, for the direct answers."""
     _zero_counts()
-    server = make_server(str(ARTIFACT), port=0, batch_window_ms=200.0, device="cuda")
+    server = make_server(str(artifact), port=0, batch_window_ms=200.0, device="cuda")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     rng = np.random.default_rng(0)
@@ -1233,6 +1242,138 @@ def golden(call) -> dict:
             or abs(got["msssim_mean"] - pinned["msssim_mean"]) > 2e-3):
         raise AssertionError(f"golden mismatch: {got} vs {pinned}")
     return got
+
+
+# the flagship program's graph: its kernels' ops, and the plain versions'
+# operations that must not stand in it (K1's statistics, K2's zero padding)
+PROGRAM_OPS = {"K1": "adunet_torch.layer_norm_relu.default", "K2": "adunet_torch.conv3x3_c64.default"}
+PLAIN_OPS = ("aten.rsqrt.default", "aten.mean.dim", "aten.var_mean.correction",
+             "aten.constant_pad_nd.default", "aten.pad.default")
+PROGRAM_TIMED = 20
+# run in a fresh process: load the saved program with nothing of the port but
+# adunet_torch.export.program (and the kernels it imports), run two forwards
+_PROGRAM_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+from adunet_torch.export import program
+from adunet_torch.kernels import conv64, fused_norm
+
+def model_code():
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "adunet")
+                  or m.startswith(("adunet_torch.models", "adunet_torch.nn", "adunet_torch.ops")))
+
+before = model_code()
+prog = program.Program(sys.argv[1], "cuda")
+x = np.load(sys.argv[2])
+outs = [prog(x) for _ in range(2)]
+torch.cuda.synchronize()
+launches = [fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches,
+            conv64.conv3x3_same.launches, conv64.conv3x3_same_backward.launches]
+np.save(sys.argv[3], outs[1])
+print(json.dumps({"model_code": before + model_code(), "launches": launches, "calls": 2,
+                  "repeat_equal": bool(np.array_equal(outs[0], outs[1]))}))
+"""
+
+
+def _medians_in_turns(*fns) -> list[float]:
+    """Median of ``PROGRAM_TIMED`` single runs of each of ``fns``, run in
+    turns (CUDA events)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times: list[list[float]] = [[] for _ in fns]
+    for _ in range(PROGRAM_TIMED):
+        for fn, out in zip(fns, times):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return [float(np.median(t)) for t in times]
+
+
+def flagship_program(call, ident: str) -> dict:
+    """The flagship as a serving program (``adunet_torch.export.program``):
+    exported from the committed int8 artifact's model on the card as an int8
+    program (``save_artifact``), its graph's K1 / K2 ops counted (16 / 4, no
+    plain decomposition); loaded in a fresh process that imports no model
+    code, which runs 8 x 256 px tiles twice (16 / 0 / 4 / 0 launches a
+    call) while this process serves, and whose output is held to the weights
+    path's ``call`` (1e-5); served over HTTP (``serve_flagship``) and held to
+    the pinned eval numbers (``golden``) from the program; its forward timed
+    beside the weights path's (median of 20 each, in turns, CUDA events)."""
+    from adunet_torch.export import program, save_artifact
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_program_") as tmp:
+        art = Path(tmp) / "program_int8"
+        t0 = time.perf_counter()
+        save_artifact(call.model, art, image_size=256, batch_size=8, quantize="int8")
+        export_s = time.perf_counter() - t0
+        manifest = json.loads((art / "manifest.json").read_text())
+        program_bytes = (art / program.PROGRAM_FILE).stat().st_size
+        prog_call, _ = load_artifact(art, device="cuda")
+        counts = program.node_counts(prog_call.exported_program)
+        ops = {kid: counts.get(name, 0) for kid, name in PROGRAM_OPS.items()}
+        plain = {name: counts[name] for name in PLAIN_OPS if name in counts}
+        log(f"[program] int8 flagship exported on the card in {export_s:.1f} s "
+            f"({program_bytes / 1e6:.2f} MB program, platforms "
+            f"{manifest['platforms']}): graph {sum(counts.values())} nodes, "
+            f"{ops['K1']} adunet_torch.layer_norm_relu, {ops['K2']} adunet_torch.conv3x3_c64, "
+            f"plain decompositions {plain or 'none'}")
+        if ops != {"K1": K1_PER_CALL, "K2": K2_PER_CALL} or plain:
+            raise AssertionError(f"the flagship program holds {ops} kernel ops and {plain}")
+
+        x = np.random.default_rng(5).random((8, 256, 256, 3), dtype=np.float32)
+        np.save(Path(tmp) / "x.npy", x)
+        t0 = time.perf_counter()
+        # the fresh process starts now and runs while this one serves
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _PROGRAM_CHILD, str(art / program.PROGRAM_FILE),
+             str(Path(tmp) / "x.npy"), str(Path(tmp) / "y.npy")],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            served = serve_flagship(prog_call, art)
+            scores = golden(prog_call)
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"the fresh process failed: {stderr[-3000:]}")
+        child = json.loads(stdout.strip().splitlines()[-1])
+        got = np.load(Path(tmp) / "y.npy")
+        err = float(np.abs(got - call(x)).max())
+        want_launches = [K1_PER_CALL * child["calls"], 0, K2_PER_CALL * child["calls"], 0]
+        log(f"[program] fresh process ({child_s:.1f} s, beside serve and golden): model code "
+            f"imported {child['model_code'] or 'none'}; launches K1 / K1 bwd / K2 / K2 bwd "
+            f"{child['launches']} over {child['calls']} calls; two calls equal "
+            f"{child['repeat_equal']}; max |program - weights path| {err:.2e}")
+        if (child["model_code"] or child["launches"] != want_launches
+                or not child["repeat_equal"] or not err <= 1e-5 or got.shape != x.shape):
+            raise AssertionError(f"the fresh process's program: {child}, max |delta| {err:.3e}")
+
+        xd = torch.from_numpy(x).cuda()
+        with torch.inference_mode():
+            weights_ms, program_ms = _medians_in_turns(lambda: call.model(xd),
+                                                       lambda: prog_call.module(xd))
+        log(f"[program] {ident}: flagship forward, batch 8 x 256 px, f32, median of "
+            f"{PROGRAM_TIMED} (CUDA events, the two in turns): program {program_ms:.3f} ms, "
+            f"weights path {weights_ms:.3f} ms")
+        del prog_call, xd
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[program] phase took {seconds:.1f} s")
+    return {"node_counts": ops, "export_s": export_s, "child": child, "child_s": child_s,
+            "max_abs_err": err, "launches": served["launches"],
+            "device_calls": served["device_calls"], "golden": scores,
+            "program_ms": program_ms, "weights_ms": weights_ms, "seconds": seconds,
+            "program_bytes": program_bytes}
 
 
 def forward_speed(call, ident: str) -> dict:
@@ -2477,6 +2618,7 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
     from adunet_torch.export import quantize_params_int8
     from adunet_torch.cli.export_model import main as export_main
     from adunet_torch.cli.train_joint import main as joint_main
+    from adunet_torch.export.program import Program
 
     corpus = tmp / "isic"
     epochs, steps = 2, 2  # 16 pairs at batch 8; 8 val pairs: one val batch an epoch
@@ -2528,6 +2670,9 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
         export_main(["--workload", "joint", "--model-path", res["checkpoint"], "--output-dir",
                      str(art), "--quantize", "int8"])
     call, manifest = load_artifact(art, device="cuda")
+    if not isinstance(call, Program) or manifest.get("platforms") != ["cuda"]:
+        raise AssertionError(f"the joint artifact has no program exported on the card: "
+                             f"{manifest.get('program_file')}, {manifest.get('platforms')}")
     x = seg_pairs(JOINT_BATCH, JOINT_SIZE, seed=81)[0]
     _zero_counts()
     served = call(x)
@@ -2556,7 +2701,8 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
         want = {"sr": sr.float().clamp(0.0, 1.0).cpu().numpy(), "mask": mask.float().cpu().numpy()}
     errs = {k: float(np.abs(served[k] - want[k]).max()) for k in ("sr", "mask")}
     log(f"[joint export] int8 artifact ({manifest['weights_leaves']} leaves, "
-        f"{manifest['artifact_bytes'] / 1e6:.2f} MB) served one forward at batch "
+        f"{manifest['artifact_bytes'] / 1e6:.2f} MB with its program) served one forward "
+        f"of its program at batch "
         f"{JOINT_BATCH} x {JOINT_SIZE} px: K1 {counts[0]}, K1 backward {counts[1]}, K2 "
         f"{counts[2]} launches; max |served - checkpoint with dequantized weights| sr "
         f"{errs['sr']:.2e}, mask {errs['mask']:.2e}")
@@ -2574,17 +2720,29 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
         export_main(["--workload", "seg", "--model-path", seg_ckpt, "--output-dir",
                      str(seg_art)])
     live, _ = load_seg_checkpoint(Path(seg_ckpt), device="cuda")
+    _zero_counts()
     server = make_server(str(seg_art), port=0, batch_window_ms=200.0, device="cuda")
+    if server.manifest.get("program_file") != "model.pt2":
+        raise AssertionError("the protocol seg artifact has no program to serve")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     images = seg_pairs(3, JOINT_SIZE, seed=91)[0]
     try:
         got = _post_npy(f"http://127.0.0.1:{server.server_address[1]}/v1/predict", images)
+        calls = server.batcher.snapshot_stats()["device_calls"]
     finally:
         server.shutdown()
         server.batcher.close()
         server.server_close()
         thread.join(timeout=30)
+    seg_counts = _counts()
+    want = (0, 0, sum(K2_PROTOCOL.values()) * calls, 0)
+    log(f"[seg serve] the protocol seg program: K1 / K1 bwd / K2 / K2 bwd {seg_counts} over "
+        f"{calls} device calls")
+    if calls < 1 or seg_counts != want:
+        raise AssertionError(f"the protocol seg program: expected {want} launches over {calls} "
+                             f"device calls, got {seg_counts}")
+    out["seg_served_launches"] = dict(zip(COUNTED, seg_counts))
     with torch.inference_mode():  # eval-mode BatchNorm: each mask depends on its image alone
         want = live(torch.from_numpy(images).cuda()).float().cpu().numpy()
     err = float(np.abs(got - want).max())
@@ -3479,6 +3637,8 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             shapes = [d["shape"] for d in rows if tuple(d["shape"]) in per.get(kid, {})]
             entry["seg"][path] = {"launches": seg_launches[path][kid], "shapes": shapes, **sums}
         entry["streamed"] = {"launches": sr_launches["streamed"][kid]}
+        entry["program"] = {"launches": sr_launches["program"][kid],
+                            "per": "the flagship int8 program served over HTTP"}
         entry["ddp"] = {"launches": sr_launches["ddp"][kid]}
         entry["sweep"] = {"launches": sr_launches["sweep"][kid]}
         entry["graph"] = {"launches": sr_launches["graph"][kid],
@@ -3588,6 +3748,7 @@ def main() -> int:
     call, _ = load_artifact(ARTIFACT, device="cuda")
     served = phase("serve", serve_flagship, call)
     scores = phase("golden", golden, call)
+    programmed = phase("program", flagship_program, call, ident)
     speed = phase("speed", forward_speed, call, ident)
     del call
     torch.cuda.empty_cache()
@@ -3621,7 +3782,7 @@ def main() -> int:
 
     seconds = time.perf_counter() - t_start
     summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
-               "golden": scores, "speed": speed, "train": trained, "f32_step": step_check,
+               "golden": scores, "program": programmed, "speed": speed, "train": trained, "f32_step": step_check,
                "train_sr": entry, "seg_train": seg, "seg_f32_step": seg_step,
                "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
                "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "joint": joint,
@@ -3634,6 +3795,7 @@ def main() -> int:
     log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
     seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}
     sr_launches = {"streamed": streamed["launches"], "vanilla_sr": vanilla["launches"],
+                   "program": programmed["launches"],
                    "joint": joint["launches"], "joint_served": joint_cli["served_launches"],
                    "tune": tuned["launches"], "ddp": dp["launches"], "sweep": swept["launches"],
                    "graph": captured["launches"],

@@ -12,7 +12,8 @@
   segmentation artifact carries its BatchNorm running statistics and
   matches the live eval-mode forward; a JAX segmentation artifact, whose
   statistics live only in its program, is refused.
-- ``export_model --workload sr|seg|joint`` on the port's checkpoints, and
+- ``export_model --workload sr|seg|joint`` on the port's checkpoints (each
+  artifact with its program, exported on the CPU: ``platforms`` ["cpu"]), and
   ``serve`` answering a segmentation artifact and refusing a joint one.
 """
 
@@ -246,10 +247,11 @@ def test_export_model_cli_round_trips(kind, quantize, tmp_path):
     out = main(args)
     manifest = json.loads((out / "manifest.json").read_text())
     assert manifest["input_shape"] == [BATCH, SIZE, SIZE, 3]
-    assert manifest["checkpoint"] == str(ckpt) and "platforms" not in manifest
+    assert manifest["checkpoint"] == str(ckpt) and manifest["platforms"] == ["cpu"]
     assert manifest.get("platforms_requested") == (["cuda", "cpu"] if kind == "joint" else None)
     assert ("quantization" in manifest) == bool(quantize)
     call, _ = load_artifact(out, device="cpu")
+    assert manifest["program_file"] == "model.pt2" and call.input_shape == (BATCH, SIZE, SIZE, 3)
     x = np.random.default_rng(2).random((BATCH, SIZE, SIZE, 3), dtype=np.float32)
     with torch.no_grad():
         live = model(torch.from_numpy(x))

@@ -32,6 +32,8 @@ _TRAINING_MODULES = (
     # the joint model, its trainer, and the export half
     "adunet_torch.models.joint", "adunet_torch.train.joint", "adunet_torch.cli.train_joint",
     "adunet_torch.export.aot", "adunet_torch.cli.export_model", "adunet_torch.cli.serve",
+    # serving programs
+    "adunet_torch.export.program", "adunet_torch.kernels.ops",
     # the tuner
     "adunet_torch.tune", "adunet_torch.tune.search", "adunet_torch.tune.parallel",
     "adunet_torch.cli.tune",
