@@ -16,7 +16,32 @@ from adunet_torch.kernels.conv64 import (
 from adunet_torch.kernels.fused_norm import layer_norm_relu, layer_norm_relu_plain
 from adunet_torch.kernels import ops  # registers the adunet_torch:: ops
 
+# every launch counter of the wrappers: (wrapper, attribute)
+_COUNTERS = (
+    (layer_norm_relu, "launches"),
+    (layer_norm_relu, "backward_launches"),
+    (conv3x3_same, "launches"),
+    (conv3x3_rows, "launches"),
+    (conv3x3_same_backward, "launches"),
+    (conv3x3_same_backward, "rows_launches"),
+)
+
+
+def launch_counts() -> tuple:
+    """The wrappers' launch counters, in ``_COUNTERS``' order."""
+    return tuple(getattr(fn, name) for fn, name in _COUNTERS)
+
+
+def add_launches(counts: tuple) -> None:
+    """Add ``counts`` (in ``launch_counts``' order) to the counters: a CUDA
+    graph's replay launches the kernels its capture counted, without their
+    wrappers."""
+    for (fn, name), n in zip(_COUNTERS, counts):
+        setattr(fn, name, getattr(fn, name) + n)
+
 __all__ = [
+    "add_launches",
+    "launch_counts",
     "layer_norm_relu",
     "layer_norm_relu_plain",
     "conv3x3_same",

@@ -25,6 +25,7 @@ agree.
 
 from __future__ import annotations
 
+import functools
 import math
 from pathlib import Path
 from typing import Callable, Dict
@@ -50,11 +51,18 @@ def _conv_names():
     return [(f"block{b}_conv{c}", f) for b, n, f in _CFG for c in range(1, n + 1)]
 
 
+@functools.lru_cache(maxsize=None)
+def _bgr_means(device: torch.device) -> torch.Tensor:
+    # made once per device, outside a CUDA graph's capture (a host-to-device
+    # copy cannot be captured) and outside inference mode
+    with torch.inference_mode(False):
+        return torch.tensor(_BGR_MEANS, dtype=torch.float32, device=device)
+
+
 def vgg19_preprocess(rgb01: torch.Tensor) -> torch.Tensor:
     """[0, 1] RGB (..., 3) → caffe BGR in float32."""
     x = rgb01.to(torch.float32) * 255.0
-    means = torch.tensor(_BGR_MEANS, dtype=torch.float32, device=x.device)
-    return x.flip(-1) - means
+    return x.flip(-1) - _bgr_means(x.device)
 
 
 class VGG19Features(nn.Module):

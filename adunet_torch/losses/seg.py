@@ -47,10 +47,16 @@ def make_weighted_ce_loss(class_weights) -> Loss:
     """Categorical CE with each pixel's term scaled by the weight of its true
     class, mean over all pixels."""
     w = torch.as_tensor(class_weights, dtype=torch.float32)
+    # the weights on each device, copied there once: a host-to-device copy
+    # cannot be captured in a CUDA graph, and a compiled step's first call
+    # runs eagerly
+    placed = {}
 
     def loss_fn(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
         t = y_true.to(torch.float32)
-        return torch.mean(-torch.sum(w.to(t.device) * t * torch.log(_clipped(y_pred)), dim=-1))
+        if t.device not in placed:
+            placed[t.device] = w.to(t.device)
+        return torch.mean(-torch.sum(placed[t.device] * t * torch.log(_clipped(y_pred)), dim=-1))
 
     loss_fn.__name__ = "weighted_categorical_crossentropy"
     return loss_fn

@@ -1,7 +1,9 @@
 """Training: optimizer and schedule, train state, SR, segmentation and joint
-SR + segmentation steps, precise-BN, checkpoints, fit."""
+SR + segmentation steps (captured in a CUDA graph on a CUDA model), precise-BN,
+checkpoints, fit."""
 
 from adunet_torch.train.checkpoint import CheckpointManager
+from adunet_torch.train.compiled import CompiledStep
 from adunet_torch.train.joint import make_joint_eval_step, make_joint_train_step
 from adunet_torch.train.loop import (
     EpochLog,
@@ -37,6 +39,7 @@ from adunet_torch.train.state import TrainState, create_train_state
 
 __all__ = [
     "CheckpointManager",
+    "CompiledStep",
     "EpochLog",
     "FitResult",
     "fit",

@@ -2,7 +2,9 @@
 
 Port of ``adunet/train/joint.py``. A batch is ``(images, masks)``; the SR
 target is the clean image itself (SR as restoration). Each step moves the
-batch to the model's device, takes uint8 images to [0, 1] float32
+batch to the model's device (the train step, a ``CompiledStep`` of
+``adunet_torch.train.compiled``, stages it for a CUDA graph that holds the
+rest on a CUDA model in one process), takes uint8 images to [0, 1] float32
 (``_as_f01``), degrades them there at ``data_scale``, runs both heads and
 computes ``sr_weight * sr_loss + seg_weight * seg_loss``. Metrics (0-d
 tensors on the device, or (B,) vectors per sample): ``loss``, ``sr_loss``,
@@ -19,6 +21,7 @@ import torch
 from adunet_torch.metrics.psnr_ssim import psnr
 from adunet_torch.metrics.seg import dice_coefficient, iou_score
 from adunet_torch.ops import degrade
+from adunet_torch.train.compiled import CompiledStep
 from adunet_torch.train.sr import _as_f01, _device_of, _to_device, lift_per_sample
 from adunet_torch.train.state import TrainState
 
@@ -54,22 +57,23 @@ def _batch_of(batch, device: torch.device, data_scale: float):
 
 def make_joint_train_step(model, sr_loss_fn: Callable, seg_loss_fn: Callable,
                           sr_weight: float = 1.0, seg_weight: float = 1.0,
-                          data_scale: float = 0.5):
+                          data_scale: float = 0.5, graph: bool | None = None):
     """``(state, (images, masks), rng=None) -> (state, metrics)``: forward,
-    the weighted multi-task loss, backward and one Adam update."""
+    the weighted multi-task loss, backward and one Adam update.
+    ``graph``: ``CompiledStep``'s."""
 
-    def step(state: TrainState, batch, rng=None):
+    def body(state: TrainState, inputs, rng=None):
         del rng  # the joint step is deterministic given the batch
-        lr_batch, hr, masks = _batch_of(batch, _device_of(state.model), data_scale)
+        lr_batch, hr, masks = _batch_of(inputs, _device_of(state.model), data_scale)
         state.optimizer.zero_grad(set_to_none=True)
         sr_pred, seg_pred = state.train_module(lr_batch)
         loss, metrics = _joint_loss_and_metrics(sr_loss_fn, seg_loss_fn, sr_weight, seg_weight,
                                                 hr, masks, sr_pred, seg_pred)
         loss.backward()
-        state.apply_gradients()
-        return state, state.reduce_metrics({"loss": loss.detach(), **metrics})
+        state.update()
+        return state.reduce_metrics({"loss": loss.detach(), **metrics})
 
-    return step
+    return CompiledStep(body, graph)
 
 
 def make_joint_eval_step(model, sr_loss_fn: Callable, seg_loss_fn: Callable,

@@ -43,6 +43,7 @@ import torch
 from adunet_torch.parallel.distributed import is_main_process
 from adunet_torch.parallel.mesh import pad_and_shard_ragged
 from adunet_torch.train.checkpoint import CheckpointManager
+from adunet_torch.train.schedules import get_lr, set_lr
 from adunet_torch.train.sr import _to_device
 from adunet_torch.train.state import TrainState
 
@@ -91,12 +92,13 @@ def _improved(current: float, best: Optional[float], mode: str) -> bool:
 
 
 def _scale_lr(state: TrainState, factor: float, min_lr: float) -> float:
-    """Rescale the optimizer's learning rate (an ``inject_lr`` optimizer)."""
+    """Rescale the optimizer's learning rate (an ``inject_lr`` optimizer); a
+    device-tensor rate is written in place (a captured step reads it)."""
     if not getattr(state.optimizer, "inject_lr", False):
         raise ValueError("reduce_lr_on_plateau requires make_optimizer(..., inject_lr=True).")
-    for group in state.optimizer.param_groups:
-        group["lr"] = max(group["lr"] * factor, min_lr)
-    return state.optimizer.param_groups[0]["lr"]
+    new_lr = max(get_lr(state.optimizer) * factor, min_lr)
+    set_lr(state.optimizer, new_lr)
+    return new_lr
 
 
 def make_plateau_state(spec: Dict[str, Any]) -> Dict[str, Any]:
@@ -278,6 +280,10 @@ def fit(
         log_dir = Path(log_dir)
         log_dir.mkdir(parents=True, exist_ok=True)
     train_it = iter(train_iter)
+    captures = getattr(train_step, "captures", None)
+    if verbose and captures is not None:
+        print("[fit] train step: " + ("captured in a CUDA graph from its third call"
+                                      if captures(state) else "eager"), flush=True)
     val_cache: Optional[List[Any]] = [] if cache_val_on_device and val_data is not None else None
 
     try:
@@ -296,8 +302,8 @@ def fit(
                 batch = next(train_it)
                 images_seen += samples_per_step or _batch_size_of(batch)
                 state, metrics = train_step(state, batch, rng)
-                for k, v in metrics.items():
-                    acc[k] = v if k not in acc else acc[k] + v
+                for k, v in metrics.items():  # own copies: a step may reuse its outputs
+                    acc[k] = v.clone() if k not in acc else acc[k] + v
             raw_train = _read(acc)  # waits for the epoch's last step
             duration = time.perf_counter() - t0
             if profiler is not None:

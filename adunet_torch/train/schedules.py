@@ -12,6 +12,15 @@ before each update. The learning rate of a ``torch.optim`` optimizer is
 always mutable; ``inject_lr=True`` marks the optimizer whose rate the fit
 loop may rescale (ReduceLROnPlateau), as ``optax.inject_hyperparams`` does in
 the reference, and it refuses a schedule for the same reason (:39-49).
+
+On a CUDA model (parameters that are plain CUDA tensors) the optimizer is
+built so that a CUDA graph can hold its update (``train/compiled.py``):
+``capturable=True`` (the update count and the bias corrections live on the
+device) and the learning rate a 0-dim float32 device tensor, into which the
+schedule and the plateau rescale write; they never replace it. Elsewhere
+(the CPU, sharded parameters) the rate is a Python float and the update the
+non-capturable one, whose bias corrections are Python doubles: the two round
+differently in the last bits.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
-__all__ = ["Adam", "cosine_decay_schedule", "make_optimizer"]
+__all__ = ["Adam", "cosine_decay_schedule", "get_lr", "make_optimizer", "set_lr"]
 
 
 def cosine_decay_schedule(initial_lr: float, decay_steps: int, alpha: float = 0.0
@@ -36,24 +45,73 @@ def cosine_decay_schedule(initial_lr: float, decay_steps: int, alpha: float = 0.
     return schedule
 
 
+def _capturable(params) -> bool:
+    """True when every parameter is a plain CUDA tensor (not a DTensor: the
+    capturable update mixes its device tensors with the parameters')."""
+    if not params or not all(p.is_cuda for p in params):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return not any(isinstance(p, DTensor) for p in params)
+
+
 class Adam(torch.optim.Adam):
     """``torch.optim.Adam`` with the reference's hyperparameters, an optional
-    schedule over the update count and the ``inject_lr`` mark."""
+    schedule over the update count and the ``inject_lr`` mark; capturable,
+    with a device-tensor rate, on CUDA (module docstring)."""
 
     def __init__(self, params: Iterable, learning_rate: float,
                  schedule: Optional[Callable[[int], float]] = None, inject_lr: bool = False,
                  foreach: Optional[bool] = None):
-        lr = schedule(0) if schedule is not None else learning_rate
-        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-7, foreach=foreach)
+        params = list(params)
+        lr = schedule(0) if schedule is not None else float(learning_rate)
+        capturable = _capturable(params)
+        if capturable:
+            lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-7, foreach=foreach,
+                         capturable=capturable)
         self.schedule = schedule
         self.inject_lr = inject_lr
 
     def set_update_count(self, count: int) -> None:
         """Set the rate of the next update from the schedule, if any."""
         if self.schedule is not None:
-            lr = self.schedule(count)
-            for group in self.param_groups:
+            set_lr(self, self.schedule(count))
+
+    def load_state_dict(self, state_dict) -> None:
+        """Load moments, counts and rates, keeping this optimizer's form: a
+        device-tensor rate is written into (the tensor a captured update
+        reads stays the same), a float rate stays a float, and the update
+        counts move to the device when this optimizer is capturable (a
+        checkpoint of a non-capturable Adam keeps them on the host)."""
+        kept = [(g["lr"], g["capturable"]) for g in self.param_groups]
+        super().load_state_dict(state_dict)
+        for group, (lr, capturable) in zip(self.param_groups, kept):
+            loaded, group["capturable"] = group["lr"], capturable
+            if isinstance(lr, torch.Tensor):
+                lr.copy_(torch.as_tensor(loaded))
                 group["lr"] = lr
+            else:
+                group["lr"] = float(loaded)
+            if capturable:
+                for p in group["params"]:
+                    slots = self.state.get(p)
+                    if slots and "step" in slots:
+                        slots["step"] = slots["step"].to(device=p.device, dtype=torch.float32)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set every group's rate to ``lr``: in place for a device-tensor rate."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def get_lr(optimizer: torch.optim.Optimizer) -> float:
+    """The first group's rate as a float (waits for the device)."""
+    return float(optimizer.param_groups[0]["lr"])
 
 
 def make_optimizer(

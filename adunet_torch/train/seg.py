@@ -1,7 +1,8 @@
 """Segmentation train / eval steps, pooled-metric finalizers and precise-BN.
 
-Port of ``adunet/train/seg.py``. A train step moves its host batch to the
-model's device and runs there: augmentation (``"full"``: rot90, flips and
+Port of ``adunet/train/seg.py``. A train step (a ``CompiledStep``,
+``adunet_torch.train.compiled``: captured in a CUDA graph on a CUDA model in
+one process) stages its host batch for the model's device and runs there: augmentation (``"full"``: rot90, flips and
 scale-jitter crop; ``"flips"``; ``"none"``) drawn from the step's
 ``torch.Generator``, the forward in training mode (BatchNorm on batch
 statistics, its running buffers updated as flax's mutable ``batch_stats``),
@@ -32,6 +33,7 @@ import torch
 from adunet_torch.data.augment import augment_pair_batch, flip_pair_batch
 from adunet_torch.metrics.seg import PooledMetric, dice_coefficient, iou_score
 from adunet_torch.nn.blocks import BatchNorm
+from adunet_torch.train.compiled import CompiledStep
 from adunet_torch.train.sr import _device_of, _to_device, lift_per_sample
 from adunet_torch.train.state import TrainState
 
@@ -54,19 +56,21 @@ def _pair(batch, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def make_seg_train_step(model, loss_fn: Callable, augment: bool | str = True,
-                        extra_metrics: Dict[str, Callable] | None = None):
+                        extra_metrics: Dict[str, Callable] | None = None,
+                        graph: bool | None = None):
     """``(state, (images, masks), rng) -> (state, metrics)``; ``rng`` is a
-    ``torch.Generator`` on the model's device (unused with ``augment`` off).
+    ``torch.Generator`` on the model's device (unused with ``augment`` off;
+    a captured step draws from it as an eager one does).
 
     ``augment``: True / ``"full"`` = rot90 + flips + scale jitter (the
     protocol trainer); ``"flips"`` = LR / UD flips (the vanilla trainer);
-    False / ``"none"`` = off."""
+    False / ``"none"`` = off. ``graph``: ``CompiledStep``'s."""
     if augment not in _MODES:
         raise ValueError(f"unknown augment {augment!r} (expected full|flips|none)")
     mode = _MODES[augment]
 
-    def step(state: TrainState, batch, rng: torch.Generator | None = None):
-        images, masks = _pair(batch, _device_of(state.model))
+    def body(state: TrainState, inputs, rng: torch.Generator | None = None):
+        images, masks = inputs
         if mode != "none":
             if rng is None:
                 raise ValueError("augmentation draws from a torch.Generator on the model's device")
@@ -77,7 +81,7 @@ def make_seg_train_step(model, loss_fn: Callable, augment: bool | str = True,
         pred = state.train_module(images)
         loss = loss_fn(masks, pred)
         loss.backward()
-        state.apply_gradients()
+        state.update()
         with torch.no_grad():
             pred = pred.detach()
             metrics = {"loss": loss.detach(), "dice": dice_coefficient(masks, pred),
@@ -88,9 +92,9 @@ def make_seg_train_step(model, loss_fn: Callable, augment: bool | str = True,
                         metrics[f"{name}#{comp}"] = v
                 else:
                     metrics[name] = fn(masks, pred)
-        return state, state.reduce_metrics(metrics)
+        return state.reduce_metrics(metrics)
 
-    return step
+    return CompiledStep(body, graph)
 
 
 def make_seg_eval_step(model, loss_fn: Callable, extra_metrics: Dict[str, Callable] | None = None,

@@ -1,12 +1,17 @@
 """SR train / val / eval steps.
 
-Port of ``adunet/train/sr.py``. Each ``make_*`` returns a function of ``(state, batch[, rng])`` that runs eagerly
-on the model's device: degradation (the LR batch is made on the device from
-the HR batch, as in the reference), forward, loss, backward and one Adam
-update. Host batches may be numpy or tensors; uint8 batches are scaled to
-[0, 1] float32 on the device (``_as_f01``). Metrics come back as 0-d (or, per
-sample, 1-d) tensors on the device, and nothing in a step waits for the
-device: the fit loop reads the metrics once per epoch.
+Port of ``adunet/train/sr.py``. Each ``make_*`` returns a function of
+``(state, batch[, rng])`` that runs on the model's device: degradation (the
+LR batch is made on the device from the HR batch, as in the reference),
+forward, loss, backward and one Adam update. A train step is a
+``CompiledStep`` (``adunet_torch.train.compiled``): on a CUDA model in one
+process it is captured whole in a CUDA graph from its third call, as the
+reference jits it (``graph=None``; ``graph=False`` runs it eagerly); the
+host only stages the batch. Host batches may be numpy or tensors; uint8
+batches are scaled to [0, 1] float32 on the device (``_as_f01``). Metrics
+come back as 0-d (or, per sample, 1-d) tensors on the device, and nothing
+in a step waits for the device: the fit loop reads the metrics once per
+epoch.
 
 Across processes (``TrainState.parallel``) a train step runs its forward
 through the data-parallel module, reduces the gradients in the last
@@ -55,6 +60,7 @@ from adunet_torch.metrics.psnr_ssim import (
     ssim_multiscale,
 )
 from adunet_torch.ops import degrade, rgb_to_luma_bt601
+from adunet_torch.train.compiled import CompiledStep
 from adunet_torch.train.state import TrainState
 
 __all__ = [
@@ -160,24 +166,26 @@ def _update(state: TrainState, loss_fn, pairs, k: int, height: int | None = None
         for name, value in {"loss": loss.detach(), **metrics}.items():
             value = value.to(torch.float32)
             sums[name] = value if name not in sums else sums[name] + value
-    state.apply_gradients()
+    state.update()
     return state.reduce_metrics({name: v / k for name, v in sums.items()} if k > 1 else sums)
 
 
 def make_sr_train_step(model, loss_fn: Callable, data_scale: float = DATA_LR_SHRINK,
-                       grad_accum: int = 1):
+                       grad_accum: int = 1, graph: bool | None = None):
     """``(state, batch, rng=None) -> (state, metrics)``.
 
     ``batch``: (B, P, P, 3) HR patches (float in [0, 1] or uint8), whose LR
     side is degraded on the device, or an ``(lr, hr)`` pair.
     ``grad_accum=k`` runs k sequential micro-batches of B/k and one update on
     the mean gradient: the full-batch update up to float summation order.
-    The last gradients stay in the parameters' ``.grad`` until the next step."""
+    The last gradients stay in the parameters' ``.grad`` until the next step.
+    ``graph``: ``CompiledStep``'s (None captures on CUDA in one process)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}.")
 
-    def step(state: TrainState, batch: Batch, rng=None):
+    def body(state: TrainState, inputs, rng=None):
         del rng  # SR training is deterministic given the batch
+        batch = inputs[0] if len(inputs) == 1 else inputs  # HR patches, or a pair
         dev = _device_of(state.model)
         micro = _split(batch, grad_accum) if grad_accum > 1 else [batch]
         space = state.space
@@ -186,9 +194,9 @@ def make_sr_train_step(model, loss_fn: Callable, data_scale: float = DATA_LR_SHR
             hr_leaf = batch[1] if isinstance(batch, (tuple, list)) else batch
             height = space.global_height(hr_leaf.shape[1], dev)
         pairs = (_lr_hr_of(mb, data_scale, dev, space, height) for mb in micro)
-        return state, _update(state, loss_fn, pairs, grad_accum, height)
+        return _update(state, loss_fn, pairs, grad_accum, height)
 
-    return step
+    return CompiledStep(body, graph)
 
 
 def lift_per_sample(fn: Callable) -> Callable:
@@ -253,19 +261,20 @@ def make_sr_eval_step(model, eval_scale: float, eval_shave: int):
 
 def make_sr_device_cache_train_step(model, loss_fn: Callable, images_u8: torch.Tensor,
                                     patch_size: int, batch_size: int,
-                                    data_scale: float = DATA_LR_SHRINK, grad_accum: int = 1):
-    """``(state, batch, rng) -> (state, metrics)`` sampling its own batch from
-    the device-resident uint8 corpus ``images_u8``; ``batch`` is ignored and
-    ``rng`` is a ``torch.Generator`` on the corpus's device. With
-    ``grad_accum=k`` the full batch is sampled once and split into k
-    micro-batches, so the data equal the k=1 step's for the same generator."""
+                                    data_scale: float = DATA_LR_SHRINK, grad_accum: int = 1,
+                                    graph: bool | None = None):
+    """``(state, None, rng) -> (state, metrics)`` sampling its own batch from
+    the device-resident uint8 corpus ``images_u8``; ``rng`` is a
+    ``torch.Generator`` on the corpus's device (a captured step
+    draws from it as an eager one does). With ``grad_accum=k`` the full batch
+    is sampled once and split into k micro-batches, so the data equal the
+    k=1 step's for the same generator. ``graph``: ``CompiledStep``'s."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}.")
     if batch_size % grad_accum:
         raise ValueError(f"batch_size={batch_size} is not divisible by grad_accum={grad_accum}.")
 
-    def step(state: TrainState, batch, rng: torch.Generator):
-        del batch  # the corpus lives on the device; rng is the data source
+    def body(state: TrainState, inputs, rng: torch.Generator):
         if state.space is not None:
             raise NotImplementedError("the device-cache step samples whole patches; on a space "
                                       "mesh feed make_sr_train_step each process's rows "
@@ -275,9 +284,9 @@ def make_sr_device_cache_train_step(model, loss_fn: Callable, images_u8: torch.T
         hr = sample_patch_batch(images_u8, rng, batch_size, patch_size)
         micro = _split(hr, grad_accum) if grad_accum > 1 else [hr]
         pairs = ((degrade(hr_mb, data_scale, patch_size), hr_mb) for hr_mb in micro)
-        return state, _update(state, loss_fn, pairs, grad_accum)
+        return _update(state, loss_fn, pairs, grad_accum)
 
-    return step
+    return CompiledStep(body, graph)
 
 
 def _pair_of(batch: Batch, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -285,23 +294,23 @@ def _pair_of(batch: Batch, device: torch.device) -> Tuple[torch.Tensor, torch.Te
     return _as_f01(_to_device(lr_batch, device)), _as_f01(_to_device(hr_batch, device))
 
 
-def make_vanilla_sr_train_step(model, loss_fn: Callable):
+def make_vanilla_sr_train_step(model, loss_fn: Callable, graph: bool | None = None):
     """``(state, (lr, hr), rng=None) -> (state, metrics)`` for a BatchNorm SR
     model: a training-mode forward (running statistics updated), the loss,
     the backward and one Adam update; PSNR of the float32 prediction clipped
-    to [0, 1]."""
+    to [0, 1]. ``graph``: ``CompiledStep``'s."""
 
-    def step(state: TrainState, batch: Batch, rng=None):
+    def body(state: TrainState, inputs, rng=None):
         del rng
-        lr_batch, hr_batch = _pair_of(batch, _device_of(state.model))
+        lr_batch, hr_batch = _as_f01(inputs[0]), _as_f01(inputs[1])
         state.train_module.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = sr_loss_and_metrics(loss_fn, hr_batch, state.train_module(lr_batch))
         loss.backward()
-        state.apply_gradients()
-        return state, state.reduce_metrics({"loss": loss.detach(), **metrics})
+        state.update()
+        return state.reduce_metrics({"loss": loss.detach(), **metrics})
 
-    return step
+    return CompiledStep(body, graph)
 
 
 def make_vanilla_sr_val_step(model, loss_fn: Callable, per_sample: bool = False):

@@ -54,12 +54,20 @@ class TrainState:
     def apply_gradients(self) -> "TrainState":
         """One optimizer update from the gradients in the parameters' ``.grad``
         (the rate from the schedule at this update's count, if any)."""
-        if self.parallel is not None:
-            self.parallel.sync_grads()
         self.optimizer.set_update_count(self.step)
-        self.optimizer.step()
+        self.update()
         self.step += 1
         return self
+
+    def update(self) -> None:
+        """The device half of ``apply_gradients``: the gradients reduced
+        across processes, if any, and the optimizer's update, with the rate
+        already set. A captured step holds this; the host half (the rate for
+        the update count, ``step``) runs around each call
+        (``adunet_torch.train.compiled.CompiledStep``)."""
+        if self.parallel is not None:
+            self.parallel.sync_grads()
+        self.optimizer.step()
 
 
 def create_train_state(model: nn.Module, optimizer: Adam) -> TrainState:

@@ -113,7 +113,16 @@ exits non-zero without one. Every phase raises on failure:
     captures one forward + backward of the same model (no optimizer step) in
     a CUDA graph and replays it 3 times under deterministic cuDNN, each
     replay's outputs and gradients bit-equal to an eager run's (``graph``;
-    the counters count the capture: 28 / 28 / 5);
+    the counters count the capture: 28 / 28 / 5); then (``step_graph``)
+    compiles each trainer's whole step (``adunet_torch.train.compiled``:
+    forward, loss, backward and Adam in one CUDA graph) at full width, the
+    bf16 flagship from a device cache at batch 32 and the joint, vanilla and
+    protocol segmentation and vanilla SR models at batch 8: 6 compiled steps
+    against 6 eager ones from the same seeded state, bit-equal (or within the
+    ``graph`` phase's tolerances, each differing tensor named), launches a
+    step as eager on both sides, each side's ms/step in turns, device idle
+    share and peak memory. Every training phase runs compiled steps: a
+    trainer's step captures from its third call on a CUDA model;
 18. takes one float32 step of the joint model at batch 1 x 256 px on the
     card and on the CPU from the same params and compares them as phase 8
     does;
@@ -2589,6 +2598,204 @@ def graph_capture(ident: str) -> dict:
             "replay_ms": replay_ms, "eager_ms": eager_ms, "tensors": len(params) + 3}
 
 
+# The step_graph phase: steps compared eager against compiled, and steps
+# timed a run (in turns: eager, compiled, compiled, eager)
+GRAPH_STEPS, GRAPH_TIMED = 6, 8
+
+
+def _graph_trainers(tmp: Path) -> dict:
+    """name -> (setup(), batch(i), launches a step, batch size) of each
+    trainer the step_graph phase compiles, at full width: ``setup()`` builds
+    the seeded model and its state and returns ``(state, make_step(graph))``."""
+    from adunet_torch.data import load_device_cache
+    from adunet_torch.losses import charbonnier_loss
+    from adunet_torch.models import build_joint_unet, build_super_resolution_unet
+    from adunet_torch.train import (create_train_state, make_joint_train_step, make_optimizer,
+                                    make_seg_train_step, make_sr_device_cache_train_step,
+                                    make_vanilla_sr_train_step)
+
+    bf16 = torch.bfloat16
+    cache = load_device_cache(sorted(str(p) for p in (tmp / "cache").glob("*.npy")), "cuda")
+
+    def flagship():
+        model, _ = build_super_resolution_unet(0.5, depth_override=3, dtype=bf16, device="cuda",
+                                               seed=0)
+        _random_head(model)
+        return (create_train_state(model, make_optimizer(model.parameters(), 1e-4)),
+                lambda graph: make_sr_device_cache_train_step(
+                    model, charbonnier_loss, cache, patch_size=TRAIN_PATCH,
+                    batch_size=TRAIN_BATCH, graph=graph))
+
+    def joint():
+        model, _ = build_joint_unet(0.5, dtype=bf16, device="cuda", seed=0)
+        _random_head(model)
+        return (create_train_state(model, make_optimizer(model.parameters(), 1e-4)),
+                lambda graph: make_joint_train_step(model, *_joint_losses(), data_scale=0.5,
+                                                    graph=graph))
+
+    def seg(kind):
+        def setup():
+            model, loss_fn, augment, extra = _seg_setup(kind, bf16, "cuda")
+            return (create_train_state(model, make_optimizer(model.parameters(), SEG_LR)),
+                    lambda graph: make_seg_train_step(model, loss_fn, augment=augment,
+                                                      extra_metrics=extra, graph=graph))
+        return setup
+
+    def vanilla_sr():
+        model, loss_fn = _vanilla_setup(bf16, "cuda")
+        return (create_train_state(model, make_optimizer(model.parameters(), SEG_LR)),
+                lambda graph: make_vanilla_sr_train_step(model, loss_fn, graph=graph))
+
+    joint_batches = _joint_batches(2, JOINT_BATCH, seed=61)
+    images, masks = seg_pairs(2 * SEG_BATCH, SEG_SIZE, seed=31)
+    seg_batches = [(torch.from_numpy(images[i : i + SEG_BATCH]).cuda(),
+                    torch.from_numpy(masks[i : i + SEG_BATCH]).cuda()) for i in (0, SEG_BATCH)]
+    lr, hr = _vanilla_pairs(2 * SEG_BATCH, seed=71)
+    sr_batches = [(torch.from_numpy(lr[i : i + SEG_BATCH]).cuda(),
+                   torch.from_numpy(hr[i : i + SEG_BATCH]).cuda()) for i in (0, SEG_BATCH)]
+    k2_vsr = sum(K2_VANILLA_SR.values())
+    return {
+        "flagship": (flagship, lambda i: None, (16, 16, 4, 4), TRAIN_BATCH),
+        "joint": (joint, lambda i: joint_batches[i % 2], JOINT_PER_STEP, JOINT_BATCH),
+        "vanilla_seg": (seg("vanilla"), lambda i: seg_batches[i % 2], SEG_PER_STEP["vanilla"],
+                        SEG_BATCH),
+        "protocol_seg": (seg("protocol"), lambda i: seg_batches[i % 2],
+                         SEG_PER_STEP["protocol"], SEG_BATCH),
+        "vanilla_sr": (vanilla_sr, lambda i: sr_batches[i % 2], (0, 0, k2_vsr, k2_vsr),
+                       SEG_BATCH),
+    }
+
+
+def _step_tensors(state) -> dict:
+    """Name -> tensor of what a step updates: parameters, buffers, Adam's
+    moments and update counts."""
+    out = {f"param {n}": p for n, p in state.model.named_parameters()}
+    out.update({f"buffer {n}": b for n, b in state.model.named_buffers()})
+    names = {p: n for n, p in state.model.named_parameters()}
+    for p, slots in state.optimizer.state.items():
+        out.update({f"{k} {names[p]}": v for k, v in slots.items()})
+    return out
+
+
+def step_graph(tmp: Path, ident: str) -> dict:
+    """Each trainer's step captured whole in a CUDA graph (``CompiledStep``,
+    ``graph=True``) against the same step run eagerly (``graph=False``), at
+    full width: the bf16 flagship from a device cache (batch 32 x 256 px), the
+    joint model, the vanilla and protocol segmentation models and the vanilla
+    SR model with the combined loss (batch 8 x 256 px).
+
+    Under ``deterministic_cudnn()``, ``GRAPH_STEPS`` steps of each side from
+    the same seeded model and batches (the eager side first, then the
+    compiled one: 2 eager calls, the capture and its replay, 3 replays): the
+    metrics of every step and every parameter, buffer, Adam moment and
+    update count after the last must be bit-equal. Where one is not (cuDNN
+    may pick another algorithm under capture), it is held to the ``graph``
+    phase's tolerances (1e-2 relative L2 on the metrics and the parameters,
+    2e-2 on what comes from the gradients: Adam's moments) and named.
+    Launches a step (counts set to 0 just before each side) must be the
+    eager ones on both sides; peak device memory of each side above what was
+    allocated before it was built.
+
+    Then, in cuDNN's default mode, fresh steps of both sides on the same
+    models (the compiled one captured anew; each side's peak memory over its
+    first 3 calls above what its state holds at rest, without gradients) are
+    timed in turns, eager,
+    compiled, compiled, eager, ``GRAPH_TIMED`` steps a run (host clock, ending
+    in a synchronize), and each side's device idle share over 3 steps under
+    the profiler."""
+    out = {}
+    for name, (setup, batch, per_step, batch_size) in _graph_trainers(tmp).items():
+        t0 = time.perf_counter()
+        sides = {}
+        with deterministic_cudnn():
+            for graph in (False, True):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                state, make_step = setup()
+                step = make_step(graph)
+                gen = torch.Generator("cuda").manual_seed(0)
+                _zero_counts()
+                metrics = [step(state, batch(i), gen)[1] for i in range(GRAPH_STEPS)]
+                torch.cuda.synchronize()
+                counts = _counts()
+                if counts != tuple(n * GRAPH_STEPS for n in per_step):
+                    raise AssertionError(f"step_graph {name} ({'compiled' if graph else 'eager'}): "
+                                         f"{counts} K1 / K1 backward / K2 / K2 backward launches "
+                                         f"over {GRAPH_STEPS} steps, expected {per_step} a step")
+                if graph and step.captures_made != 1:
+                    raise AssertionError(f"step_graph {name}: {step.captures_made} captures")
+                sides[graph] = {"state": state, "make_step": make_step, "metrics": metrics,
+                                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+                del step
+        want, got = _step_tensors(sides[False]["state"]), _step_tensors(sides[True]["state"])
+        for i, (em, cm) in enumerate(zip(sides[False]["metrics"], sides[True]["metrics"])):
+            want.update({f"step {i} {k}": v for k, v in em.items()})
+            got.update({f"step {i} {k}": v for k, v in cm.items()})
+        if set(want) != set(got):
+            raise AssertionError(f"step_graph {name}: eager and compiled steps hold other tensors")
+        differ = {k: float((got[k].double() - v.double()).norm()
+                           / v.double().norm().clamp_min(1e-30))
+                  for k, v in want.items() if not torch.equal(got[k], v)}
+        worst = {k: e for k, e in differ.items()
+                 if not e <= (2e-2 if k.startswith("exp_avg") else 1e-2)}
+        if differ:
+            log(f"[step_graph] {name}: {len(differ)} of {len(want)} tensors not bit-equal to eager "
+                f"(relative L2): {differ}")
+        if worst:
+            raise AssertionError(f"step_graph {name}: compiled steps differ from eager past the "
+                                 f"graph phase's tolerances: {worst}")
+
+        steps, gens, step_gb = {}, {}, {}
+        for graph in (False, True):
+            state = sides[graph]["state"]
+            for p in state.model.parameters():
+                p.grad = None
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            steps[graph] = sides[graph]["make_step"](graph)
+            gens[graph] = torch.Generator("cuda").manual_seed(1)
+            for i in range(3):  # the compiled side captures at its third call
+                steps[graph](state, batch(i), gens[graph])
+            torch.cuda.synchronize()
+            step_gb[graph] = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+        def run(graph):
+            return lambda: steps[graph](sides[graph]["state"], batch(0), gens[graph])
+
+        ms = {False: [], True: []}
+        for graph in (False, True, True, False):
+            ms[graph].append(_timed_steps(run(graph), GRAPH_TIMED))
+        idle = {graph: device_idle(run(graph), 3) for graph in (False, True)}
+        res = {"bit_equal": not differ, "differ": differ, "tensors": len(want),
+               "launches_per_step": list(per_step)}
+        for graph, side in (("eager", False), ("compiled", True)):
+            res[graph] = {"ms_per_step": float(np.mean(ms[side])), "ms_runs": ms[side],
+                          "img_per_s": batch_size * 1e3 / float(np.mean(ms[side])),
+                          "idle": idle[side], "peak_gb": sides[side]["peak_gb"],
+                          "step_gb_default_cudnn": step_gb[side]}
+
+        def idle_str(d):
+            return "not measured" if d["idle_share"] is None else f"{d['idle_share']:.2%}"
+
+        e, c = res["eager"], res["compiled"]
+        log(f"[step_graph] {ident}: {name} bf16 step, batch {batch_size} x 256 px: eager "
+            f"{e['ms_per_step']:.3f} ms/step (runs {', '.join(f'{v:.3f}' for v in e['ms_runs'])}; "
+            f"idle {idle_str(e['idle'])}; peak {e['peak_gb']:.2f} GB, above the state "
+            f"{e['step_gb_default_cudnn']:.2f} GB in cuDNN's default mode), compiled "
+            f"{c['ms_per_step']:.3f} ms/step (runs {', '.join(f'{v:.3f}' for v in c['ms_runs'])}; "
+            f"idle {idle_str(c['idle'])}; peak {c['peak_gb']:.2f} GB, above the state "
+            f"{c['step_gb_default_cudnn']:.2f} GB); K1 / K1 backward / K2 / K2 "
+            f"backward {per_step} a step on both; "
+            + ("bit-equal" if not differ else f"{len(differ)} tensors within tolerance")
+            + f" over {len(want)} tensors; {time.perf_counter() - t0:.1f} s")
+        out[name] = res
+        del sides, steps, gens
+        torch.cuda.empty_cache()
+    return out
+
+
 # config.json and result.json keys of the reference's train_joint
 # (adunet/cli/train_joint.py:149-157, 200-210)
 JOINT_CONFIG_KEYS = [
@@ -3770,6 +3977,7 @@ def main() -> int:
         sr_cli = phase("sr_cli", sr_entry_points, Path(tmp), streamed.pop("ckpt_dir"))
         joint = phase("joint", train_joint, ident)
         captured = phase("graph", graph_capture, ident)
+        step_graphs = phase("step_graph", step_graph, Path(tmp), ident)
         joint_step = phase("joint_f32_step", joint_card_vs_cpu_step)
         joint_cli = phase("joint_cli", joint_entry_points, Path(tmp),
                           seg_cli["protocol"].pop("ckpt_dir"))
@@ -3786,7 +3994,7 @@ def main() -> int:
                "train_sr": entry, "seg_train": seg, "seg_f32_step": seg_step,
                "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
                "vanilla_sr_f32_step": vanilla_step, "sr_cli": sr_cli, "joint": joint,
-               "graph": captured, "joint_f32_step": joint_step, "joint_cli": joint_cli,
+               "graph": captured, "step_graph": step_graphs, "joint_f32_step": joint_step, "joint_cli": joint_cli,
                "tune": tuned,
                "ddp": dp, "ddp_ranks": dp_ranks, "sweep": swept, "space_ranks": space,
                "seconds": seconds,

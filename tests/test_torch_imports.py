@@ -34,6 +34,8 @@ _TRAINING_MODULES = (
     "adunet_torch.export.aot", "adunet_torch.cli.export_model", "adunet_torch.cli.serve",
     # serving programs
     "adunet_torch.export.program", "adunet_torch.kernels.ops",
+    # compiled train steps
+    "adunet_torch.train.compiled",
     # the tuner
     "adunet_torch.tune", "adunet_torch.tune.search", "adunet_torch.tune.parallel",
     "adunet_torch.cli.tune",
