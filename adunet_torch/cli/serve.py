@@ -14,6 +14,14 @@ thread-local) and brings results back to numpy with ``.cpu().numpy()``.
 A reply holds one array per request: (N, P, P, 3) restored tiles for an SR
 artifact, (N, P, P, C) mask probabilities for a segmentation one.
 
+The serving stats count requests, images, device calls, batched rows, the
+admission refusals (``refused``; a refused body is read and discarded, so
+the client reads the 503) and the 500s (``failed``). While ``torch.profiler``
+runs, the handler and batcher threads record spans
+(``adunet_torch.utils.spans``): per request ``serve.request`` with
+``serve.read``, ``serve.decode``, ``serve.wait``, ``serve.encode`` and
+``serve.write``, all carrying the request's id; per batch the ``_Batcher``'s.
+
 A joint SR + segmentation artifact is refused at start: its call returns two
 arrays, which the batcher's one row per request cannot carry. The reference
 starts on one and then answers every request with a 500, since its batcher
@@ -26,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import io
+import itertools
 import json
 import queue
 import threading
@@ -35,6 +44,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from adunet_torch.utils import spans
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -58,15 +69,30 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+# a queued image: (image, its future, when it was queued: spans.stamp(), 0
+# while no profiler runs; the id of the request that queued it)
+_Item = Tuple[np.ndarray, Future, int, Optional[int]]
+
+
 class _Batcher:
-    """Pools single-image requests into the artifact's static batch."""
+    """Pools single-image requests into the artifact's static batch.
+
+    With a profiler running it records, for each batch, ``batch.collect``
+    (waiting for the first image until the batch closes, the window
+    included) and ``batch.dispatch`` with its children ``batch.stack``, the
+    call's own spans and ``batch.handoff``; and for each image
+    ``batch.queued`` (queued to the dispatch's start), whose parent is its
+    batch's ``batch.dispatch`` and whose ``rid`` is that of the request that
+    queued it: the handler's open ``serve.request`` span at ``submit``."""
 
     def __init__(self, call, batch_size: int, window_ms: float):
         self._call = call
         self.batch_size = int(batch_size)
         self.window_s = float(window_ms) / 1000.0
-        self._q: "queue.Queue[Optional[Tuple[np.ndarray, Future]]]" = queue.Queue()
-        self.stats = {"requests": 0, "images": 0, "device_calls": 0, "batched_rows": 0}
+        self._q: "queue.Queue[Optional[_Item]]" = queue.Queue()
+        # refused: admission's 503s; failed: the 500s
+        self.stats = {"requests": 0, "images": 0, "device_calls": 0, "batched_rows": 0,
+                      "refused": 0, "failed": 0}
         self._stats_lock = threading.Lock()
         self._submit_lock = threading.Lock()
         self._stop = threading.Event()
@@ -89,7 +115,7 @@ class _Batcher:
             if self._stop.is_set():
                 raise RuntimeError("server shutting down")
             fut: Future = Future()
-            self._q.put((image, fut))
+            self._q.put((image, fut, spans.stamp(), spans.current_rid()))
             return fut
 
     def close(self) -> None:
@@ -105,7 +131,7 @@ class _Batcher:
             if item is not None and not item[1].done():
                 item[1].set_exception(RuntimeError("server shutting down"))
 
-    def _collect(self) -> List[Tuple[np.ndarray, Future]]:
+    def _collect(self) -> List[_Item]:
         first = self._q.get()
         if first is None:
             return []
@@ -126,23 +152,33 @@ class _Batcher:
 
     def _run(self) -> None:
         while not self._stop.is_set():
-            items = self._collect()
-            if not items:
-                continue
-            batch = np.stack([img for img, _ in items])
-            n = batch.shape[0]
-            if n < self.batch_size:
-                pad = np.zeros((self.batch_size - n, *batch.shape[1:]), batch.dtype)
-                batch = np.concatenate([batch, pad])
+            with spans.span("batch.collect"):
+                items = self._collect()
+            if items:
+                self._dispatch(items)
+
+    def _dispatch(self, items: List[_Item]) -> None:
+        with spans.span("batch.dispatch") as span_id:
+            start = spans.stamp()
+            for _, _, queued, rid in items:
+                if queued:
+                    spans.add("batch.queued", queued, start, rid, parent=span_id)
+            with spans.span("batch.stack"):
+                batch = np.stack([item[0] for item in items])
+                n = batch.shape[0]
+                if n < self.batch_size:
+                    pad = np.zeros((self.batch_size - n, *batch.shape[1:]), batch.dtype)
+                    batch = np.concatenate([batch, pad])
             try:
                 out = np.asarray(self._call(batch))
                 self.bump(device_calls=1, batched_rows=n)
-                for i, (_, fut) in enumerate(items):
-                    fut.set_result(out[i])
+                with spans.span("batch.handoff"):
+                    for i, item in enumerate(items):
+                        item[1].set_result(out[i])
             except Exception as exc:  # device failure: surface to every caller
-                for _, fut in items:
-                    if not fut.done():
-                        fut.set_exception(exc)
+                for item in items:
+                    if not item[1].done():
+                        item[1].set_exception(exc)
 
 
 def _decode_request(body: bytes, patch: int) -> np.ndarray:
@@ -188,6 +224,7 @@ def make_server(artifact_dir: str, host: str = "127.0.0.1", port: int = 0,
     # admission control bounds the decoded bodies held in RAM at once:
     # ThreadingHTTPServer has no connection cap of its own
     admission = threading.Semaphore(max(1, int(max_concurrent_requests)))
+    request_ids = itertools.count()  # next() is atomic: one id per admitted request
 
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: bytes, ctype: str, extra=()) -> None:
@@ -215,17 +252,37 @@ def make_server(artifact_dir: str, host: str = "127.0.0.1", port: int = 0,
                 self._reply_json(404, {"error": f"unknown path {self.path}"})
                 return
             if not admission.acquire(blocking=False):
+                batcher.bump(refused=1)
+                self._discard_body()
                 self._reply_json(503, {
                     "error": f"server saturated ({max_concurrent_requests} "
                              "concurrent predict requests in flight); retry."
                 }, extra=(("Retry-After", "1"),))
                 return
+            rid = next(request_ids)
             try:
-                self._do_predict()
+                with spans.span("serve.request", rid):
+                    self._do_predict(rid)
             finally:
                 admission.release()
 
-        def _do_predict(self):
+        def _discard_body(self) -> None:
+            """Read a body this server will not use, so that the client reads
+            the reply and not a connection reset by a close with its body
+            unread; a body over the size limit is left unread."""
+            try:
+                left = int(self.headers.get("Content-Length", 0))
+            except (TypeError, ValueError):
+                return
+            if left > max_body_bytes:
+                return
+            while left > 0:
+                chunk = self.rfile.read(min(left, 1 << 16))
+                if not chunk:
+                    return
+                left -= len(chunk)
+
+        def _do_predict(self, rid: int):
             try:
                 length = int(self.headers.get("Content-Length", 0))
             except (TypeError, ValueError):
@@ -240,9 +297,11 @@ def make_server(artifact_dir: str, host: str = "127.0.0.1", port: int = 0,
                              f"{max_body_bytes}-byte limit (--max-body-mb)."
                 })
                 return
-            body = self.rfile.read(length)
+            with spans.span("serve.read", rid):
+                body = self.rfile.read(length)
             try:
-                images = _decode_request(body, patch)
+                with spans.span("serve.decode", rid):
+                    images = _decode_request(body, patch)
             except ValueError as exc:
                 self._reply_json(400, {"error": str(exc)})
                 return
@@ -253,13 +312,17 @@ def make_server(artifact_dir: str, host: str = "127.0.0.1", port: int = 0,
                 self._reply_json(503, {"error": str(exc)})
                 return
             try:
-                out = np.stack([f.result(timeout=120) for f in futures])
+                with spans.span("serve.wait", rid):
+                    out = np.stack([f.result(timeout=120) for f in futures])
             except Exception as exc:  # device failure or shutdown: a real 500
+                batcher.bump(failed=1)
                 self._reply_json(500, {"error": f"inference failed: {exc}"})
                 return
-            buf = io.BytesIO()
-            np.save(buf, out)
-            self._reply(200, buf.getvalue(), "application/octet-stream")
+            with spans.span("serve.encode", rid):
+                buf = io.BytesIO()
+                np.save(buf, out)
+            with spans.span("serve.write", rid):
+                self._reply(200, buf.getvalue(), "application/octet-stream")
 
         def log_message(self, fmt, *args):  # quiet; stats live in /v1/metadata
             pass

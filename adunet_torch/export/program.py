@@ -43,6 +43,7 @@ import torch.export.passes
 from torch import nn
 
 import adunet_torch.kernels  # noqa: F401  registers the adunet_torch:: ops a program names
+from adunet_torch.utils import spans
 
 __all__ = ["PROGRAM_FILE", "quantize_int8", "export_sr_forward", "export_seg_forward",
            "export_joint_forward", "Program", "node_counts"]
@@ -172,7 +173,12 @@ class Program:
     float32 numpy (joint: a dict of them), under ``torch.inference_mode()``;
     B may differ from the program's static batch, which the tiles are cut
     into and the last cut padded to with zeros. ``module`` is the program's
-    callable module, ``input_shape`` its static input shape."""
+    callable module, ``input_shape`` its static input shape.
+
+    With a profiler running, each cut records the spans ``program.copy_in``
+    (to the device, and the padding), ``program.forward`` (the module's
+    call: the host's launches) and ``program.copy_out`` (back to numpy,
+    which waits for the forward's kernels)."""
 
     def __init__(self, path: str | Path, device: str | torch.device):
         ep = torch.export.load(str(path))
@@ -202,12 +208,15 @@ class Program:
         with torch.inference_mode():
             for start in range(0, len(arr), batch):
                 cut = arr[start:start + batch]
-                x = torch.from_numpy(cut).to(self.device)
-                if len(cut) < batch:
-                    x = torch.cat([x, x.new_zeros((batch - len(cut), *x.shape[1:]))])
-                out = self.module(x)
-                parts.append({k: v[:len(cut)].cpu().numpy() for k, v in out.items()}
-                             if isinstance(out, dict) else out[:len(cut)].cpu().numpy())
+                with spans.span("program.copy_in"):
+                    x = torch.from_numpy(cut).to(self.device)
+                    if len(cut) < batch:
+                        x = torch.cat([x, x.new_zeros((batch - len(cut), *x.shape[1:]))])
+                with spans.span("program.forward"):
+                    out = self.module(x)
+                with spans.span("program.copy_out"):
+                    parts.append({k: v[:len(cut)].cpu().numpy() for k, v in out.items()}
+                                 if isinstance(out, dict) else out[:len(cut)].cpu().numpy())
         if isinstance(parts[0], dict):
             return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
         return np.concatenate(parts)

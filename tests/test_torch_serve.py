@@ -135,7 +135,8 @@ def test_health_and_metadata(served):
     with urllib.request.urlopen(base + "/v1/metadata", timeout=10) as r:
         meta = json.load(r)
     assert meta["manifest"]["input_shape"] == [BATCH, PATCH, PATCH, 3]
-    assert set(meta["serving"]) == {"requests", "images", "device_calls", "batched_rows"}
+    assert set(meta["serving"]) == {"requests", "images", "device_calls", "batched_rows",
+                                    "refused", "failed"}
 
 
 def test_single_and_stacked_requests(served, jax_call):
