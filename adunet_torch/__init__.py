@@ -13,10 +13,11 @@ kernel or raise.
 
 Subpackages
 -----------
-- ``ops``      — fractional resize (matmul), LR degradation, luma, residual add
+- ``ops``      — fractional resize (banded kernel / matmul), LR degradation, luma, residual add
 - ``nn``       — depth policies and building blocks (ConvBlock)
 - ``kernels``  — CUDA kernels as autograd Functions: fused LayerNorm+ReLU (K1),
-  64->64 3x3 conv (K2); their forwards as ``torch.library`` ops for programs
+  64->64 3x3 conv (K2), the banded resize; their forwards as ``torch.library``
+  ops for programs
 - ``models``   — adaptive SR U-Net
 - ``losses``   — SR losses (charbonnier, l1, mse, SSIM) and the PSNR metric
 - ``data``     — image IO, grid eval patches, the device-resident corpus

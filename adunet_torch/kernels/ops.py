@@ -1,8 +1,9 @@
-"""K1 and K2's forwards as ``torch.library`` custom ops, for programs.
+"""K1 and K2's forwards and the resize as ``torch.library`` custom ops, for
+programs.
 
 An exported program (``torch.export``, ``adunet_torch.export.program``)
 cannot hold the kernels' ctypes calls: a launch reads ``data_ptr()`` of
-tensors that are fake while the program is traced. These ops give the two
+tensors that are fake while the program is traced. These ops give the three
 forward kernels a name in the graph instead, and dispatch by device when the
 program runs:
 
@@ -10,7 +11,11 @@ program runs:
   (K1, ``fused_norm.layer_norm_relu``);
 - ``adunet_torch::conv3x3_c64(Tensor x, Tensor w, Tensor? bias) -> Tensor``
   (K2 in its SAME mode, ``conv64.conv3x3_same``; the halo-row mode serves no
-  program).
+  program);
+- ``adunet_torch::resize_band(Tensor x, int out_h, int out_w, str method, bool antialias, ScalarType dtype) -> Tensor``
+  (the banded resize, ``resize_band.resize_band``; its plain version is the
+  dense product, ``resize_band.resize_band_plain``). Callers name it only
+  where a size changes, so its output is never x.
 
 CUDA runs the kernel (the wrappers' ``_launch``: one C call, the launch
 counters bumped as in eager) or raises; CPU runs the plain version; the fake
@@ -32,8 +37,10 @@ import torch
 from torch import Tensor
 
 from adunet_torch.kernels import conv64, fused_norm
+from adunet_torch.kernels.resize_band import resize_band as _resize_band_kernel
+from adunet_torch.kernels.resize_band import resize_band_plain
 
-__all__ = ["layer_norm_relu", "conv3x3_c64"]
+__all__ = ["layer_norm_relu", "conv3x3_c64", "resize_band"]
 
 
 @torch.library.custom_op("adunet_torch::layer_norm_relu", mutates_args=(), device_types="cpu")
@@ -73,3 +80,21 @@ def _conv3x3_c64_cuda(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
 def _conv3x3_c64_fake(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
     _gate(x, w)
     return x.new_empty((x.shape[0], x.shape[1], x.shape[2], w.shape[0]))
+
+
+@torch.library.custom_op("adunet_torch::resize_band", mutates_args=(), device_types="cpu")
+def resize_band(x: Tensor, out_h: int, out_w: int, method: str, antialias: bool,
+                dtype: torch.dtype) -> Tensor:
+    return resize_band_plain(x, (out_h, out_w), method, antialias).to(dtype)
+
+
+@resize_band.register_kernel("cuda")
+def _resize_band_cuda(x: Tensor, out_h: int, out_w: int, method: str, antialias: bool,
+                      dtype: torch.dtype) -> Tensor:
+    return _resize_band_kernel(x, (out_h, out_w), method, antialias, dtype)
+
+
+@resize_band.register_fake
+def _resize_band_fake(x: Tensor, out_h: int, out_w: int, method: str, antialias: bool,
+                      dtype: torch.dtype) -> Tensor:
+    return x.new_empty((*x.shape[:-3], out_h, out_w, x.shape[-1]), dtype=dtype)

@@ -1,4 +1,5 @@
-"""Image ops: fractional resize (matmul), degradation, luma, residual add."""
+"""Image ops: fractional resize (banded kernel on the card, dense matmul on
+the CPU), degradation, luma, residual add."""
 
 from adunet_torch.ops.image import clipped_residual_add, degrade, rgb_to_luma_bt601
 from adunet_torch.ops.resize import (

@@ -149,7 +149,7 @@ def _device_band(in_h: int, out_h: int, method: str, antialias: bool, shards: in
                  device: torch.device) -> torch.Tensor:
     band = _row_plan(in_h, out_h, method, antialias, shards)[1][index]
     # reusable by a training step after serving; real even under a trace (as
-    # adunet_torch.ops.resize._device_matrix)
+    # adunet_torch.kernels.resize_band._device_matrix)
     with torch.inference_mode(False), _disable_current_modes():
         return torch.from_numpy(band).to(device)
 

@@ -40,15 +40,25 @@ exits non-zero without one. Every phase raises on failure:
    every shape K2 runs with a gradient, both types and both modes, checks
    that two calls give the same bits, and times them beside their bound,
    the plain version and the route the port took before (cuDNN's
-   ``convolution_backward``);
+   ``convolution_backward``); then (``resize``) holds the banded resize
+   (``resize_band``) against its plain version, the dense product
+   (``resize_band_plain``), forward and backward on the same CUDA tensors
+   at every resize of the flagship's and the deep config's bf16 training
+   steps (the degradation's float32 resizes forward) and of the served
+   float32 forward (``RESIZE_PATHS``): 1e-6 of the largest |value|, plus
+   one bf16 ulp per element in bf16; one launch counted a forward and one a
+   backward; each timed (CUDA events over replays of a CUDA graph of
+   back-to-back calls) beside the dense path with its casts and the bound
+   of one pass (its bytes, read once and written once), and summed over
+   one step or forward;
 5. serves the trained flagship artifact over HTTP (launch counts set to 0
-   just before, read just after: 16 K1 + 4 K2 per device call, no K1
-   backward);
+   just before, read just after: 16 K1 + 4 K2 + 6 resizes per device call,
+   no K1 backward);
 6. re-derives the flagship's pinned eval numbers on the 48-tile seed-777
    corpus; exports the flagship as an int8 serving program on the card
    (``program``: ``adunet_torch.export.program``, its graph holding 16 K1
    and 4 K2 ops and no plain decomposition), runs it in a fresh process
-   that imports no model code (16 K1 and 4 K2 launches a call, output held
+   that imports no model code (16 K1, 4 K2 and 6 resize launches a call, output held
    to the weights path at 1e-5), serves it over HTTP as in 5 and re-derives
    the pinned numbers from it, and times its forward beside the weights
    path's; then times the serving forward;
@@ -56,7 +66,7 @@ exits non-zero without one. Every phase raises on failure:
    params, Adam 1e-4; a seeded random 1x1 head in place of the zero one)
    on a device cache of synthetic images for a few device-cache steps at
    batch 32 x 256 px (counts set to 0 just before: 16 K1 forward, 16 K1
-   backward, 4 K2 and 4 K2 backward per step),
+   backward, 4 K2, 4 K2 backward and 14 resizes per step),
    checks that every parameter gets a finite, nonzero gradient in the first
    step and that the loss falls by a quarter over the steps, and times the
    step;
@@ -93,8 +103,8 @@ exits non-zero without one. Every phase raises on failure:
 14. trains the deep config (scale 0.8, depth 5, base 64, 138,427,843
     params, bf16, batch 8 x 256 px) without and with ``remat_levels=2``
     (counts set to 0 just before each: 24 / 24 / 4 and 32 / 24 / 6 per
-    step) and times it beside its convolutions' share of the bf16 peak;
-    then holds one float32 step's gradients with and without remat equal;
+    step, 22 resizes in both) and times it beside its convolutions' share
+    of the bf16 peak; then holds one float32 step's gradients with and without remat equal;
 15. trains the vanilla SR U-Net (base 64, depth 4, 34,525,251 params,
     BatchNorm) in bf16 with the combined loss over the seeded VGG19 tower at
     batch 8 x 256 px (counts set to 0 just before: 2 K2 per step, no K1),
@@ -120,7 +130,8 @@ exits non-zero without one. Every phase raises on failure:
     protocol segmentation and vanilla SR models at batch 8: 6 compiled steps
     against 6 eager ones from the same seeded state, bit-equal (or within the
     ``graph`` phase's tolerances, each differing tensor named), launches a
-    step as eager on both sides, each side's ms/step in turns, device idle
+    step as eager on both sides (resizes too: 14 a flagship step),
+    each side's ms/step in turns, device idle
     share and peak memory. Every training phase runs compiled steps: a
     trainer's step captures from its third call on a CUDA model;
 18. takes one float32 step of the joint model at batch 1 x 256 px on the
@@ -167,7 +178,8 @@ exits non-zero without one. Every phase raises on failure:
     the bf16 deep config at batch 8 to one process: loss, params, launches a
     rank (16 / 16 / 4 and 24 / 24 / 4 with K2 in its halo-row mode), peak
     memory a rank (``space_ranks``);
-25. prints one JSON line with each kernel's launches, error and times, the
+25. prints one JSON line with each kernel's launches, error and times (the
+    resize's from the ``resize`` phase and the counting phases), the
     card's identity line, and last ``{"ok": true, "device": {...}}``.
 
 Every phase that counts launches also counts K2's backward
@@ -219,7 +231,8 @@ import torch.nn.functional as F
 from adunet_torch.cli.serve import make_server
 from adunet_torch.evaluate import infer_eval_shave
 from adunet_torch.export import load_artifact
-from adunet_torch.kernels import _build, conv64, fused_norm
+from adunet_torch.kernels import _build, conv64, fused_norm, resize_band
+from adunet_torch.kernels.resize_band import band_tables, resize_band_plain, resize_matrix
 from adunet_torch.metrics import msssim_power_factors_for, psnr, ssim, ssim_multiscale
 from adunet_torch.ops import degrade, rgb_to_luma_bt601, scaled_size
 from adunet_torch.utils import deterministic_cudnn, gpu_identity, setup_runtime
@@ -396,6 +409,23 @@ SPACE_CASES = {"flagship_f32": (0.5, 3, 32, torch.float32),
                "flagship_bf16": (0.5, 3, 32, torch.bfloat16),
                "deep_bf16": (DEEP_SCALE, DEEP_DEPTH, DEEP_BATCH, torch.bfloat16)}
 SWEEP_PPI = 8
+# The banded resize (``kernels/resize_band.py``): path -> (batch, level
+# sizes, type, gradient) of the resizes of the flagship's bf16 training step
+# (batch 32), the deep config's (batch 8) and the served flagship's float32
+# forward (batch 8). Level i holds 64 << i channels; an encoder level resizes
+# its own down to the next size, a decoder level the next level's up; a
+# training step also degrades its batch at 0.5 (area 256 -> 128, then cv2's
+# cubic 128 -> 256, RGB, float32, no gradient). Launches: one a resize and
+# one a resize's backward, so 14 a flagship step, 22 a deep step (with or
+# without remat: the resizes sit outside the checkpointed blocks) and 6 a
+# served forward
+RESIZE_PATHS = {"train": (TRAIN_BATCH, [256, 128, 64, 32], torch.bfloat16, True),
+                "deep": (DEEP_BATCH, _DEEP_SIZES, torch.bfloat16, True),
+                "serve": (8, [256, 128, 64, 32], torch.float32, False)}
+RESIZE_PER_STEP = {"train": 14, "deep": 22}
+RESIZE_PER_FORWARD = 6
+# back-to-back calls in one CUDA graph when a resize is timed
+RESIZE_TIMED = 10
 
 TUNE_RESULT_KEYS = {"direction", "sampler", "n_trials", "n_complete", "n_pruned", "best_value",
                     "best_params", "trials"}
@@ -1113,6 +1143,168 @@ def check_k2_backward(gen: torch.Generator) -> list[dict]:
     return rows_out
 
 
+def graphed_ms(fn, calls: int = RESIZE_TIMED) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA graph
+    (no host time between them), replayed 5 times, timed by CUDA events.
+    An input below the 50 MB L2 stays there between calls: its time reads
+    warm."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (5 * calls)
+
+
+def _resize_cases(path: str):
+    """(name, x shape, out px, method, antialias, type, gradient) of each
+    resize of ``RESIZE_PATHS[path]``, in the model's order."""
+    batch, sizes, dtype, backward = RESIZE_PATHS[path]
+    for lv in range(len(sizes) - 1):
+        big, small = sizes[lv], sizes[lv + 1]
+        yield f"enc{lv}", (batch, big, big, 64 << lv), small, "bilinear", True, dtype, backward
+        yield (f"dec{lv}", (batch, small, small, 64 << (lv + 1)), big, "bilinear", True, dtype,
+               backward)
+    if backward:  # the step's degradation of its batch
+        yield "degrade_area", (batch, 256, 256, 3), 128, "area", True, torch.float32, False
+        yield ("degrade_cubic", (batch, 128, 128, 3), 256, "bicubic_cv2", False, torch.float32,
+               False)
+
+
+def resize_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max |got - want| / max |want|; raises past 1e-6 of max |want|, plus
+    one bf16 ulp of the larger of the two per element for bf16 (an f32
+    difference in the last bits can flip the rounding)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)}")
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    scale = w.abs().max().clamp_min(1e-30)
+    err = (g - w).abs()
+    ulp = 2.0**-7 * torch.maximum(g.abs(), w.abs()) if got.dtype == torch.bfloat16 else 0.0
+    if not bool(torch.all(err <= ulp + 1e-6 * scale)) or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: the kernel disagrees with the dense product: max |err| / "
+                             f"max |want| {(err.max() / scale).item():.3e}")
+    return (err.max() / scale).item()
+
+
+def _resize_bound(shape, oh: int, method: str, antialias: bool, dtype) -> tuple[float, str]:
+    """One pass's bound: read x once and write y once (the backward reads the
+    cotangent and writes dx, the same bytes), beside the float32 FLOPs of the
+    H pass (K_h taps a row of each column) and the W pass (K_w a pixel)."""
+    n, h, w, c = shape
+    kh = band_tables(resize_matrix(h, oh, method, antialias))[1].shape[1]
+    kw = band_tables(resize_matrix(w, oh, method, antialias))[1].shape[1]
+    es = torch.tensor([], dtype=dtype).element_size()
+    return bound_ms((n * h * w * c + n * oh * oh * c) * es,
+                    2.0 * n * c * (oh * w * kh + oh * oh * kw), torch.float32)
+
+
+def check_resize(gen: torch.Generator) -> list[dict]:
+    """The banded resize (``resize_band``, ``csrc/resize_band.cu``) against
+    its plain version, the dense product (``resize_band_plain``: two float32
+    matmuls, TF32 off), on the same CUDA tensors at every resize of the
+    flagship's and the deep config's bf16 training steps (forward and
+    backward, the degradation's float32 resizes forward) and of the served
+    flagship's float32 forward: ``resize_close``. The wrapper must count one
+    launch a forward and one a backward. Then each is timed (``graphed_ms``)
+    beside the dense path with its casts (its backward: autograd's forward +
+    backward less the forward) and the bound of one pass; each path's sums
+    over one step or forward follow its rows."""
+    rows = []
+    for path in RESIZE_PATHS:
+        total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        for name, shape, oh, method, antialias, dtype, backward in _resize_cases(path):
+            out_hw = (oh, oh)
+            x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn((shape[0], oh, oh, shape[3]), generator=gen, device="cuda").to(dtype)
+
+            def kernel(t):
+                return resize_band(t, out_hw, method, antialias, dtype)
+
+            def dense(t):
+                return resize_band_plain(t, out_hw, method, antialias).to(dtype)
+
+            before = resize_band.launches
+            errs = {"y": resize_close(f"resize {path} {name}", kernel(x), dense(x))}
+            launches = 1
+            if backward:
+                dx = []
+                for fn in (kernel, dense):
+                    xg = x.clone().requires_grad_(True)
+                    fn(xg).backward(g)
+                    dx.append(xg.grad)
+                errs["dx"] = resize_close(f"resize {path} {name} dx", *dx)
+                launches += 2
+            if resize_band.launches - before != launches:
+                raise AssertionError(f"resize {path} {name}: {resize_band.launches - before} "
+                                     f"launches counted, expected {launches}")
+            ms = {"fwd": graphed_ms(lambda: kernel(x))}
+            plain = {"fwd": graphed_ms(lambda: dense(x))}
+            if backward:
+                xg = x.clone().requires_grad_(True)
+                for out, fn in ((ms, kernel), (plain, dense)):
+                    both = graphed_ms(lambda: torch.autograd.grad(fn(xg), xg, g))
+                    out["bwd"] = both - out["fwd"]
+            bnd, by = _resize_bound(shape, oh, method, antialias, dtype)
+            total["ms"] += sum(ms.values())
+            total["plain_ms"] += sum(plain.values())
+            total["bound_ms"] += bnd * len(ms)
+            rows.append(dict(kernel="R", path=path, name=name, shape=list(shape), out_px=oh,
+                             method=method, dtype=_dname(dtype), rel_err=errs, ms=ms,
+                             plain_ms=plain, bound_ms=bnd, bound_by=by))
+            log(f"[resize] {path} {name} {'x'.join(map(str, shape))} -> {oh} px {method} "
+                f"{_dname(dtype)}: rel err " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+                + "; kernel " + " / ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                + " ms; dense " + " / ".join(f"{k} {v:.4f}" for k, v in plain.items())
+                + f" ms; bound {bnd:.4f} ms a pass ({by}); kernel at "
+                + " / ".join(f"{100 * bnd / v:.1f} %" for v in ms.values()) + " of it")
+            del x, g
+            torch.cuda.empty_cache()
+        per = "step" if path in RESIZE_PER_STEP else "forward"
+        rows.append(dict(kernel="R", path=path, name="sum", **total))
+        log(f"[resize] {path}: one {per}, {RESIZE_PER_STEP.get(path, RESIZE_PER_FORWARD)} "
+            f"launches: kernel {total['ms']:.3f} ms, dense {total['plain_ms']:.3f} ms, bound "
+            f"{total['bound_ms']:.3f} ms ({100 * total['bound_ms'] / total['ms']:.1f} % of the "
+            f"kernel's)")
+    return rows
+
+
+def resize_entry(rows: list[dict], launches: dict) -> dict:
+    """The resize's entry of the kernels line: ``ms`` (CUDA-graph replays),
+    ``plain_ms`` (the dense product and its casts) and ``bound_ms`` summed
+    over one bf16 flagship training step's launches, the same sums for the
+    deep step and the served forward, and each path's launches (``launches``:
+    path -> counted launches)."""
+    sums = {r["path"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
+            for r in rows if r["name"] == "sum"}
+    return {"name": "resize_band", "route": "cuda", "source": "adunet_torch/csrc/resize_band.cu",
+            "replaces": "none: the reference's resizes are XLA einsums (adunet/ops/resize.py:175)",
+            "launches": launches["train"],
+            "max_rel_err": max(v for r in rows if r["name"] != "sum"
+                               for v in r["rel_err"].values()),
+            **sums["train"], "bound_by": "bytes", "device_kernels_per_call": 1,
+            "per": "launches of one bf16 training step of the flagship (batch 32, 256 px)",
+            "deep": {"launches": launches["deep"], **sums["deep"]},
+            "serve": {"launches": launches["serve"], **sums["serve"]},
+            **{k: {"launches": v} for k, v in launches.items()
+               if k not in ("train", "deep", "serve")},
+            "rows": [r for r in rows if r["name"] != "sum"]}
+
+
 def _post_npy(url: str, arr: np.ndarray) -> np.ndarray:
     buf = io.BytesIO()
     np.save(buf, arr)
@@ -1129,6 +1321,7 @@ def _zero_counts() -> None:
     conv64.conv3x3_rows.launches = 0
     conv64.conv3x3_same_backward.launches = 0
     conv64.conv3x3_same_backward.rows_launches = 0
+    resize_band.launches = 0
 
 
 # the kernels ``_counts`` counts, in its order
@@ -1183,12 +1376,15 @@ def serve_flagship(call, artifact: Path = ARTIFACT) -> dict:
         server.server_close()
         thread.join(timeout=30)
     k1, k1b, k2, k2b = _counts()
+    resizes = resize_band.launches
     calls = stats["device_calls"]
     log(f"[serve] stats {stats}; K1 launches {k1}, K2 launches {k2}, K1 backward {k1b}, K2 "
-        f"backward {k2b}")
-    if calls < 1 or k1 != K1_PER_CALL * calls or k2 != K2_PER_CALL * calls or k1b or k2b:
-        raise AssertionError(f"expected {K1_PER_CALL} K1 and {K2_PER_CALL} K2 launches per "
-                             f"device call; got {k1} and {k2} over {calls} calls")
+        f"backward {k2b}, resize launches {resizes}")
+    if (calls < 1 or k1 != K1_PER_CALL * calls or k2 != K2_PER_CALL * calls or k1b or k2b
+            or resizes != RESIZE_PER_FORWARD * calls):
+        raise AssertionError(f"expected {K1_PER_CALL} K1, {K2_PER_CALL} K2 and "
+                             f"{RESIZE_PER_FORWARD} resize launches per device call; got {k1}, "
+                             f"{k2} and {resizes} over {calls} calls")
     if stats["images"] != 12 or stats["batched_rows"] != 12:
         raise AssertionError(f"server saw {stats}, expected 12 images")
 
@@ -1205,7 +1401,7 @@ def serve_flagship(call, artifact: Path = ARTIFACT) -> dict:
     if not worst <= 1e-5:
         raise AssertionError(f"served answers differ from the direct call by {worst:.3e}")
     log(f"[serve] 12 images over {calls} device calls; max |served - direct| {worst:.2e}")
-    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b},
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b, "R": resizes},
             "device_calls": calls}
 
 
@@ -1266,7 +1462,7 @@ import json, sys
 import numpy as np
 import torch
 from adunet_torch.export import program
-from adunet_torch.kernels import conv64, fused_norm
+from adunet_torch.kernels import conv64, fused_norm, resize_band
 
 def model_code():
     return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "adunet")
@@ -1278,7 +1474,8 @@ x = np.load(sys.argv[2])
 outs = [prog(x) for _ in range(2)]
 torch.cuda.synchronize()
 launches = [fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches,
-            conv64.conv3x3_same.launches, conv64.conv3x3_same_backward.launches]
+            conv64.conv3x3_same.launches, conv64.conv3x3_same_backward.launches,
+            resize_band.launches]
 np.save(sys.argv[3], outs[1])
 print(json.dumps({"model_code": before + model_code(), "launches": launches, "calls": 2,
                   "repeat_equal": bool(np.array_equal(outs[0], outs[1]))}))
@@ -1358,9 +1555,11 @@ def flagship_program(call, ident: str) -> dict:
         child = json.loads(stdout.strip().splitlines()[-1])
         got = np.load(Path(tmp) / "y.npy")
         err = float(np.abs(got - call(x)).max())
-        want_launches = [K1_PER_CALL * child["calls"], 0, K2_PER_CALL * child["calls"], 0]
+        want_launches = [K1_PER_CALL * child["calls"], 0, K2_PER_CALL * child["calls"], 0,
+                         RESIZE_PER_FORWARD * child["calls"]]
         log(f"[program] fresh process ({child_s:.1f} s, beside serve and golden): model code "
-            f"imported {child['model_code'] or 'none'}; launches K1 / K1 bwd / K2 / K2 bwd "
+            f"imported {child['model_code'] or 'none'}; launches K1 / K1 bwd / K2 / K2 bwd / "
+            f"resize "
             f"{child['launches']} over {child['calls']} calls; two calls equal "
             f"{child['repeat_equal']}; max |program - weights path| {err:.2e}")
         if (child["model_code"] or child["launches"] != want_launches
@@ -1456,15 +1655,17 @@ def train_flagship(tmp: Path, ident: str) -> dict:
                 raise AssertionError(f"parameters without a finite nonzero gradient: {bad}")
     torch.cuda.synchronize()
     k1, k1b, k2, k2b = _counts()
-    if (k1, k1b, k2, k2b) != (16 * TRAIN_STEPS, 16 * TRAIN_STEPS, 4 * TRAIN_STEPS,
-                              4 * TRAIN_STEPS):
+    resizes = resize_band.launches
+    if (k1, k1b, k2, k2b, resizes) != (16 * TRAIN_STEPS, 16 * TRAIN_STEPS, 4 * TRAIN_STEPS,
+                                       4 * TRAIN_STEPS, RESIZE_PER_STEP["train"] * TRAIN_STEPS):
         raise AssertionError(f"expected {16 * TRAIN_STEPS} K1, {16 * TRAIN_STEPS} K1 backward, "
-                             f"{4 * TRAIN_STEPS} K2 and {4 * TRAIN_STEPS} K2 backward launches "
-                             f"over {TRAIN_STEPS} steps; got {k1}, {k1b}, {k2} and {k2b}")
+                             f"{4 * TRAIN_STEPS} K2, {4 * TRAIN_STEPS} K2 backward and "
+                             f"{RESIZE_PER_STEP['train'] * TRAIN_STEPS} resize launches over "
+                             f"{TRAIN_STEPS} steps; got {k1}, {k1b}, {k2}, {k2b} and {resizes}")
     losses = [float(v) for v in losses]
     log(f"[train] {TRAIN_STEPS} steps, losses {', '.join(f'{v:.5f}' for v in losses)}; "
         f"every parameter had a finite nonzero gradient after step 1; K1 {k1}, K1 backward "
-        f"{k1b}, K2 {k2}, K2 backward {k2b} launches")
+        f"{k1b}, K2 {k2}, K2 backward {k2b}, resize {resizes} launches")
     # each step samples its own patches; the drop from the random head's
     # residual is far larger than the spread between batches
     if not all(np.isfinite(losses)) or not losses[-1] < 0.75 * losses[0]:
@@ -1476,8 +1677,8 @@ def train_flagship(tmp: Path, ident: str) -> dict:
         f"peak device memory {peak_gb:.2f} GB")
     del cache, state, model
     torch.cuda.empty_cache()
-    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b}, "steps": TRAIN_STEPS,
-            "losses": losses,
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b, "R": resizes},
+            "steps": TRAIN_STEPS, "losses": losses,
             "ms_per_step": ms,
             "img_per_s": TRAIN_BATCH * 1e3 / ms, "peak_gb": peak_gb, "depth": info["depth"]}
 
@@ -2076,12 +2277,14 @@ def deep_config(tmp: Path, ident: str) -> dict:
         losses = [step(state, None, gen)[1]["loss"] for _ in range(DEEP_STEPS)]
         torch.cuda.synchronize()
         counts = _counts()
+        resizes = resize_band.launches
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = tuple(n * DEEP_STEPS for n in DEEP_PER_STEP[levels])
-        if counts != want:
+        if counts != want or resizes != RESIZE_PER_STEP["deep"] * DEEP_STEPS:
             raise AssertionError(f"deep config remat_levels={levels}: expected {want} K1 / K1 "
-                                 f"backward / K2 / K2 backward launches over {DEEP_STEPS} steps, "
-                                 f"got {counts}")
+                                 f"backward / K2 / K2 backward and "
+                                 f"{RESIZE_PER_STEP['deep'] * DEEP_STEPS} resize launches over "
+                                 f"{DEEP_STEPS} steps, got {counts} and {resizes}")
         losses = [float(v) for v in losses]
         if not all(np.isfinite(losses)):
             raise AssertionError(f"deep config: non-finite losses {losses}")
@@ -2090,7 +2293,7 @@ def deep_config(tmp: Path, ident: str) -> dict:
         # of every convolution (the recompute of remat is not counted)
         share = 3.0 * fwd_flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
         key = f"remat_{levels or 0}"
-        out[key] = {"launches": dict(zip(COUNTED, counts)),
+        out[key] = {"launches": {**dict(zip(COUNTED, counts)), "R": resizes},
                     "per_step": list(DEEP_PER_STEP[levels]), "ms_per_step": ms,
                     "img_per_s": DEEP_BATCH * 1e3 / ms, "peak_gb": peak_gb,
                     "conv_tflop_per_step": 3.0 * fwd_flops / 1e12, "bf16_peak_share": share,
@@ -2099,7 +2302,8 @@ def deep_config(tmp: Path, ident: str) -> dict:
             f"batch {DEEP_BATCH} x 256 px, remat_levels={levels}: {ms:.3f} ms/step "
             f"({DEEP_BATCH * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB; launches "
             f"per step K1 {counts[0] // DEEP_STEPS}, K1 backward {counts[1] // DEEP_STEPS}, K2 "
-            f"{counts[2] // DEEP_STEPS}, K2 backward {counts[3] // DEEP_STEPS}; conv FLOPs "
+            f"{counts[2] // DEEP_STEPS}, K2 backward {counts[3] // DEEP_STEPS}, resize "
+            f"{resizes // DEEP_STEPS}; conv FLOPs "
             f"{3.0 * fwd_flops / 1e12:.3f} TFLOP per step "
             f"(3 x forward), {share:.2%} of the bf16 peak; losses "
             + ", ".join(f"{v:.5f}" for v in losses))
@@ -2706,7 +2910,7 @@ def step_graph(tmp: Path, ident: str) -> dict:
     out = {}
     for name, (setup, batch, per_step, batch_size) in _graph_trainers(tmp).items():
         t0 = time.perf_counter()
-        sides = {}
+        sides, resizes = {}, {}
         with deterministic_cudnn():
             for graph in (False, True):
                 torch.cuda.synchronize()
@@ -2723,11 +2927,18 @@ def step_graph(tmp: Path, ident: str) -> dict:
                     raise AssertionError(f"step_graph {name} ({'compiled' if graph else 'eager'}): "
                                          f"{counts} K1 / K1 backward / K2 / K2 backward launches "
                                          f"over {GRAPH_STEPS} steps, expected {per_step} a step")
+                resizes[graph] = resize_band.launches
                 if graph and step.captures_made != 1:
                     raise AssertionError(f"step_graph {name}: {step.captures_made} captures")
                 sides[graph] = {"state": state, "make_step": make_step, "metrics": metrics,
                                 "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
                 del step
+        want_resizes = (RESIZE_PER_STEP["train"] * GRAPH_STEPS if name == "flagship"
+                        else resizes[False])
+        if resizes[False] != want_resizes or resizes[True] != want_resizes:
+            raise AssertionError(f"step_graph {name}: resize launches eager / compiled "
+                                 f"{resizes[False]} / {resizes[True]} over {GRAPH_STEPS} steps, "
+                                 f"expected {want_resizes}")
         want, got = _step_tensors(sides[False]["state"]), _step_tensors(sides[True]["state"])
         for i, (em, cm) in enumerate(zip(sides[False]["metrics"], sides[True]["metrics"])):
             want.update({f"step {i} {k}": v for k, v in em.items()})
@@ -2769,7 +2980,8 @@ def step_graph(tmp: Path, ident: str) -> dict:
             ms[graph].append(_timed_steps(run(graph), GRAPH_TIMED))
         idle = {graph: device_idle(run(graph), 3) for graph in (False, True)}
         res = {"bit_equal": not differ, "differ": differ, "tensors": len(want),
-               "launches_per_step": list(per_step)}
+               "launches_per_step": list(per_step),
+               "resize_launches_per_step": resizes[False] / GRAPH_STEPS}
         for graph, side in (("eager", False), ("compiled", True)):
             res[graph] = {"ms_per_step": float(np.mean(ms[side])), "ms_runs": ms[side],
                           "img_per_s": batch_size * 1e3 / float(np.mean(ms[side])),
@@ -2787,7 +2999,7 @@ def step_graph(tmp: Path, ident: str) -> dict:
             f"{c['ms_per_step']:.3f} ms/step (runs {', '.join(f'{v:.3f}' for v in c['ms_runs'])}; "
             f"idle {idle_str(c['idle'])}; peak {c['peak_gb']:.2f} GB, above the state "
             f"{c['step_gb_default_cudnn']:.2f} GB); K1 / K1 backward / K2 / K2 "
-            f"backward {per_step} a step on both; "
+            f"backward {per_step} and {resizes[False] / GRAPH_STEPS:g} resizes a step on both; "
             + ("bit-equal" if not differ else f"{len(differ)} tensors within tolerance")
             + f" over {len(want)} tensors; {time.perf_counter() - t0:.1f} s")
         out[name] = res
@@ -3950,6 +4162,7 @@ def main() -> int:
     grads = phase("grads", check_backward, gen)
     details += phase("k1_bwd", check_k1_backward, gen)
     details += phase("k2_bwd", check_k2_backward, gen)
+    resized = phase("resize", check_resize, gen)
     torch.cuda.empty_cache()
 
     call, _ = load_artifact(ARTIFACT, device="cuda")
@@ -3989,7 +4202,8 @@ def main() -> int:
         space = phase("space_ranks", space_ranks, Path(tmp), ident)
 
     seconds = time.perf_counter() - t_start
-    summary = {"gpu": ident, "details": details, "grads": grads, "serve": served,
+    summary = {"gpu": ident, "details": details, "grads": grads, "resize": resized,
+               "serve": served,
                "golden": scores, "program": programmed, "speed": speed, "train": trained, "f32_step": step_check,
                "train_sr": entry, "seg_train": seg, "seg_f32_step": seg_step,
                "seg_cli": seg_cli, "streamed": streamed, "deep": deep, "vanilla_sr": vanilla,
@@ -4013,8 +4227,14 @@ def main() -> int:
                                  if case != "seconds"},
                    "deep": {kid: {k: deep[k]["launches"][kid] for k in ("remat_0", "remat_2")}
                             for kid in COUNTED}}
-    print(json.dumps(kernels_line(details, grads, trained["launches"], served["launches"],
-                                  seg_launches, sr_launches, build_s)))
+    line = kernels_line(details, grads, trained["launches"], served["launches"], seg_launches,
+                        sr_launches, build_s)
+    line["kernels"].append(resize_entry(resized, {
+        "train": trained["launches"]["R"], "serve": served["launches"]["R"],
+        "program": programmed["launches"]["R"],
+        "deep": {k: deep[k]["launches"]["R"] for k in ("remat_0", "remat_2")},
+        "step_graph": {k: v["resize_launches_per_step"] for k, v in step_graphs.items()}}))
+    print(json.dumps(line))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -152,7 +152,7 @@ def test_eager_model_is_unchanged_after_an_export(perturb_params):
     x = torch.from_numpy(_tiles(size, seed=1))
     with torch.no_grad():
         want = model(x)
-    importlib.import_module("adunet_torch.ops.resize")._device_matrix.cache_clear()
+    importlib.import_module("adunet_torch.kernels.resize_band")._device_matrix.cache_clear()
     program.export_sr_forward(model, size, 1)
     with torch.no_grad():
         got = model(x)

@@ -7,6 +7,8 @@
   dequantized) on the same tiles at 1e-5.
 - A program exported on the CPU and moved to the card runs the kernels
   there, not their plain versions.
+- An int8 SR program launches the banded resize kernel through the op
+  ``adunet_torch::resize_band``, once per op node and call.
 
 Sizes put every model's first level at 128 px so K2's gate accepts its
 64 -> 64 convs. Every test needs a CUDA GPU and skips without one; a kernel
@@ -31,6 +33,7 @@ pytestmark = pytest.mark.gpu
 
 SIZE, BATCH = 128, 2
 K1, K2 = "adunet_torch.layer_norm_relu.default", "adunet_torch.conv3x3_c64.default"
+RESIZE = "adunet_torch.resize_band.default"
 
 
 @pytest.fixture
@@ -135,3 +138,23 @@ def test_program_exported_on_the_cpu_runs_the_kernels_on_the_card(cuda, tmp_path
     with torch.inference_mode():  # the kernels on the card, as the eager model runs them
         want = _served("sr", model.cuda()(torch.from_numpy(x).cuda()))
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_int8_program_launches_the_resize_op(cuda, tmp_path):
+    from adunet_torch.kernels import all_launch_counts
+
+    model = _model("sr", "cuda")
+    ep = _export("sr", model, "int8")
+    counts = program.node_counts(ep)
+    assert counts.get(RESIZE) == 4, counts  # depth 2: two resizes down, two up
+    torch.export.save(ep, str(tmp_path / program.PROGRAM_FILE))
+    prog = program.Program(tmp_path / program.PROGRAM_FILE, "cuda")
+    x = np.random.default_rng(3).random((BATCH, SIZE, SIZE, 3), dtype=np.float32)
+    before = all_launch_counts()[-1]
+    got = prog(x)
+    torch.cuda.synchronize()
+    assert all_launch_counts()[-1] - before == counts[RESIZE]
+    _dequantized_(model)
+    with torch.inference_mode():
+        want = _served("sr", model(torch.from_numpy(x).cuda()))
+    _close(got, want)
