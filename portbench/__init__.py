@@ -5,6 +5,7 @@ and a comparison of what the timed path produced with a plain reference.
 
 Run from the checkout's root:
 ``python3 -m portbench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>``.
-Every configuration, traffic mix, per-layer metric and limit lives in a
-file of its own (``configs/``, ``traffic/``, ``metrics/``, ``limits/``),
-found by the name ``BENCHMARK.json`` gives it."""
+Every configuration, model, driver, traffic mix, per-layer metric and limit
+lives in a file of its own (``configs/``, ``models/``, ``<driver>_cell.py``,
+``traffic/``, ``metrics/``, ``limits/``), found by the name
+``BENCHMARK.json`` or a configuration gives it (``catalog.py``)."""

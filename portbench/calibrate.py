@@ -32,7 +32,6 @@ import torch
 
 from portbench import catalog, check
 from portbench.lib import tiles as tile_lib
-from portbench.reference import sr_unet
 
 
 def _free() -> None:
@@ -46,16 +45,16 @@ def train_seed(cell: dict, seed: int) -> dict:
     cfg, traffic = cell["config"], cell["traffic"]
     steps = int(traffic["checked_steps"])
     prepared = train_cell.setup(cfg, traffic, seed, "cuda")
-    readings, corpus = prepared.pop("readings"), prepared.pop("corpus")
+    readings, data = prepared.pop("readings"), prepared.pop("data")
     prepared.clear()
     _free()
     t0 = time.perf_counter()
-    ref = train_cell.reference_readings(cfg, seed, corpus, steps, "cuda")
+    ref = train_cell.reference_readings(cfg, seed, data, steps, "cuda")
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
-    control = train_cell.reference_readings(cfg, seed, corpus, steps, "cuda",
-                                            quant=sr_unet.fp8_e4m3)
-    half = train_cell.reference_readings(cfg, seed, corpus, steps, "cuda",
+    control = train_cell.reference_readings(cfg, seed, data, steps, "cuda",
+                                            quant=catalog.model(cfg).control_quant)
+    half = train_cell.reference_readings(cfg, seed, data, steps, "cuda",
                                          loss_rows=int(cfg["train"]["batch_size"]) // 2)
     unchanged = dict(readings, change_norms={k: 0.0 for k in readings["change_norms"]})
     out = {"program": check.train_numbers(readings, ref),
@@ -63,13 +62,13 @@ def train_seed(cell: dict, seed: int) -> dict:
            "half_batch": check.train_numbers(half, ref),
            "unchanged": check.train_numbers(unchanged, ref),
            "reference_s": ref_s, "losses": readings["losses"], "ref_losses": ref["losses"]}
-    del corpus
+    del data
     _free()
     return out
 
 
 def serve_seed(cell: dict, seed: int, seconds: float) -> dict:
-    from portbench import run, serve_cell
+    from portbench import run
 
     t0 = time.perf_counter()
     result = run.run_cell(cell, seed, seconds, False, "cuda")
@@ -78,9 +77,10 @@ def serve_seed(cell: dict, seed: int, seconds: float) -> dict:
     patch = int(cfg["patch_size"])
     x = tile_lib.pool(seed, int(traffic["pool_tiles"]), patch)[:16]
     t1 = time.perf_counter()
-    ref = serve_cell.reference_tiles(cfg, seed, x, "cuda")
+    model = catalog.model(cfg)
+    ref = model.reference_tiles(cfg, seed, x, "cuda")
     ref_s = time.perf_counter() - t1
-    tf32 = serve_cell.reference_tiles(cfg, seed, x, "cuda", tf32=True)
+    tf32 = model.reference_tiles(cfg, seed, x, "cuda", tf32=True)
     _free()
     return {"program": {k: v["value"] for k, v in result["checks"].items()},
             "control": {"tile_gap": float(np.abs(tf32 - ref).max())},

@@ -2,18 +2,49 @@
 names the cell's configuration and traffic mix and the per-layer metrics;
 each lives in a file of its own under this folder:
 
-- ``configs/<config>.json`` (the sizes as run),
+- ``configs/<config>.json`` (the sizes as run; ``model`` names the model
+  module),
+- ``models/<model>.py`` (the one place where the benchmark reaches that
+  model in the program, and the plain reference it is held to),
 - ``traffic/<traffic>.json`` (the mix's parameters; ``driver`` names the
-  general generator that reads it: ``train`` or ``serve``),
+  general generator that reads it, ``<driver>_cell.py``: ``train`` or
+  ``serve``),
 - ``metrics/<metric>.py`` (a reader with ``read(ctx) -> float | None``),
 - ``limits/<workload>.json`` (the limit of each number the correctness
   check compares, and the readings it was set from).
 
-A new file of any kind needs no edit elsewhere.
+A new file of any kind needs no edit elsewhere. A new configuration adds
+``configs/<name>.json``; ``models/<model>.py`` and its reference under
+``reference/`` if its model is new; ``traffic/<mix>.json``, and
+``<driver>_cell.py`` if the mix needs a new driver; ``limits/<cell>.json``;
+and readers under ``metrics/``. In ``BENCHMARK.json`` it only appends: its
+``configs`` and ``workloads`` entries, its cell's name to the ``workloads``
+of each end-to-end and shared per-layer metric it reports, and new
+``per_layer`` entries.
+
+A model module gives the drivers what is model-specific, and they put into
+the readers' ``ctx`` what it returns:
+
+- ``param_shapes(cfg)``: every parameter's name and shape, in the order
+  ``lib.inputs.weights`` draws them (its rules go by name: a 4-D leaf is a
+  conv kernel, a name holding ``.norm`` a norm's scale or offset);
+- ``build(cfg, params, dtype, device, remat)``: the program's model holding
+  ``params``;
+- ``data(traffic, seed, device)``: what the train step samples;
+- ``train_step(cfg, net, data, graph=None)``: ``(state, step)``, the
+  program's step, called ``step(state, None, generator)``;
+- ``reference_follow(params, data, sample_seed, cfg, steps, dtype, quant,
+  loss_rows)`` and ``reference_forward(params, x, cfg, dtype, quant)``: the
+  plain reference; ``control_quant``: the training control's rounding;
+- ``conv_layers``, ``norm_layers``, ``resize_layers(cfg, batch, size)``: the
+  layer shapes the readers count work from;
+- for serving, ``save_artifact(net, out_dir, cfg)`` and
+  ``reference_tiles(cfg, seed, x_u8, device, tf32)``.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -42,6 +73,17 @@ def traffic(name: str) -> dict:
 def limits(workload: str) -> dict:
     path = HERE / "limits" / f"{workload}.json"
     return json.loads(path.read_text()) if path.exists() else {}
+
+
+def model(cfg: dict):
+    """The model module that ``cfg``'s ``model`` key names."""
+    return importlib.import_module(f"portbench.models.{cfg['model']}")
+
+
+def driver(mix: dict):
+    """The ``run(cell, seed, seconds, trace, device, log)`` of the driver
+    that the traffic mix's ``driver`` key names."""
+    return importlib.import_module(f"portbench.{mix['driver']}_cell").run
 
 
 def metric_module(name: str):

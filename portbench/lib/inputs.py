@@ -4,14 +4,16 @@ these same tensors.
 
 - ``sub_seed(seed, stream)``: one seed per use, so that weights, corpus,
   patch sampling and tiles draw from streams of their own.
-- ``weights``: every parameter of ``reference.sr_unet.param_shapes`` from
-  one ``torch.rand`` call on the device: conv kernels Glorot-uniform (as
-  the model's own init), except the 1x1 residual head, drawn in +-0.002
-  (the model's zero head would make it the identity, which passes no
-  gradient upstream; a small head keeps it near the identity, as the
-  model starts, so that the loss follows the patches' content); conv
-  biases in +-0.02; LayerNorm scales in 1 +- 0.1 and offsets in +-0.1. All
-  float32.
+- ``weights``: every parameter of the configuration's model
+  (``param_shapes`` of its module, ``portbench/models/``) from one
+  ``torch.rand`` call on the device, by the leaves' names and shapes:
+  conv kernels (4-D) Glorot-uniform (as the model's own init), except the
+  1x1 residual head (``residual_rgb.*``), drawn in +-0.002 (the model's
+  zero head would make it the identity, which passes no gradient
+  upstream; a small head keeps it near the identity, as the model starts,
+  so that the loss follows the patches' content); LayerNorm scales and
+  offsets (``*.norm*``) in 1 +- 0.1 and +-0.1; every other leaf, a conv's
+  bias, in +-0.02. All float32.
 - ``corpus``: an (N, H, W, 3) uint8 image tensor, made in chunks: each
   image a mix, in proportions of its own, of broad shading (a bicubic
   enlargement of 1/64-size noise), fine detail (of 1/4-size noise) and
@@ -28,7 +30,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from portbench.reference import sr_unet
+from portbench import catalog
 
 
 def sub_seed(seed: int, stream: str) -> int:
@@ -37,7 +39,7 @@ def sub_seed(seed: int, stream: str) -> int:
 
 
 def weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    shapes = sr_unet.param_shapes(cfg)
+    shapes = catalog.model(cfg).param_shapes(cfg)
     total = sum(math.prod(s) for s in shapes.values())
     gen = torch.Generator(device).manual_seed(sub_seed(seed, "weights"))
     u = torch.rand(total, generator=gen, device=device).mul_(2.0).sub_(1.0)  # U(-1, 1)

@@ -1,6 +1,6 @@
 """The program's own spans over a traced window, laid over the device's
-timeline: the one place the benchmark takes them from the program
-(``adunet_torch.utils.spans``), once a run, and the arithmetic the readers
+timeline: taken from the program (``adunet_torch.utils.spans``, through
+``portbench/program.py``) once a run, and the arithmetic the readers
 of the serving cells share.
 
 The program records spans only while the profiler runs, stamped with
@@ -21,14 +21,15 @@ from portbench.lib import trace as tracing
 
 
 def _take(lo_ns: int, hi_ns: int) -> list:
-    try:
-        from adunet_torch.utils import spans
-    except ImportError:  # a program without the recorder
+    from portbench import program
+
+    got = program.take_spans(lo_ns, hi_ns)
+    if got is None:  # a program without the recorder
         return []
-    out = list(spans.take(lo_ns, hi_ns))
+    out, dropped = got
     # in the run's log: a ring that overflowed lost the window's first spans
     print(f"[spans] {len(out)} program spans over the traced window; "
-          f"{spans.RECORDER.dropped} dropped by the recorder's ring", file=sys.stderr, flush=True)
+          f"{dropped} dropped by the recorder's ring", file=sys.stderr, flush=True)
     return out
 
 

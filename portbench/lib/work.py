@@ -16,11 +16,22 @@ with TF32 off), 3.35 TB/s of HBM.
   the 64 -> 64 3x3 conv kernel (K2), forward or backward, each input read
   once and each output written once (the arithmetic of the kernels' own
   bounds in the port's smoke test, copied).
+- ``resize_bound_ms``: the same for one pass of one resize by the banded
+  kernel, forward or backward (which reads the cotangent and writes the
+  input's gradient: the same bytes): x read once and y written once, beside
+  the float32 operations of its two passes, the H pass (``K_h`` taps for
+  each of ``oh * w`` outputs a channel) and the W pass (``K_w`` for each of
+  ``oh * ow``), ``K`` the band width of the reference's sampling matrix
+  (``reference/resize.py`` ``matrix``).
 """
 
 from __future__ import annotations
 
 from typing import Iterable, List
+
+import numpy as np
+
+from portbench.reference.resize import matrix
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -71,3 +82,25 @@ def k2_layers(convs: Iterable[dict]) -> List[dict]:
     8 and at least 16, W a multiple of 128."""
     return [c for c in convs if c["k"] == 3 and c["cin"] == 64 and c["cout"] == 64
             and c["h"] % 8 == 0 and c["h"] >= 16 and c["w"] % 128 == 0]
+
+
+def band_width(in_size: int, out_size: int, method: str, antialias: bool) -> int:
+    """The fewest columns that hold every row's nonzeros of the resize's
+    sampling matrix, each row's band starting at its first nonzero column
+    or at any later row's, whichever is smaller (the bands start in order)."""
+    nz = matrix(in_size, out_size, method, antialias) != 0
+    has = nz.any(axis=1)
+    first = np.where(has, nz.argmax(axis=1), in_size)
+    last = np.where(has, in_size - 1 - nz[:, ::-1].argmax(axis=1), -1)
+    start = np.minimum.accumulate(first[::-1])[::-1]
+    return int((last - start + 1)[has].max()) if has.any() else 1
+
+
+def resize_bound_ms(r: dict) -> float:
+    """One pass of one resize (``resize_layers`` of a model module)."""
+    kh = band_width(r["h"], r["oh"], r["method"], r["antialias"])
+    kw = band_width(r["w"], r["ow"], r["method"], r["antialias"])
+    moved = (r["n"] * r["h"] * r["w"] + r["n"] * r["oh"] * r["ow"]) * r["c"]
+    return bound_ms(moved * ELEMENT_BYTES[r["dtype"]],
+                    2.0 * r["n"] * r["c"] * (r["oh"] * r["w"] * kh + r["oh"] * r["ow"] * kw),
+                    "float32")

@@ -4,26 +4,18 @@ their gradients, and the degradation of the batch), over the traced window.
 Layer: ops; moves ``train_img_per_s``.
 
 The class: kernels whose name holds ``resize_band``. It reads nothing
-(None) where the program has no such kernel, or its wrapper's launch counter
-(``adunet_torch.kernels.resize_band.resize_band.launches``, read from the
-module the program loaded; nothing is imported here) shows no launch."""
-
-import sys
+(None) where the program has no such kernel, or its launch counter (the
+fifth of ``ctx["launches"]``, ``portbench/program.py``) shows no launch in
+the window."""
 
 from portbench.lib import trace
 
 NAME = "resize_band"
 
 
-def launches() -> int:
-    module = sys.modules.get("adunet_torch.kernels.resize_band")
-    wrapper = getattr(module, "resize_band", None)
-    return int(getattr(wrapper, "launches", 0) or 0)
-
-
 def read(ctx):
-    tr, steps = ctx.get("trace"), ctx.get("steps", 0)
-    if tr is None or steps <= 0 or launches() <= 0:
+    tr, steps, launches = ctx.get("trace"), ctx.get("steps", 0), ctx.get("launches")
+    if tr is None or steps <= 0 or not launches or launches[4] <= 0:
         return None
     seconds = trace.device_seconds(tr, lambda name: NAME in name)
     return seconds * 1e3 / steps if seconds > 0 else None

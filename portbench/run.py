@@ -80,11 +80,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str) ->
     checking for a card: the CPU tests drive this at toy sizes)."""
     import torch
 
-    from portbench import check, serve_cell, train_cell
+    from portbench import catalog, check
     from portbench.lib import trace as tracing
 
-    driver = {"train": train_cell.run, "serve": serve_cell.run}[cell["traffic"]["driver"]]
-    out = driver(cell, seed, seconds, trace, device, log)
+    out = catalog.driver(cell["traffic"])(cell, seed, seconds, trace, device, log)
     numbers = {k: float(v) for k, v in out["numbers"].items() if isinstance(v, (int, float))}
     correct, compared = check.verdict(numbers, cell["limits"].get("numbers", {}))
     if trace:

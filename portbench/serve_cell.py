@@ -1,14 +1,16 @@
 """The serving driver: one run of a ``serve`` traffic mix.
 
-Set-up writes the configuration's serving artifact (the program's
-``save_artifact``, int8 weights, its ``model.pt2`` program) from the seed's
-weights into a directory under ``TMPDIR``, starts the program's HTTP server
-on 127.0.0.1 (an ephemeral port) in this process, and starts the load
-generator (``portbench.clients``) as a process of its own, which warms the
-server up. The window is the load generator's; this process waits for it
-(under the profiler with ``--trace 1``). After it, the server is shut down,
-the program freed, and the reference restores the sampled requests' tiles
-from the same weights, quantized again by its own code.
+Set-up writes the configuration's serving artifact (its model module's
+``save_artifact``, ``portbench/models/``: the flagship's int8 weights and
+``model.pt2`` program) from the seed's weights into a directory under
+``TMPDIR``, starts the program's HTTP server on 127.0.0.1 (an ephemeral
+port) in this process, and starts the load generator
+(``portbench.clients``) as a process of its own, which warms the server
+up. The window is the load generator's; this process waits for it (under
+the profiler with ``--trace 1``). After it, the server is shut down, the
+program freed, and the reference (the model's ``reference_tiles``)
+restores the sampled requests' tiles from the same weights, quantized
+again by its own code.
 """
 
 from __future__ import annotations
@@ -30,26 +32,6 @@ import torch
 
 from portbench import catalog, check, program
 from portbench.lib import inputs, stats, tiles as tile_lib, trace as tracing
-from portbench.reference import quant, sr_unet
-
-
-def reference_tiles(cfg: dict, seed: int, x_u8: np.ndarray, device, tf32: bool = False,
-                    block: int = 8) -> np.ndarray:
-    """The reference's restoration of (N, P, P, 3) uint8 tiles, float32, in
-    blocks of ``block`` tiles; ``tf32`` runs it in TF32 (the control)."""
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
-    try:
-        params = quant.dequantized(inputs.weights(cfg, seed, device))
-        outs = []
-        with torch.no_grad():
-            for s in range(0, len(x_u8), block):
-                x = torch.from_numpy(x_u8[s:s + block]).to(device).to(torch.float32) / 255.0
-                outs.append(sr_unet.forward(params, x, cfg, torch.float32).cpu().numpy())
-        return np.concatenate(outs)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
 
 
 def _read_result(proc) -> tuple:
@@ -69,14 +51,15 @@ def _expect(proc, word: str) -> None:
 
 def run(cell: dict, seed: int, seconds: float, trace: bool, device, log) -> dict:
     cfg, traffic = cell["config"], cell["traffic"]
+    model = catalog.model(cfg)
     cuda = torch.device(device).type == "cuda"
     patch = int(cfg["patch_size"])
     batch = int(cfg["serve"]["batch_size"])
     tmp = tempfile.mkdtemp(prefix="portbench_artifact_")
     server = thread = proc = None
     try:
-        net = program.model(cfg, inputs.weights(cfg, seed, device), cfg["serve"]["dtype"], device)
-        program.save_artifact(net, tmp, cfg)
+        net = model.build(cfg, inputs.weights(cfg, seed, device), cfg["serve"]["dtype"], device)
+        model.save_artifact(net, tmp, cfg)
         del net
         gc.collect()
         server = program.server(tmp, traffic, device)
@@ -136,7 +119,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, log) -> dict
             f"ms, max {late[-1] * 1e3:.3f} ms")
     calls = stats1["device_calls"] - stats0["device_calls"]
     launches = tuple((b - a) / calls for a, b in zip(counts0, counts1)) if calls else None
-    log(f"[launches] K1 / K1 backward / K2 / K2 backward a forward: "
+    log(f"[launches] K1 / K1 backward / K2 / K2 backward / resize a forward: "
         f"{' / '.join(f'{v:g}' for v in launches) if launches else 'no forward'}; "
         f"{calls} forwards, {stats1['batched_rows'] - stats0['batched_rows']} rows")
     log(f"[serve] {len(in_window)} requests in the window, {failed} failed, {answered} tiles "
@@ -157,7 +140,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, log) -> dict
     ids = [rid for rid, _ in meta["kept"]]
     tile_ids = [tile for _, tile in meta["kept"]]
     x = pool[tile_ids] if tile_ids else np.zeros((0, patch, patch, 3), np.uint8)
-    ref = reference_tiles(cfg, seed, x, device) if len(x) else x.astype(np.float32)
+    ref = model.reference_tiles(cfg, seed, x, device) if len(x) else x.astype(np.float32)
     numbers = check.serve_numbers({rid: kept[i] for i, rid in enumerate(ids)},
                                   {rid: ref[i] for i, rid in enumerate(ids)},
                                   check.missing([r[5] for r in records], admitted))
@@ -166,8 +149,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, log) -> dict
 
     window_stats = stats_end or stats1
     ctx = {"trace": tr, "program_batch": batch, "dtype": cfg["serve"]["dtype"],
-           "convs": sr_unet.conv_layers(cfg, 1, patch), "norms": sr_unet.norm_layers(cfg, batch, patch),
-           "convs_batch": sr_unet.conv_layers(cfg, batch, patch),
+           "convs": model.conv_layers(cfg, 1, patch), "norms": model.norm_layers(cfg, batch, patch),
+           "convs_batch": model.conv_layers(cfg, batch, patch),
            "forwards": window_stats["device_calls"] - stats0["device_calls"],
            "rows": window_stats["batched_rows"] - stats0["batched_rows"],
            "tiles": answered, "launches": launches}

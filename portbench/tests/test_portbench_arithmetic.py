@@ -8,7 +8,7 @@ import math
 
 import pytest
 
-from portbench import catalog, check
+from portbench import catalog, check, probe_kernels
 from portbench.lib import stats, trace, work
 from portbench.reference import sr_unet
 
@@ -72,23 +72,59 @@ def test_percentiles():
 
 def test_roofline_readers_refuse_mismatched_launches():
     cfg = catalog.config("sr_flagship")
+    model = catalog.model(cfg)
     tr = trace.Trace(device=[("layer_norm_relu_kernel", 0, 1_000_000),
-                             ("conv3x3_c64_wgmma_kernel", 0, 1_000_000)], start_ns=0,
-                     end_ns=1_000_000)
-    ctx = {"trace": tr, "steps": 1, "convs": sr_unet.conv_layers(cfg, 32, 256),
-           "norms": sr_unet.norm_layers(cfg, 32, 256), "dtype": "bfloat16", "remat": False,
-           "launches": (16, 16, 4, 4)}
+                             ("conv3x3_c64_wgmma_kernel", 0, 1_000_000),
+                             ("void adunet::resize_band_kernel<bf16>", 0, 2_000_000)],
+                     start_ns=0, end_ns=2_000_000)
+    ctx = {"trace": tr, "steps": 1, "convs": model.conv_layers(cfg, 32, 256),
+           "norms": model.norm_layers(cfg, 32, 256), "resizes": model.resize_layers(cfg, 32, 256),
+           "dtype": "bfloat16", "remat": False, "launches": (16, 16, 4, 4, 14)}
     k1, k2 = catalog.metric_reader("k1_roofline.train"), catalog.metric_reader("k2_roofline.train")
+    rs = catalog.metric_reader("resize_band_roofline.train")
     assert k1(ctx) > 0 and k2(ctx) > 0
-    assert k2(dict(ctx, launches=(16, 16, 3, 4))) is None
-    assert k1(dict(ctx, launches=(16, 15, 4, 4))) is None
+    assert k2(dict(ctx, launches=(16, 16, 3, 4, 14))) is None
+    assert k1(dict(ctx, launches=(16, 15, 4, 4, 14))) is None
     assert k1(dict(ctx, remat=True)) is None and k2(dict(ctx, remat=True)) is None
-    assert k1(dict(ctx, remat=True, launches=(32, 16, 8, 4))) > 0
+    assert k1(dict(ctx, remat=True, launches=(32, 16, 8, 4, 14))) > 0
+    # 2 ms of resize kernels a step against the 1.0705 ms bound of 14 launches
+    assert rs(ctx) == pytest.approx(100.0 * 1.0704865 / 2.0)
+    assert rs(dict(ctx, launches=(16, 16, 4, 4, 12))) is None
+    assert rs(dict(ctx, launches=(16, 16, 4, 4, 0))) is None
+    assert rs(dict(ctx, trace=trace.Trace(device=tr.device[:2], start_ns=0, end_ns=1))) is None
+    band = catalog.metric_reader("resize_band_ms.train")
+    assert band(ctx) == pytest.approx(2.0) and band(dict(ctx, launches=(16, 16, 4, 4, 0))) is None
+
+
+@pytest.mark.parametrize("name, launches, bound_ms", [("sr_flagship", 14, 1.070),
+                                                      ("sr_deep", 22, 1.742)])
+def test_resize_bound_of_a_step(name, launches, bound_ms):
+    """The resizes of a step, and their bound, as the port's smoke test lists
+    and sums them (forward and backward; the degradation's forward only)."""
+    cfg = catalog.config(name)
+    layers = catalog.model(cfg).resize_layers(cfg, cfg["train"]["batch_size"], 256)
+    passes = [2 if r["grad"] else 1 for r in layers]
+    assert sum(passes) == launches
+    total = sum(p * work.resize_bound_ms(r) for p, r in zip(passes, layers))
+    assert total == pytest.approx(bound_ms, rel=0.01)
+    # every pass is bound by its bytes: read x once, write y once
+    for r in layers:
+        es = 2 if r["dtype"] == "bfloat16" else 4
+        moved = r["n"] * r["c"] * (r["h"] * r["w"] + r["oh"] * r["ow"]) * es
+        assert work.resize_bound_ms(r) == pytest.approx(moved / 3.35e12 * 1e3)
+
+
+def test_band_width():
+    assert work.band_width(256, 128, "bilinear", True) == 4  # a 2x shrink: 4 taps
+    assert work.band_width(128, 256, "bilinear", True) == 2
+    assert work.band_width(128, 256, "bicubic_cv2", False) == 4
+    assert work.band_width(256, 128, "area", True) == 2
+    assert work.band_width(64, 64, "bilinear", True) == 1  # the identity
 
 
 def test_kernel_classes():
     conv = catalog.metric_module("conv_lib_ms.train").is_library_conv
-    resize = catalog.metric_module("resize_ms.train").is_resize
+    resize = probe_kernels.is_resize
     fprop = "sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_kernel__5x_cudnn"
     sgemm = "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x64x8_execute_kernel__5x_cublas"
     assert conv(fprop) and not resize(fprop)

@@ -10,9 +10,8 @@ from __future__ import annotations
 import pytest
 import torch
 
-from portbench import catalog, check, serve_cell, train_cell
+from portbench import catalog, check, train_cell
 from portbench.lib import inputs, tiles
-from portbench.reference import sr_unet
 from portbench.tests.toy import toy_config
 
 SEEDS = (2_147_483_801, 2_147_483_802, 2_147_483_803)
@@ -30,7 +29,7 @@ def _train_control(cfg: dict, seed: int, device, corpus=(8, 64, 64)) -> bool:
     steps = catalog.traffic("train_cache")["checked_steps"]
     ref = train_cell.reference_readings(cfg, seed, images, steps, device)
     control = train_cell.reference_readings(cfg, seed, images, steps, device,
-                                            quant=sr_unet.fp8_e4m3)
+                                            quant=catalog.model(cfg).control_quant)
     limits = catalog.limits("sr_flagship.train")["numbers"]
     correct, _ = check.verdict(check.train_numbers(control, ref), limits)
     return correct
@@ -53,9 +52,10 @@ def test_fp8_control_fails_the_train_limits(cuda, seed):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_tf32_control_fails_the_serve_limits(cuda, seed):
     cfg = catalog.config("sr_flagship")
+    model = catalog.model(cfg)
     x = tiles.pool(seed, 8, int(cfg["patch_size"]))
-    ref = serve_cell.reference_tiles(cfg, seed, x, cuda)
-    tf32 = serve_cell.reference_tiles(cfg, seed, x, cuda, tf32=True)
+    ref = model.reference_tiles(cfg, seed, x, cuda)
+    tf32 = model.reference_tiles(cfg, seed, x, cuda, tf32=True)
     numbers = {"tile_gap": float(abs(tf32 - ref).max()), "missing": 0}
     for workload in ("sr_flagship.serve_bulk", "sr_flagship.serve_open"):
         correct, _ = check.verdict(numbers, catalog.limits(workload)["numbers"])
