@@ -22,11 +22,13 @@ __device__ __forceinline__ unsigned word(const uint4& u, int j) {
 // `unpack(u, i)`: element i of a 16-byte vector of raw storage words (4
 // float32 or 8 bf16, as `*(const uint4*)p` loads them), as float32. A kernel
 // that keeps its row as raw words holds bf16 in half the registers, and the
-// conversion at each use is exact.
+// conversion at each use is exact. `round(f)`: f rounded to the storage type,
+// as float32.
 struct F32 {
   using storage = float;
   __device__ __forceinline__ static float to_f(float v) { return v; }
   __device__ __forceinline__ static float from_f(float v) { return v; }
+  __device__ __forceinline__ static float round(float v) { return v; }
   __device__ __forceinline__ static float unpack(const uint4& u, int i) {
     return __uint_as_float(word(u, i));
   }
@@ -40,6 +42,7 @@ struct BF16 {
   __device__ __forceinline__ static unsigned short from_f(float f) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(f));
   }
+  __device__ __forceinline__ static float round(float f) { return to_f(from_f(f)); }
   __device__ __forceinline__ static float unpack(const uint4& u, int i) {
     const unsigned w = word(u, i >> 1);  // element 2j is the low half of word j
     return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));

@@ -19,6 +19,13 @@
 // written once. The reductions are butterflies over lane offsets below L,
 // which never cross from one row's lanes to another's; C is a compile-time
 // constant (16..2048), so the loops fully unroll.
+//
+// Conv bias (the `kBias` instantiations): where x is a library conv's output
+// left without its bias, the kernel adds the bias (in x's type, as the conv
+// would have taken it) to each 16-byte vector as it loads it (`plus_bias`),
+// bit for bit as PyTorch's add after the conv did, and the backward sums dx
+// over the rows as the bias's gradient. The conv's output is then read once,
+// by this kernel, instead of a broadcast add's read and write first.
 #include "common.cuh"
 
 namespace adunet {
@@ -86,11 +93,38 @@ __device__ __forceinline__ void row_stats(const At& at, float eps, float& mean, 
   rstd = rsqrtf(row_sum<L>(q) / C + eps);
 }
 
-template <typename Tr, int V, int K, int L>
+// A 16-byte vector of x's raw storage words plus the same vector of the
+// bias's, element by element, as raw words: PyTorch's add of two tensors of
+// x's type, the sum taken in float32 and rounded once to that type. In bf16
+// that is one rounded bf16 add (`__hadd2`, two elements an instruction):
+// where the two exponents differ by 15 or less the float32 sum is exact, and
+// beyond that the smaller term lies within a quarter ulp of the larger, so
+// both round to the larger. The forward and the backward kernel both add
+// the bias by it, so the backward recomputes the forward's row bit for bit.
+template <typename Tr>
+__device__ __forceinline__ uint4 plus_bias(const uint4& w, const uint4& b) {
+  uint4 out;
+  unsigned* const o = reinterpret_cast<unsigned*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (sizeof(typename Tr::storage) == 4) {
+      o[j] = __float_as_uint(__uint_as_float(word(w, j)) + __uint_as_float(word(b, j)));
+    } else {  // two bf16 a word
+      const unsigned wj = word(w, j), bj = word(b, j);
+      const __nv_bfloat162 s = __hadd2(reinterpret_cast<const __nv_bfloat162&>(wj),
+                                       reinterpret_cast<const __nv_bfloat162&>(bj));
+      o[j] = reinterpret_cast<const unsigned&>(s);
+    }
+  }
+  return out;
+}
+
+template <typename Tr, int V, int K, int L, bool kBias>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 layer_norm_relu_kernel(const typename Tr::storage* __restrict__ x,
                        const float* __restrict__ gamma,
                        const float* __restrict__ beta,
+                       const typename Tr::storage* __restrict__ bias,  // kBias: (C,)
                        typename Tr::storage* __restrict__ y,
                        long long rows, float eps) {
   constexpr int C = L * V * K;
@@ -109,7 +143,15 @@ layer_norm_relu_kernel(const typename Tr::storage* __restrict__ x,
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     if (live) {
-      load_vec<Tr, V>(x + row * C + (k * L + sub) * V, v[k]);
+      const int c0 = (k * L + sub) * V;
+      if constexpr (kBias) {
+        const uint4 w = plus_bias<Tr>(*reinterpret_cast<const uint4*>(x + row * C + c0),
+                                      *reinterpret_cast<const uint4*>(bias + c0));
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[k][i] = Tr::unpack(w, i);
+      } else {
+        load_vec<Tr, V>(x + row * C + c0, v[k]);
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < V; ++i) v[k][i] = 0.f;
@@ -133,29 +175,31 @@ layer_norm_relu_kernel(const typename Tr::storage* __restrict__ x,
   }
 }
 
-template <typename Tr, int C>
-void launch(const void* x, const void* gamma, const void* beta, void* y, long long rows,
-            float eps, cudaStream_t stream) {
+template <typename Tr, int C, bool kBias>
+void launch(const void* x, const void* gamma, const void* beta, const void* bias, void* y,
+            long long rows, float eps, cudaStream_t stream) {
   using Sp = RowSplit<typename Tr::storage, C>;
   constexpr long long kRowsPerBlock = kWarpsPerBlock * (32 / Sp::L);
   const unsigned blocks = static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  layer_norm_relu_kernel<Tr, Sp::V, Sp::K, Sp::L><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const typename Tr::storage*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<typename Tr::storage*>(y), rows, eps);
+  layer_norm_relu_kernel<Tr, Sp::V, Sp::K, Sp::L, kBias>
+      <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+          static_cast<const typename Tr::storage*>(x), static_cast<const float*>(gamma),
+          static_cast<const float*>(beta), static_cast<const typename Tr::storage*>(bias),
+          static_cast<typename Tr::storage*>(y), rows, eps);
 }
 
-template <typename Tr>
-cudaError_t dispatch(const void* x, const void* gamma, const void* beta, void* y, long long rows,
-                     int C, float eps, cudaStream_t stream) {
+template <typename Tr, bool kBias>
+cudaError_t dispatch(const void* x, const void* gamma, const void* beta, const void* bias,
+                     void* y, long long rows, int C, float eps, cudaStream_t stream) {
   switch (C) {
-    case 16: launch<Tr, 16>(x, gamma, beta, y, rows, eps, stream); break;
-    case 32: launch<Tr, 32>(x, gamma, beta, y, rows, eps, stream); break;
-    case 64: launch<Tr, 64>(x, gamma, beta, y, rows, eps, stream); break;
-    case 128: launch<Tr, 128>(x, gamma, beta, y, rows, eps, stream); break;
-    case 256: launch<Tr, 256>(x, gamma, beta, y, rows, eps, stream); break;
-    case 512: launch<Tr, 512>(x, gamma, beta, y, rows, eps, stream); break;
-    case 1024: launch<Tr, 1024>(x, gamma, beta, y, rows, eps, stream); break;
-    case 2048: launch<Tr, 2048>(x, gamma, beta, y, rows, eps, stream); break;
+    case 16: launch<Tr, 16, kBias>(x, gamma, beta, bias, y, rows, eps, stream); break;
+    case 32: launch<Tr, 32, kBias>(x, gamma, beta, bias, y, rows, eps, stream); break;
+    case 64: launch<Tr, 64, kBias>(x, gamma, beta, bias, y, rows, eps, stream); break;
+    case 128: launch<Tr, 128, kBias>(x, gamma, beta, bias, y, rows, eps, stream); break;
+    case 256: launch<Tr, 256, kBias>(x, gamma, beta, bias, y, rows, eps, stream); break;
+    case 512: launch<Tr, 512, kBias>(x, gamma, beta, bias, y, rows, eps, stream); break;
+    case 1024: launch<Tr, 1024, kBias>(x, gamma, beta, bias, y, rows, eps, stream); break;
+    case 2048: launch<Tr, 2048, kBias>(x, gamma, beta, bias, y, rows, eps, stream); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -168,11 +212,14 @@ cudaError_t dispatch(const void* x, const void* gamma, const void* beta, void* y
 // output cotangent g it recomputes mean and rstd, xhat and pre = xhat*gamma +
 // beta in float32, masks gm = g * (pre > 0), and writes
 //   dx     = rstd * (gm*gamma - mean(gm*gamma) - xhat * mean(gm*gamma*xhat)),
-//   dgamma = sum over rows of gm*xhat,   dbeta = sum over rows of gm.
+//   dgamma = sum over rows of gm*xhat,   dbeta = sum over rows of gm,
+// and (kBias) dbias = sum over rows of dx as stored, rounded to x's type:
+// the conv bias's gradient, x being the conv's output before its bias
+// (`plus_bias`).
 //
 // Bound on an H100: bytes. x and g are read once and dx written once, 3 *
 // sizeof(T) bytes per element (0.805 GB, 0.24 ms, at 2,097,152 x 64 bf16);
-// the (2, C) parameter sums are noise beside that.
+// the (2, C) or (3, C) parameter sums are noise beside that.
 //
 // Design: the forward's split (`RowSplit`) and its statistics code
 // (`row_stats`), so the ReLU mask is the forward kernel's bit for bit. A warp
@@ -181,41 +228,53 @@ cudaError_t dispatch(const void* x, const void* gamma, const void* beta, void* y
 // to cover the memory latency; then three passes over the registers: the
 // statistics, the mask with the dgamma / dbeta terms and the two row means,
 // and dx, each recomputing xhat and the mask from the raw words rather than
-// holding them as float32.
-// dgamma / dbeta are a deterministic two-level sum without atomics. Each lane
+// holding them as float32. With a conv bias, each vector of x's raw words
+// has the bias added once (`plus_bias`) after the loads, so the passes
+// read the forward's row as they would without one; dbias's terms are added
+// in the dx pass.
+// dgamma / dbeta (and dbias) are a deterministic two-level sum without atomics. Each lane
 // owns its columns' partial sums over the rows its warp walks (a grid-stride
 // loop over a grid sized to the blocks that fit on the card at once):
-//  - C <= 512: in registers, with gamma / beta held there too; a narrow-row
-//    warp adds its 32 / L row groups' partials by a butterfly in a fixed
-//    order at the end, and each warp writes its sums to its own slice of
-//    shared memory;
+//  - C <= 512 (C <= 256 with a bias): in registers, with gamma / beta held
+//    there too; a narrow-row warp adds its 32 / L row groups' partials by a
+//    butterfly in a fixed order at the end, and each warp writes its sums to
+//    its own slice of shared memory;
 //  - C >= 1024 (32 or more columns per lane, which would not fit in
-//    registers beside the row): in the warp's own [2][C] float32 slice of
-//    shared memory, laid out lane-major so a lane's float4 read-modify-write
+//    registers beside the row), and C = 512 with a bias (whose third sum in
+//    registers took 164 of them, so one block an SM, and a third more time):
+//    in the warp's own [2][C] ([3][C] with a bias) float32 slice of shared
+//    memory, laid out lane-major so a lane's float4 read-modify-write
 //    is free of bank conflicts, with gamma / beta staged in shared memory in
 //    the same layout. The R rows' terms are added in registers first, so a
 //    slot is read and written once per R rows. A block's slices and
-//    parameters take 72 KB at C = 1024 and 144 KB at C = 2048, so one or two
-//    blocks fit on an SM with the registers the row takes: 8 or 16 warps,
+//    parameters take 72 KB at C = 1024 and 144 KB at C = 2048 (104 and 208
+//    KB with a bias), so one or two blocks fit on an SM with the registers
+//    the row takes: 8 or 16 warps,
 //    each with a whole row of x and g in flight. (The same sums in registers
 //    took all 255 and spilled 824-880 bytes of stack a lane at C = 2048.)
 // The block then adds its warps' slices in warp order (one barrier) and
-// writes one (2, C) partial; a second small kernel adds the blocks' partials
+// writes one (2, C) or (3, C) partial; a second small kernel adds the blocks' partials
 // in a fixed order. The caller's scratch holds kBwdMaxBlocksPerSm partials
 // per SM (`bwd_max_blocks`), the most the grid can have.
 
-template <typename Tr, int C>
+template <typename Tr, int C, bool kBias>
 struct BwdShape {
   using Sp = RowSplit<typename Tr::storage, C>;
+  static constexpr int NS = kBias ? 3 : 2;  // column sums: dgamma, dbeta (, dbias)
   static constexpr int V = Sp::V, K = Sp::K, L = Sp::L;
   static constexpr int G = 32 / L;  // rows per warp in one row slot
   static constexpr int H = V / 4;   // float4 groups per vector
-  static constexpr bool kShared = K * V >= 32;  // the partials live in shared memory
+  // the partials live in shared memory (above)
+  static constexpr bool kShared = K * V >= (kBias ? 16 : 32);
   // row slots in flight: two where a lane's registers hold both beside the
   // rest (its raw words of x and g; at C <= 512 its parameters and partials)
   static constexpr int R = (kShared ? K <= 4 : K == 1) ? 2 : 1;
-  // the warps' [2][C] slices, then (kShared) gamma and beta
-  static constexpr int kSmemBytes = (kWarpsPerBlock * 2 * C + (kShared ? 2 * C : 0)) * 4;
+  // the warps' [NS][C] slices, then (kShared) gamma and beta
+  static constexpr int kSmemBytes = (kWarpsPerBlock * NS * C + (kShared ? 2 * C : 0)) * 4;
+  // __launch_bounds__'s blocks an SM (0: none, ptxas's own register
+  // target). With a bias at C = 256 in float32 that target (80 registers)
+  // spilled 4 bytes; two blocks an SM let it take 96 and spill none.
+  static constexpr int kMinBlocks = kBias && V == 4 && C == 256 ? 2 : 0;
 };
 
 // gamma and beta of a lane's vector k, float4 group h: from the staged copy
@@ -235,17 +294,18 @@ __device__ __forceinline__ void lane_params(const float4* s_ga, const float4* s_
   }
 }
 
-template <typename Tr, int C>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <typename Tr, int C, bool kBias>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, (BwdShape<Tr, C, kBias>::kMinBlocks))
 layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
                                 const typename Tr::storage* __restrict__ g,
                                 const float* __restrict__ gamma,
                                 const float* __restrict__ beta,
+                                const typename Tr::storage* __restrict__ bias,  // kBias
                                 typename Tr::storage* __restrict__ dx,
-                                float* __restrict__ partial,  // [gridDim.x][2][C]
+                                float* __restrict__ partial,  // [gridDim.x][NS][C]
                                 long long rows, float eps) {
-  using B = BwdShape<Tr, C>;
-  constexpr int V = B::V, K = B::K, L = B::L, G = B::G, H = B::H, R = B::R;
+  using B = BwdShape<Tr, C, kBias>;
+  constexpr int V = B::V, K = B::K, L = B::L, G = B::G, H = B::H, R = B::R, NS = B::NS;
   constexpr int W = kWarpsPerBlock;
   constexpr bool kShared = B::kShared;
   constexpr int C4 = C / 4;  // float4 slots of one [C] row of a slice
@@ -258,18 +318,21 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
   // kShared: this warp's partial slots and the staged parameters, slot
   // (k, h) of lane l at (k * H + h) * 32 + l, holding columns
   // (k * 32 + l) * V + 4h .. + 3
-  float4* const s_pg = smem + warp * 2 * C4;
+  float4* const s_pg = smem + warp * NS * C4;
   float4* const s_pb = s_pg + C4;
-  float4* const s_ga = smem + W * 2 * C4;
+  float4* const s_pd = s_pb + C4;  // kBias
+  float4* const s_ga = smem + W * NS * C4;
   float4* const s_be = s_ga + C4;
   // otherwise: this lane's parameters and partial sums in registers
   constexpr int KR = kShared ? 1 : K;
-  float ga[KR][V], be[KR][V], pg[KR][V], pb[KR][V];
+  float ga[KR][V], be[KR][V], pg[KR][V], pb[KR][V], pd[KR][V];
 
   if constexpr (kShared) {
 #pragma unroll
-    for (int j = 0; j < K * H; ++j)
+    for (int j = 0; j < K * H; ++j) {
       s_pg[j * 32 + lane] = s_pb[j * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kBias) s_pd[j * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
     for (int j = threadIdx.x; j < C4; j += W * 32) {
       const int c = ((j / 32 / H) * 32 + j % 32) * V + (j / 32 % H) * 4;
       s_ga[j] = *reinterpret_cast<const float4*>(gamma + c);
@@ -283,7 +346,7 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
       load_vec<F32, V>(gamma + c0, ga[k]);
       load_vec<F32, V>(beta + c0, be[k]);
 #pragma unroll
-      for (int i = 0; i < V; ++i) pg[k][i] = pb[k][i] = 0.f;
+      for (int i = 0; i < V; ++i) pg[k][i] = pb[k][i] = pd[k][i] = 0.f;
     }
   }
 
@@ -304,6 +367,16 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
           xr[r][k] = gr[r][k] = make_uint4(0u, 0u, 0u, 0u);
         }
       }
+    }
+    if constexpr (kBias) {
+      // the forward's row; one past the end keeps its zero cotangent, so
+      // its dx is 0 and it still adds 0 to every sum
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          xr[r][k] = plus_bias<Tr>(xr[r][k],
+                                   *reinterpret_cast<const uint4*>(bias + (k * L + sub) * V));
     }
 
     float mean[R], rstd[R], s1[R], s2[R];
@@ -354,13 +427,13 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
       mgx[r] = row_sum<L>(s2[r]) / C;
     }
 
-    // dx
+    // dx, and (kBias) the dbias terms: dx as stored
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       float o[R][V];
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        float gam[4], bet[4];
+        float gam[4], bet[4], td[4] = {0.f, 0.f, 0.f, 0.f};
         lane_params<kShared, KR, V, H>(s_ga, s_be, ga, be, k, h, lane, gam, bet);
 #pragma unroll
         for (int r = 0; r < R; ++r)
@@ -371,7 +444,20 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
             const float pre = xh * gam[e] + bet[e];
             const float gg = (pre > 0.f ? Tr::unpack(gr[r][k], i) : 0.f) * gam[e];
             o[r][i] = (gg - mg[r] - xh * mgx[r]) * rstd[r];
+            if constexpr (kBias) {
+              if constexpr (kShared) {
+                td[e] += Tr::round(o[r][i]);
+              } else {
+                pd[k][i] += Tr::round(o[r][i]);
+              }
+            }
           }
+        if constexpr (kBias && kShared) {
+          const int j = (k * H + h) * 32 + lane;
+          float4 d = s_pd[j];
+          d.x += td[0], d.y += td[1], d.z += td[2], d.w += td[3];
+          s_pd[j] = d;
+        }
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -381,14 +467,14 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
     }
   }
 
-  float* const out = partial + static_cast<size_t>(blockIdx.x) * 2 * C;
+  float* const out = partial + static_cast<size_t>(blockIdx.x) * NS * C;
   if constexpr (kShared) {
     __syncthreads();
-    for (int j = threadIdx.x; j < 2 * C4; j += W * 32) {  // in warp order: the same every run
+    for (int j = threadIdx.x; j < NS * C4; j += W * 32) {  // in warp order: the same every run
       float4 t = smem[j];
 #pragma unroll
       for (int w = 1; w < W; ++w) {
-        const float4 u = smem[w * 2 * C4 + j];
+        const float4 u = smem[w * NS * C4 + j];
         t.x += u.x, t.y += u.y, t.z += u.z, t.w += u.w;
       }
       const int jj = j % C4;
@@ -406,8 +492,9 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
         for (int i = 0; i < V; ++i) {
           pg[k][i] += __shfl_xor_sync(0xffffffffu, pg[k][i], o);
           pb[k][i] += __shfl_xor_sync(0xffffffffu, pb[k][i], o);
+          if constexpr (kBias) pd[k][i] += __shfl_xor_sync(0xffffffffu, pd[k][i], o);
         }
-    float* const slice = reinterpret_cast<float*>(smem) + warp * 2 * C;
+    float* const slice = reinterpret_cast<float*>(smem) + warp * NS * C;
     if (grp == 0) {
 #pragma unroll
       for (int k = 0; k < K; ++k)
@@ -415,32 +502,42 @@ layer_norm_relu_bwd_rows_kernel(const typename Tr::storage* __restrict__ x,
         for (int i = 0; i < V; ++i) {
           slice[(k * L + sub) * V + i] = pg[k][i];
           slice[C + (k * L + sub) * V + i] = pb[k][i];
+          if constexpr (kBias) slice[2 * C + (k * L + sub) * V + i] = pd[k][i];
         }
     }
     __syncthreads();
     const float* const all = reinterpret_cast<const float*>(smem);
-    for (int j = threadIdx.x; j < 2 * C; j += W * 32) {  // in warp order
+    for (int j = threadIdx.x; j < NS * C; j += W * 32) {  // in warp order
       float t = all[j];
 #pragma unroll
-      for (int w = 1; w < W; ++w) t += all[w * 2 * C + j];
+      for (int w = 1; w < W; ++w) t += all[w * NS * C + j];
       out[j] = t;
     }
   }
 }
 
-// dgamma / dbeta: the column sums of the blocks' (2, C) partials, in a fixed
-// order (`column_sum`, common.cuh).
+// dgamma / dbeta (/ dbias): the column sums of the blocks' (NS, C) partials,
+// in a fixed order (`column_sum`, common.cuh): dgamma / dbeta to `out` in
+// float32, dbias to `dbias` in the storage type, as the conv's bias
+// gradient was.
+template <typename Tr>
 __global__ void __launch_bounds__(32 * kColSlices)
-layer_norm_relu_bwd_cols_kernel(const float* __restrict__ partial, int n_parts, int width,
-                                float* __restrict__ out) {
-  column_sum(partial, n_parts, width, 0, width, [out](int j, float v) { out[j] = v; });
+layer_norm_relu_bwd_cols_kernel(const float* __restrict__ partial, int n_parts, int C, int width,
+                                float* __restrict__ out, typename Tr::storage* __restrict__ dbias) {
+  column_sum(partial, n_parts, width, 0, width, [out, dbias, C](int j, float v) {
+    if (j < 2 * C) {
+      out[j] = v;
+    } else {
+      dbias[j - 2 * C] = Tr::from_f(v);
+    }
+  });
 }
 
 // The backward's grid holds at most this many blocks per SM (fewer where
-// fewer fit), so its scratch holds this many (2, C) partials per SM.
+// fewer fit), so its scratch holds this many (NS, C) partials per SM.
 constexpr int kBwdMaxBlocksPerSm = 8;
 
-// The number of (2, C) partials the backward's scratch must hold on the
+// The number of (NS, C) partials the backward's scratch must hold on the
 // current device: the most blocks its grid can have.
 cudaError_t bwd_max_blocks(int* blocks) {
   int dev = 0, sms = 0;
@@ -449,14 +546,14 @@ cudaError_t bwd_max_blocks(int* blocks) {
   return e;
 }
 
-template <typename Tr, int C>
+template <typename Tr, int C, bool kBias>
 cudaError_t launch_bwd(const void* x, const void* g, const void* gamma, const void* beta,
-                       void* dx, void* dparams, void* partial, long long rows, float eps,
-                       cudaStream_t stream) {
+                       const void* bias, void* dx, void* dparams, void* dbias, void* partial,
+                       long long rows, float eps, cudaStream_t stream) {
   using S = typename Tr::storage;
-  using B = BwdShape<Tr, C>;
-  void (*const kernel)(const S*, const S*, const float*, const float*, S*, float*, long long,
-                       float) = layer_norm_relu_bwd_rows_kernel<Tr, C>;
+  using B = BwdShape<Tr, C, kBias>;
+  void (*const kernel)(const S*, const S*, const float*, const float*, const S*, S*, float*,
+                       long long, float) = layer_norm_relu_bwd_rows_kernel<Tr, C, kBias>;
   // blocks of this kernel that fit on one SM at once, per device (0: not yet asked)
   static int per_sm[kMaxDevices] = {};
   int dev = 0, sms = 0;
@@ -477,23 +574,25 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* gamma, const vo
   const int blocks = static_cast<int>(want < fit ? want : fit);
   kernel<<<blocks, kWarpsPerBlock * 32, B::kSmemBytes, stream>>>(
       static_cast<const S*>(x), static_cast<const S*>(g), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<S*>(dx), static_cast<float*>(partial), rows,
-      eps);
+      static_cast<const float*>(beta), static_cast<const S*>(bias), static_cast<S*>(dx),
+      static_cast<float*>(partial), rows, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  layer_norm_relu_bwd_cols_kernel<<<(2 * C + 31) / 32, 32 * kColSlices, 0, stream>>>(
-      static_cast<const float*>(partial), blocks, 2 * C, static_cast<float*>(dparams));
+  layer_norm_relu_bwd_cols_kernel<Tr><<<(B::NS * C + 31) / 32, 32 * kColSlices, 0, stream>>>(
+      static_cast<const float*>(partial), blocks, C, B::NS * C, static_cast<float*>(dparams),
+      static_cast<S*>(dbias));
   return cudaGetLastError();
 }
 
-template <typename Tr>
+template <typename Tr, bool kBias>
 cudaError_t dispatch_bwd(const void* x, const void* g, const void* gamma, const void* beta,
-                         void* dx, void* dparams, void* partial, long long rows, int C, float eps,
-                         cudaStream_t stream) {
+                         const void* bias, void* dx, void* dparams, void* dbias, void* partial,
+                         long long rows, int C, float eps, cudaStream_t stream) {
   switch (C) {
-#define ADUNET_BWD_CASE(c) \
-  case c:                  \
-    return launch_bwd<Tr, c>(x, g, gamma, beta, dx, dparams, partial, rows, eps, stream);
+#define ADUNET_BWD_CASE(c)                                                                   \
+  case c:                                                                                    \
+    return launch_bwd<Tr, c, kBias>(x, g, gamma, beta, bias, dx, dparams, dbias, partial, rows, \
+                                    eps, stream);
     ADUNET_BWD_CASE(16)
     ADUNET_BWD_CASE(32)
     ADUNET_BWD_CASE(64)
@@ -519,47 +618,58 @@ extern "C" int adunet_layer_norm_relu_backward_partials(void* n) {
 }
 
 // x, g (the output cotangent), dx: contiguous (rows, C) of `dtype` (0
-// float32, 1 bf16); gamma, beta: float32 (C,); dparams: float32 (2, C) out,
-// dgamma then dbeta; partial: float32 scratch of
-// (adunet_layer_norm_relu_backward_partials(), 2, C) (the wrapper takes both
-// from one allocation). All pointers 16-byte aligned, on CUDA device
-// `device`, which the call makes current if it is not. Returns the launches'
-// CUDA error.
+// float32, 1 bf16); gamma, beta: float32 (C,); bias: the conv's (C,) of
+// `dtype` that x is to have added (the forward's `bias`), or null; dparams:
+// float32 (2, C) out, dgamma then dbeta; dbias: (C,) of `dtype` out, the
+// bias's gradient (with a bias); partial: float32 scratch of
+// (adunet_layer_norm_relu_backward_partials(), NS, C), NS = 2, or 3 with a
+// bias (the wrapper takes dparams and partial from one allocation). All
+// pointers 16-byte aligned, on CUDA device `device`, which the call makes
+// current if it is not. Returns the launches' CUDA error.
 extern "C" int adunet_layer_norm_relu_backward(const void* x, const void* g, const void* gamma,
-                                               const void* beta, void* dx, void* dparams,
-                                               void* partial, long long rows, int C, float eps,
-                                               int dtype, int device, void* stream) {
+                                               const void* beta, const void* bias, void* dx,
+                                               void* dparams, void* dbias, void* partial,
+                                               long long rows, int C, float eps, int dtype,
+                                               int device, void* stream) {
   if (rows <= 0) return cudaErrorInvalidValue;
   const adunet::DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return scope.error();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case adunet::kFloat32:
-      return adunet::dispatch_bwd<adunet::F32>(x, g, gamma, beta, dx, dparams, partial, rows, C,
-                                               eps, st);
-    case adunet::kBFloat16:
-      return adunet::dispatch_bwd<adunet::BF16>(x, g, gamma, beta, dx, dparams, partial, rows, C,
-                                                eps, st);
+#define ADUNET_BWD_DTYPE(code, Tr)                                                            \
+  case code:                                                                                  \
+    return bias ? adunet::dispatch_bwd<Tr, true>(x, g, gamma, beta, bias, dx, dparams, dbias, \
+                                                 partial, rows, C, eps, st)                   \
+                : adunet::dispatch_bwd<Tr, false>(x, g, gamma, beta, bias, dx, dparams,       \
+                                                  dbias, partial, rows, C, eps, st);
+    ADUNET_BWD_DTYPE(adunet::kFloat32, adunet::F32)
+    ADUNET_BWD_DTYPE(adunet::kBFloat16, adunet::BF16)
+#undef ADUNET_BWD_DTYPE
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // x, y: contiguous (rows, C) of `dtype` (0 float32, 1 bf16); gamma, beta:
-// float32 (C,). All pointers 16-byte aligned, on CUDA device `device`, which
-// the call makes current if it is not. Returns the launch's CUDA error.
-extern "C" int adunet_layer_norm_relu(const void* x, const void* gamma, const void* beta, void* y,
-                                      long long rows, int C, float eps, int dtype, int device,
-                                      void* stream) {
+// float32 (C,); bias: a conv's (C,) of `dtype` to add to x first
+// (`plus_bias`), or null. All pointers 16-byte aligned, on CUDA device
+// `device`, which the call makes current if it is not. Returns the launch's
+// CUDA error.
+extern "C" int adunet_layer_norm_relu(const void* x, const void* gamma, const void* beta,
+                                      const void* bias, void* y, long long rows, int C,
+                                      float eps, int dtype, int device, void* stream) {
   if (rows <= 0) return cudaErrorInvalidValue;
   const adunet::DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return scope.error();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case adunet::kFloat32:
-      return adunet::dispatch<adunet::F32>(x, gamma, beta, y, rows, C, eps, st);
-    case adunet::kBFloat16:
-      return adunet::dispatch<adunet::BF16>(x, gamma, beta, y, rows, C, eps, st);
+#define ADUNET_FWD_DTYPE(code, Tr)                                                          \
+  case code:                                                                                \
+    return bias ? adunet::dispatch<Tr, true>(x, gamma, beta, bias, y, rows, C, eps, st)     \
+                : adunet::dispatch<Tr, false>(x, gamma, beta, bias, y, rows, C, eps, st);
+    ADUNET_FWD_DTYPE(adunet::kFloat32, adunet::F32)
+    ADUNET_FWD_DTYPE(adunet::kBFloat16, adunet::BF16)
+#undef ADUNET_FWD_DTYPE
     default:
       return cudaErrorInvalidValue;
   }

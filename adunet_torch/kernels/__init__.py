@@ -31,9 +31,22 @@ _COUNTERS = (
 )
 
 
+# K1's forward and backward launches that took a conv's bias: kept out of
+# ``_COUNTERS``, whose seven ``all_launch_counts`` gives and callers unpack
+_BIAS_COUNTERS = (
+    (layer_norm_relu, "bias_launches"),
+    (layer_norm_relu, "bias_backward_launches"),
+)
+
+
 def all_launch_counts() -> tuple:
     """Every launch counter, in ``_COUNTERS``' order."""
     return tuple(getattr(fn, name) for fn, name in _COUNTERS)
+
+
+def bias_launch_counts() -> tuple:
+    """K1's forward and backward launches that took a conv's bias."""
+    return tuple(getattr(fn, name) for fn, name in _BIAS_COUNTERS)
 
 
 def launch_counts() -> tuple:
@@ -43,15 +56,17 @@ def launch_counts() -> tuple:
 
 
 def add_launches(counts: tuple) -> None:
-    """Add ``counts`` (in ``all_launch_counts``' order) to the counters: a
-    CUDA graph's replay launches the kernels its capture counted, without
-    their wrappers."""
-    for (fn, name), n in zip(_COUNTERS, counts):
+    """Add ``counts`` (in the order of ``all_launch_counts() +
+    bias_launch_counts()``; a shorter tuple adds to the first counters) to
+    the counters: a CUDA graph's replay launches the kernels its capture
+    counted, without their wrappers."""
+    for (fn, name), n in zip(_COUNTERS + _BIAS_COUNTERS, counts):
         setattr(fn, name, getattr(fn, name) + n)
 
 __all__ = [
     "add_launches",
     "all_launch_counts",
+    "bias_launch_counts",
     "launch_counts",
     "layer_norm_relu",
     "layer_norm_relu_plain",

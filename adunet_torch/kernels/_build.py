@@ -91,10 +91,10 @@ def _build(out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
-    lib.adunet_layer_norm_relu.argtypes = [_P, _P, _P, _P, ctypes.c_longlong, i,
+    lib.adunet_layer_norm_relu.argtypes = [_P, _P, _P, _P, _P, ctypes.c_longlong, i,
                                            ctypes.c_float, i, i, _P]
     lib.adunet_layer_norm_relu.restype = i
-    lib.adunet_layer_norm_relu_backward.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+    lib.adunet_layer_norm_relu_backward.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                                     ctypes.c_longlong, i, ctypes.c_float, i, i, _P]
     lib.adunet_layer_norm_relu_backward.restype = i
     lib.adunet_layer_norm_relu_backward_partials.argtypes = [_P]

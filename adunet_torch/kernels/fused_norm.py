@@ -21,6 +21,15 @@ sized to the blocks that fit on the card. Its bound is bytes too: read x
 and the cotangent, write dx, e.g. ~0.24 ms at 2,097,152 x 64 bf16.
 ``layer_norm_relu_backward`` is its plain version.
 
+Conv bias: ``conv_bias``, the bias of a library conv whose output x is (the
+conv ran without it: ``nn.blocks.ConvBlock``, which passes the bias cast to
+x's type as the conv took it), is added by the kernels to each element as
+they read it, as PyTorch's add after the conv did: the sum rounded once to
+x's type. The backward returns its gradient too, dx summed over the rows as
+stored (float32 sums rounded to x's type, as the conv's bias sum gave it).
+So a library conv's output is read once, by K1, with no broadcast add before
+it and no bias sum beside the backward.
+
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version below, a CUDA tensor launches the kernel or raises. There is no
 fallback from a failed launch.
@@ -50,14 +59,22 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def _plus_bias(x: torch.Tensor, conv_bias: torch.Tensor | None) -> torch.Tensor:
+    """x + conv_bias as a conv's bias add computes it: the bias cast to x's
+    type, one rounding of the sum to x's type; x where there is no bias."""
+    return x if conv_bias is None else x + conv_bias.to(x.dtype)
+
+
 def layer_norm_relu_plain(
-    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-3
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-3,
+    conv_bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain version: float32 statistics over the last axis, affine,
     ReLU, cast back to x.dtype — the recipe of the reference's
-    ``layer_norm_relu_reference`` (``adunet/kernels/fused_norm.py:26``)."""
+    ``layer_norm_relu_reference`` (``adunet/kernels/fused_norm.py:26``) —
+    of x plus ``conv_bias`` where one is given (``_plus_bias``)."""
     acc = _acc_dtype(x.dtype)
-    xf = x.to(acc)
+    xf = _plus_bias(x, conv_bias).to(acc)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
@@ -65,17 +82,20 @@ def layer_norm_relu_plain(
     return torch.relu(y).to(x.dtype)
 
 
-def layer_norm_relu_backward(x, gamma, beta, g, eps: float = 1e-3):
+def layer_norm_relu_backward(x, gamma, beta, g, eps: float = 1e-3, conv_bias=None):
     """(dx, dgamma, dbeta) of ``layer_norm_relu`` at (x, gamma, beta) for the
-    output cotangent ``g``: the reference's ``_bwd``, recomputed in float32;
-    the backward kernel's plain version (the CPU path, and its oracle on the
-    card). dgamma / dbeta are summed over every axis but the last. The statistics
-    and the ReLU mask use the plain forward's operations in its order, so
-    the mask is the forward's bit for bit (a value one rounding either side
-    of 0 would flip a whole element of dx); the rest reuses temporaries made
-    here in place to spare passes over the (rows, C) float32 tensors."""
+    output cotangent ``g``, and dbias after them where ``conv_bias`` is
+    given: the reference's ``_bwd``, recomputed in float32; the backward
+    kernel's plain version (the CPU path, and its oracle on the card).
+    dgamma / dbeta are summed over every axis but the last; dbias is the
+    returned dx summed the same way in float32, rounded to x's type and
+    given the bias's type. The statistics and the ReLU mask use the plain forward's operations
+    in its order, so the mask is the forward's bit for bit (a value one
+    rounding either side of 0 would flip a whole element of dx); the rest
+    reuses temporaries made here in place to spare passes over the (rows, C)
+    float32 tensors."""
     acc = _acc_dtype(x.dtype)
-    xf = x.to(acc)
+    xf = _plus_bias(x, conv_bias).to(acc)
     mean = xf.mean(dim=-1, keepdim=True)
     xhat = xf - mean
     inv = torch.rsqrt(xhat.square().mean(dim=-1, keepdim=True) + eps)
@@ -89,27 +109,38 @@ def layer_norm_relu_backward(x, gamma, beta, g, eps: float = 1e-3):
     gx_hat = gm.mul_(gamma_f)
     mean_g = gx_hat.mean(dim=-1, keepdim=True)
     mean_gx = (gx_hat * xhat).mean(dim=-1, keepdim=True)
-    dx = gx_hat.sub_(mean_g).addcmul_(xhat, mean_gx, value=-1.0).mul_(inv)
-    return dx.to(x.dtype), dgamma, dbeta
+    dx = gx_hat.sub_(mean_g).addcmul_(xhat, mean_gx, value=-1.0).mul_(inv).to(x.dtype)
+    if conv_bias is None:
+        return dx, dgamma, dbeta
+    dbias = dx.to(acc).sum(dim=reduce_axes).to(x.dtype).to(conv_bias.dtype)
+    return dx, dgamma, dbeta, dbias
 
 
 _F32 = torch.float32
 _SUPPORTED = frozenset(SUPPORTED_CHANNELS)
 
 
-def _params_f32(gamma: torch.Tensor, beta: torch.Tensor, c: int, index: int):
+def _params(c: int, index: int, dtype: torch.dtype, gamma: torch.Tensor,
+            beta: torch.Tensor, conv_bias: torch.Tensor | None) -> list:
     """gamma and beta as the kernels read them, contiguous float32 (C,) on
-    device ``index``: the model's own parameters as they are (one branch each),
-    anything else cast; raises on a wrong shape or device."""
-    if gamma.shape != (c,) or beta.shape != (c,):
-        raise ValueError(f"layer_norm_relu: gamma/beta must be ({c},)")
-    if gamma.get_device() != index or beta.get_device() != index:
-        raise ValueError("layer_norm_relu: gamma/beta must be on x's device")
-    if gamma.dtype is not _F32 or not gamma.is_contiguous():
-        gamma = gamma.to(_F32).contiguous()
-    if beta.dtype is not _F32 or not beta.is_contiguous():
-        beta = beta.to(_F32).contiguous()
-    return gamma, beta
+    device ``index``, and the conv bias (or None) in x's type ``dtype``: as
+    they are where they are so (one branch each), anything else cast; raises
+    on a wrong shape or device."""
+    out = []
+    for p, want in ((gamma, _F32), (beta, _F32), (conv_bias, dtype)):
+        if p is not None:
+            if p.shape != (c,):
+                raise ValueError(f"layer_norm_relu: gamma/beta/conv_bias must be ({c},)")
+            if p.get_device() != index:
+                raise ValueError("layer_norm_relu: gamma/beta/conv_bias must be on x's device")
+            if p.dtype is not want or not p.is_contiguous():
+                p = p.to(want).contiguous()
+        out.append(p)
+    return out
+
+
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _check_x(x: torch.Tensor) -> tuple[int, int]:
@@ -125,12 +156,13 @@ def _check_x(x: torch.Tensor) -> tuple[int, int]:
     return c, code
 
 
-def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
+def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+            conv_bias: torch.Tensor | None = None) -> torch.Tensor:
     """The forward kernel on a CUDA tensor, one C call; raises on what it
     does not take."""
     c, code = _check_x(x)
     index = x.get_device()
-    gamma, beta = _params_f32(gamma, beta, c, index)
+    gamma, beta, bias = _params(c, index, x.dtype, gamma, beta, conv_bias)
     y = torch.empty_like(x)
     rows = x.numel() // c
     if rows == 0:
@@ -139,9 +171,11 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float
     if ptr % 16:
         raise ValueError("layer_norm_relu: kernel takes a 16-byte aligned tensor")
     _build.check(_build.library().adunet_layer_norm_relu(
-        ptr, gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), rows, c, eps, code, index,
-        _build.current_stream(index)), "layer_norm_relu")
+        ptr, gamma.data_ptr(), beta.data_ptr(), _ptr(bias), y.data_ptr(), rows, c, eps, code,
+        index, _build.current_stream(index)), "layer_norm_relu")
     layer_norm_relu.launches += 1
+    if bias is not None:
+        layer_norm_relu.bias_launches += 1
     return y
 
 
@@ -149,7 +183,7 @@ _partials_per_device: dict[int, int] = {}
 
 
 def _n_partials(lib, device: torch.device) -> int:
-    """The (2, C) partials the backward kernel's scratch must hold on
+    """The (2, C) or (3, C) partials the backward kernel's scratch must hold on
     ``device`` (the most blocks its grid can have), asked of the library once
     per device. Call with ``device`` current."""
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -163,23 +197,25 @@ def _n_partials(lib, device: torch.device) -> int:
 
 
 def _launch_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     g: torch.Tensor, eps: float):
-    """The backward kernel on CUDA tensors: (dx, dgamma, dbeta) as
+                     g: torch.Tensor, eps: float, conv_bias: torch.Tensor | None = None):
+    """The backward kernel on CUDA tensors: (dx, dgamma, dbeta[, dbias]) as
     ``layer_norm_relu_backward`` returns them, one C call; raises on what it
-    does not take. The (2, C) sums and the kernel's per-block partials share
-    one float32 allocation, and dgamma / dbeta of float32 parameters are
-    views of its first rows."""
+    does not take. The (2, C) sums and the kernel's per-block partials
+    ((3, C) each with a conv bias) share one float32 allocation, and dgamma /
+    dbeta of float32 parameters are views of its first rows; dbias comes in
+    x's type, as the bias is passed (``ConvBlock``: cast to x's type)."""
     c, code = _check_x(x)
     index = x.get_device()
     if g.shape != x.shape or g.get_device() != index:
         raise ValueError("layer_norm_relu: the cotangent must match x's shape and device")
     if g.dtype is not x.dtype or not g.is_contiguous():
         g = g.to(x.dtype).contiguous()
-    ga, be = _params_f32(gamma, beta, c, index)
+    ga, be, bias = _params(c, index, x.dtype, gamma, beta, conv_bias)
     dx = torch.empty_like(x)
     rows = x.numel() // c
     if rows == 0:
-        return dx, torch.zeros_like(gamma), torch.zeros_like(beta)
+        zeros = (torch.zeros_like(gamma), torch.zeros_like(beta))
+        return (dx, *zeros) if bias is None else (dx, *zeros, torch.zeros_like(conv_bias))
     xp, gp = x.data_ptr(), g.data_ptr()
     if xp % 16 or gp % 16:
         raise ValueError("layer_norm_relu: kernel takes 16-byte aligned tensors")
@@ -188,44 +224,53 @@ def _launch_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if n is None:
         with torch.cuda.device(index):
             n = _n_partials(lib, x.device)
-    sums = x.new_empty((n + 1) * 2 * c, dtype=_F32)  # dgamma, dbeta, then the partials
+    ns = 2 if bias is None else 3  # partial sums: dgamma, dbeta(, dbias)
+    sums = x.new_empty((2 + n * ns) * c, dtype=_F32)  # dgamma, dbeta, then the partials
+    dbias = None if bias is None else torch.empty_like(bias)
     base = sums.data_ptr()
     _build.check(lib.adunet_layer_norm_relu_backward(
-        xp, gp, ga.data_ptr(), be.data_ptr(), dx.data_ptr(), base, base + 8 * c, rows, c, eps,
-        code, index, _build.current_stream(index)), "layer_norm_relu backward")
+        xp, gp, ga.data_ptr(), be.data_ptr(), _ptr(bias), dx.data_ptr(), base, _ptr(dbias),
+        base + 8 * c, rows, c, eps, code, index, _build.current_stream(index)),
+        "layer_norm_relu backward")
     layer_norm_relu.backward_launches += 1
     dgamma, dbeta = sums.narrow(0, 0, c), sums.narrow(0, c, c)
     if gamma.dtype is not _F32:
         dgamma = dgamma.to(gamma.dtype)
     if beta.dtype is not _F32:
         dbeta = dbeta.to(beta.dtype)
-    return dx, dgamma, dbeta
+    if bias is None:
+        return dx, dgamma, dbeta
+    layer_norm_relu.bias_backward_launches += 1
+    return dx, dgamma, dbeta, dbias if conv_bias.dtype is x.dtype else dbias.to(conv_bias.dtype)
 
 
 class _LayerNormReLU(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        ctx.save_for_backward(x, gamma, beta)
+    def forward(ctx, x, gamma, beta, eps, conv_bias):
+        ctx.save_for_backward(x, gamma, beta, conv_bias)
         ctx.eps = eps
         if x.device.type == "cpu":
-            return layer_norm_relu_plain(x, gamma, beta, eps)
-        return _launch(x, gamma, beta, eps)
+            return layer_norm_relu_plain(x, gamma, beta, eps, conv_bias)
+        return _launch(x, gamma, beta, eps, conv_bias)
 
     @staticmethod
     def backward(ctx, g):
-        x, gamma, beta = ctx.saved_tensors
+        x, gamma, beta, conv_bias = ctx.saved_tensors
         if x.device.type == "cpu":
-            dx, dgamma, dbeta = layer_norm_relu_backward(x, gamma, beta, g, ctx.eps)
+            grads = layer_norm_relu_backward(x, gamma, beta, g, ctx.eps, conv_bias)
         else:
-            dx, dgamma, dbeta = _launch_backward(x, gamma, beta, g, ctx.eps)
-        return dx, dgamma, dbeta, None
+            grads = _launch_backward(x, gamma, beta, g, ctx.eps, conv_bias)
+        return *grads[:3], None, grads[3] if conv_bias is not None else None
 
 
 def layer_norm_relu(
-    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-3
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-3,
+    conv_bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """LayerNorm over the last axis of (..., C), then ReLU; differentiable in
-    x, gamma and beta.
+    """LayerNorm over the last axis of (..., C), then ReLU, of x plus
+    ``conv_bias`` where one is given (the bias a library conv left out of its
+    output x, module docstring); differentiable in x, gamma, beta and the
+    conv bias.
 
     CUDA: float32 or bf16 ``x``, contiguous, C in ``SUPPORTED_CHANNELS``;
     anything else raises. CPU: the plain versions. Where no gradient is
@@ -234,19 +279,28 @@ def layer_norm_relu(
     ``torch.export`` traces a program, the op ``adunet_torch::layer_norm_relu``
     (``kernels/ops.py``) stands in the graph, and runs the kernel or the plain
     version by device when the program runs.
+    The op takes no conv bias: an exported block keeps the bias in its conv.
     ``layer_norm_relu.launches`` counts forward kernel launches,
-    ``layer_norm_relu.backward_launches`` backward kernel launches."""
+    ``layer_norm_relu.backward_launches`` backward kernel launches, and
+    ``.bias_launches`` / ``.bias_backward_launches`` those of them that took
+    a conv bias."""
     if torch.compiler.is_exporting():
+        if conv_bias is not None:
+            raise ValueError("layer_norm_relu: a program's op takes no conv bias")
         return torch.ops.adunet_torch.layer_norm_relu(x, gamma, beta, eps)
-    grad = torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
-                                        or beta.requires_grad)
+    grad = torch.is_grad_enabled() and (
+        x.requires_grad or gamma.requires_grad or beta.requires_grad
+        or (conv_bias is not None and conv_bias.requires_grad))
     if x.is_cuda:
-        return _LayerNormReLU.apply(x, gamma, beta, eps) if grad else _launch(x, gamma, beta, eps)
+        return _LayerNormReLU.apply(x, gamma, beta, eps, conv_bias) if grad else \
+            _launch(x, gamma, beta, eps, conv_bias)
     if x.device.type != "cpu":
         raise ValueError(f"layer_norm_relu: no kernel for device {x.device}")
-    return _LayerNormReLU.apply(x, gamma, beta, eps) if grad else \
-        layer_norm_relu_plain(x, gamma, beta, eps)
+    return _LayerNormReLU.apply(x, gamma, beta, eps, conv_bias) if grad else \
+        layer_norm_relu_plain(x, gamma, beta, eps, conv_bias)
 
 
 layer_norm_relu.launches = 0
 layer_norm_relu.backward_launches = 0
+layer_norm_relu.bias_launches = 0
+layer_norm_relu.bias_backward_launches = 0

@@ -16,7 +16,7 @@ Port of ``adunet/nn/blocks.py``:
   gate takes the output's shape, else ``F.conv2d`` with padding (0, 1).
 - ``LayerNormReLU`` ← ``FusedLayerNormReLU`` :87 — K1 (``layer_norm_relu``,
   an autograd Function), eps 1e-3, with flax's ``scale``/``bias`` as
-  ``weight``/``bias``.
+  ``weight``/``bias``; it takes the bias of a conv that left it out.
 
 Parameters are float32 whatever the compute dtype. A conv casts its weight
 and bias to the activations' dtype (flax's ``kernel.astype(dtype)``), and the
@@ -34,7 +34,13 @@ them, as the cast's backward would).
   ``train()`` / ``eval()`` pick batch or running statistics.
 - ``ConvBlock``     ← :102 — (conv3x3 → norm → ReLU) x2. ``norm="layer"``
   (K1), ``"batch"`` (BatchNorm in float32, ReLU, cast back to the compute
-  dtype, :142-150) or ``"none"``.
+  dtype, :142-150) or ``"none"``. With K1, a conv that goes to the library
+  runs without its bias and K1 adds it (cast to the compute dtype, as the
+  conv took it) as it reads the conv's output, and sums its gradient in its
+  backward: on the card bit for bit what cuDNN's
+  conv and PyTorch's bias add after it gave, with no broadcast add and no
+  bias sum of their own. K2 adds its own bias; an exported program keeps
+  the bias in the conv (K1's op takes none).
 - ``ConvTranspose`` ← flax ``nn.ConvTranspose(kernel (2, 2), strides 2,
   "SAME")`` of ``adunet/models/seg_vanilla.py:43``: out[2i + a, 2j + b] =
   x[i, j] @ k[1 - a, 1 - b], since flax correlates the dilated input with the
@@ -90,18 +96,17 @@ class Conv(nn.Module):
                 _glorot_(self.weight, i * kh * kw, o * kh * kw, generator)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, library_bias: bool = True) -> torch.Tensor:
+        """The conv of x. ``library_bias=False``: the library route leaves
+        the bias out, for the caller to add (``ConvBlock`` hands it to K1);
+        K2 adds its own in any case."""
         w, b = self.weight, self.bias  # K2 takes them as they are and rounds them itself
-        if self.space is not None and w.shape[-1] == 3:
-            xp = self.space.halo(x, 1)
-            if supported(x.shape, w.shape):
-                return conv3x3_rows(xp, w, b)
-            y = F.conv2d(xp.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype), padding=(0, 1))
-            return y.permute(0, 2, 3, 1)
+        space = self.space is not None and w.shape[-1] == 3
+        xp = self.space.halo(x, 1) if space else x
         if supported(x.shape, w.shape):
-            return conv3x3_same(x.contiguous(), w, b)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype),
-                     padding=w.shape[-1] // 2)
+            return conv3x3_rows(xp, w, b) if space else conv3x3_same(x.contiguous(), w, b)
+        y = F.conv2d(xp.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype) if library_bias else None,
+                     padding=(0, 1) if space else w.shape[-1] // 2)
         return y.permute(0, 2, 3, 1)
 
 
@@ -118,8 +123,8 @@ class LayerNormReLU(nn.Module):
             self.weight.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm_relu(x.contiguous(), self.weight, self.bias, 1e-3)
+    def forward(self, x: torch.Tensor, conv_bias: torch.Tensor | None = None) -> torch.Tensor:
+        return layer_norm_relu(x.contiguous(), self.weight, self.bias, 1e-3, conv_bias)
 
 
 def _global_moments(xf: torch.Tensor, axes, group) -> tuple[torch.Tensor, torch.Tensor]:
@@ -209,13 +214,18 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(2):
-            x = getattr(self, f"conv{i}")(x)
+            conv = getattr(self, f"conv{i}")
             if self.norm == "layer":
-                x = getattr(self, f"norm{i}")(x)
+                # K1 adds a library conv's bias (module docstring)
+                fuse = not supported(x.shape, conv.weight.shape) \
+                    and not torch.compiler.is_exporting()
+                x = getattr(self, f"norm{i}")(conv(x, library_bias=not fuse),
+                                              conv.bias.to(x.dtype) if fuse else None)
             elif self.norm == "batch":  # float32 statistics, ReLU, then the compute dtype
+                x = conv(x)
                 x = torch.relu(getattr(self, f"norm{i}")(x)).to(x.dtype)
             else:
-                x = torch.relu(x)
+                x = torch.relu(conv(x))
         return x
 
 

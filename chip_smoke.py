@@ -10,9 +10,9 @@ exits non-zero without one. Every phase raises on failure:
 
 1. builds the CUDA kernels from ``adunet_torch/csrc`` with ``nvcc`` (again
    if the library came from the build cache) and fails if ptxas's report
-   shows a byte of spill in any of the 16 instantiations of K1's backward
-   row kernel or in any kernel of K2's backward's dw + db (the two wgrad
-   kernels and their sum);
+   shows a byte of spill in any of the 32 instantiations of K1's backward
+   row kernel (8 widths, 2 types, with and without a conv bias) or in any
+   kernel of K2's backward's dw + db (the two wgrad kernels and their sum);
 2. prints the card's name and power limit (``nvidia-smi``);
 3. holds each kernel's forward against its plain PyTorch version on the
    card, at every shape the flagship's float32 serving forward (batch 8) and
@@ -231,7 +231,7 @@ import torch.nn.functional as F
 from adunet_torch.cli.serve import make_server
 from adunet_torch.evaluate import infer_eval_shave
 from adunet_torch.export import load_artifact
-from adunet_torch.kernels import _build, conv64, fused_norm, resize_band
+from adunet_torch.kernels import _build, bias_launch_counts, conv64, fused_norm, resize_band
 from adunet_torch.kernels.resize_band import band_tables, resize_band_plain, resize_matrix
 from adunet_torch.metrics import msssim_power_factors_for, psnr, ssim, ssim_multiscale
 from adunet_torch.ops import degrade, rgb_to_luma_bt601, scaled_size
@@ -253,6 +253,14 @@ K1_TRAIN = {(2_097_152, 64): 6, (524_288, 128): 4, (131_072, 256): 4, (32_768, 5
 K2_SERVE = {(8, 256, 256, 64): 4}
 K2_TRAIN = {(32, 256, 256, 64): 4}
 K1_PER_CALL = sum(K1_SERVE.values())  # 16
+
+
+def _biased(pairs: dict) -> dict:
+    """The LN+ReLU pairs of an SR path whose conv goes to the library, so
+    that K1 takes its bias: all but the four after K2's convs at level 0 (C
+    = 64): 12 a flagship forward, 20 a deep one."""
+    return {s: n - 4 if s[1] == 64 else n for s, n in pairs.items()}
+
 # the device kernel K2 launches for each type (a substring of its name)
 K2_KERNEL = {torch.float32: "conv3x3_c64_kernel", torch.bfloat16: "conv3x3_c64_wgmma_kernel"}
 K1_BWD_KERNEL = "layer_norm_relu_bwd"  # its rows kernel and its column-sum kernel
@@ -297,8 +305,9 @@ K2_BWD_PARTS = {"pack": ("pack_conv3x3_weights_kernel",),
                 "dx": ("conv3x3_c64_wgmma_kernel", "conv3x3_c64_kernel"),
                 "wgrad": ("conv3x3_c64_wgrad_wgmma_kernel", "conv3x3_c64_wgrad_kernel"),
                 "sum": ("conv3x3_c64_wgrad_reduce_kernel",)}
-# the backward's row kernel is built for these (C, type) pairs
-K1_BWD_INSTANCES = {(c, t) for c in fused_norm.SUPPORTED_CHANNELS for t in ("F32", "BF16")}
+# the backward's row kernel is built for these (C, type, conv bias) triples
+K1_BWD_INSTANCES = {(c, t, b) for c in fused_norm.SUPPORTED_CHANNELS for t in ("F32", "BF16")
+                    for b in (False, True)}
 # K2 bf16 against its plain version: the absolute term beside one bf16 ulp,
 # a few times the largest this script has read (its K2 lines print the term
 # each run needs; PERF.md, "K2, the bf16 tolerance"). K1's bf16 keeps 1e-6.
@@ -344,6 +353,9 @@ K1_WIDE = ([((rows, c), torch.float32) for rows, c in K1_DEEP if c >= 1024]
 # with remat_levels=2: the recompute runs the forward of enc0/1 and dec0/1
 # again, not their backward
 DEEP_PER_STEP = {None: (24, 24, 4, 4), 2: (32, 24, 6, 4)}
+# of those, the K1 forward and backward launches that take a conv's bias:
+# the recompute adds enc0's and dec0's first pairs and enc1's and dec1's
+DEEP_BIAS_PER_STEP = {None: (20, 20), 2: (26, 20)}
 # The streamed flagship: (K1, K1 backward, K2, K2 backward) per step, and the
 # steps timed
 STREAM_PER_STEP, STREAM_STEPS = (16, 16, 4, 4), 20
@@ -459,21 +471,23 @@ def _ptxas_functions(build_log: str) -> list[dict]:
 
 def check_k1_bwd_spills(build_log: str) -> list[dict]:
     """Registers, stack frame and spills of each instantiation of K1's
-    backward row kernel, from ptxas's report in the build log. Raises if an
-    instantiation is missing from the report or spills any bytes."""
+    backward row kernel (C, type, with or without a conv bias), from ptxas's
+    report in the build log. Raises if an instantiation is missing from the
+    report or spills any bytes."""
     found = {}
     for f in _ptxas_functions(build_log):
-        inst = re.search(r"layer_norm_relu_bwd_rows_kernelI\w*?_\d+(F32|BF16)ELi(\d+)E", f["name"])
+        inst = re.search(r"layer_norm_relu_bwd_rows_kernelI\w*?_\d+(F32|BF16)ELi(\d+)ELb([01])E",
+                         f["name"])
         if inst:
-            found[(int(inst.group(2)), inst.group(1))] = dict(
-                C=int(inst.group(2)), type=inst.group(1), stack=f["stack"],
-                spill_stores=f["spill_stores"], spill_loads=f["spill_loads"],
-                registers=f.get("registers"))
+            key = (int(inst.group(2)), inst.group(1), inst.group(3) == "1")
+            found[key] = dict(C=key[0], type=key[1], bias=key[2], stack=f["stack"],
+                              spill_stores=f["spill_stores"], spill_loads=f["spill_loads"],
+                              registers=f.get("registers"))
     rows = [found[k] for k in sorted(found)]
     for r in rows:
-        log(f"[spill] K1 backward C={r['C']} {r['type']}: {r.get('registers')} registers, stack "
-            f"{r['stack']} bytes, spill stores {r['spill_stores']} bytes, spill loads "
-            f"{r['spill_loads']} bytes")
+        log(f"[spill] K1 backward C={r['C']} {r['type']}{' conv bias' if r['bias'] else ''}: "
+            f"{r.get('registers')} registers, stack {r['stack']} bytes, spill stores "
+            f"{r['spill_stores']} bytes, spill loads {r['spill_loads']} bytes")
     if set(found) != K1_BWD_INSTANCES:
         raise AssertionError(f"ptxas reported K1 backward instantiations {sorted(found)}, "
                              f"expected {sorted(K1_BWD_INSTANCES)}")
@@ -722,7 +736,19 @@ def _k1_cases():
             + [(s, n, torch.bfloat16, "deep") for s, n in K1_DEEP.items()]
             + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE]
             + [(s, n, torch.bfloat16, "joint") for s, n in K1_JOINT.items()]
-            + [(s, n, torch.float32, "joint_served") for s, n in K1_JOINT_SERVED.items()])
+            + [(s, n, torch.float32, "joint_served") for s, n in K1_JOINT_SERVED.items()]
+            + _k1_bias_cases(serve=True))
+
+
+def _k1_bias_cases(serve: bool) -> list:
+    """K1 with a conv bias (a path named ``...+bias``): the flagship's
+    training and the deep config's pairs that take one, and (``serve``) the
+    served flagship's through the weights path (its program keeps the bias
+    in the conv)."""
+    return ([(s, n, torch.bfloat16, "train+bias") for s, n in _biased(K1_TRAIN).items()]
+            + [(s, n, torch.float32, "serve+bias") for s, n in _biased(K1_SERVE).items()
+               if serve]
+            + [(s, n, torch.bfloat16, "deep+bias") for s, n in _biased(K1_DEEP).items()])
 
 
 def _k1_bwd_cases():
@@ -732,7 +758,8 @@ def _k1_bwd_cases():
             + [(s, 0, dtype, "narrow") for s, dtype in K1_NARROW]
             + [(s, n, torch.bfloat16, "deep") for s, n in K1_DEEP.items()]
             + [(s, 0, dtype, "wide") for s, dtype in K1_WIDE]
-            + [(s, n, torch.bfloat16, "joint") for s, n in K1_JOINT.items()])
+            + [(s, n, torch.bfloat16, "joint") for s, n in K1_JOINT.items()]
+            + _k1_bias_cases(serve=False))
 
 
 def _k2_cases():
@@ -744,38 +771,68 @@ def _k2_cases():
             + [(s, n, torch.float32, "tune") for s, n in K2_TUNE.items()])
 
 
+def _conv_bias(gen, path: str, c: int, dtype: torch.dtype) -> torch.Tensor | None:
+    """A conv's bias for K1 on a ``...+bias`` path, in x's type as
+    ``ConvBlock`` passes it, else None."""
+    if not path.endswith("+bias"):
+        return None
+    return torch.randn(c, generator=gen, device="cuda").mul_(0.3).to(dtype)
+
+
 def check_k1(gen: torch.Generator) -> list[dict]:
+    """K1 against its plain version at every path's shapes. On a ``+bias``
+    path K1 takes a conv's bias, and must equal PyTorch's add of the bias
+    followed by K1 without one bit for bit; ``unfused_ms`` times that add and
+    K1, the route the bias took before, in place of the plain and library
+    yardsticks, which the rows without a bias at the same shapes carry."""
     rows_out = []
     for (rows, c), per_call, dtype, path in _k1_cases():
         x, g, b = _k1_inputs(gen, rows, c, dtype)
-        got = fused_norm.layer_norm_relu(x, g, b)
-        want = fused_norm.layer_norm_relu_plain(x, g, b)
+        cb = _conv_bias(gen, path, c, dtype)
+
+        def k1():
+            return fused_norm.layer_norm_relu(x, g, b, 1e-3, cb)
+
+        got = k1()
+        want = fused_norm.layer_norm_relu_plain(x, g, b, 1e-3, cb)
+        extra = {}
+        if cb is not None:
+            def unfused():
+                return fused_norm.layer_norm_relu(x + cb, g, b)
+
+            if not torch.equal(got, unfused()):
+                raise AssertionError(f"K1 {path} {rows}x{c} {dtype}: the conv bias inside K1 "
+                                     "differs from its add before K1")
+            extra["unfused_ms"] = cuda_ms(unfused, 50)
         torch.cuda.synchronize()
         err = close_enough(got, want, dtype, 1e-5)
         # elements within a rounding of 0 that one ReLU keeps and the other zeroes
         n_flip = int(((got > 0) != (want > 0)).sum())
         gl, bl = g.to(dtype), b.to(dtype)
-        ms = cuda_ms(lambda: fused_norm.layer_norm_relu(x, g, b), 50)
-        cost = launch_cost("K1", lambda: fused_norm.layer_norm_relu(x, g, b),
-                           "layer_norm_relu_kernel")
+        ms = cuda_ms(k1, 50)
+        cost = launch_cost("K1", k1, "layer_norm_relu_kernel")
         dev_ms, dev_n = cost["device_ms"], cost["device_launches_recorded"]
-        plain = cuda_ms(lambda: fused_norm.layer_norm_relu_plain(x, g, b), 10)
-        lib = cuda_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)), 50)
-        lib_dev, lib_n = profiled_device_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)))
+        plain = lib = lib_dev = lib_n = None  # a +bias row's yardstick: the route before
+        if cb is None:
+            plain = cuda_ms(lambda: fused_norm.layer_norm_relu_plain(x, g, b), 10)
+            lib = cuda_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)), 50)
+            lib_dev, lib_n = profiled_device_ms(lambda: F.relu(F.layer_norm(x, (c,), gl, bl, 1e-3)))
         es = x.element_size()
-        bnd, by = bound_ms(2 * rows * c * es + 2 * c * 4, 9 * rows * c, dtype)
+        bnd, by = bound_ms(2 * rows * c * es + 2 * c * 4 + (0 if cb is None else c * es),
+                           9 * rows * c, dtype)
         rows_out.append(dict(kernel="K1", path=path, shape=[rows, c], dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=err, mask_disagreements=n_flip,
                              ms=ms, **cost, plain_ms=plain, library_ms=lib,
                              library_device_ms=lib_dev, library_kernels_recorded=lib_n,
-                             bound_ms=bnd, bound_by=by))
+                             bound_ms=bnd, bound_by=by, **extra))
+        unfused_str = (f", add + K1 (the route before) {extra['unfused_ms']:.4f} ms"
+                       if extra else "")
         log(f"[K1] {path} rows={rows} C={c} {dtype}: max|err|={err:.2e}, mask disagreements "
             f"{n_flip}; kernel {ms:.4f} ms "
             f"(events; profiler device time {_ms(dev_ms)} over {dev_n} launches; host "
             f"{cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
-            f"kernels a call), plain "
-            f"{plain:.4f} ms, F.layer_norm+relu {lib:.4f} ms (device time {_ms(lib_dev)}), "
-            f"bound {bnd:.4f} ms ({by})")
+            f"kernels a call), plain {_ms(plain)}, F.layer_norm+relu {_ms(lib)} (device time "
+            f"{_ms(lib_dev)}){unfused_str}, bound {bnd:.4f} ms ({by})")
         del x, got, want
     return rows_out
 
@@ -861,17 +918,19 @@ def k1_dx_close(what: str, got: torch.Tensor, want: torch.Tensor, flips: torch.T
     return err, float((g.float() - w.float()).abs().max()), n_flip, int((~keep).sum())
 
 
-def k1_params_close(what: str, got, want, flips: torch.Tensor, rerun) -> tuple[float, float]:
-    """K1's dgamma / dbeta against the plain backward's at 1e-3 relative. An
+def k1_params_close(what: str, got, want, flips: torch.Tensor, rerun) -> tuple[float, ...]:
+    """K1's dgamma / dbeta (and a conv bias's dbias, in x's type: plus one
+    bf16 ulp there) against the plain backward's at 1e-3 relative. An
     element on which the two ReLU masks disagree moves its column's sums by
-    its cotangent, so where any does, both are computed again over the rows
-    without one (``rerun(keep) -> (got, want)``, each a (dgamma, dbeta)
-    pair): the masks are row-local, so those rows agree."""
+    its cotangent, so where any does, they are computed
+    again over the rows without one (``rerun(keep) -> (got, want)``, each a
+    (dgamma, dbeta[, dbias]) tuple): the masks are row-local, so those rows
+    agree."""
     if bool(flips.any()):
         keep = ~flips.reshape(-1, flips.shape[-1]).any(dim=1)
         got, want = rerun(keep)
-    return (grad_close(what + " dgamma", got[0], want[0], 1e-3),
-            grad_close(what + " dbeta", got[1], want[1], 1e-3))
+    return tuple(grad_close(f"{what} {n}", g, w, 1e-3)
+                 for n, g, w in zip(("dgamma", "dbeta", "dbias"), got, want))
 
 
 def check_k1_backward(gen: torch.Generator) -> list[dict]:
@@ -884,65 +943,89 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
     dgamma / dbeta 1e-3 relative (float32 sums over up to 2,097,152 rows in
     another order), over the rows without a mask disagreement where there is
     one (``k1_params_close``). dgamma / dbeta must be bit-identical over two
-    runs."""
+    runs. On a ``+bias`` path the backward takes a conv's bias: dbias too,
+    and dbias against dx summed over the rows in x's type (the conv's bias
+    gradient before) at 1e-3 relative plus one ulp; ``unfused_ms`` times
+    that route, the backward without the bias and that sum, in place of the
+    yardsticks (as in ``check_k1``)."""
     rows_out = []
     for (rows, c), per_call, dtype, path in _k1_bwd_cases():
         x, a, b = _k1_inputs(gen, rows, c, dtype)
         gy = torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
+        cb = _conv_bias(gen, path, c, dtype)
+        xb = x if cb is None else x + cb
 
         def bwd():
-            return fused_norm._launch_backward(x, a, b, gy, 1e-3)
+            return fused_norm._launch_backward(x, a, b, gy, 1e-3, cb)
 
         got = bwd()
-        want = fused_norm.layer_norm_relu_backward(x, a, b, gy)
-        flips = _k1_flips(x, a, b)
+        want = fused_norm.layer_norm_relu_backward(x, a, b, gy, 1e-3, cb)
+        flips = _k1_flips(xb, a, b)
         again = bwd()
         torch.cuda.synchronize()
         what = f"K1 backward {path} {rows}x{c} {dtype}"
         dx_rel, dx_abs, n_flip, n_out = k1_dx_close(
             what + " dx", got[0], want[0], flips, 1e-5 if dtype == torch.float32 else 1e-4)
-        dg_rel, db_rel = k1_params_close(
+        param_rel = k1_params_close(
             what, got[1:], want[1:], flips,
-            lambda keep: (fused_norm._launch_backward(x[keep], a, b, gy[keep], 1e-3)[1:],
-                          fused_norm.layer_norm_relu_backward(x[keep], a, b, gy[keep])[1:]))
-        if not (torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])):
-            raise AssertionError(f"{what}: dgamma / dbeta differ between two runs")
+            lambda keep: (fused_norm._launch_backward(x[keep], a, b, gy[keep], 1e-3, cb)[1:],
+                          fused_norm.layer_norm_relu_backward(x[keep], a, b, gy[keep], 1e-3,
+                                                              cb)[1:]))
+        rel_err = {"dx": dx_rel, **dict(zip(("dgamma", "dbeta", "dbias"), param_rel))}
+        extra = {}
+        if cb is not None:
+            rel_err["dbias_vs_sum"] = grad_close(what + " dbias against the sum of dx",
+                                                 got[3], got[0].sum(dim=0), 1e-3)
+
+            def unfused():
+                return fused_norm._launch_backward(xb, a, b, gy, 1e-3)[0].sum(dim=0)
+
+            extra["unfused_ms"] = cuda_ms(unfused, 20)
+        if not all(torch.equal(u, v) for u, v in zip(again[1:], got[1:])):
+            raise AssertionError(f"{what}: the parameter sums differ between two runs")
         del got, want, again, flips
         ms = cuda_ms(bwd, 20)
         cost = launch_cost("K1_bwd", bwd, K1_BWD_KERNEL, per_run=2)
         dev_ms, dev_n = cost["device_ms"], cost["device_launches_recorded"]
-        plain = cuda_ms(lambda: fused_norm.layer_norm_relu_backward(x, a, b, gy), 3)
-        xl = x.detach().requires_grad_(True)
-        al, bl = (t.to(dtype).requires_grad_(True) for t in (a, b))
-        yl = F.relu(F.layer_norm(xl, (c,), al, bl, 1e-3))
+        plain = lib = lib_dev = lib_n = None  # a +bias row's yardstick: the route before
+        if cb is None:
+            plain = cuda_ms(lambda: fused_norm.layer_norm_relu_backward(x, a, b, gy), 3)
+            xl = x.detach().requires_grad_(True)
+            al, bl = (t.to(dtype).requires_grad_(True) for t in (a, b))
+            yl = F.relu(F.layer_norm(xl, (c,), al, bl, 1e-3))
 
-        def lib_bwd():
-            return torch.autograd.grad(yl, [xl, al, bl], gy, retain_graph=True)
+            def lib_bwd():
+                return torch.autograd.grad(yl, [xl, al, bl], gy, retain_graph=True)
 
-        lib = cuda_ms(lib_bwd, 20)
-        lib_dev, lib_n = profiled_device_ms(lib_bwd)
-        # read x and g, write dx, plus gamma / beta and their gradients; the
-        # arithmetic is float32 whatever the storage type
-        bnd, by = bound_ms(3 * rows * c * x.element_size() + 4 * c * 4, 20 * rows * c,
-                           torch.float32)
+            lib = cuda_ms(lib_bwd, 20)
+            lib_dev, lib_n = profiled_device_ms(lib_bwd)
+            del xl, yl
+        # read x and g, write dx, plus the parameters and their gradients;
+        # the arithmetic is float32 whatever the storage type
+        es = x.element_size()
+        bnd, by = bound_ms(3 * rows * c * es + 4 * c * 4 + (0 if cb is None else 2 * c * es),
+                           20 * rows * c, torch.float32)
         prior = K1_BWD_PRIOR_MS.get((path, rows, c, _dname(dtype)))
         rows_out.append(dict(kernel="K1_bwd", path=path, shape=[rows, c], dtype=_dname(dtype),
-                             per_call=per_call, max_abs_err=dx_abs,
-                             rel_err={"dx": dx_rel, "dgamma": dg_rel, "dbeta": db_rel},
+                             per_call=per_call, max_abs_err=dx_abs, rel_err=rel_err,
                              mask_disagreements=n_flip, rows_left_out=n_out, ms=ms, **cost,
                              plain_ms=plain,
                              library_ms=lib, library_device_ms=lib_dev,
                              library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
-                             prior_device_ms=prior))
+                             prior_device_ms=prior, **extra))
+        unfused_str = (f", K1 backward + the conv's bias sum (the route before) "
+                       f"{extra['unfused_ms']:.4f} ms" if extra else "")
         log(f"[K1 bwd] {path} rows={rows} C={c} {dtype}: rel err dx {dx_rel:.1e} (max |err| "
-            f"{dx_abs:.2e}), dgamma {dg_rel:.1e}, dbeta {db_rel:.1e}; mask disagreements "
+            f"{dx_abs:.2e}), "
+            + ", ".join(f"{n} {e:.1e}" for n, e in rel_err.items() if n != "dx")
+            + f"; mask disagreements "
             f"{n_flip} ({n_out} rows left out); kernel {ms:.4f} ms (events; profiler device "
             f"time {_ms(dev_ms)} over {dev_n} launches; before the redesign {_ms(prior)}; host "
             f"{cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
             f"kernels a call), "
-            f"plain {plain:.4f} ms, library backward {lib:.4f} ms (device time {_ms(lib_dev)}), "
-            f"bound {bnd:.4f} ms ({by})")
-        del x, gy, xl, yl
+            f"plain {_ms(plain)}, library backward {_ms(lib)} (device time {_ms(lib_dev)})"
+            f"{unfused_str}, bound {bnd:.4f} ms ({by})")
+        del x, xb, gy
         torch.cuda.empty_cache()
     return rows_out
 
@@ -1317,6 +1400,8 @@ def _post_npy(url: str, arr: np.ndarray) -> np.ndarray:
 def _zero_counts() -> None:
     fused_norm.layer_norm_relu.launches = 0
     fused_norm.layer_norm_relu.backward_launches = 0
+    fused_norm.layer_norm_relu.bias_launches = 0
+    fused_norm.layer_norm_relu.bias_backward_launches = 0
     conv64.conv3x3_same.launches = 0
     conv64.conv3x3_rows.launches = 0
     conv64.conv3x3_same_backward.launches = 0
@@ -1656,16 +1741,21 @@ def train_flagship(tmp: Path, ident: str) -> dict:
     torch.cuda.synchronize()
     k1, k1b, k2, k2b = _counts()
     resizes = resize_band.launches
+    biased = bias_launch_counts()
     if (k1, k1b, k2, k2b, resizes) != (16 * TRAIN_STEPS, 16 * TRAIN_STEPS, 4 * TRAIN_STEPS,
-                                       4 * TRAIN_STEPS, RESIZE_PER_STEP["train"] * TRAIN_STEPS):
-        raise AssertionError(f"expected {16 * TRAIN_STEPS} K1, {16 * TRAIN_STEPS} K1 backward, "
+                                       4 * TRAIN_STEPS, RESIZE_PER_STEP["train"] * TRAIN_STEPS) \
+            or biased != (12 * TRAIN_STEPS, 12 * TRAIN_STEPS):
+        raise AssertionError(f"expected {16 * TRAIN_STEPS} K1 ({12 * TRAIN_STEPS} with a conv "
+                             f"bias), {16 * TRAIN_STEPS} K1 backward ({12 * TRAIN_STEPS}), "
                              f"{4 * TRAIN_STEPS} K2, {4 * TRAIN_STEPS} K2 backward and "
                              f"{RESIZE_PER_STEP['train'] * TRAIN_STEPS} resize launches over "
-                             f"{TRAIN_STEPS} steps; got {k1}, {k1b}, {k2}, {k2b} and {resizes}")
+                             f"{TRAIN_STEPS} steps; got {k1} ({biased[0]}), {k1b} ({biased[1]}), "
+                             f"{k2}, {k2b} and {resizes}")
     losses = [float(v) for v in losses]
     log(f"[train] {TRAIN_STEPS} steps, losses {', '.join(f'{v:.5f}' for v in losses)}; "
-        f"every parameter had a finite nonzero gradient after step 1; K1 {k1}, K1 backward "
-        f"{k1b}, K2 {k2}, K2 backward {k2b}, resize {resizes} launches")
+        f"every parameter had a finite nonzero gradient after step 1; K1 {k1} ({biased[0]} "
+        f"with a conv bias), K1 backward {k1b} ({biased[1]}), K2 {k2}, K2 backward {k2b}, "
+        f"resize {resizes} launches")
     # each step samples its own patches; the drop from the random head's
     # residual is far larger than the spread between batches
     if not all(np.isfinite(losses)) or not losses[-1] < 0.75 * losses[0]:
@@ -1677,7 +1767,8 @@ def train_flagship(tmp: Path, ident: str) -> dict:
         f"peak device memory {peak_gb:.2f} GB")
     del cache, state, model
     torch.cuda.empty_cache()
-    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b, "R": resizes},
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b, "R": resizes,
+                         "K1_bias": biased[0], "K1_bwd_bias": biased[1]},
             "steps": TRAIN_STEPS, "losses": losses,
             "ms_per_step": ms,
             "img_per_s": TRAIN_BATCH * 1e3 / ms, "peak_gb": peak_gb, "depth": info["depth"]}
@@ -2278,13 +2369,17 @@ def deep_config(tmp: Path, ident: str) -> dict:
         torch.cuda.synchronize()
         counts = _counts()
         resizes = resize_band.launches
+        biased = bias_launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = tuple(n * DEEP_STEPS for n in DEEP_PER_STEP[levels])
-        if counts != want or resizes != RESIZE_PER_STEP["deep"] * DEEP_STEPS:
+        want_biased = tuple(n * DEEP_STEPS for n in DEEP_BIAS_PER_STEP[levels])
+        if counts != want or resizes != RESIZE_PER_STEP["deep"] * DEEP_STEPS \
+                or biased != want_biased:
             raise AssertionError(f"deep config remat_levels={levels}: expected {want} K1 / K1 "
-                                 f"backward / K2 / K2 backward and "
+                                 f"backward / K2 / K2 backward, {want_biased} K1 / K1 backward "
+                                 f"with a conv bias and "
                                  f"{RESIZE_PER_STEP['deep'] * DEEP_STEPS} resize launches over "
-                                 f"{DEEP_STEPS} steps, got {counts} and {resizes}")
+                                 f"{DEEP_STEPS} steps, got {counts}, {biased} and {resizes}")
         losses = [float(v) for v in losses]
         if not all(np.isfinite(losses)):
             raise AssertionError(f"deep config: non-finite losses {losses}")
@@ -2293,7 +2388,8 @@ def deep_config(tmp: Path, ident: str) -> dict:
         # of every convolution (the recompute of remat is not counted)
         share = 3.0 * fwd_flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
         key = f"remat_{levels or 0}"
-        out[key] = {"launches": {**dict(zip(COUNTED, counts)), "R": resizes},
+        out[key] = {"launches": {**dict(zip(COUNTED, counts)), "R": resizes,
+                                 "K1_bias": biased[0], "K1_bwd_bias": biased[1]},
                     "per_step": list(DEEP_PER_STEP[levels]), "ms_per_step": ms,
                     "img_per_s": DEEP_BATCH * 1e3 / ms, "peak_gb": peak_gb,
                     "conv_tflop_per_step": 3.0 * fwd_flops / 1e12, "bf16_peak_share": share,
@@ -2301,7 +2397,8 @@ def deep_config(tmp: Path, ident: str) -> dict:
         log(f"[deep] {ident}: scale {DEEP_SCALE}, depth {DEEP_DEPTH}, {n_params:,} params, bf16, "
             f"batch {DEEP_BATCH} x 256 px, remat_levels={levels}: {ms:.3f} ms/step "
             f"({DEEP_BATCH * 1e3 / ms:.1f} img/s); peak device memory {peak_gb:.2f} GB; launches "
-            f"per step K1 {counts[0] // DEEP_STEPS}, K1 backward {counts[1] // DEEP_STEPS}, K2 "
+            f"per step K1 {counts[0] // DEEP_STEPS} ({biased[0] // DEEP_STEPS} with a conv bias), "
+            f"K1 backward {counts[1] // DEEP_STEPS} ({biased[1] // DEEP_STEPS}), K2 "
             f"{counts[2] // DEEP_STEPS}, K2 backward {counts[3] // DEEP_STEPS}, resize "
             f"{resizes // DEEP_STEPS}; conv FLOPs "
             f"{3.0 * fwd_flops / 1e12:.3f} TFLOP per step "
@@ -3998,7 +4095,10 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
     tuner's sequential SR study and, per launch, K2's float32 rows at the
     lane step's batch 4, 8 and 16 x 256 px; ``ddp`` the launches of the
     ``train_sr`` run under torchrun (NCCL, world 1; its training steps,
-    validation and evaluation forwards)."""
+    validation and evaluation forwards). K1's and K1_bwd's ``train_bias``
+    holds the same sums over the launches of a flagship step that take a
+    conv's bias, and ``unfused_ms`` the route before (the add + K1; K1's
+    backward + the bias sum)."""
     meta = {
         "K1": ("layer_norm_relu", "adunet_torch/csrc/fused_norm.cu", "adunet/kernels/fused_norm.py:48"),
         "K1_bwd": ("layer_norm_relu_backward", "adunet_torch/csrc/fused_norm.cu",
@@ -4049,6 +4149,10 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
             "serve": {"launches": serve_launches[kid], **{k: summed(serve, k) for k in keys}},
             "seg": {},
         }
+        biased = [d for d in details if d["kernel"] == kid and d["path"] == "train+bias"]
+        if biased:  # K1's launches of one flagship step that take a conv's bias
+            entry["train_bias"] = {"launches": launches[f"{kid}_bias"],
+                                   **{k: summed(biased, k) for k in keys + ("unfused_ms",)}}
         for path, (rows_path, per) in seg_paths.items():
             rows = [d for d in details if d["kernel"] == kid and d["path"] == rows_path
                     and d["dtype"] == "bfloat16"]

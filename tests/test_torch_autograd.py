@@ -245,6 +245,96 @@ def test_layer_norm_relu_gradcheck_f64():
     assert torch.autograd.gradcheck(tnorm.layer_norm_relu, (x, gamma, beta))
 
 
+def test_layer_norm_relu_conv_bias_gradcheck_f64():
+    gen = torch.Generator().manual_seed(2)
+    x = (torch.randn(3, 5, 8, generator=gen, dtype=torch.float64) * 2 + 0.3).requires_grad_(True)
+    gamma = (torch.randn(8, generator=gen, dtype=torch.float64) * 0.3 + 1).requires_grad_(True)
+    beta = (torch.randn(8, generator=gen, dtype=torch.float64) * 0.3).requires_grad_(True)
+    bias = (torch.randn(8, generator=gen, dtype=torch.float64) * 0.5).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda x_, g_, b_, c_: tnorm.layer_norm_relu(x_, g_, b_, 1e-3, c_), (x, gamma, beta, bias))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(96, 64), (2, 3, 5, 16), (3, 8, 512)])
+def test_layer_norm_relu_conv_bias_grads_match_the_unfused_composition(dtype, shape):
+    """(dx, dgamma, dbeta, dbias) of K1 with a conv's float32 bias against
+    autograd through the composition it replaces: the bias cast to x's type
+    and added, then K1 without one. The output, dx, dgamma and dbeta are
+    the same operations, so equal bit for bit; dbias is dx summed in float32
+    and rounded to x's type, as the add's and the cast's backward give it:
+    within 1e-6 relative of its largest (float32), one bf16 ulp (bf16)."""
+    x, gamma, beta, g = _norm_inputs(shape, seed=shape[-1] + 2)
+    cb = np.random.default_rng(shape[-1]).normal(size=shape[-1]).astype(np.float32)
+
+    def leaves():
+        return (torch.from_numpy(x).to(dtype).requires_grad_(True),
+                *(torch.tensor(t, requires_grad=True) for t in (gamma, beta, cb)))
+
+    gt = torch.from_numpy(g).to(dtype)
+    xa, ga, ba, ca = leaves()
+    fused = tnorm.layer_norm_relu(xa, ga, ba, 1e-3, ca)
+    got = torch.autograd.grad(fused, [xa, ga, ba, ca], gt)
+    xb, gb, bb, cbb = leaves()
+    unfused = tnorm.layer_norm_relu(xb + cbb.to(dtype), gb, bb)
+    want = torch.autograd.grad(unfused, [xb, gb, bb, cbb], gt)
+    assert torch.equal(fused, unfused)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[3].dtype == torch.float32 and float(got[3].abs().max()) > 0.1
+    rel = 1e-6 if dtype == torch.float32 else 2.0**-7
+    np.testing.assert_allclose(got[3].numpy(), want[3].numpy(),
+                               atol=rel * float(want[3].abs().max()))
+
+
+@pytest.mark.parametrize("cin, features, size", [(3, 16, 24), (32, 64, 128), (32, 128, 16)])
+def test_conv_block_takes_the_library_conv_bias_into_k1(monkeypatch, cin, features, size):
+    """A LayerNorm ``ConvBlock`` runs its library convs without their bias
+    and hands it to K1 (K2, which takes the 64 -> 64 conv at 128 px, keeps
+    its own): the same output as each conv with its bias and then K1, bit
+    for bit in float32, and the same parameter gradients (the conv biases'
+    within 1e-5 relative: sums in another order)."""
+    from torch.nn import functional as F
+
+    from adunet_torch.nn.blocks import ConvBlock, init_parameters
+
+    blk = ConvBlock(cin, features)
+    init_parameters(blk, 3)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(4)
+        for p in blk.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    x = torch.randn(2, size, size, cin, generator=torch.Generator().manual_seed(5))
+    g = torch.randn(2, size, size, features, generator=torch.Generator().manual_seed(6))
+    params = list(blk.parameters())
+
+    biases, conv2d = [], F.conv2d
+
+    def recording_conv2d(*args, **kwargs):
+        biases.append(args[2] if len(args) > 2 else kwargs.get("bias"))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(F, "conv2d", recording_conv2d)
+    got = blk(x)
+    got_grads = torch.autograd.grad(got, params, g)
+    assert biases and all(b is None for b in biases)
+    library = len(biases)
+    monkeypatch.setattr(F, "conv2d", conv2d)
+
+    want = x
+    for i in range(2):
+        want = getattr(blk, f"norm{i}")(getattr(blk, f"conv{i}")(want))
+    want_grads = torch.autograd.grad(want, params, g)
+    assert library == (1 if (features, size) == (64, 128) else 2)
+    assert torch.equal(got, want)
+    for (name, _), a, b in zip(blk.named_parameters(), got_grads, want_grads):
+        if name.endswith("conv0.bias") or name.endswith("conv1.bias"):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5 * float(b.abs().max()), err_msg=name)
+        else:
+            assert torch.equal(a, b), name
+
+
 def test_conv3x3_gradcheck_f64():
     """The Function's backward formula at a small shape (the gate is the
     public wrapper's; the Function itself takes any 3x3 conv on the CPU)."""

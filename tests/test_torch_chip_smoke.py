@@ -18,34 +18,40 @@ def _properties(name: str, spill: int, registers: int) -> list[str]:
 
 
 def _report(spill_at=None, missing=None) -> str:
-    """A report with every backward row kernel (C, type) but ``missing``, a
-    spill of 24 bytes at ``spill_at``, and the forward and column kernels,
-    which the check ignores, spilling."""
+    """A report with every backward row kernel (C, type, conv bias) but
+    ``missing``, a spill of 24 bytes at ``spill_at``, and the forward and
+    column kernels, which the check ignores, spilling."""
     lines = ["--- fused_norm.cu"]
-    lines += _properties("_ZN6adunet12_GLOBAL__N_122layer_norm_relu_kernelINS_3F32ELi4ELi16ELi32EE"
-                         "EvPKNT_7storageEPKfS8_PS4_xf", 16, 255)
-    lines += _properties("_ZN6adunet12_GLOBAL__N_131layer_norm_relu_bwd_cols_kernelEPKfiiPf", 8, 40)
+    lines += _properties("_ZN6adunet12_GLOBAL__N_122layer_norm_relu_kernelINS_3F32ELi4ELi16ELi32E"
+                         "Lb1EEEvPKNT_7storageEPKfS8_S8_PS4_xf", 16, 255)
+    lines += _properties("_ZN6adunet12_GLOBAL__N_131layer_norm_relu_bwd_cols_kernelINS_3F32EEEvPKfiiPf"
+                         "PNT_7storageE", 8, 40)
     for c in fused_norm.SUPPORTED_CHANNELS:
         for t, arg in _TYPE_ARG.items():
-            if (c, t) != missing:
-                lines += _properties(
-                    f"_ZN6adunet12_GLOBAL__N_131layer_norm_relu_bwd_rows_kernelINS_{arg}ELi{c}EE"
-                    "EvPKNT_7storageES6_PKfS8_PS4_Pfxf", 24 if (c, t) == spill_at else 0, c // 8 + 60)
+            for b in (False, True):
+                if (c, t, b) != missing:
+                    lines += _properties(
+                        f"_ZN6adunet12_GLOBAL__N_131layer_norm_relu_bwd_rows_kernelINS_{arg}ELi{c}E"
+                        f"Lb{int(b)}EEEvPKNT_7storageES6_PKfS8_S8_PS4_Pfxf",
+                        24 if (c, t, b) == spill_at else 0, c // 8 + 60)
     return "\n".join(lines)
 
 
 def test_k1_bwd_spill_check_reads_every_instantiation(capsys):
     rows = chip_smoke.check_k1_bwd_spills(_report())
-    assert {(r["C"], r["type"]) for r in rows} == chip_smoke.K1_BWD_INSTANCES
+    assert {(r["C"], r["type"], r["bias"]) for r in rows} == chip_smoke.K1_BWD_INSTANCES
+    assert len(rows) == 2 * 2 * len(fused_norm.SUPPORTED_CHANNELS)
     assert all(r["stack"] == r["spill_stores"] == r["spill_loads"] == 0 for r in rows)
     assert all(r["registers"] == r["C"] // 8 + 60 for r in rows)
-    assert capsys.readouterr().out.count("[spill] K1 backward") == 16
+    assert capsys.readouterr().out.count("[spill] K1 backward") == 32
 
 
 @pytest.mark.parametrize("report, message", [
-    (_report(spill_at=(2048, "BF16")), "spills"),
-    (_report(spill_at=(16, "F32")), "spills"),
-    (_report(missing=(1024, "F32")), "instantiations"),
+    (_report(spill_at=(2048, "BF16", False)), "spills"),
+    (_report(spill_at=(16, "F32", False)), "spills"),
+    (_report(missing=(1024, "F32", False)), "instantiations"),
+    (_report(spill_at=(2048, "BF16", True)), "spills"),
+    (_report(missing=(512, "F32", True)), "instantiations"),
 ])
 def test_k1_bwd_spill_check_fails_on_a_spill_or_a_missing_instantiation(report, message):
     with pytest.raises(AssertionError, match=message):

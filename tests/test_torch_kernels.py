@@ -91,6 +91,24 @@ def test_narrow_layer_norm_relu_plain_matches_pallas_interpret(monkeypatch, dtyp
     assert c in tnorm.SUPPORTED_CHANNELS
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 64, 512])
+def test_layer_norm_relu_plain_with_conv_bias_is_the_add_then_k1(dtype, c):
+    """K1 with a conv's float32 bias equals the conv's own bias add (the
+    bias cast to x's type, one rounding of the sum to x's type) followed by
+    K1 without one, bit for bit: the plain version and the wrapper's CPU
+    paths with and without a gradient."""
+    x, g, b = _norm_data(96, c, seed=c + 1)
+    cb = torch.from_numpy((np.random.default_rng(c).normal(size=c) * 0.7).astype(np.float32))
+    xt, gt, bt = torch.from_numpy(x).to(dtype), torch.from_numpy(g), torch.from_numpy(b)
+    want = tnorm.layer_norm_relu_plain(xt + cb.to(dtype), gt, bt)
+    assert want.dtype == dtype and bool((want > 0).any())
+    assert torch.equal(tnorm.layer_norm_relu_plain(xt, gt, bt, 1e-3, cb), want)
+    assert torch.equal(tnorm.layer_norm_relu(xt, gt, bt, 1e-3, cb), want)
+    got = tnorm.layer_norm_relu(xt, gt, bt, 1e-3, cb.clone().requires_grad_(True))
+    assert got.grad_fn is not None and torch.equal(got.detach(), want)
+
+
 @pytest.fixture(scope="module")
 def conv_data():
     rng = np.random.default_rng(0)
@@ -232,31 +250,48 @@ def recording_lib(monkeypatch):
     return lib
 
 
+@pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_launches_are_one_c_call_each(recording_lib, dtype):
+def test_k1_launches_are_one_c_call_each(recording_lib, dtype, bias):
     """A forward launch and a backward launch make exactly one C call each,
-    pass float32 gamma / beta as they are (no copy), the device index and
-    the stream; the backward's dgamma / dbeta are views of the one float32
-    allocation whose rest is the kernel's scratch of partials."""
+    pass float32 gamma / beta and a conv's bias in x's type (else a null
+    pointer) as they are (no copy), the device index and the stream; the
+    backward's dgamma / dbeta are views of the one float32 allocation whose
+    rest is the kernel's scratch of partials ((3, C) each with a bias), and
+    dbias comes in x's type from an output of its own. A launch with a conv
+    bias counts on the bias counters too."""
     code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
     x = torch.zeros(96, 64, dtype=dtype)
     g, b = torch.ones(64), torch.zeros(64)
-    before = (tnorm.layer_norm_relu.launches, tnorm.layer_norm_relu.backward_launches)
-    y = tnorm._launch(x, g, b, 1e-3)
+    cb = torch.zeros(64, dtype=dtype) if bias else None
+    cb_ptr = cb.data_ptr() if bias else 0
+    ns = 3 if bias else 2
+    k1 = tnorm.layer_norm_relu
+    counters = lambda: (k1.launches, k1.backward_launches,  # noqa: E731
+                        k1.bias_launches, k1.bias_backward_launches)
+    before = counters()
+    y = tnorm._launch(x, g, b, 1e-3, cb)
     assert recording_lib.calls == [("adunet_layer_norm_relu", (
-        x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), 96, 64, 1e-3, code, -1, 1234))]
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), cb_ptr, y.data_ptr(), 96, 64, 1e-3, code, -1,
+        1234))]
     gy = torch.zeros(96, 64, dtype=dtype)
-    dx, dgamma, dbeta = tnorm._launch_backward(x, g, b, gy, 1e-3)
+    grads = tnorm._launch_backward(x, g, b, gy, 1e-3, cb)
+    dx, dgamma, dbeta = grads[:3]
+    assert len(grads) == ns + 1
     name, args = recording_lib.calls[1]
     assert len(recording_lib.calls) == 2 and name == "adunet_layer_norm_relu_backward"
-    assert args[:5] == (x.data_ptr(), gy.data_ptr(), g.data_ptr(), b.data_ptr(), dx.data_ptr())
-    assert args[7:] == (96, 64, 1e-3, code, -1, 1234)
-    assert (dgamma.data_ptr(), dbeta.data_ptr(), args[6]) == (args[5], args[5] + 256, args[5] + 512)
+    assert args[:6] == (x.data_ptr(), gy.data_ptr(), g.data_ptr(), b.data_ptr(), cb_ptr,
+                        dx.data_ptr())
+    assert args[9:] == (96, 64, 1e-3, code, -1, 1234)
+    assert (dgamma.data_ptr(), dbeta.data_ptr(), args[8]) == (args[6], args[6] + 256,
+                                                              args[6] + 512)
+    assert args[7] == (grads[3].data_ptr() if bias else 0)
+    if bias:
+        assert (grads[3].dtype, grads[3].shape) == (dtype, (64,))
     assert dgamma.untyped_storage().data_ptr() == dbeta.untyped_storage().data_ptr()
-    assert dgamma.untyped_storage().nbytes() == (8 + 1) * 2 * 64 * 4
+    assert dgamma.untyped_storage().nbytes() == (2 + 8 * ns) * 64 * 4
     assert (dgamma.dtype, dgamma.shape, dbeta.shape) == (torch.float32, (64,), (64,))
-    assert (tnorm.layer_norm_relu.launches,
-            tnorm.layer_norm_relu.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert counters() == (before[0] + 1, before[1] + 1, before[2] + bias, before[3] + bias)
 
 
 @pytest.mark.parametrize("bias", [True, False])

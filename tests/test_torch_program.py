@@ -184,6 +184,31 @@ def test_sr_program_matches_jax(quantize, tmp_path, perturb_params):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+# the ops of the served flagship's program (scale 0.5, depth 3, batch 8 x 256
+# px), by node: a library conv keeps its bias in the conv there (K1's op
+# takes none), so the graph is the one programs have had since the resize op
+FLAGSHIP_OPS = {
+    "adunet_torch.conv3x3_c64.default": 4, "adunet_torch.layer_norm_relu.default": 16,
+    "adunet_torch.resize_band.default": 6, "aten._assert_tensor_metadata.default": 39,
+    "aten.add.Tensor": 1, "aten.cat.default": 3, "aten.clamp.default": 1,
+    "aten.conv2d.default": 16, "aten.maximum.default": 1, "aten.minimum.default": 1,
+    "aten.ones.default": 1, "aten.permute.default": 32, "aten.relu.default": 3,
+    "aten.to.dtype": 39, "aten.zeros.default": 1,
+}
+FLAGSHIP_INT8_OPS = {**FLAGSHIP_OPS,
+                     "aten._assert_tensor_metadata.default": 59, "aten.mul.Tensor": 20,
+                     "aten.to.dtype": 59, "aten.view.default": 20}
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_exported_flagship_program_keeps_its_ops(quantize):
+    model, _ = build_super_resolution_unet(0.5, depth_override=3, device="cpu", seed=0)
+    ep = program.export_sr_forward(model.eval(), 256, 8, quantize=quantize)
+    assert program.node_counts(ep) == (FLAGSHIP_INT8_OPS if quantize else FLAGSHIP_OPS)
+    k1 = [n for n in ep.graph.nodes if n.op == "call_function" and str(n.target) == K1]
+    assert len(k1) == 16 and all(len(n.args) == 4 for n in k1)
+
+
 @pytest.mark.parametrize("quantize", [None, "int8"])
 @pytest.mark.parametrize("kind", ["seg", "joint"])
 def test_seg_and_joint_programs_match_jax(kind, quantize, tmp_path, perturb_params):
