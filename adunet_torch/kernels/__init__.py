@@ -3,7 +3,9 @@ PyTorch version: K1 fused LayerNorm+ReLU, K2 64->64 3x3 SAME conv (and its
 halo-row mode for a height split over processes) and K2's backward (dx, dw,
 db), and the banded resize (forward and backward; its plain version is the
 dense product, ``resize_band.resize_band_plain``); ``ops`` names K1 and K2's
-forwards and the resize as ``torch.library`` ops for exported programs."""
+forwards and the resize as ``torch.library`` ops for exported programs.
+``_route`` holds the one rule that picks what each op runs; every launch
+counter is registered here, once (``_COUNTERS``)."""
 
 from adunet_torch.kernels.conv64 import (
     conv3x3_rows,
@@ -18,8 +20,8 @@ from adunet_torch.kernels.fused_norm import layer_norm_relu, layer_norm_relu_pla
 from adunet_torch.kernels.resize_band import resize_band
 from adunet_torch.kernels import ops  # registers the adunet_torch:: ops
 
-# every launch counter of the wrappers: (wrapper, attribute); K1's and K2's
-# six first, in the order ``launch_counts`` gives them
+# every launch counter, in order: (wrapper, attribute); the first seven are
+# ``all_launch_counts``', then K1's launches that took a conv's bias
 _COUNTERS = (
     (layer_norm_relu, "launches"),
     (layer_norm_relu, "backward_launches"),
@@ -28,46 +30,49 @@ _COUNTERS = (
     (conv3x3_same_backward, "launches"),
     (conv3x3_same_backward, "rows_launches"),
     (resize_band, "launches"),
-)
-
-
-# K1's forward and backward launches that took a conv's bias: kept out of
-# ``_COUNTERS``, whose seven ``all_launch_counts`` gives and callers unpack
-_BIAS_COUNTERS = (
     (layer_norm_relu, "bias_launches"),
     (layer_norm_relu, "bias_backward_launches"),
 )
 
 
-def all_launch_counts() -> tuple:
-    """Every launch counter, in ``_COUNTERS``' order."""
+def launch_snapshot() -> tuple:
+    """Every launch counter, in ``_COUNTERS``' order (nine)."""
     return tuple(getattr(fn, name) for fn, name in _COUNTERS)
 
 
-def bias_launch_counts() -> tuple:
-    """K1's forward and backward launches that took a conv's bias."""
-    return tuple(getattr(fn, name) for fn, name in _BIAS_COUNTERS)
+def launches_since(before: tuple) -> tuple:
+    """The launches counted since ``launch_snapshot()`` gave ``before``."""
+    return tuple(a - b for a, b in zip(launch_snapshot(), before))
 
 
-def launch_counts() -> tuple:
-    """K1's and K2's six launch counters (K1, K1 backward, K2, K2 halo rows,
-    K2 backward, K2 backward halo rows), the first six of ``_COUNTERS``."""
-    return all_launch_counts()[:6]
+def all_launch_counts() -> tuple:
+    """K1, K1 backward, K2, K2 halo rows, K2 backward, K2 backward halo rows
+    and the resize: the first seven of ``launch_snapshot``."""
+    return launch_snapshot()[:7]
 
 
 def add_launches(counts: tuple) -> None:
-    """Add ``counts`` (in the order of ``all_launch_counts() +
-    bias_launch_counts()``; a shorter tuple adds to the first counters) to
-    the counters: a CUDA graph's replay launches the kernels its capture
+    """Add ``counts``, a whole snapshot's worth (``launches_since``), to the
+    counters: a CUDA graph's replay launches the kernels its capture
     counted, without their wrappers."""
-    for (fn, name), n in zip(_COUNTERS + _BIAS_COUNTERS, counts):
+    if len(counts) != len(_COUNTERS):
+        raise ValueError(f"add_launches: {len(counts)} counts for {len(_COUNTERS)} counters")
+    for (fn, name), n in zip(_COUNTERS, counts):
         setattr(fn, name, getattr(fn, name) + n)
+
+
+def reset_launches() -> None:
+    """Set every launch counter to 0."""
+    for fn, name in _COUNTERS:
+        setattr(fn, name, 0)
+
 
 __all__ = [
     "add_launches",
     "all_launch_counts",
-    "bias_launch_counts",
-    "launch_counts",
+    "launch_snapshot",
+    "launches_since",
+    "reset_launches",
     "layer_norm_relu",
     "layer_norm_relu_plain",
     "conv3x3_same",

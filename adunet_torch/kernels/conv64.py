@@ -60,8 +60,7 @@ SAME mode and ``conv3x3_same_backward.rows_launches`` in the halo-row mode.
 The gate ``supported`` is the reference's (``adunet/kernels/conv64.py:49``)
 unchanged, so the same four convs of the flagship reach the kernel; callers
 send every other conv to ``F.conv2d``, as the reference sends them to XLA.
-Dispatch is by the tensor's device: a CPU tensor takes the plain version
-below, a CUDA tensor launches the kernel or raises.
+A CPU tensor takes the plain version below, a CUDA tensor the kernel.
 
 ``conv3x3_rows`` is the kernels' halo-row mode, for an image whose height is
 split over the processes of a space mesh (``adunet_torch.parallel.spatial``):
@@ -82,6 +81,7 @@ import torch
 import torch.nn.functional as F
 
 from adunet_torch.kernels import _build
+from adunet_torch.kernels._route import on_device, route
 
 __all__ = [
     "conv3x3_same",
@@ -223,11 +223,8 @@ def conv3x3_same_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
     CUDA: the backward kernels, one C call (``supported`` shapes, float32 or
     bf16 x; anything else raises). CPU: ``conv3x3_same_backward_plain``."""
-    if x.is_cuda:
-        return _launch_backward(x, w, g, need_dx, need_dw, need_db, bias_dtype, 1 - pad_h)
-    if x.device.type != "cpu":
-        raise ValueError(f"conv3x3_same_backward: no kernel for device {x.device}")
-    return conv3x3_same_backward_plain(x, w, g, need_dx, need_dw, need_db, bias_dtype, pad_h)
+    run = on_device("conv3x3_same_backward", x, _launch_backward, conv3x3_same_backward_plain)
+    return run(x, w, g, need_dx, need_dw, need_db, bias_dtype, pad_h)
 
 
 def _bias_grad_f32(g: torch.Tensor) -> torch.Tensor:
@@ -308,9 +305,10 @@ def _n_partials(lib, index: int, code: int) -> int:
 
 
 def _launch_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, need_dx: bool,
-                     need_dw: bool, need_db: bool, bias_dtype: torch.dtype | None, halo: int):
+                     need_dw: bool, need_db: bool, bias_dtype: torch.dtype | None, pad_h: int):
     """The backward kernels on CUDA tensors, one C call: (dx, dw, db) as
     ``conv3x3_same_backward`` returns them; raises on what they do not take."""
+    halo = 1 - pad_h
     what = "conv3x3_rows backward" if halo else "conv3x3_same backward"
     code = _DTYPE_CODES.get(x.dtype)
     w_code = _DTYPE_CODES.get(w.dtype)
@@ -352,6 +350,10 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, need_dx:
     return dx, dw, db
 
 
+def _launch_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    return _launch(x, w, bias, 1)
+
+
 class _Conv3x3Same(torch.autograd.Function):
     halo = 0  # 1: the halo-row mode (_Conv3x3Rows)
 
@@ -359,10 +361,9 @@ class _Conv3x3Same(torch.autograd.Function):
     def forward(cls, ctx, x, w, bias):
         ctx.save_for_backward(x, w)
         ctx.bias_dtype = None if bias is None else bias.dtype
-        if x.device.type == "cpu":
-            plain = conv3x3_rows_plain if cls.halo else conv3x3_same_plain
-            return plain(x, w, bias)
-        return _launch(x, w, bias, cls.halo)
+        if cls.halo:
+            return on_device("conv3x3_rows", x, _launch_rows, conv3x3_rows_plain)(x, w, bias)
+        return on_device("conv3x3_same", x, _launch, conv3x3_same_plain)(x, w, bias)
 
     @classmethod
     def backward(cls, ctx, g):
@@ -377,46 +378,30 @@ class _Conv3x3Rows(_Conv3x3Same):
     halo = 1
 
 
-def _run(fn: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, halo: int):
-    """The Function where a gradient is wanted, else the kernel (CUDA) or
-    the plain version (CPU) without it; raises for any other device."""
-    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
-                                        or (bias is not None and bias.requires_grad))
-    function = _Conv3x3Rows if halo else _Conv3x3Same
-    if x.is_cuda:
-        return function.apply(x, w, bias) if grad else _launch(x, w, bias, halo)
-    if x.device.type != "cpu":
-        raise ValueError(f"{fn}: no kernel for device {x.device}")
-    if grad:
-        return function.apply(x, w, bias)
-    return (conv3x3_rows_plain if halo else conv3x3_same_plain)(x, w, bias)
-
-
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """3x3 SAME conv of NHWC ``x`` with OIHW ``w`` at a ``supported`` shape;
     differentiable in x, w and bias. ``w`` and ``bias`` may be float32 or
     bf16 whatever x's type (they round to it, as a cast would).
 
-    CUDA: float32 or bf16 ``x``, contiguous; anything else raises. CPU: the
-    plain version. While ``torch.export`` traces a program, the op
-    ``adunet_torch::conv3x3_c64`` (``kernels/ops.py``) stands in the graph.
+    Routed by ``kernels._route`` (its op: ``adunet_torch::conv3x3_c64``).
+    CUDA: float32 or bf16 ``x``, contiguous; anything else raises.
     ``conv3x3_same.launches`` counts kernel launches."""
     if not supported(x.shape, w.shape):
         raise ValueError(f"conv3x3_same: unsupported shapes x={tuple(x.shape)} w={tuple(w.shape)}")
-    if torch.compiler.is_exporting():
-        return torch.ops.adunet_torch.conv3x3_c64(x, w, bias)
-    return _run("conv3x3_same", x, w, bias, 0)
+    return route("conv3x3_same", (x, w, bias), _Conv3x3Same, _launch, conv3x3_same_plain,
+                 torch.ops.adunet_torch.conv3x3_c64)
 
 
 def conv3x3_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """K2's halo-row mode: the 3x3 conv of NHWC ``x`` of H + 2 rows with OIHW
     ``w``, SAME in W and VALID in H, H rows out, where the output's shape is
     ``supported``; differentiable in x, w and bias. As ``conv3x3_same``
-    otherwise; ``conv3x3_rows.launches`` counts kernel launches."""
+    otherwise, but with no op: a program holds no space mesh.
+    ``conv3x3_rows.launches`` counts kernel launches."""
     out_shape = (x.shape[0], x.shape[1] - 2, *x.shape[2:])
     if x.dim() != 4 or not supported(out_shape, w.shape):
         raise ValueError(f"conv3x3_rows: unsupported shapes x={tuple(x.shape)} w={tuple(w.shape)}")
-    return _run("conv3x3_rows", x, w, bias, 1)
+    return route("conv3x3_rows", (x, w, bias), _Conv3x3Rows, _launch_rows, conv3x3_rows_plain)
 
 
 conv3x3_same.launches = 0

@@ -30,9 +30,8 @@ stored (float32 sums rounded to x's type, as the conv's bias sum gave it).
 So a library conv's output is read once, by K1, with no broadcast add before
 it and no bias sum beside the backward.
 
-Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
-version below, a CUDA tensor launches the kernel or raises. There is no
-fallback from a failed launch.
+A CPU tensor takes the plain PyTorch version below, a CUDA tensor launches
+the kernel or raises (``kernels._route``); no failed launch falls back.
 """
 
 from __future__ import annotations
@@ -42,6 +41,7 @@ import ctypes
 import torch
 
 from adunet_torch.kernels import _build
+from adunet_torch.kernels._route import on_device, route
 
 __all__ = [
     "layer_norm_relu",
@@ -249,18 +249,21 @@ class _LayerNormReLU(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, eps, conv_bias):
         ctx.save_for_backward(x, gamma, beta, conv_bias)
         ctx.eps = eps
-        if x.device.type == "cpu":
-            return layer_norm_relu_plain(x, gamma, beta, eps, conv_bias)
-        return _launch(x, gamma, beta, eps, conv_bias)
+        return on_device("layer_norm_relu", x, _launch, layer_norm_relu_plain)(
+            x, gamma, beta, eps, conv_bias)
 
     @staticmethod
     def backward(ctx, g):
         x, gamma, beta, conv_bias = ctx.saved_tensors
-        if x.device.type == "cpu":
-            grads = layer_norm_relu_backward(x, gamma, beta, g, ctx.eps, conv_bias)
-        else:
-            grads = _launch_backward(x, gamma, beta, g, ctx.eps, conv_bias)
+        grads = on_device("layer_norm_relu", x, _launch_backward, layer_norm_relu_backward)(
+            x, gamma, beta, g, ctx.eps, conv_bias)
         return *grads[:3], None, grads[3] if conv_bias is not None else None
+
+
+def _op(x, gamma, beta, eps, conv_bias):
+    if conv_bias is not None:
+        raise ValueError("layer_norm_relu: a program's op takes no conv bias")
+    return torch.ops.adunet_torch.layer_norm_relu(x, gamma, beta, eps)
 
 
 def layer_norm_relu(
@@ -272,32 +275,16 @@ def layer_norm_relu(
     output x, module docstring); differentiable in x, gamma, beta and the
     conv bias.
 
-    CUDA: float32 or bf16 ``x``, contiguous, C in ``SUPPORTED_CHANNELS``;
-    anything else raises. CPU: the plain versions. Where no gradient is
-    wanted (grad mode off, or no input requires one, as in serving) the
-    kernel or plain version runs without the autograd Function. While
-    ``torch.export`` traces a program, the op ``adunet_torch::layer_norm_relu``
-    (``kernels/ops.py``) stands in the graph, and runs the kernel or the plain
-    version by device when the program runs.
-    The op takes no conv bias: an exported block keeps the bias in its conv.
+    Routed by ``kernels._route``. CUDA: float32 or bf16 ``x``, contiguous, C
+    in ``SUPPORTED_CHANNELS``; anything else raises. The op
+    ``adunet_torch::layer_norm_relu`` takes no conv bias: an exported block
+    keeps the bias in its conv.
     ``layer_norm_relu.launches`` counts forward kernel launches,
     ``layer_norm_relu.backward_launches`` backward kernel launches, and
     ``.bias_launches`` / ``.bias_backward_launches`` those of them that took
     a conv bias."""
-    if torch.compiler.is_exporting():
-        if conv_bias is not None:
-            raise ValueError("layer_norm_relu: a program's op takes no conv bias")
-        return torch.ops.adunet_torch.layer_norm_relu(x, gamma, beta, eps)
-    grad = torch.is_grad_enabled() and (
-        x.requires_grad or gamma.requires_grad or beta.requires_grad
-        or (conv_bias is not None and conv_bias.requires_grad))
-    if x.is_cuda:
-        return _LayerNormReLU.apply(x, gamma, beta, eps, conv_bias) if grad else \
-            _launch(x, gamma, beta, eps, conv_bias)
-    if x.device.type != "cpu":
-        raise ValueError(f"layer_norm_relu: no kernel for device {x.device}")
-    return _LayerNormReLU.apply(x, gamma, beta, eps, conv_bias) if grad else \
-        layer_norm_relu_plain(x, gamma, beta, eps, conv_bias)
+    return route("layer_norm_relu", (x, gamma, beta, eps, conv_bias), _LayerNormReLU, _launch,
+                 layer_norm_relu_plain, _op)
 
 
 layer_norm_relu.launches = 0

@@ -18,13 +18,15 @@ program runs:
   where a size changes, so its output is never x.
 
 CUDA runs the kernel (the wrappers' ``_launch``: one C call, the launch
-counters bumped as in eager) or raises; CPU runs the plain version; the fake
-kernels give the output's shape and type and read no data. No autograd
+counters bumped as in eager) or raises; CPU runs the plain version (picked
+by ``kernels._route``; the resize's wrapper picks itself); the fake kernels
+give the output's shape and type and read no data. No autograd
 formula is registered, so differentiating through a program raises: a
 program serves, as the reference's StableHLO programs do.
 
 The eager wrappers call these ops only while ``torch.compiler.is_exporting()``
-is true; an eager call keeps its one C call with no dispatcher in front.
+is true (``kernels._route``); an eager call keeps its one C call with no
+dispatcher in front.
 Importing this module (``adunet_torch.kernels`` does) registers the ops,
 which a process must do before it loads a program.
 """
@@ -37,20 +39,17 @@ import torch
 from torch import Tensor
 
 from adunet_torch.kernels import conv64, fused_norm
-from adunet_torch.kernels.resize_band import resize_band as _resize_band_kernel
-from adunet_torch.kernels.resize_band import resize_band_plain
+from adunet_torch.kernels._route import on_device
+from adunet_torch.kernels.resize_band import resize_band as _resize_band
 
 __all__ = ["layer_norm_relu", "conv3x3_c64", "resize_band"]
 
 
-@torch.library.custom_op("adunet_torch::layer_norm_relu", mutates_args=(), device_types="cpu")
+@torch.library.custom_op("adunet_torch::layer_norm_relu", mutates_args=(),
+                         device_types=("cpu", "cuda"))
 def layer_norm_relu(x: Tensor, gamma: Tensor, beta: Tensor, eps: float) -> Tensor:
-    return fused_norm.layer_norm_relu_plain(x, gamma, beta, eps)
-
-
-@layer_norm_relu.register_kernel("cuda")
-def _layer_norm_relu_cuda(x: Tensor, gamma: Tensor, beta: Tensor, eps: float) -> Tensor:
-    return fused_norm._launch(x.contiguous(), gamma, beta, eps)
+    run = on_device("layer_norm_relu", x, fused_norm._launch, fused_norm.layer_norm_relu_plain)
+    return run(x.contiguous(), gamma, beta, eps)
 
 
 @layer_norm_relu.register_fake
@@ -64,16 +63,12 @@ def _gate(x: Tensor, w: Tensor) -> None:
                          f"w={tuple(w.shape)}")
 
 
-@torch.library.custom_op("adunet_torch::conv3x3_c64", mutates_args=(), device_types="cpu")
+@torch.library.custom_op("adunet_torch::conv3x3_c64", mutates_args=(),
+                         device_types=("cpu", "cuda"))
 def conv3x3_c64(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
     _gate(x, w)
-    return conv64.conv3x3_same_plain(x, w, bias)
-
-
-@conv3x3_c64.register_kernel("cuda")
-def _conv3x3_c64_cuda(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
-    _gate(x, w)
-    return conv64._launch(x.contiguous(), w, bias)
+    return on_device("conv3x3_c64", x, conv64._launch, conv64.conv3x3_same_plain)(
+        x.contiguous(), w, bias)
 
 
 @conv3x3_c64.register_fake
@@ -82,16 +77,11 @@ def _conv3x3_c64_fake(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
     return x.new_empty((x.shape[0], x.shape[1], x.shape[2], w.shape[0]))
 
 
-@torch.library.custom_op("adunet_torch::resize_band", mutates_args=(), device_types="cpu")
+@torch.library.custom_op("adunet_torch::resize_band", mutates_args=(),
+                         device_types=("cpu", "cuda"))
 def resize_band(x: Tensor, out_h: int, out_w: int, method: str, antialias: bool,
                 dtype: torch.dtype) -> Tensor:
-    return resize_band_plain(x, (out_h, out_w), method, antialias).to(dtype)
-
-
-@resize_band.register_kernel("cuda")
-def _resize_band_cuda(x: Tensor, out_h: int, out_w: int, method: str, antialias: bool,
-                      dtype: torch.dtype) -> Tensor:
-    return _resize_band_kernel(x, (out_h, out_w), method, antialias, dtype)
+    return _resize_band(x, (out_h, out_w), method, antialias, dtype)
 
 
 @resize_band.register_fake

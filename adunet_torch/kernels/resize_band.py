@@ -48,6 +48,7 @@ import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
 from adunet_torch.kernels import _build
+from adunet_torch.kernels._route import route
 
 __all__ = ["resize_band", "resize_band_plain", "resize_matrix", "band_tables", "plan"]
 
@@ -278,19 +279,23 @@ def plan(n: int, h: int, w: int, c: int, oh: int, ow: int, method: str, antialia
 
 def _launch(x: torch.Tensor, oh: int, ow: int, method: str, antialias: bool,
             dtype: torch.dtype, transposed: bool = False) -> torch.Tensor:
-    """One kernel launch: x (..., H, W, C) on a CUDA device, bf16 or float32,
-    to (..., oh, ow, C) of ``dtype`` (bf16 or float32). ``transposed``: the
-    backward's launch, x being the cotangent of a resize of (oh, ow) to
-    x's (H, W)."""
+    """One kernel launch: x (..., H, W, C) on a CUDA device to (..., oh, ow,
+    C) of ``dtype`` (an unchanged axis: a table of one weight of 1). It reads
+    and writes bf16 or float32; another type is read as float32 and its
+    result cast. ``transposed``: the backward's launch, x being the
+    cotangent of a resize of (oh, ow) to x's (H, W)."""
+    if x.dtype not in _DTYPE_CODES:
+        x = x.to(torch.float32)
+    out = dtype if dtype in _DTYPE_CODES else torch.float32
     *lead, h, w, c = x.shape
-    y = torch.empty((*lead, oh, ow, c), dtype=dtype, device=x.device)
+    y = torch.empty((*lead, oh, ow, c), dtype=out, device=x.device)
     if y.numel() == 0 or x.numel() == 0:
-        return y
+        return y.to(dtype)
     x = x.contiguous()
     n = x.numel() // (h * w * c)
     vec = 8 if c % 8 == 0 and x.data_ptr() % 16 == 0 else 1
     p = plan(n, h, w, c, oh, ow, method, antialias, transposed, vec, _DTYPE_CODES[x.dtype],
-             _DTYPE_CODES[dtype])
+             _DTYPE_CODES[out])
     index = x.get_device()
     device = x.device
     sizes_h = (oh, h) if transposed else (h, oh)
@@ -301,7 +306,12 @@ def _launch(x: torch.Tensor, oh: int, ow: int, method: str, antialias: bool,
         x.data_ptr(), y.data_ptr(), hs.data_ptr(), hw.data_ptr(), ws.data_ptr(), ww.data_ptr(),
         ctypes.addressof(p), index, _build.current_stream(index)), "resize_band")
     resize_band.launches += 1
-    return y
+    return y.to(dtype)
+
+
+def _plain(x: torch.Tensor, oh: int, ow: int, method: str, antialias: bool,
+           dtype: torch.dtype) -> torch.Tensor:
+    return resize_band_plain(x, (oh, ow), method, antialias).to(dtype)
 
 
 class _ResizeBand(torch.autograd.Function):
@@ -313,33 +323,22 @@ class _ResizeBand(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, w, dtype, method, antialias = ctx.args
-        if g.dtype not in _DTYPE_CODES:
-            g = g.to(torch.float32)
         return _launch(g, h, w, method, antialias, dtype, transposed=True), None, None, None, None, None
 
 
 def resize_band(x: torch.Tensor, out_hw, method: str = "bilinear", antialias: bool = True,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Resize the spatial dims of a CUDA (..., H, W, C) tensor to ``out_hw``
-    with ``resize_matrix``'s weights, as a ``dtype`` tensor; differentiable
-    in x. An axis whose size is unchanged is applied as the identity (its
-    table is one weight of 1); where neither changes, x is returned cast.
-    The kernel reads bf16 or float32 and writes bf16 or float32; another
-    type is taken as float32 (the dense path's cast) and its result cast.
+    """Resize the spatial dims of a (..., H, W, C) tensor to ``out_hw`` with
+    ``resize_matrix``'s weights, as a ``dtype`` tensor (x cast where neither
+    size changes); differentiable in x. Routed by ``kernels._route``: CUDA,
+    the kernel; CPU, the dense product ``resize_band_plain`` cast to
+    ``dtype``, which autograd differentiates as it runs; exporting, the op.
     ``resize_band.launches`` counts the launches."""
-    if not x.is_cuda:
-        raise ValueError(f"resize_band: no kernel for device {x.device}")
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (x.shape[-3], x.shape[-2]) == (oh, ow):
         return x.to(dtype)
-    if x.dtype not in _DTYPE_CODES:
-        x = x.to(torch.float32)
-    out = dtype if dtype in _DTYPE_CODES else torch.float32
-    if torch.is_grad_enabled() and x.requires_grad:
-        y = _ResizeBand.apply(x, oh, ow, method, antialias, out)
-    else:
-        y = _launch(x, oh, ow, method, antialias, out)
-    return y.to(dtype)
+    return route("resize_band", (x, oh, ow, method, antialias, dtype), _ResizeBand, _launch, _plain,
+                 torch.ops.adunet_torch.resize_band, plain_grad=True)
 
 
 resize_band.launches = 0

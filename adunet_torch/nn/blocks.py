@@ -35,12 +35,12 @@ them, as the cast's backward would).
 - ``ConvBlock``     ← :102 — (conv3x3 → norm → ReLU) x2. ``norm="layer"``
   (K1), ``"batch"`` (BatchNorm in float32, ReLU, cast back to the compute
   dtype, :142-150) or ``"none"``. With K1, a conv that goes to the library
-  runs without its bias and K1 adds it (cast to the compute dtype, as the
-  conv took it) as it reads the conv's output, and sums its gradient in its
-  backward: on the card bit for bit what cuDNN's
-  conv and PyTorch's bias add after it gave, with no broadcast add and no
-  bias sum of their own. K2 adds its own bias; an exported program keeps
-  the bias in the conv (K1's op takes none).
+  runs without its bias (``Conv``'s ``hand_off_bias`` decides) and K1 adds
+  it (cast to the compute dtype, as the conv took it) as it reads the conv's
+  output, and sums its gradient in its backward: on the card bit for bit
+  what cuDNN's conv and PyTorch's bias add after it gave, with no broadcast
+  add and no bias sum of their own. K2 adds its own bias; an exported
+  program keeps the bias in the conv (K1's op takes none).
 - ``ConvTranspose`` ← flax ``nn.ConvTranspose(kernel (2, 2), strides 2,
   "SAME")`` of ``adunet/models/seg_vanilla.py:43``: out[2i + a, 2j + b] =
   x[i, j] @ k[1 - a, 1 - b], since flax correlates the dilated input with the
@@ -96,18 +96,21 @@ class Conv(nn.Module):
                 _glorot_(self.weight, i * kh * kw, o * kh * kw, generator)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor, library_bias: bool = True) -> torch.Tensor:
-        """The conv of x. ``library_bias=False``: the library route leaves
-        the bias out, for the caller to add (``ConvBlock`` hands it to K1);
-        K2 adds its own in any case."""
+    def forward(self, x: torch.Tensor, hand_off_bias: bool = False):
+        """The conv of x; with ``hand_off_bias``, ``(y, bias_left_out)``: on
+        the library route, unless exporting, y without the bias and the bias
+        cast to x's type for the caller (``ConvBlock``: K1); else y with it and
+        None. A module call, so that hooks (FSDP's weight gathers) run."""
         w, b = self.weight, self.bias  # K2 takes them as they are and rounds them itself
         space = self.space is not None and w.shape[-1] == 3
         xp = self.space.halo(x, 1) if space else x
         if supported(x.shape, w.shape):
-            return conv3x3_rows(xp, w, b) if space else conv3x3_same(x.contiguous(), w, b)
-        y = F.conv2d(xp.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype) if library_bias else None,
-                     padding=(0, 1) if space else w.shape[-1] // 2)
-        return y.permute(0, 2, 3, 1)
+            y = conv3x3_rows(xp, w, b) if space else conv3x3_same(x.contiguous(), w, b)
+            return (y, None) if hand_off_bias else y
+        leave = hand_off_bias and not torch.compiler.is_exporting()
+        y = F.conv2d(xp.permute(0, 3, 1, 2), w.to(x.dtype), None if leave else b.to(x.dtype),
+                     padding=(0, 1) if space else w.shape[-1] // 2).permute(0, 2, 3, 1)
+        return (y, b.to(x.dtype) if leave else None) if hand_off_bias else y
 
 
 class LayerNormReLU(nn.Module):
@@ -215,12 +218,8 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(2):
             conv = getattr(self, f"conv{i}")
-            if self.norm == "layer":
-                # K1 adds a library conv's bias (module docstring)
-                fuse = not supported(x.shape, conv.weight.shape) \
-                    and not torch.compiler.is_exporting()
-                x = getattr(self, f"norm{i}")(conv(x, library_bias=not fuse),
-                                              conv.bias.to(x.dtype) if fuse else None)
+            if self.norm == "layer":  # K1 adds a bias the conv left out (module docstring)
+                x = getattr(self, f"norm{i}")(*conv(x, hand_off_bias=True))
             elif self.norm == "batch":  # float32 statistics, ReLU, then the compute dtype
                 x = conv(x)
                 x = torch.relu(getattr(self, f"norm{i}")(x)).to(x.dtype)

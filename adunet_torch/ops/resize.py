@@ -19,9 +19,9 @@ While ``torch.export`` traces a program, the op ``adunet_torch::resize_band``
 
 Under a space mesh (``adunet_torch.parallel.spatial``) a tensor holds its
 process's rows of the image: ``space`` (a ``SpaceShard``) and ``height`` (the
-global height of x) make the resize along H a row-sharded product
-(``SpaceShard.resize_rows``), every size comes from the global height, and
-the resize along W is the dense product on every device.
+global height of x) hand the resize to ``SpaceShard.resize``, a row-sharded
+product along H, every size from the global height, then the dense product
+along W on every device.
 
 The matrices (``resize_matrix``: ``area``, ``bilinear``, ``bicubic``,
 ``bicubic_cv2``, ``nearest``, ``lanczos3`` / ``lanczos5``, half-pixel
@@ -37,33 +37,17 @@ from typing import Sequence, Tuple
 
 import torch
 
-from adunet_torch.kernels.resize_band import resize_band, resize_band_plain, resize_matrix
+from adunet_torch.kernels.resize_band import resize_band, resize_matrix
 
 __all__ = ["resize", "resize_by_scale", "resize_to_match", "scaled_size", "resize_matrix"]
 
 
 def _resize(x, out_hw, method, antialias, space, height, dtype) -> torch.Tensor:
-    """The resize as a ``dtype`` tensor: the kernel on a CUDA tensor, the op
-    while exporting, the dense product on the CPU; with ``space``, the
-    row-sharded product along H, then the dense product along W."""
-    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    """The resize as a ``dtype`` tensor: with ``space``, ``SpaceShard.resize``;
+    otherwise ``resize_band``, which routes it by device and export."""
     if space is not None:
-        if height is None:
-            raise ValueError("a row-sharded resize needs the image's global height")
-        *lead, h, w, c = x.shape
-        y = x.to(torch.float32)
-        if height != out_h:
-            y = space.resize_rows(y.reshape(-1, h, w * c), height, out_h, method, antialias)
-            h = y.shape[1]
-        y = y.reshape(*lead, h, w, c)
-        return resize_band_plain(y, (h, out_w), method, antialias).to(dtype)
-    if (x.shape[-3], x.shape[-2]) == (out_h, out_w):
-        return x.to(dtype)
-    if torch.compiler.is_exporting():
-        return torch.ops.adunet_torch.resize_band(x, out_h, out_w, method, antialias, dtype)
-    if x.is_cuda:
-        return resize_band(x, (out_h, out_w), method, antialias, dtype)
-    return resize_band_plain(x, (out_h, out_w), method, antialias).to(dtype)
+        return space.resize(x, out_hw, method, antialias, height, dtype)
+    return resize_band(x, out_hw, method, antialias, dtype)
 
 
 def resize(

@@ -14,12 +14,13 @@ are written out:
 - ``_HaloRows`` (a 3x3 convolution's halo): forward takes k edge rows from
   each neighbour, zeros at the image's border; backward sends the halo rows'
   gradients back to their owners, which add them to their edge rows.
-- ``_ResizeRows`` (a resize along H): a shard multiplies its output rows'
-  slice of the resize matrix (``ops/resize.py``) by the input rows that
-  slice touches: its own plus the band's margin k from each neighbour
-  (``_row_plan``: none for degrade's area shrink by 2, 2 rows for its
-  cubic, 1 or 2 for the bilinear resizes between levels). Its backward is
-  the transposed product and the reverse exchange.
+- ``SpaceShard.resize`` (a resize, which ``ops/resize.py`` hands it): along
+  H, ``_ResizeRows``, a shard multiplies its output rows' slice of the
+  resize matrix by the input rows that slice touches: its own plus the
+  band's margin k from each neighbour (``_row_plan``: none for degrade's
+  area shrink by 2, 2 rows for its cubic, 1 or 2 for the bilinear resizes
+  between levels), and its backward is the transposed product and the
+  reverse exchange; along W, the dense product on every device.
 
 Every exchange is one ``all_gather`` of a fixed-size buffer (each process's
 first and last k rows) over the space group: gloo takes CUDA tensors for
@@ -48,7 +49,7 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import _disable_current_modes
 
 from adunet_torch.nn.blocks import BatchNorm, Conv, ConvTranspose
-from adunet_torch.ops.resize import resize_matrix
+from adunet_torch.kernels.resize_band import resize_band_plain, resize_matrix
 
 __all__ = ["height_split", "SpaceShard", "attach"]
 
@@ -132,16 +133,28 @@ class SpaceShard:
         this shard's rows (zeros beyond the image); differentiable."""
         return _HaloRows.apply(x, self, k)
 
-    def resize_rows(self, y: torch.Tensor, in_h: int, out_h: int, method: str,
-                    antialias: bool) -> torch.Tensor:
-        """This shard's output rows of the resize of the global ``in_h`` rows
-        of ``y`` (N, h, F), float32, to ``out_h``; differentiable."""
-        k, bands = _row_plan(in_h, out_h, method, antialias, self.shards)
-        band = _device_band(in_h, out_h, method, antialias, self.shards, self.index, y.device)
-        if y.shape[1] != bands[self.index].shape[1] - 2 * k:
-            raise ValueError(f"a shard of {y.shape[1]} rows is not shard {self.index} of "
-                             f"{self.shards} of {in_h} rows")
-        return _ResizeRows.apply(y, self, band, k)
+    def resize(self, x: torch.Tensor, out_hw, method: str, antialias: bool, height: int | None,
+               dtype: torch.dtype) -> torch.Tensor:
+        """This shard's output rows (``dtype``) of the resize of the global
+        ``height`` rows of x (..., h, W, C) to the global ``out_hw``: the
+        row-sharded product along H, then the dense one along W; differentiable."""
+        out_h, out_w = int(out_hw[0]), int(out_hw[1])
+        if height is None:
+            raise ValueError("a row-sharded resize needs the image's global height")
+        *lead, h, w, c = x.shape
+        y = x.to(torch.float32)
+        if height != out_h:
+            y = y.reshape(-1, h, w * c)
+            k, bands = _row_plan(height, out_h, method, antialias, self.shards)
+            band = _device_band(height, out_h, method, antialias, self.shards, self.index,
+                                y.device)
+            if h != bands[self.index].shape[1] - 2 * k:
+                raise ValueError(f"a shard of {h} rows is not shard {self.index} of "
+                                 f"{self.shards} of {height} rows")
+            y = _ResizeRows.apply(y, self, band, k)
+            h = y.shape[1]
+        y = y.reshape(*lead, h, w, c)
+        return resize_band_plain(y, (h, out_w), method, antialias).to(dtype)
 
 
 @functools.lru_cache(maxsize=None)

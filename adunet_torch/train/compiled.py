@@ -58,7 +58,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from adunet_torch.kernels import add_launches, all_launch_counts, bias_launch_counts
+from adunet_torch.kernels import add_launches, launch_snapshot, launches_since
 from adunet_torch.train.state import TrainState
 
 __all__ = ["CompiledStep"]
@@ -117,7 +117,7 @@ class _Captured:
     inputs: Tuple[torch.Tensor, ...]  # static buffers each call copies its batch into
     metrics: Dict[str, torch.Tensor]  # the graph's outputs
     grads: List[Tuple[torch.nn.Parameter, torch.Tensor]]
-    launches: tuple  # what the capture counted (``add_launches``' order)
+    launches: tuple  # what the capture counted (``launches_since``)
     optimizer: Tuple[int, ...]  # ``_optimizer_tensors`` after the capture
 
 
@@ -216,12 +216,11 @@ class CompiledStep:
         graph = torch.cuda.CUDAGraph()
         if rng is not None and rng.device.type == "cuda":
             graph.register_generator_state(rng)
-        before = all_launch_counts() + bias_launch_counts()
+        before = launch_snapshot()
         with torch.cuda.graph(graph, stream=_side_stream(device),
                               capture_error_mode="thread_local"):
             metrics = self.body(state, static, rng)
-        launches = tuple(a - b for a, b in
-                         zip(all_launch_counts() + bias_launch_counts(), before))
+        launches = launches_since(before)
         self.captures_made += 1
         grads = [(p, p.grad) for p in params if p.grad is not None]
         return _Captured(graph, static, metrics, grads, launches,

@@ -190,9 +190,7 @@ protocol seg step, 2 per lane per tuner training step, and none on a
 forward without a gradient.
 
 At the start of each phase it prints a host probe (a fixed numpy and Python
-timing, the load average, the live threads, torch's CPU threads), and
-beside each K1-backward row the device time it had before the kernel's
-redesign.
+timing, the load average, the live threads, torch's CPU threads).
 
 Phases 3 and 4 also hold K1 at C = 16 and 32 (forward and backward kernels,
 float32 and bf16, full and ragged row counts) and K2 at the vanilla model's
@@ -231,7 +229,8 @@ import torch.nn.functional as F
 from adunet_torch.cli.serve import make_server
 from adunet_torch.evaluate import infer_eval_shave
 from adunet_torch.export import load_artifact
-from adunet_torch.kernels import _build, bias_launch_counts, conv64, fused_norm, resize_band
+from adunet_torch.kernels import (_build, conv64, fused_norm, launch_snapshot, reset_launches,
+                                  resize_band)
 from adunet_torch.kernels.resize_band import band_tables, resize_band_plain, resize_matrix
 from adunet_torch.metrics import msssim_power_factors_for, psnr, ssim, ssim_multiscale
 from adunet_torch.ops import degrade, rgb_to_luma_bt601, scaled_size
@@ -264,42 +263,6 @@ def _biased(pairs: dict) -> dict:
 # the device kernel K2 launches for each type (a substring of its name)
 K2_KERNEL = {torch.float32: "conv3x3_c64_kernel", torch.bfloat16: "conv3x3_c64_wgmma_kernel"}
 K1_BWD_KERNEL = "layer_norm_relu_bwd"  # its rows kernel and its column-sum kernel
-# K1's backward kernel's profiler device times per launch before its
-# redesign (this script's run on NVIDIA H100 80GB HBM3, 700.00 W, at the
-# commit before it; PERF.md §6), keyed (path, rows, C, dtype): printed beside
-# this run's
-K1_BWD_PRIOR_MS = {
-    ("train", 2_097_152, 64, "bfloat16"): 0.4414, ("train", 524_288, 128, "bfloat16"): 0.1931,
-    ("train", 131_072, 256, "bfloat16"): 0.1127, ("train", 32_768, 512, "bfloat16"): 0.0924,
-    ("serve", 524_288, 64, "float32"): 0.1523, ("serve", 131_072, 128, "float32"): 0.0766,
-    ("serve", 32_768, 256, "float32"): 0.0447, ("serve", 8_192, 512, "float32"): 0.0297,
-    ("vanilla", 524_288, 32, "bfloat16"): 0.0582, ("vanilla", 131_072, 64, "bfloat16"): 0.0356,
-    ("vanilla", 32_768, 128, "bfloat16"): 0.0163, ("vanilla", 8_192, 256, "bfloat16"): 0.0096,
-    ("vanilla", 2_048, 512, "bfloat16"): 0.0089, ("narrow", 524_288, 32, "float32"): 0.0762,
-    ("narrow", 524_288, 16, "float32"): 0.0407, ("narrow", 524_288, 16, "bfloat16"): 0.0337,
-    ("narrow", 524_283, 32, "float32"): 0.0762, ("narrow", 524_283, 32, "bfloat16"): 0.0576,
-    ("narrow", 524_283, 16, "bfloat16"): 0.0342, ("deep", 524_288, 64, "bfloat16"): 0.1196,
-    ("deep", 336_200, 128, "bfloat16"): 0.1287, ("deep", 215_168, 256, "bfloat16"): 0.1611,
-    ("deep", 139_392, 512, "bfloat16"): 0.2356, ("deep", 89_888, 1024, "bfloat16"): 0.2686,
-    ("deep", 57_800, 2048, "bfloat16"): 0.8426, ("wide", 89_888, 1024, "float32"): 0.3853,
-    ("wide", 57_800, 2048, "float32"): 1.1469, ("wide", 89_885, 1024, "bfloat16"): 0.2687,
-    ("wide", 89_885, 1024, "float32"): 0.3857, ("wide", 57_797, 2048, "bfloat16"): 0.8375,
-    ("wide", 57_797, 2048, "float32"): 1.1541,
-}
-# K2's bf16 kernels' profiler device times per call before their redesign
-# for Hopper (the forward and the backward's dx in one kernel, the wgrad with
-# its cluster sum; PERF.md §6: this script's and scripts/torch_launch_ab.py's
-# runs on NVIDIA H100 80GB HBM3, 700.00 W, at the commit before it), keyed
-# (kernel, path, shape): printed beside this run's
-K2_PRIOR_MS = {
-    ("K2", "serve", (8, 256, 256, 64)): 0.0868, ("K2", "train", (32, 256, 256, 64)): 0.3252,
-    ("K2", "vanilla", (8, 128, 128, 64)): 0.0254,
-    ("K2_halo", "space", (32, 130, 256, 64)): 0.1642, ("K2_halo", "space", (8, 130, 256, 64)): 0.0477,
-    ("K2_bwd", "train", (32, 256, 256, 64)): 0.5726, ("K2_bwd", "serve", (8, 256, 256, 64)): 0.1672,
-    ("K2_bwd", "vanilla", (8, 128, 128, 64)): 0.0628,
-    ("K2_bwd_halo", "space", (32, 130, 256, 64)): 0.3094,
-    ("K2_bwd_halo", "space", (8, 130, 256, 64)): 0.0988,
-}
 # the device kernels of a K2 backward call, by a part of their names
 K2_BWD_PARTS = {"pack": ("pack_conv3x3_weights_kernel",),
                 "dx": ("conv3x3_c64_wgmma_kernel", "conv3x3_c64_kernel"),
@@ -871,18 +834,15 @@ def check_k2(gen: torch.Generator) -> list[dict]:
         lib = cuda_ms(lambda: F.conv2d(xn, wl, bl, padding=1), 20)
         lib_dev, lib_n = profiled_device_ms(lambda: F.conv2d(xn, wl, bl, padding=1))
         bnd, by = _k2_bound(shape, dtype)
-        prior = K2_PRIOR_MS.get(("K2", path, tuple(shape))) if dtype == torch.bfloat16 else None
         rows_out.append(dict(kernel="K2", path=path, shape=list(shape), dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=err, **extra, ms=ms, **cost,
                              plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
-                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
-                             prior_device_ms=prior))
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
         needed = (f" (absolute term needed {extra['abs_term_needed']:.3e}; {extra['past_1e-6']} "
                   f"of {extra['elements']} past 1e-6)" if extra else "")
-        before = f", before the redesign {_ms(prior)}" if prior else ""
         log(f"[K2] {path} x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e}{needed} "
             f"kernel {ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} "
-            f"launches{before}, other kernels {cost['other_kernels_device_ms']}; host "
+            f"launches, other kernels {cost['other_kernels_device_ms']}; host "
             f"{cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
             f"kernels a call), plain {plain:.4f} ms, F.conv2d (cuDNN, TF32 off) {lib:.4f} ms "
             f"(device time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
@@ -1005,14 +965,13 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
         es = x.element_size()
         bnd, by = bound_ms(3 * rows * c * es + 4 * c * 4 + (0 if cb is None else 2 * c * es),
                            20 * rows * c, torch.float32)
-        prior = K1_BWD_PRIOR_MS.get((path, rows, c, _dname(dtype)))
         rows_out.append(dict(kernel="K1_bwd", path=path, shape=[rows, c], dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=dx_abs, rel_err=rel_err,
                              mask_disagreements=n_flip, rows_left_out=n_out, ms=ms, **cost,
                              plain_ms=plain,
                              library_ms=lib, library_device_ms=lib_dev,
                              library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
-                             prior_device_ms=prior, **extra))
+                             **extra))
         unfused_str = (f", K1 backward + the conv's bias sum (the route before) "
                        f"{extra['unfused_ms']:.4f} ms" if extra else "")
         log(f"[K1 bwd] {path} rows={rows} C={c} {dtype}: rel err dx {dx_rel:.1e} (max |err| "
@@ -1020,7 +979,7 @@ def check_k1_backward(gen: torch.Generator) -> list[dict]:
             + ", ".join(f"{n} {e:.1e}" for n, e in rel_err.items() if n != "dx")
             + f"; mask disagreements "
             f"{n_flip} ({n_out} rows left out); kernel {ms:.4f} ms (events; profiler device "
-            f"time {_ms(dev_ms)} over {dev_n} launches; before the redesign {_ms(prior)}; host "
+            f"time {_ms(dev_ms)} over {dev_n} launches; host "
             f"{cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
             f"kernels a call), "
             f"plain {_ms(plain)}, library backward {_ms(lib)} (device time {_ms(lib_dev)})"
@@ -1202,22 +1161,19 @@ def check_k2_backward(gen: torch.Generator) -> list[dict]:
         lib = cuda_ms(lambda: k2_library_backward(x, wt, gy, pad_h), 20)
         lib_dev, lib_n = profiled_device_ms(lambda: k2_library_backward(x, wt, gy, pad_h))
         bnd, by = _k2_bwd_bound(x_shape, dtype, halo)
-        prior = (K2_PRIOR_MS.get((kid, path, tuple(x_shape)))
-                 if dtype == torch.bfloat16 else None)
         parts = k2_bwd_parts(cost["by_name_device_ms"])
         rows_out.append(dict(kernel=kid, path=path, shape=list(x_shape), dtype=_dname(dtype),
                              per_call=per_call, max_abs_err=abs_err, rel_err=errs, ms=ms, **cost,
                              plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
                              library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
-                             prior_device_ms=prior, device_ms_by_part=parts))
+                             device_ms_by_part=parts))
         split = ("not measured" if parts is None
                  else ", ".join(f"{k} {_ms(v)}" for k, v in parts.items()))
-        before = f"; before the redesign {_ms(prior)}" if prior else ""
         log(f"[K2 bwd] {path} x={'x'.join(map(str, x_shape))} {dtype}{' halo' if halo else ''}: "
             f"rel err " + ", ".join(f"{n} {e:.1e}" for n, e in errs.items())
             + f" (max |err| {abs_err:.2e}), dx / dw / db bit-equal over two calls; kernels "
             f"{ms:.4f} ms (events; profiler device time {_ms(cost['device_ms'])}, every kernel of "
-            f"the call: {split}{before}; host {cost['host_us']:.2f} us a call, "
+            f"the call: {split}; host {cost['host_us']:.2f} us a call, "
             f"{cost['device_kernels_per_call']:g} device kernels a call), plain {plain:.4f} ms, "
             f"cuDNN convolution_backward + float32 sum {lib:.4f} ms (device time {_ms(lib_dev)}), "
             f"bound {bnd:.4f} ms ({by})")
@@ -1397,18 +1353,6 @@ def _post_npy(url: str, arr: np.ndarray) -> np.ndarray:
         return np.load(io.BytesIO(resp.read()))
 
 
-def _zero_counts() -> None:
-    fused_norm.layer_norm_relu.launches = 0
-    fused_norm.layer_norm_relu.backward_launches = 0
-    fused_norm.layer_norm_relu.bias_launches = 0
-    fused_norm.layer_norm_relu.bias_backward_launches = 0
-    conv64.conv3x3_same.launches = 0
-    conv64.conv3x3_rows.launches = 0
-    conv64.conv3x3_same_backward.launches = 0
-    conv64.conv3x3_same_backward.rows_launches = 0
-    resize_band.launches = 0
-
-
 # the kernels ``_counts`` counts, in its order
 COUNTED = ("K1", "K1_bwd", "K2", "K2_bwd")
 
@@ -1417,15 +1361,15 @@ def _counts() -> tuple[int, int, int, int]:
     """Launches of K1's forward, K1's backward, K2 and K2's backward (SAME;
     the halo-row mode counts apart, ``conv64.conv3x3_rows.launches`` and
     ``conv64.conv3x3_same_backward.rows_launches``)."""
-    return (fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches,
-            conv64.conv3x3_same.launches, conv64.conv3x3_same_backward.launches)
+    k1, k1b, k2, _rows, k2b = launch_snapshot()[:5]
+    return k1, k1b, k2, k2b
 
 
 def serve_flagship(call, artifact: Path = ARTIFACT) -> dict:
     """The serving path: the HTTP server over the flagship artifact on the
     card (``artifact``: the committed weights file, or the program phase's);
     ``call`` is the same artifact loaded, for the direct answers."""
-    _zero_counts()
+    reset_launches()
     server = make_server(str(artifact), port=0, batch_window_ms=200.0, device="cuda")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1727,7 +1671,7 @@ def train_flagship(tmp: Path, ident: str) -> dict:
     gen = torch.Generator("cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
 
-    _zero_counts()
+    reset_launches()
     losses = []
     for i in range(TRAIN_STEPS):
         state, metrics = step(state, None, gen)
@@ -1741,7 +1685,7 @@ def train_flagship(tmp: Path, ident: str) -> dict:
     torch.cuda.synchronize()
     k1, k1b, k2, k2b = _counts()
     resizes = resize_band.launches
-    biased = bias_launch_counts()
+    biased = launch_snapshot()[7:]
     if (k1, k1b, k2, k2b, resizes) != (16 * TRAIN_STEPS, 16 * TRAIN_STEPS, 4 * TRAIN_STEPS,
                                        4 * TRAIN_STEPS, RESIZE_PER_STEP["train"] * TRAIN_STEPS) \
             or biased != (12 * TRAIN_STEPS, 12 * TRAIN_STEPS):
@@ -1838,7 +1782,7 @@ def train_entry_point(tmp: Path) -> dict:
             "--epochs", str(epochs), "--high_res_dir", str(corpus_dir), "--image_suffix", ".npy",
             "--model_dir", str(tmp / "models"), "--log_dir", str(tmp / "logs"),
             "--run_name", "smoke", "--seed", "11"]
-    _zero_counts()
+    reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -1942,7 +1886,7 @@ def train_seg(kind: str, dtype: torch.dtype, ident: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    _zero_counts()
+    reset_launches()
     losses = []
     for i in range(SEG_STEPS):
         state, metrics = step(state, batches[i % 2], gen)
@@ -2099,7 +2043,7 @@ def seg_entry_points(tmp: Path) -> dict:
                 "vanilla": epochs * steps + epochs}
     out = {}
     for kind, (main_fn, args) in runs.items():
-        _zero_counts()
+        reset_launches()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -2211,7 +2155,7 @@ def streamed_flagship(tmp: Path, ident: str) -> dict:
                                     make_sr_device_cache_train_step, make_sr_train_step)
 
     corpus = tmp / "cli_corpus"  # 10 images of 512 px (train_entry_point)
-    _zero_counts()
+    reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -2265,7 +2209,7 @@ def streamed_flagship(tmp: Path, ident: str) -> dict:
     for _ in range(3):  # warm-up: the shuffle buffer fills, cuDNN picks its algorithms
         run_streamed()
         run_cached()
-    _zero_counts()
+    reset_launches()
     waited[0] = 0.0
     ms_streamed = [_timed_steps(run_streamed, STREAM_STEPS)]
     counts = _counts()
@@ -2321,7 +2265,8 @@ def _conv_flops(model, x: torch.Tensor) -> float:
 
     def hook(module, inputs, output):
         o, i, kh, kw = module.weight.shape
-        total[0] += 2.0 * output.numel() * i * kh * kw
+        y = output[0] if isinstance(output, tuple) else output  # (y, bias_left_out)
+        total[0] += 2.0 * y.numel() * i * kh * kw
 
     handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, Conv)]
     try:
@@ -2364,12 +2309,12 @@ def deep_config(tmp: Path, ident: str) -> dict:
         gen = torch.Generator("cuda").manual_seed(0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
+        reset_launches()
         losses = [step(state, None, gen)[1]["loss"] for _ in range(DEEP_STEPS)]
         torch.cuda.synchronize()
         counts = _counts()
         resizes = resize_band.launches
-        biased = bias_launch_counts()
+        biased = launch_snapshot()[7:]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = tuple(n * DEEP_STEPS for n in DEEP_PER_STEP[levels])
         want_biased = tuple(n * DEEP_STEPS for n in DEEP_BIAS_PER_STEP[levels])
@@ -2479,7 +2424,7 @@ def vanilla_sr(ident: str) -> dict:
     buffers0 = {n: b.clone() for n, b in model.named_buffers()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
+    reset_launches()
     losses = []
     for i in range(SEG_STEPS):
         state, metrics = step(state, batches[i % 2])
@@ -2583,7 +2528,7 @@ def sr_entry_points(tmp: Path, ckpt_dir: str) -> dict:
         (tmp / sub).mkdir()
         for i, img in enumerate(stack):
             np.save(tmp / sub / f"v{i:02d}.npy", np.clip(img, 0.0, 1.0).astype(np.float32))
-    _zero_counts()
+    reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -2723,7 +2668,7 @@ def train_joint(ident: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    _zero_counts()
+    reset_launches()
     metrics = []
     for i in range(JOINT_STEPS):
         state, m = step(state, batches[i % 2])
@@ -2859,7 +2804,7 @@ def graph_capture(ident: str) -> dict:
         eager = snapshot(fwd_bwd())
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
-        _zero_counts()
+        reset_launches()
         # thread_local: a thread of an earlier phase cannot void the capture
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             static = fwd_bwd()
@@ -3016,7 +2961,7 @@ def step_graph(tmp: Path, ident: str) -> dict:
                 state, make_step = setup()
                 step = make_step(graph)
                 gen = torch.Generator("cuda").manual_seed(0)
-                _zero_counts()
+                reset_launches()
                 metrics = [step(state, batch(i), gen)[1] for i in range(GRAPH_STEPS)]
                 torch.cuda.synchronize()
                 counts = _counts()
@@ -3144,7 +3089,7 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
             "--image_suffix", ".npy", "--mask_suffix", "_segmentation.npy", "--mixed_precision",
             "--epochs", str(epochs), "--model_dir", str(tmp / "joint_models"),
             "--log_dir", str(tmp / "joint_logs"), "--run_name", "joint", "--seed", "9"]
-    _zero_counts()
+    reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -3190,7 +3135,7 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
         raise AssertionError(f"the joint artifact has no program exported on the card: "
                              f"{manifest.get('program_file')}, {manifest.get('platforms')}")
     x = seg_pairs(JOINT_BATCH, JOINT_SIZE, seed=81)[0]
-    _zero_counts()
+    reset_launches()
     served = call(x)
     torch.cuda.synchronize()
     counts = _counts()
@@ -3236,7 +3181,7 @@ def joint_entry_points(tmp: Path, seg_ckpt: str) -> dict:
         export_main(["--workload", "seg", "--model-path", seg_ckpt, "--output-dir",
                      str(seg_art)])
     live, _ = load_seg_checkpoint(Path(seg_ckpt), device="cuda")
-    _zero_counts()
+    reset_launches()
     server = make_server(str(seg_art), port=0, batch_window_ms=200.0, device="cuda")
     if server.manifest.get("program_file") != "model.pt2":
         raise AssertionError("the protocol seg artifact has no program to serve")
@@ -3329,7 +3274,7 @@ def tune(tmp: Path, ident: str) -> dict:
                         ("laned", ["--parallel-trials", "3"])):
         results, models = tmp / f"tune_{mode}.json", tmp / f"tune_{mode}_models"
         torch.cuda.synchronize()
-        _zero_counts()
+        reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             tune_cli.main(common + extra + ["--results", str(results), "--model-dir", str(models)])
@@ -3382,7 +3327,7 @@ def tune(tmp: Path, ident: str) -> dict:
     with deterministic_cudnn():
         epochs, batch = 2, 4
         torch.cuda.synchronize()
-        _zero_counts()
+        reset_launches()
         t0 = time.perf_counter()
         curves = runner.run_group(TUNE_CONFIGS, batch, epochs)
         group_s = time.perf_counter() - t0
@@ -3437,7 +3382,7 @@ def tune(tmp: Path, ident: str) -> dict:
     isic = tmp / "tune_isic"
     write_isic_corpus(isic, 16, 8, 256, seed=93)
     results = tmp / "tune_seg.json"
-    _zero_counts()
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         tune_cli.main(["--workload", "seg", "--n-trials", "2", "--epochs", "1", "--image-size",
@@ -3494,7 +3439,7 @@ def ddp_worker(out: str, argv: list[str]) -> int:
     from adunet_torch.cli.train_sr import main as train_main
 
     setup_runtime()
-    _zero_counts()
+    reset_launches()
     result = train_main(argv)
     torch.cuda.synchronize()
     grouped = dist.is_initialized()
@@ -3789,18 +3734,13 @@ def check_k2_halo(gen: torch.Generator) -> list[dict]:
         es = x.element_size()
         bnd, by = bound_ms((bsz * h2 * w + pixels) * c * es + 9 * 64 * 64 * 4 + 64 * 4,
                            2 * pixels * 64 * 64 * 9 + pixels * 64, dtype)
-        prior = (K2_PRIOR_MS.get(("K2_halo", "space", tuple(shape)))
-                 if dtype == torch.bfloat16 else None)
         rows_out.append(dict(kernel="K2_halo", path="space", shape=list(shape),
                              dtype=_dname(dtype), per_call=per_call, max_abs_err=err, ms=ms,
                              **cost, plain_ms=plain,
                              library_ms=lib, library_device_ms=lib_dev,
-                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by,
-                             prior_device_ms=prior))
-        before = f", before the redesign {_ms(prior)}" if prior else ""
+                             library_kernels_recorded=lib_n, bound_ms=bnd, bound_by=by))
         log(f"[K2 halo] x={'x'.join(map(str, shape))} {dtype}: max|err|={err:.2e} kernel "
-            f"{ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} launches"
-            f"{before}; "
+            f"{ms:.4f} ms (events; profiler device time {_ms(dev_ms)} over {dev_n} launches; "
             f"host {cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device "
             f"kernels a call), "
             f"plain {plain:.4f} ms, F.conv2d padding (0, 1) (cuDNN, TF32 off) {lib:.4f} ms "
@@ -3839,7 +3779,7 @@ def sweep(tmp: Path, ident: str) -> dict:
             "--metadata_dir", str(root / "metadata"),
             "--extra_args", "--device_cache", "--patches_per_image", str(SWEEP_PPI),
             "--image_suffix", ".npy"]
-    _zero_counts()
+    reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -3889,7 +3829,7 @@ def sweep(tmp: Path, ident: str) -> dict:
     # inspect on the run's best checkpoint
     ckpt = root / "models" / f"unet_adaptive_scale0.50_depth{depth}"
     if has_mpl:
-        _zero_counts()
+        reset_launches()
         grids = inspect_cli.main(["--model-path", str(ckpt), "--scale", "0.5", "--hr-dir",
                                   str(corpus), "--image-suffix", ".npy", "--n-examples", "2",
                                   "--output-dir", str(root / "inspection")])
@@ -3897,7 +3837,7 @@ def sweep(tmp: Path, ident: str) -> dict:
     else:
         _, model, _ = load_checkpoint_state(ckpt, 0.5, 256, None, best=True, device="cuda")
         hr = np.load(sorted(corpus.glob("*.npy"))[0])[:256, :256].astype(np.float32) / 255.0
-        _zero_counts()
+        reset_launches()
         example = inspect_cli.inspect_example(model, hr, 0.5, 256)
         n_forwards = 1
         shown = {"peak": example["peak"], "psnr": example["psnr"], "ssim": example["ssim"],
@@ -3953,7 +3893,7 @@ def _space_step(case: str, hr: np.ndarray, mesh=None) -> dict:
     step = make_sr_train_step(model, charbonnier_loss)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
+    reset_launches()
     _, metrics = step(state, batch)
     loss = float(metrics["loss"])
     torch.cuda.synchronize()

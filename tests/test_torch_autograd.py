@@ -335,6 +335,56 @@ def test_conv_block_takes_the_library_conv_bias_into_k1(monkeypatch, cin, featur
             assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("route", ["k2", "library", "export"])
+def test_conv_block_hands_k1_the_bias_its_conv_left_out(monkeypatch, route):
+    """``Conv`` decides the hand-off (``hand_off_bias``): at a K2 shape (C 64,
+    H % 8 = 0, W % 128 = 0) the conv keeps its bias and K1 gets none; at a
+    library shape the library conv runs without it and K1 gets it, cast to
+    x's type; while exporting the conv keeps it, and the program's graph
+    holds the biased convs and K1's op, as the served programs do."""
+    from torch.nn import functional as F
+
+    from adunet_torch.export.program import node_counts
+    from adunet_torch.nn import blocks
+
+    cin, shape = (64, (1, 16, 128, 64)) if route == "k2" else (3, (1, 8, 8, 3))
+    blk = blocks.ConvBlock(cin, 64 if route == "k2" else 8)
+    blocks.init_parameters(blk, 3)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(5))
+    handed, convs = [], []
+    k1, k2, conv2d = blocks.layer_norm_relu, blocks.conv3x3_same, F.conv2d
+
+    def recording_k1(x, gamma, beta, eps, conv_bias):
+        handed.append(conv_bias)
+        return k1(x, gamma, beta, eps, conv_bias)
+
+    def recording_k2(x, w, bias):
+        convs.append(("k2", bias))
+        return k2(x, w, bias)
+
+    def recording_conv2d(*args, **kwargs):
+        convs.append(("library", args[2] if len(args) > 2 else kwargs.get("bias")))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(blocks, "layer_norm_relu", recording_k1)
+    monkeypatch.setattr(blocks, "conv3x3_same", recording_k2)
+    monkeypatch.setattr(F, "conv2d", recording_conv2d)
+    if route == "export":
+        counts = node_counts(torch.export.export(blk.eval(), (x,), strict=False))
+        assert counts["adunet_torch.layer_norm_relu.default"] == 2, counts
+        assert counts["aten.conv2d.default"] == 2, counts
+    else:
+        blk(x)
+    assert len(handed) == len(convs) == 2
+    kind = "k2" if route == "k2" else "library"
+    for conv, bias, (ran, kept) in zip((blk.conv0, blk.conv1), handed, convs):
+        assert ran == kind
+        if route == "library":
+            assert kept is None and bias.dtype == x.dtype and torch.equal(bias, conv.bias)
+        else:
+            assert bias is None and kept is not None
+
+
 def test_conv3x3_gradcheck_f64():
     """The Function's backward formula at a small shape (the gate is the
     public wrapper's; the Function itself takes any 3x3 conv on the CPU)."""

@@ -12,6 +12,7 @@ the CPU path runs, are held against the JAX reference:
 """
 
 import ctypes
+import importlib
 
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ from adunet.kernels import conv64 as jconv
 from adunet.kernels import fused_norm as jnorm
 from adunet_torch.kernels import conv64 as tconv
 from adunet_torch.kernels import fused_norm as tnorm
+
+tband = importlib.import_module("adunet_torch.kernels.resize_band")
 
 torch.set_num_threads(2)
 
@@ -340,15 +343,45 @@ def test_conv3x3_rejects_unsupported_shape():
         tconv.conv3x3_same(torch.zeros(1, 16, 100, 64), torch.zeros(64, 64, 3, 3), None)
 
 
-def test_wrappers_raise_on_device_without_kernel():
+def _meta(*shape):
+    return torch.empty(*shape, device="meta")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tconv.conv3x3_same(_meta(1, 16, 128, 64), _meta(64, 64, 3, 3), None),
+    lambda: tconv.conv3x3_rows(_meta(1, 18, 128, 64), _meta(64, 64, 3, 3), None),
+    lambda: tnorm.layer_norm_relu(_meta(4, 64), _meta(64), _meta(64)),
+    lambda: tband.resize_band(_meta(1, 16, 16, 8), (8, 8)),
+], ids=["conv3x3_same", "conv3x3_rows", "layer_norm_relu", "resize_band"])
+def test_wrappers_raise_on_device_without_kernel(call):
     """A tensor on neither the CPU nor CUDA gets no silent plain fallback."""
-    x = torch.empty(1, 16, 128, 64, device="meta")
-    w = torch.empty(64, 64, 3, 3, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        tconv.conv3x3_same(x, w, None)
-    with pytest.raises(ValueError, match="no kernel"):
-        tnorm.layer_norm_relu(torch.empty(4, 64, device="meta"),
-                              torch.empty(64, device="meta"), torch.empty(64, device="meta"))
+        call()
+
+
+def test_launch_registry_round_trips():
+    """The registry's snapshot holds all nine counters, K1's two bias
+    counters last; ``all_launch_counts`` is its first seven; adding a whole
+    snapshot's delta reads back as that delta, a shorter one is refused, and
+    the reset sets every counter to 0."""
+    from adunet_torch import kernels
+
+    saved = kernels.launch_snapshot()
+    try:
+        assert len(saved) == 9 and kernels.all_launch_counts() == saved[:7]
+        delta = tuple(range(1, 10))
+        kernels.add_launches(delta)
+        assert kernels.launches_since(saved) == delta
+        assert (tnorm.layer_norm_relu.launches, tconv.conv3x3_same.launches,
+                tband.resize_band.launches, tnorm.layer_norm_relu.bias_backward_launches) == (
+            saved[0] + 1, saved[2] + 3, saved[6] + 7, saved[8] + 9)
+        with pytest.raises(ValueError):
+            kernels.add_launches(delta[:7])
+        kernels.reset_launches()
+        assert kernels.launch_snapshot() == (0,) * 9
+    finally:
+        kernels.reset_launches()
+        kernels.add_launches(saved)
 
 
 def test_cpu_path_never_counts_launches():
@@ -421,7 +454,7 @@ def test_k2_backward_launch_is_one_c_call(recording_lib, monkeypatch, halo, dtyp
     w = torch.zeros(64, 64, 3, 3)
     g = torch.zeros(2, 16, 128, 64, dtype=dtype)
     before = (tconv.conv3x3_same_backward.launches, tconv.conv3x3_same_backward.rows_launches)
-    dx, dw, db = tconv._launch_backward(x, w, g, True, True, True, torch.bfloat16, halo)
+    dx, dw, db = tconv._launch_backward(x, w, g, True, True, True, torch.bfloat16, 1 - halo)
     assert [c[0] for c in recording_lib.calls] == ["adunet_conv3x3_c64_backward"]
     args = recording_lib.calls[0][1]
     assert args[:7] == (x.data_ptr(), w.data_ptr(), 0, g.data_ptr(), 1, 1, 1)
@@ -433,7 +466,7 @@ def test_k2_backward_launch_is_one_c_call(recording_lib, monkeypatch, halo, dtyp
     assert after == (before[0] + 1 - halo, before[1] + halo)
     # dx alone: no partials, null dw / db
     recording_lib.calls.clear()
-    dx, dw, db = tconv._launch_backward(x, w, g, True, False, False, None, halo)
+    dx, dw, db = tconv._launch_backward(x, w, g, True, False, False, None, 1 - halo)
     args = recording_lib.calls[0][1]
     assert (dw, db) == (None, None) and args[4:7] == (1, 0, 0) and args[9:11] == (None, None)
 
@@ -469,8 +502,8 @@ def test_k2_backward_scratch_holds_the_partial_rows_c_reports(recording_lib, mon
     x = torch.zeros(2, 16, 128, 64, dtype=dtype)
     w = torch.zeros(64, 64, 3, 3)
     for _ in range(2):
-        tconv._launch_backward(x, w, x, True, True, True, None, 0)
-    tconv._launch_backward(x, w, x, True, False, False, None, 0)
+        tconv._launch_backward(x, w, x, True, True, True, None, 1)
+    tconv._launch_backward(x, w, x, True, False, False, None, 1)
     assert asked == [code]
     pack = 9 * 64 * 64 * 4 + 64 * 4
     assert sizes == [pack + rows * (9 * 64 * 64 + 64) * 4] * 2 + [pack]
@@ -481,9 +514,9 @@ def test_k2_backward_refuses_what_the_kernels_do_not_take(recording_lib):
     x = torch.zeros(2, 16, 128, 64)
     w = torch.zeros(64, 64, 3, 3)
     with pytest.raises(TypeError):
-        tconv._launch_backward(x.double(), w, x.double(), True, True, True, None, 0)
+        tconv._launch_backward(x.double(), w, x.double(), True, True, True, None, 1)
     with pytest.raises(ValueError, match="unsupported"):
-        tconv._launch_backward(x, w, torch.zeros(2, 14, 128, 64), True, True, True, None, 0)
+        tconv._launch_backward(x, w, torch.zeros(2, 14, 128, 64), True, True, True, None, 1)
     with pytest.raises(ValueError, match="no kernel"):
         tconv.conv3x3_same_backward(x.to("meta"), w.to("meta"), x.to("meta"))
     assert recording_lib.calls == []

@@ -315,15 +315,29 @@ def test_band_plans_of_the_cells_fit(cell):
 
 
 def test_cpu_resize_takes_the_dense_product():
-    """On the CPU a resize is the dense product (the plain version), and never
-    reaches the kernel's wrapper."""
+    """On the CPU a resize is the dense product (the plain version), through
+    the kernel's wrapper, and launches nothing."""
     x = torch.from_numpy(_img((2, 20, 18, 8), seed=6)).to(torch.bfloat16)
     before = _band.resize_band.launches
     got = tops.resize_by_scale(x, 0.5)
     want = _band.resize_band_plain(x, (10, 9)).to(torch.bfloat16)
     assert torch.equal(got, want) and _band.resize_band.launches == before
-    with pytest.raises(ValueError, match="no kernel"):
-        _band.resize_band(x, (10, 9))
+    assert torch.equal(_band.resize_band(x, (10, 9), dtype=torch.bfloat16), want)
+    assert _band.resize_band.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("method, antialias", [("bilinear", True), ("area", True),
+                                               ("bicubic_cv2", False)])
+def test_cpu_resize_band_is_the_plain_version_cast(dtype, method, antialias):
+    """``resize_band`` on a CPU tensor is ``resize_band_plain(...).to(dtype)``,
+    and its gradient autograd's through that dense product, bit for bit."""
+    x = torch.from_numpy(_img((2, 20, 18, 8), seed=8)).requires_grad_(True)
+    got = _band.resize_band(x, (10, 27), method, antialias, dtype)
+    want = _band.resize_band_plain(x, (10, 27), method, antialias).to(dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(9)).to(dtype)
+    assert torch.equal(torch.autograd.grad(got, x, g)[0], torch.autograd.grad(want, x, g)[0])
 
 
 def test_exported_resize_is_the_op():

@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from adunet_torch.kernels import launch_counts
+from adunet_torch.kernels import launch_snapshot, launches_since
 from adunet_torch.losses import (binary_crossentropy, build_losses_and_metrics, charbonnier_loss,
                                  make_bce_dice_loss, make_hybrid_ce_dice_loss,
                                  make_perceptual_fn, make_weighted_ce_loss)
@@ -154,7 +154,7 @@ def _run(case, graph, steps=STEPS, batch=None, between=None, lr_kwargs=None, gra
     else:
         step = make_sr_train_step(model, charbonnier_loss, grad_accum=grad_accum, graph=graph)
     gen = torch.Generator("cuda").manual_seed(0)
-    before = launch_counts()
+    before = launch_snapshot()
     metrics = []
     for i in range(steps):
         state, m = step(state, (batch or batch_of)(i), gen)
@@ -162,7 +162,7 @@ def _run(case, graph, steps=STEPS, batch=None, between=None, lr_kwargs=None, gra
         if between is not None:
             between(i, state)
     torch.cuda.synchronize()
-    launches = tuple(a - b for a, b in zip(launch_counts(), before))
+    launches = launches_since(before)
     return state, step, metrics, launches, gen
 
 

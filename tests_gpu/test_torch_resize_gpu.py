@@ -167,13 +167,13 @@ def test_source_holds_no_atomic():
 
 
 def test_counter_is_the_last_of_the_wrappers(cuda):
-    """The resize's counter follows K1's and K2's six; ``launch_counts`` keeps
-    those six, and a replay adds what its capture counted to all seven."""
+    """The resize's counter follows K1's and K2's six in the registry, so
+    ``all_launch_counts`` ends with it, and a resize counts there alone."""
     from adunet_torch import kernels
 
-    assert kernels._COUNTERS[-1] == (_band.resize_band, "launches")
-    assert len(kernels.launch_counts()) == 6 and len(kernels.all_launch_counts()) == 7
-    before = kernels.all_launch_counts()
+    assert kernels._COUNTERS[6] == (_band.resize_band, "launches")
+    assert len(kernels.launch_snapshot()) == 9 and len(kernels.all_launch_counts()) == 7
+    before = kernels.launch_snapshot()
     with torch.no_grad():
         resize_by_scale(torch.rand((1, 32, 32, 8), device="cuda"), 0.5)
-    assert tuple(a - b for a, b in zip(kernels.all_launch_counts(), before)) == (0,) * 6 + (1,)
+    assert kernels.launches_since(before) == (0,) * 6 + (1,) + (0,) * 2
