@@ -95,6 +95,42 @@ __device__ __forceinline__ void store_vec(typename Tr::storage* p, const float (
   }
 }
 
+// ---------------------------------------------------------------- cp.async
+// Asynchronous copies from device to shared memory (sm_80 and later): 16
+// bytes through L2 only, or 4 bytes through L1; `cp_async4_zfill` copies
+// `src_bytes` (4 or 0) of them and fills the rest of the 4 with zeros, so an
+// element outside the image is staged as 0 with no branch around the copy.
+// A thread's copies since its last commit form a group; `cp_async_wait<N>`
+// waits until at most N of its groups are in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- column sums
 // The second pass of K1's backward's deterministic reduction: each
 // block of the first pass wrote one float32 partial row, and column j of the

@@ -81,20 +81,6 @@ inline size_t smem_bytes(const Plan& p) {
          sizeof(int) * (p.tj + kRows);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // a / b for 0 <= a < 2^22 and 0 < b < 2^24 by a float reciprocal: the
 // quotient (a + 1/2) / b lies at least 1/(2b) from an integer, and the two
 // roundings move it by less (a few instructions, where an integer division

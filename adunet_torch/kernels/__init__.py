@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version: K1 fused LayerNorm+ReLU, K2 64->64 3x3 SAME conv (and its
 halo-row mode for a height split over processes) and K2's backward (dx, dw,
-db), and the banded resize (forward and backward; its plain version is the
-dense product, ``resize_band.resize_band_plain``); ``ops`` names K1 and K2's
-forwards and the resize as ``torch.library`` ops for exported programs.
+db), K3 the float32 3x3 SAME conv at the channel counts K2 refuses where no
+gradient is wanted (``conv3x3_f32``; the function shadows its submodule),
+and the banded resize (forward and backward; its plain version is the
+dense product, ``resize_band.resize_band_plain``); ``ops`` names K1, K2 and
+K3's forwards and the resize as ``torch.library`` ops for exported programs.
 ``_route`` holds the one rule that picks what each op runs; every launch
 counter is registered here, once (``_COUNTERS``)."""
 
@@ -16,12 +18,13 @@ from adunet_torch.kernels.conv64 import (
     conv3x3_same_plain,
     supported,
 )
+from adunet_torch.kernels.conv3x3_f32 import conv3x3_f32
 from adunet_torch.kernels.fused_norm import layer_norm_relu, layer_norm_relu_plain
 from adunet_torch.kernels.resize_band import resize_band
 from adunet_torch.kernels import ops  # registers the adunet_torch:: ops
 
 # every launch counter, in order: (wrapper, attribute); the first seven are
-# ``all_launch_counts``', then K1's launches that took a conv's bias
+# ``all_launch_counts``', then K1's launches that took a conv's bias, then K3's
 _COUNTERS = (
     (layer_norm_relu, "launches"),
     (layer_norm_relu, "backward_launches"),
@@ -32,11 +35,12 @@ _COUNTERS = (
     (resize_band, "launches"),
     (layer_norm_relu, "bias_launches"),
     (layer_norm_relu, "bias_backward_launches"),
+    (conv3x3_f32, "launches"),
 )
 
 
 def launch_snapshot() -> tuple:
-    """Every launch counter, in ``_COUNTERS``' order (nine)."""
+    """Every launch counter, in ``_COUNTERS``' order (ten)."""
     return tuple(getattr(fn, name) for fn, name in _COUNTERS)
 
 
@@ -81,6 +85,7 @@ __all__ = [
     "conv3x3_same_backward_plain",
     "conv3x3_rows",
     "conv3x3_rows_plain",
+    "conv3x3_f32",
     "resize_band",
     "supported",
 ]

@@ -36,7 +36,7 @@ import torch
 __all__ = ["library", "check", "build_dir", "last_build", "current_stream"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = ("fused_norm.cu", "conv64.cu", "resize_band.cu")
+_SOURCES = ("fused_norm.cu", "conv64.cu", "resize_band.cu", "conv3x3_f32.cu")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -106,6 +106,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.adunet_conv3x3_c64_backward.restype = i
     lib.adunet_conv3x3_c64_backward_partials.argtypes = [_P, i]
     lib.adunet_conv3x3_c64_backward_partials.restype = i
+    lib.adunet_conv3x3_f32.argtypes = [_P, _P, _P, _P, _P, i, i, i, i, i, i, _P]
+    lib.adunet_conv3x3_f32.restype = i
     lib.adunet_resize_band.argtypes = [_P, _P, _P, _P, _P, _P, _P, i, _P]
     lib.adunet_resize_band.restype = i
     lib.adunet_error_string.argtypes = [ctypes.c_int]

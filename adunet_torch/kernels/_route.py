@@ -24,7 +24,8 @@ def on_device(name: str, x: torch.Tensor, launch, plain):
 def route(name: str, args: tuple, function, launch, plain, op=None, plain_grad: bool = False):
     """Run kernel op ``name`` on ``args`` (x first) by the module's rule (a
     gradient: grad mode on and a tensor argument requiring one). ``op`` None:
-    none in programs. ``plain_grad``: autograd differentiates the plain one."""
+    none in programs. ``function`` None: no gradient, so a call that wants
+    one raises. ``plain_grad``: autograd differentiates the plain one."""
     if torch.compiler.is_exporting():
         if op is None:
             raise ValueError(f"{name}: no op stands for it in an exported program")
@@ -32,5 +33,7 @@ def route(name: str, args: tuple, function, launch, plain, op=None, plain_grad: 
     run = on_device(name, args[0], launch, plain)
     if torch.is_grad_enabled() and not (plain_grad and run is plain) and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        if function is None:
+            raise ValueError(f"{name}: has no gradient; call it where none is wanted")
         return function.apply(*args)
     return run(*args)

@@ -153,15 +153,20 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def _plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, pad_h: int) -> torch.Tensor:
     acc = _acc_dtype(x.dtype)
-    _, h, wd, _ = x.shape
+    bsz, h, wd, c_in = x.shape
     h += 2 * pad_h - 2  # output rows
     xp = F.pad(x.to(acc), (0, 0, 1, 1, pad_h, pad_h))
     wt = w.to(x.dtype).to(acc).permute(2, 3, 1, 0)  # (3, 3, C_in, C_out)
+    # the three column shifts copied once; a tap's rows of one are a view
+    # (of one image) or one copy, and each tap's product is accumulated in
+    # place: few, large CPU ops, which stay fast when the cores are shared
+    cols = [xp[:, :, dx : dx + wd, :].contiguous() for dx in range(3)]
     out = None
     for dy in range(3):
         for dx in range(3):
-            term = torch.matmul(xp[:, dy : dy + h, dx : dx + wd, :], wt[dy, dx])
-            out = term if out is None else out + term
+            a = cols[dx][:, dy : dy + h].reshape(-1, c_in)
+            out = a @ wt[dy, dx] if out is None else out.addmm_(a, wt[dy, dx])
+    out = out.view(bsz, h, wd, -1)
     if bias is not None:
         out = out + bias.to(x.dtype).to(acc)
     return out.to(x.dtype)
@@ -170,7 +175,8 @@ def _plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, pad_h: i
 def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """The plain version: the weights and bias rounded to x.dtype, then the
     explicit sum of the 9 taps' matmuls in float32 over a zero-padded NHWC
-    input, plus bias, cast to x.dtype."""
+    input, in tap order (3 dy + dx), plus bias, cast to x.dtype. Any 3x3
+    channel counts (K3's plain version too)."""
     return _plain(x, w, bias, 1)
 
 

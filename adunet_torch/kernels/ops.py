@@ -1,9 +1,9 @@
-"""K1 and K2's forwards and the resize as ``torch.library`` custom ops, for
-programs.
+"""K1, K2 and K3's forwards and the resize as ``torch.library`` custom ops,
+for programs.
 
 An exported program (``torch.export``, ``adunet_torch.export.program``)
 cannot hold the kernels' ctypes calls: a launch reads ``data_ptr()`` of
-tensors that are fake while the program is traced. These ops give the three
+tensors that are fake while the program is traced. These ops give the four
 forward kernels a name in the graph instead, and dispatch by device when the
 program runs:
 
@@ -12,6 +12,9 @@ program runs:
 - ``adunet_torch::conv3x3_c64(Tensor x, Tensor w, Tensor? bias) -> Tensor``
   (K2 in its SAME mode, ``conv64.conv3x3_same``; the halo-row mode serves no
   program);
+- ``adunet_torch::conv3x3_f32(Tensor x, Tensor w, Tensor? bias) -> Tensor``
+  (K3, ``conv3x3_f32.conv3x3_f32``: the float32 3x3 SAME convs K2's gate
+  refuses, at C_in % 8 == 0 and C_out % 64 == 0);
 - ``adunet_torch::resize_band(Tensor x, int out_h, int out_w, str method, bool antialias, ScalarType dtype) -> Tensor``
   (the banded resize, ``resize_band.resize_band``; its plain version is the
   dense product, ``resize_band.resize_band_plain``). Callers name it only
@@ -40,9 +43,12 @@ from torch import Tensor
 
 from adunet_torch.kernels import conv64, fused_norm
 from adunet_torch.kernels._route import on_device
+from adunet_torch.kernels.conv3x3_f32 import _launch as _k3_launch
+from adunet_torch.kernels.conv3x3_f32 import conv3x3_f32_plain as _k3_plain
+from adunet_torch.kernels.conv3x3_f32 import supported as _k3_supported
 from adunet_torch.kernels.resize_band import resize_band as _resize_band
 
-__all__ = ["layer_norm_relu", "conv3x3_c64", "resize_band"]
+__all__ = ["layer_norm_relu", "conv3x3_c64", "conv3x3_f32", "resize_band"]
 
 
 @torch.library.custom_op("adunet_torch::layer_norm_relu", mutates_args=(),
@@ -57,23 +63,36 @@ def _layer_norm_relu_fake(x: Tensor, gamma: Tensor, beta: Tensor, eps: float) ->
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
-def _gate(x: Tensor, w: Tensor) -> None:
-    if not conv64.supported(x.shape, w.shape):
-        raise ValueError(f"adunet_torch::conv3x3_c64: unsupported shapes x={tuple(x.shape)} "
+def _gate(name: str, supported, x: Tensor, w: Tensor) -> None:
+    if not supported(x.shape, w.shape):
+        raise ValueError(f"adunet_torch::{name}: unsupported shapes x={tuple(x.shape)} "
                          f"w={tuple(w.shape)}")
 
 
 @torch.library.custom_op("adunet_torch::conv3x3_c64", mutates_args=(),
                          device_types=("cpu", "cuda"))
 def conv3x3_c64(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
-    _gate(x, w)
+    _gate("conv3x3_c64", conv64.supported, x, w)
     return on_device("conv3x3_c64", x, conv64._launch, conv64.conv3x3_same_plain)(
         x.contiguous(), w, bias)
 
 
 @conv3x3_c64.register_fake
 def _conv3x3_c64_fake(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
-    _gate(x, w)
+    _gate("conv3x3_c64", conv64.supported, x, w)
+    return x.new_empty((x.shape[0], x.shape[1], x.shape[2], w.shape[0]))
+
+
+@torch.library.custom_op("adunet_torch::conv3x3_f32", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def conv3x3_f32(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
+    _gate("conv3x3_f32", _k3_supported, x, w)
+    return on_device("conv3x3_f32", x, _k3_launch, _k3_plain)(x.contiguous(), w, bias)
+
+
+@conv3x3_f32.register_fake
+def _conv3x3_f32_fake(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
+    _gate("conv3x3_f32", _k3_supported, x, w)
     return x.new_empty((x.shape[0], x.shape[1], x.shape[2], w.shape[0]))
 
 

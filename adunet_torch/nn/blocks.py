@@ -5,7 +5,11 @@ Port of ``adunet/nn/blocks.py``:
   A SAME, stride-1 conv with bias and an OIHW ``weight``. A 3x3 conv at a
   shape the K2 gate accepts runs the K2 kernel (``conv3x3_same``, an
   autograd Function whose backward, ``conv3x3_same_backward``, runs K2's
-  backward kernels for dx, dw and db: no cuDNN call); every other conv
+  backward kernels for dx, dw and db: no cuDNN call); a float32 3x3 conv
+  that K2 refuses, at C_in % 8 == 0 and C_out % 64 == 0, where no gradient
+  is wanted (eval, serving, programs) and off a space mesh runs K3
+  (``conv3x3_f32``, with its bias; ``kernels.conv3x3_f32.takes`` decides);
+  every other conv (bf16, any forward a backward follows, C_in = 3, 1x1)
   goes to ``F.conv2d`` on the NHWC
   tensor's NCHW view (a contiguous NHWC tensor permuted is an NCHW tensor in
   channels_last memory format, so no copy is made). On a space mesh
@@ -39,7 +43,7 @@ them, as the cast's backward would).
   it (cast to the compute dtype, as the conv took it) as it reads the conv's
   output, and sums its gradient in its backward: on the card bit for bit
   what cuDNN's conv and PyTorch's bias add after it gave, with no broadcast
-  add and no bias sum of their own. K2 adds its own bias; an exported
+  add and no bias sum of their own. K2 and K3 add their own bias; an exported
   program keeps the bias in the conv (K1's op takes none).
 - ``ConvTranspose`` ← flax ``nn.ConvTranspose(kernel (2, 2), strides 2,
   "SAME")`` of ``adunet/models/seg_vanilla.py:43``: out[2i + a, 2j + b] =
@@ -61,7 +65,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adunet_torch.kernels import conv3x3_rows, conv3x3_same, layer_norm_relu, supported
+from adunet_torch.kernels import conv3x3_f32, conv3x3_rows, conv3x3_same, layer_norm_relu, supported
+from adunet_torch.kernels.conv3x3_f32 import takes as conv3x3_f32_takes
 
 __all__ = ["BN_MOMENTUM", "Conv", "LayerNormReLU", "BatchNorm", "ConvBlock", "ConvTranspose",
            "max_pool2x2", "init_parameters"]
@@ -101,16 +106,19 @@ class Conv(nn.Module):
         the library route, unless exporting, y without the bias and the bias
         cast to x's type for the caller (``ConvBlock``: K1); else y with it and
         None. A module call, so that hooks (FSDP's weight gathers) run."""
-        w, b = self.weight, self.bias  # K2 takes them as they are and rounds them itself
+        w, b = self.weight, self.bias  # K2 and K3 take them as they are (K2 rounds them itself)
         space = self.space is not None and w.shape[-1] == 3
         xp = self.space.halo(x, 1) if space else x
-        if supported(x.shape, w.shape):
+        if supported(x.shape, w.shape):  # K2
             y = conv3x3_rows(xp, w, b) if space else conv3x3_same(x.contiguous(), w, b)
-            return (y, None) if hand_off_bias else y
-        leave = hand_off_bias and not torch.compiler.is_exporting()
-        y = F.conv2d(xp.permute(0, 3, 1, 2), w.to(x.dtype), None if leave else b.to(x.dtype),
-                     padding=(0, 1) if space else w.shape[-1] // 2).permute(0, 2, 3, 1)
-        return (y, b.to(x.dtype) if leave else None) if hand_off_bias else y
+        elif self.space is None and conv3x3_f32_takes(x, w, b):  # K3: float32, no gradient
+            y = conv3x3_f32(x.contiguous(), w, b)
+        else:
+            leave = hand_off_bias and not torch.compiler.is_exporting()
+            y = F.conv2d(xp.permute(0, 3, 1, 2), w.to(x.dtype), None if leave else b.to(x.dtype),
+                         padding=(0, 1) if space else w.shape[-1] // 2).permute(0, 2, 3, 1)
+            return (y, b.to(x.dtype) if leave else None) if hand_off_bias else y
+        return (y, None) if hand_off_bias else y
 
 
 class LayerNormReLU(nn.Module):

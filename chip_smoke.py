@@ -11,8 +11,9 @@ exits non-zero without one. Every phase raises on failure:
 1. builds the CUDA kernels from ``adunet_torch/csrc`` with ``nvcc`` (again
    if the library came from the build cache) and fails if ptxas's report
    shows a byte of spill in any of the 32 instantiations of K1's backward
-   row kernel (8 widths, 2 types, with and without a conv bias) or in any
-   kernel of K2's backward's dw + db (the two wgrad kernels and their sum);
+   row kernel (8 widths, 2 types, with and without a conv bias), in any
+   kernel of K2's backward's dw + db (the two wgrad kernels and their sum)
+   or in K3 (its 6 instantiations and its weight pack);
 2. prints the card's name and power limit (``nvidia-smi``);
 3. holds each kernel's forward against its plain PyTorch version on the
    card, at every shape the flagship's float32 serving forward (batch 8) and
@@ -26,7 +27,11 @@ exits non-zero without one. Every phase raises on failure:
    20 back-to-back calls from an idle device) and the device kernels one
    call launches (the profiler, every kernel name: the phase fails unless
    K1 launches 1, K1's backward 2 and K2 at most 2, its weight pack and the
-   conv);
+   conv); then (``k3``) holds K3, the float32 3x3 conv at the 9 served
+   shapes K2's gate refuses, to its plain version and to cuDNN (TF32 off),
+   two calls bit-equal, 2 device kernels a call, and times it beside its
+   bound, the plain version and cuDNN in its heuristic mode and with
+   ``cudnn.benchmark`` (yardsticks only), summed over a forward's 14;
 4. holds each autograd Function's gradients (K1: dx, dgamma, dbeta; K2: dx,
    dw, db) against autograd through the plain version on the same CUDA
    tensors, at the training shapes in bf16 and the serving shapes in
@@ -52,13 +57,13 @@ exits non-zero without one. Every phase raises on failure:
    of one pass (its bytes, read once and written once), and summed over
    one step or forward;
 5. serves the trained flagship artifact over HTTP (launch counts set to 0
-   just before, read just after: 16 K1 + 4 K2 + 6 resizes per device call,
-   no K1 backward);
+   just before, read just after: 16 K1 + 4 K2 + 6 resizes + 14 K3 per
+   device call, no K1 backward);
 6. re-derives the flagship's pinned eval numbers on the 48-tile seed-777
    corpus; exports the flagship as an int8 serving program on the card
-   (``program``: ``adunet_torch.export.program``, its graph holding 16 K1
-   and 4 K2 ops and no plain decomposition), runs it in a fresh process
-   that imports no model code (16 K1, 4 K2 and 6 resize launches a call, output held
+   (``program``: ``adunet_torch.export.program``, its graph holding 16 K1,
+   4 K2 and 14 K3 ops and no plain decomposition), runs it in a fresh process
+   that imports no model code (16 K1, 4 K2, 6 resize and 14 K3 launches a call, output held
    to the weights path at 1e-5), serves it over HTTP as in 5 and re-derives
    the pinned numbers from it, and times its forward beside the weights
    path's; then times the serving forward;
@@ -66,7 +71,7 @@ exits non-zero without one. Every phase raises on failure:
    params, Adam 1e-4; a seeded random 1x1 head in place of the zero one)
    on a device cache of synthetic images for a few device-cache steps at
    batch 32 x 256 px (counts set to 0 just before: 16 K1 forward, 16 K1
-   backward, 4 K2, 4 K2 backward and 14 resizes per step),
+   backward, 4 K2, 4 K2 backward and 14 resizes per step, no K3),
    checks that every parameter gets a finite, nonzero gradient in the first
    step and that the loss falls by a quarter over the steps, and times the
    step;
@@ -229,8 +234,9 @@ import torch.nn.functional as F
 from adunet_torch.cli.serve import make_server
 from adunet_torch.evaluate import infer_eval_shave
 from adunet_torch.export import load_artifact
-from adunet_torch.kernels import (_build, conv64, fused_norm, launch_snapshot, reset_launches,
-                                  resize_band)
+from adunet_torch.kernels import (_build, conv3x3_f32, conv64, fused_norm, launch_snapshot,
+                                  reset_launches, resize_band)
+from adunet_torch.kernels.conv3x3_f32 import conv3x3_f32_plain
 from adunet_torch.kernels.resize_band import band_tables, resize_band_plain, resize_matrix
 from adunet_torch.metrics import msssim_power_factors_for, psnr, ssim, ssim_multiscale
 from adunet_torch.ops import degrade, rgb_to_luma_bt601, scaled_size
@@ -278,6 +284,19 @@ K2_BF16_ATOL = 1e-5
 # the host's cost of a kernel call (host_us): runs of back-to-back calls
 HOST_CALLS, HOST_RUNS = 20, 5
 K2_PER_CALL = sum(K2_SERVE.values())  # 4
+# K3, the float32 3x3 convs of the served flagship that K2's gate refuses
+# (batch 8, depth 3, 256 px): (B, H, W, C_in, C_out) -> launches a forward:
+# enc1, enc2 and the bottleneck's two convs, each decoder level's smooth conv
+# and its ConvBlock's two (enc0.conv0, 3 -> 64, and the 1x1 head stay on
+# cuDNN). Its rows are held to the plain version and to cuDNN's F.conv2d
+# (TF32 off) within K3_ATOL: outputs of unit scale summed over 9 x C_in
+# <= 4,608 float32 products in other orders differ by ~1e-5 at most
+K3_SERVE = {(8, 128, 128, 64, 128): 1, (8, 128, 128, 128, 128): 2, (8, 64, 64, 128, 256): 1,
+            (8, 64, 64, 256, 256): 2, (8, 32, 32, 256, 512): 1, (8, 32, 32, 512, 512): 1,
+            (8, 64, 64, 512, 256): 2, (8, 128, 128, 256, 128): 2, (8, 256, 256, 128, 64): 2}
+K3_PER_CALL = sum(K3_SERVE.values())  # 14
+K3_ATOL = 1e-4
+K3_KERNEL = "conv3x3_f32_igemm_kernel"
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS, TIMED_STEPS = 32, 256, 6, 5
 
 # The segmentation U-Nets at batch 8 x 256 px. The vanilla model (base 32,
@@ -460,35 +479,57 @@ def check_k1_bwd_spills(build_log: str) -> list[dict]:
     return rows
 
 
-# the kernels of K2 that must not spill (mangled-name parts): the bf16
-# tensor-core kernel of the forward and of the backward's dx, and the
-# backward's dw + db kernels and their sum
+# the kernels that must not spill (mangled-name parts). K2's backward: the
+# bf16 tensor-core kernel of the forward and of the backward's dx, and the
+# backward's dw + db kernels and their sum. K3: the conv, in each of its
+# instantiations (tile channels 64 / 128 x tile width 32 / 64 / 128), and
+# its weight pack.
 K2_BWD_KERNELS = ("conv3x3_c64_wgmma_kernel", "conv3x3_c64_wgrad_wgmma_kernel",
                   "conv3x3_c64_wgrad_kernel", "conv3x3_c64_wgrad_reduce_kernel")
+K3_KERNELS = (K3_KERNEL, "pack_w3x3_f32_kernel")
+K3_INSTANCES = {(co, wt) for co in (64, 128) for wt in (32, 64, 128)}
 
 
-def check_k2_bwd_spills(build_log: str) -> list[dict]:
-    """Registers and spills of every kernel of K2's backward that the build
-    compiled for it (the bf16 conv kernel, which also runs the forward, in
-    its forward and dx instantiations, the wgrad kernels and their sum's
-    instantiations), from ptxas's report as ``check_k1_bwd_spills`` reads
-    it. Raises if one of them is missing from the report or any spills."""
+def check_spills(build_log: str, label: str, kernels: tuple) -> list[dict]:
+    """Registers and spills of every instantiation of ``kernels`` that the
+    build compiled, from ptxas's report as ``check_k1_bwd_spills`` reads it
+    (``label`` names them in the ``[spill]`` lines). Raises if one of them is
+    missing from the report or any spills."""
     found = []
     for f in _ptxas_functions(build_log):
         # the mangled name's length prefix keeps one kernel's name from matching another's
-        kernel = next((k for k in K2_BWD_KERNELS if re.search(rf"\d{k}", f["name"])), None)
+        kernel = next((k for k in kernels if re.search(rf"\d{k}", f["name"])), None)
         if kernel:
             found.append(dict(kernel=kernel, **f))
     for r in found:
-        log(f"[spill] K2 backward {r['kernel']} ({r['name']}): {r.get('registers')} registers, "
+        log(f"[spill] {label} {r['kernel']} ({r['name']}): {r.get('registers')} registers, "
             f"stack {r['stack']} bytes, spill stores {r['spill_stores']} bytes, spill loads "
             f"{r['spill_loads']} bytes")
-    missing = set(K2_BWD_KERNELS) - {r["kernel"] for r in found}
+    missing = set(kernels) - {r["kernel"] for r in found}
     if missing:
         raise AssertionError(f"ptxas reported no {sorted(missing)}")
     spilled = [r for r in found if r["spill_stores"] or r["spill_loads"]]
     if spilled:
-        raise AssertionError(f"K2 backward spills: {spilled}")
+        raise AssertionError(f"{label} spills: {spilled}")
+    return found
+
+
+def check_k2_bwd_spills(build_log: str) -> list[dict]:
+    """``check_spills`` of K2's backward kernels (the bf16 conv kernel, which
+    also runs the forward, in its forward and dx instantiations, the wgrad
+    kernels and their sum's instantiations)."""
+    return check_spills(build_log, "K2 backward", K2_BWD_KERNELS)
+
+
+def check_k3_spills(build_log: str) -> list[dict]:
+    """``check_spills`` of K3's kernels; raises unless ptxas reported each of
+    the conv's ``K3_INSTANCES`` (its template arguments, CO and WT)."""
+    found = check_spills(build_log, "K3", K3_KERNELS)
+    inst = {tuple(int(v) for v in m.groups()) for r in found
+            if (m := re.search(rf"{K3_KERNEL}ILi(\d+)ELi(\d+)E", r["name"]))}
+    if inst != K3_INSTANCES:
+        raise AssertionError(f"ptxas reported K3 instantiations {sorted(inst)}, expected "
+                             f"{sorted(K3_INSTANCES)}")
     return found
 
 
@@ -618,7 +659,7 @@ def launch_cost(kid: str, fn, kernel_name: str | None, per_run: int = 1) -> dict
         if per_call is not None and float(per_call).is_integer():
             break
     allowed = {"K1": (1, 1), "K1_bwd": (2, 2), "K2": (1, 2), "K2_halo": (1, 2),
-               "K2_bwd": (4, 4), "K2_bwd_halo": (4, 4)}[kid]
+               "K2_bwd": (4, 4), "K2_bwd_halo": (4, 4), "K3": (2, 2)}[kid]
     if per_call is None or not allowed[0] <= per_call <= allowed[1]:
         raise AssertionError(f"{kid}: {per_call} device kernels a call (profiler), expected "
                              f"{allowed[0]}..{allowed[1]}: {totals['by_name']}")
@@ -847,6 +888,92 @@ def check_k2(gen: torch.Generator) -> list[dict]:
             f"kernels a call), plain {plain:.4f} ms, F.conv2d (cuDNN, TF32 off) {lib:.4f} ms "
             f"(device time {_ms(lib_dev)}), bound {bnd:.4f} ms ({by})")
         del x, got, want
+    return rows_out
+
+
+def _k3_bound(shape) -> tuple[float, str]:
+    bsz, h, w, ci, co = shape
+    pixels = bsz * h * w
+    return bound_ms(pixels * (ci + co) * 4 + 9 * ci * co * 4 + co * 4,
+                    2 * pixels * 9 * ci * co + pixels * co, torch.float32)
+
+
+def _library_ms(fn, benchmark: bool) -> tuple[float, float | None]:
+    """Events ms and profiler device ms of ``fn`` (a cuDNN call) with
+    ``torch.backends.cudnn.benchmark`` set to ``benchmark``: cuDNN's
+    heuristic pick, or the pick its autotuner times at the first call (made
+    here, outside the timing). The port never sets that mode; restored after."""
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = benchmark
+    try:
+        fn()
+        return cuda_ms(fn, 10), profiled_device_ms(fn, iters=10)[0]
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
+def check_k3(gen: torch.Generator) -> list[dict]:
+    """K3 at every shape of the served flagship's float32 forward
+    (``K3_SERVE``): held to its plain version and to cuDNN's ``F.conv2d``
+    (TF32 off) within ``K3_ATOL``, two calls bit-equal, and timed (events;
+    the profiler's device time of the conv and of its weight pack) beside its
+    bound, the plain version, and cuDNN as a yardstick in its heuristic mode
+    and with ``cudnn.benchmark``. The summary line gives the share of the
+    bound over one forward's 14 launches."""
+    rows_out = []
+    for shape, per_call in K3_SERVE.items():
+        bsz, h, w, ci, co = shape
+        x = torch.randn(bsz, h, w, ci, generator=gen, device="cuda")
+        wt = torch.randn(co, ci, 3, 3, generator=gen, device="cuda") * (1.0 / (9 * ci)) ** 0.5
+        bias = torch.randn(co, generator=gen, device="cuda") * 0.1
+        xn = x.permute(0, 3, 1, 2)  # NCHW view, channels_last
+
+        def k3():
+            return conv3x3_f32(x, wt, bias)
+
+        def lib():
+            return F.conv2d(xn, wt, bias, padding=1)
+
+        with torch.inference_mode():
+            got, again = k3(), k3()
+            err = close_enough(got, conv3x3_f32_plain(x, wt, bias), torch.float32, K3_ATOL)
+            lib_err = close_enough(got, lib().permute(0, 2, 3, 1), torch.float32, K3_ATOL)
+            if not torch.equal(got, again):
+                raise AssertionError(f"K3 at {shape}: two calls differ")
+            ms = cuda_ms(k3, 20)
+            cost = launch_cost("K3", k3, K3_KERNEL)
+            pack = [v for k, v in (cost["by_name_device_ms"] or {}).items() if "pack_w3x3" in k]
+            plain = cuda_ms(lambda: conv3x3_f32_plain(x, wt, bias), 3)
+            lib_ms, lib_dev = _library_ms(lib, False)
+            bench_ms, bench_dev = _library_ms(lib, True)
+        bnd, by = _k3_bound(shape)
+        dev_ms = cost["device_ms"]
+        share = None if dev_ms is None else 100.0 * bnd / dev_ms
+        rows_out.append(dict(kernel="K3", path="serve", shape=list(shape), dtype="float32",
+                             per_call=per_call, max_abs_err=err, max_abs_err_library=lib_err,
+                             ms=ms, **cost, pack_device_ms=pack[0] if pack else None,
+                             plain_ms=plain, library_ms=lib_ms, library_device_ms=lib_dev,
+                             library_benchmark_ms=bench_ms,
+                             library_benchmark_device_ms=bench_dev, bound_ms=bnd, bound_by=by,
+                             bound_share=share))
+        log(f"[K3] serve x={bsz}x{h}x{w}x{ci} -> {co} ({per_call} a forward): max|err| "
+            f"{err:.2e} (plain), {lib_err:.2e} (cuDNN); kernel {ms:.4f} ms (events; device "
+            f"{_ms(dev_ms)} conv, {_ms(pack[0] if pack else None)} pack; host "
+            f"{cost['host_us']:.2f} us a call, {cost['device_kernels_per_call']:g} device kernels "
+            f"a call), bound {bnd:.4f} ms ({by}), "
+            f"{'not measured' if share is None else f'{share:.1f} %'} of it; plain "
+            f"{plain:.4f} ms; cuDNN heuristic {lib_ms:.4f} ms (device {_ms(lib_dev)}), "
+            f"cudnn.benchmark {bench_ms:.4f} ms (device {_ms(bench_dev)})")
+        del x, got, again
+    fwd = {k: (None if None in (vals := [r[k] for r in rows_out])
+               else sum(v * r["per_call"] for v, r in zip(vals, rows_out)))
+           for k in ("device_ms", "bound_ms", "library_device_ms", "library_benchmark_device_ms")}
+    log(f"[K3] one served forward ({K3_PER_CALL} launches): conv device {_ms(fwd['device_ms'])} "
+        f"against a bound of {fwd['bound_ms']:.4f} ms"
+        + ("" if fwd["device_ms"] is None else f" ({100 * fwd['bound_ms'] / fwd['device_ms']:.1f} %)")
+        + f"; cuDNN heuristic {_ms(fwd['library_device_ms'])}, cudnn.benchmark "
+        f"{_ms(fwd['library_benchmark_device_ms'])}")
+    torch.cuda.empty_cache()
     return rows_out
 
 
@@ -1405,15 +1532,16 @@ def serve_flagship(call, artifact: Path = ARTIFACT) -> dict:
         server.server_close()
         thread.join(timeout=30)
     k1, k1b, k2, k2b = _counts()
-    resizes = resize_band.launches
+    resizes, k3 = resize_band.launches, conv3x3_f32.launches
     calls = stats["device_calls"]
     log(f"[serve] stats {stats}; K1 launches {k1}, K2 launches {k2}, K1 backward {k1b}, K2 "
-        f"backward {k2b}, resize launches {resizes}")
+        f"backward {k2b}, resize launches {resizes}, K3 launches {k3}")
     if (calls < 1 or k1 != K1_PER_CALL * calls or k2 != K2_PER_CALL * calls or k1b or k2b
-            or resizes != RESIZE_PER_FORWARD * calls):
-        raise AssertionError(f"expected {K1_PER_CALL} K1, {K2_PER_CALL} K2 and "
-                             f"{RESIZE_PER_FORWARD} resize launches per device call; got {k1}, "
-                             f"{k2} and {resizes} over {calls} calls")
+            or resizes != RESIZE_PER_FORWARD * calls or k3 != K3_PER_CALL * calls):
+        raise AssertionError(f"expected {K1_PER_CALL} K1, {K2_PER_CALL} K2, "
+                             f"{RESIZE_PER_FORWARD} resize and {K3_PER_CALL} K3 launches per "
+                             f"device call; got {k1}, {k2}, {resizes} and {k3} over {calls} "
+                             f"calls")
     if stats["images"] != 12 or stats["batched_rows"] != 12:
         raise AssertionError(f"server saw {stats}, expected 12 images")
 
@@ -1430,7 +1558,8 @@ def serve_flagship(call, artifact: Path = ARTIFACT) -> dict:
     if not worst <= 1e-5:
         raise AssertionError(f"served answers differ from the direct call by {worst:.3e}")
     log(f"[serve] 12 images over {calls} device calls; max |served - direct| {worst:.2e}")
-    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b, "R": resizes},
+    return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b, "R": resizes,
+                         "K3": k3},
             "device_calls": calls}
 
 
@@ -1480,7 +1609,8 @@ def golden(call) -> dict:
 
 # the flagship program's graph: its kernels' ops, and the plain versions'
 # operations that must not stand in it (K1's statistics, K2's zero padding)
-PROGRAM_OPS = {"K1": "adunet_torch.layer_norm_relu.default", "K2": "adunet_torch.conv3x3_c64.default"}
+PROGRAM_OPS = {"K1": "adunet_torch.layer_norm_relu.default", "K2": "adunet_torch.conv3x3_c64.default",
+               "K3": "adunet_torch.conv3x3_f32.default"}
 PLAIN_OPS = ("aten.rsqrt.default", "aten.mean.dim", "aten.var_mean.correction",
              "aten.constant_pad_nd.default", "aten.pad.default")
 PROGRAM_TIMED = 20
@@ -1491,7 +1621,7 @@ import json, sys
 import numpy as np
 import torch
 from adunet_torch.export import program
-from adunet_torch.kernels import conv64, fused_norm, resize_band
+from adunet_torch.kernels import conv3x3_f32, conv64, fused_norm, resize_band
 
 def model_code():
     return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "adunet")
@@ -1504,7 +1634,7 @@ outs = [prog(x) for _ in range(2)]
 torch.cuda.synchronize()
 launches = [fused_norm.layer_norm_relu.launches, fused_norm.layer_norm_relu.backward_launches,
             conv64.conv3x3_same.launches, conv64.conv3x3_same_backward.launches,
-            resize_band.launches]
+            resize_band.launches, conv3x3_f32.launches]
 np.save(sys.argv[3], outs[1])
 print(json.dumps({"model_code": before + model_code(), "launches": launches, "calls": 2,
                   "repeat_equal": bool(np.array_equal(outs[0], outs[1]))}))
@@ -1557,8 +1687,8 @@ def flagship_program(call, ident: str) -> dict:
             f"({program_bytes / 1e6:.2f} MB program, platforms "
             f"{manifest['platforms']}): graph {sum(counts.values())} nodes, "
             f"{ops['K1']} adunet_torch.layer_norm_relu, {ops['K2']} adunet_torch.conv3x3_c64, "
-            f"plain decompositions {plain or 'none'}")
-        if ops != {"K1": K1_PER_CALL, "K2": K2_PER_CALL} or plain:
+            f"{ops['K3']} adunet_torch.conv3x3_f32, plain decompositions {plain or 'none'}")
+        if ops != {"K1": K1_PER_CALL, "K2": K2_PER_CALL, "K3": K3_PER_CALL} or plain:
             raise AssertionError(f"the flagship program holds {ops} kernel ops and {plain}")
 
         x = np.random.default_rng(5).random((8, 256, 256, 3), dtype=np.float32)
@@ -1585,10 +1715,10 @@ def flagship_program(call, ident: str) -> dict:
         got = np.load(Path(tmp) / "y.npy")
         err = float(np.abs(got - call(x)).max())
         want_launches = [K1_PER_CALL * child["calls"], 0, K2_PER_CALL * child["calls"], 0,
-                         RESIZE_PER_FORWARD * child["calls"]]
+                         RESIZE_PER_FORWARD * child["calls"], K3_PER_CALL * child["calls"]]
         log(f"[program] fresh process ({child_s:.1f} s, beside serve and golden): model code "
             f"imported {child['model_code'] or 'none'}; launches K1 / K1 bwd / K2 / K2 bwd / "
-            f"resize "
+            f"resize / K3 "
             f"{child['launches']} over {child['calls']} calls; two calls equal "
             f"{child['repeat_equal']}; max |program - weights path| {err:.2e}")
         if (child["model_code"] or child["launches"] != want_launches
@@ -1685,21 +1815,21 @@ def train_flagship(tmp: Path, ident: str) -> dict:
     torch.cuda.synchronize()
     k1, k1b, k2, k2b = _counts()
     resizes = resize_band.launches
-    biased = launch_snapshot()[7:]
+    biased, k3 = launch_snapshot()[7:9], conv3x3_f32.launches
     if (k1, k1b, k2, k2b, resizes) != (16 * TRAIN_STEPS, 16 * TRAIN_STEPS, 4 * TRAIN_STEPS,
                                        4 * TRAIN_STEPS, RESIZE_PER_STEP["train"] * TRAIN_STEPS) \
-            or biased != (12 * TRAIN_STEPS, 12 * TRAIN_STEPS):
+            or biased != (12 * TRAIN_STEPS, 12 * TRAIN_STEPS) or k3:
         raise AssertionError(f"expected {16 * TRAIN_STEPS} K1 ({12 * TRAIN_STEPS} with a conv "
                              f"bias), {16 * TRAIN_STEPS} K1 backward ({12 * TRAIN_STEPS}), "
                              f"{4 * TRAIN_STEPS} K2, {4 * TRAIN_STEPS} K2 backward and "
-                             f"{RESIZE_PER_STEP['train'] * TRAIN_STEPS} resize launches over "
-                             f"{TRAIN_STEPS} steps; got {k1} ({biased[0]}), {k1b} ({biased[1]}), "
-                             f"{k2}, {k2b} and {resizes}")
+                             f"{RESIZE_PER_STEP['train'] * TRAIN_STEPS} resize launches and no "
+                             f"K3 over {TRAIN_STEPS} steps; got {k1} ({biased[0]}), {k1b} "
+                             f"({biased[1]}), {k2}, {k2b}, {resizes} and {k3}")
     losses = [float(v) for v in losses]
     log(f"[train] {TRAIN_STEPS} steps, losses {', '.join(f'{v:.5f}' for v in losses)}; "
         f"every parameter had a finite nonzero gradient after step 1; K1 {k1} ({biased[0]} "
         f"with a conv bias), K1 backward {k1b} ({biased[1]}), K2 {k2}, K2 backward {k2b}, "
-        f"resize {resizes} launches")
+        f"resize {resizes}, K3 {k3} launches")
     # each step samples its own patches; the drop from the random head's
     # residual is far larger than the spread between batches
     if not all(np.isfinite(losses)) or not losses[-1] < 0.75 * losses[0]:
@@ -1712,7 +1842,7 @@ def train_flagship(tmp: Path, ident: str) -> dict:
     del cache, state, model
     torch.cuda.empty_cache()
     return {"launches": {"K1": k1, "K1_bwd": k1b, "K2": k2, "K2_bwd": k2b, "R": resizes,
-                         "K1_bias": biased[0], "K1_bwd_bias": biased[1]},
+                         "K1_bias": biased[0], "K1_bwd_bias": biased[1], "K3": k3},
             "steps": TRAIN_STEPS, "losses": losses,
             "ms_per_step": ms,
             "img_per_s": TRAIN_BATCH * 1e3 / ms, "peak_gb": peak_gb, "depth": info["depth"]}
@@ -2314,7 +2444,7 @@ def deep_config(tmp: Path, ident: str) -> dict:
         torch.cuda.synchronize()
         counts = _counts()
         resizes = resize_band.launches
-        biased = launch_snapshot()[7:]
+        biased = launch_snapshot()[7:9]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = tuple(n * DEEP_STEPS for n in DEEP_PER_STEP[levels])
         want_biased = tuple(n * DEEP_STEPS for n in DEEP_BIAS_PER_STEP[levels])
@@ -4163,6 +4293,26 @@ def kernels_line(details: list[dict], grads: list[dict], launches: dict, serve_l
                                                 "device_ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms", "library_device_ms", "host_us",
                                                 "device_kernels_per_call")} for d in halo]})
+    # K3: the served forward's float32 convs outside K2's gate; no training
+    # step runs it (``launches``: the train phase's, 0)
+    k3 = [d for d in details if d["kernel"] == "K3"]
+    lib_keys = ("library_benchmark_ms", "library_benchmark_device_ms", "pack_device_ms")
+    out.append({"name": "conv3x3_f32", "route": "cuda", "source": "adunet_torch/csrc/conv3x3_f32.cu",
+                "replaces": "none: the reference's convs run in XLA (adunet/nn/blocks.py:59)",
+                "launches": launches["K3"],
+                "max_abs_err": max(d["max_abs_err"] for d in k3),
+                **{k: summed(k3, k) for k in keys + lib_keys}, "bound_by": "operations",
+                "device_kernels_per_call": max(d["device_kernels_per_call"] for d in k3),
+                "per": "launches of one float32 served flagship forward (batch 8, 256 px)",
+                "serve": {"launches": serve_launches["K3"]},
+                "program": {"launches": sr_launches["program"]["K3"],
+                            "per": "the flagship int8 program served over HTTP"},
+                "rows": [{k: d[k] for k in ("shape", "per_call", "max_abs_err",
+                                            "max_abs_err_library", "ms", "device_ms",
+                                            "pack_device_ms", "plain_ms", "bound_ms",
+                                            "bound_share", "library_ms", "library_device_ms",
+                                            "library_benchmark_ms", "library_benchmark_device_ms",
+                                            "host_us")} for d in k3]})
     return {"kernels": out, "build_s": build_s}
 
 
@@ -4192,6 +4342,7 @@ def main() -> int:
             log(f"[ptxas] {line.strip()}")
     spills = check_k1_bwd_spills(_build.last_build["log"])
     k2_bwd_spills = check_k2_bwd_spills(_build.last_build["log"])
+    k3_spills = check_k3_spills(_build.last_build["log"])
 
     ident = gpu_identity().splitlines()[0]
     log(f"[gpu] {ident}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4202,7 +4353,7 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(0)
     details = (phase("k1", check_k1, gen) + phase("k2", check_k2, gen)
-               + phase("k2_halo", check_k2_halo, gen))
+               + phase("k3", check_k3, gen) + phase("k2_halo", check_k2_halo, gen))
     grads = phase("grads", check_backward, gen)
     details += phase("k1_bwd", check_k1_backward, gen)
     details += phase("k2_bwd", check_k2_backward, gen)
@@ -4256,7 +4407,8 @@ def main() -> int:
                "tune": tuned,
                "ddp": dp, "ddp_ranks": dp_ranks, "sweep": swept, "space_ranks": space,
                "seconds": seconds,
-               "k1_bwd_ptxas": spills, "k2_bwd_ptxas": k2_bwd_spills, "host_probes": probes}
+               "k1_bwd_ptxas": spills, "k2_bwd_ptxas": k2_bwd_spills, "k3_ptxas": k3_spills,
+               "host_probes": probes}
     log("[detail] " + json.dumps(summary))
     log(f"[time] {ident}: every phase passed in {seconds:.1f} s of wall time (build included)")
     seg_launches = {k: seg[f"{k}_bfloat16"]["launches"] for k in ("protocol", "vanilla")}

@@ -385,6 +385,37 @@ def test_conv_block_hands_k1_the_bias_its_conv_left_out(monkeypatch, route):
             assert bias is None and kept is not None
 
 
+@pytest.mark.parametrize("cin, features", [(64, 128), (128, 64)])
+def test_f32_conv_block_gradient_reaches_the_library_backward(monkeypatch, cin, features):
+    """K3 runs only where no gradient is wanted: a float32 ``ConvBlock`` at
+    channel counts K3 takes sends both convs to K3 under ``no_grad``, and
+    with a gradient to ``F.conv2d``, whose backward node
+    (``aten.convolution_backward``) the graph reaches; both outputs agree."""
+    from adunet_torch.nn import blocks
+
+    blk = blocks.ConvBlock(cin, features)
+    blocks.init_parameters(blk, 3)
+    x = torch.randn(2, 6, 10, cin, generator=torch.Generator().manual_seed(5))
+    taken, k3 = [], blocks.conv3x3_f32
+    monkeypatch.setattr(blocks, "conv3x3_f32", lambda *a: taken.append(1) or k3(*a))
+    with torch.no_grad():
+        want = blk(x)
+    assert len(taken) == 2
+    taken.clear()
+    y = blk(x)
+    assert not taken
+    seen, stack = {}, [y.grad_fn]  # every node of the backward graph, by identity
+    while stack:
+        node = stack.pop()
+        if node is not None and id(node) not in seen:
+            seen[id(node)] = type(node).__name__
+            stack.extend(n for n, _ in node.next_functions)
+    assert list(seen.values()).count("ConvolutionBackward0") == 2, seen
+    grads = torch.autograd.grad(y.sum(), list(blk.parameters()))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    np.testing.assert_allclose(y.detach().numpy(), want.numpy(), atol=1e-5)
+
+
 def test_conv3x3_gradcheck_f64():
     """The Function's backward formula at a small shape (the gate is the
     public wrapper's; the Function itself takes any 3x3 conv on the CPU)."""

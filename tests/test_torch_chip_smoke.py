@@ -1,6 +1,7 @@
-"""``chip_smoke.py``'s check that no instantiation of K1's backward row
-kernel spills, read from a ptxas report written here in the form ``nvcc
--Xptxas -v`` prints (the real report exists only where ``nvcc`` runs)."""
+"""``chip_smoke.py``'s checks that no instantiation of K1's backward row
+kernel, of K2's backward kernels or of K3 spills, read from a ptxas report
+written here in the form ``nvcc -Xptxas -v`` prints (the real report exists
+only where ``nvcc`` runs)."""
 
 import pytest
 
@@ -105,3 +106,39 @@ def test_k2_bwd_spill_check_reads_every_wgrad_kernel(capsys):
 def test_k2_bwd_spill_check_fails_on_a_spill_or_a_missing_kernel(report, message):
     with pytest.raises(AssertionError, match=message):
         chip_smoke.check_k2_bwd_spills(report)
+
+
+_K3 = ("_ZN6adunet47_GLOBAL__N__338f8a8c_14_conv3x3_f32_cu_3576c38924conv3x3_f32_igemm_kernelILi"
+       "{co}ELi{wt}EEEvPKfS3_S3_Pfiiiiii")
+_K3_PACK = ("_ZN6adunet47_GLOBAL__N__338f8a8c_14_conv3x3_f32_cu_3576c38920pack_w3x3_f32_kernelEPK"
+            "fPfii")
+
+
+def _k3_report(spill_at=None, missing=None) -> str:
+    """A conv3x3_f32.cu report with K3's conv in each (CO, WT) instantiation
+    but ``missing`` and its weight pack, ``spill_at`` spilling 8 bytes."""
+    lines = ["--- conv3x3_f32.cu"]
+    for co, wt in sorted(chip_smoke.K3_INSTANCES):
+        if (co, wt) != missing:
+            lines += _properties(_K3.format(co=co, wt=wt), 8 if (co, wt) == spill_at else 0, 128)
+    lines += _properties(_K3_PACK, 8 if spill_at == "pack" else 0, 26)
+    return "\n".join(lines)
+
+
+def test_k3_spill_check_reads_every_instantiation(capsys):
+    rows = chip_smoke.check_k3_spills(_k3_report())
+    assert len(rows) == len(chip_smoke.K3_INSTANCES) + 1 == 7
+    assert {r["kernel"] for r in rows} == set(chip_smoke.K3_KERNELS)
+    assert all(r["spill_stores"] == r["spill_loads"] == 0 for r in rows)
+    assert capsys.readouterr().out.count("[spill] K3") == 7
+
+
+@pytest.mark.parametrize("report, message", [
+    (_k3_report(spill_at=(128, 128)), "spills"),
+    (_k3_report(spill_at=(64, 32)), "spills"),
+    (_k3_report(spill_at="pack"), "spills"),
+    (_k3_report(missing=(64, 128)), "instantiations"),
+])
+def test_k3_spill_check_fails_on_a_spill_or_a_missing_instantiation(report, message):
+    with pytest.raises(AssertionError, match=message):
+        chip_smoke.check_k3_spills(report)

@@ -360,25 +360,29 @@ def test_wrappers_raise_on_device_without_kernel(call):
 
 
 def test_launch_registry_round_trips():
-    """The registry's snapshot holds all nine counters, K1's two bias
-    counters last; ``all_launch_counts`` is its first seven; adding a whole
+    """The registry's snapshot holds all ten counters, K1's two bias
+    counters and then K3's last; ``all_launch_counts`` is its first seven
+    (what the benchmark unpacks), whatever follows; adding a whole
     snapshot's delta reads back as that delta, a shorter one is refused, and
     the reset sets every counter to 0."""
     from adunet_torch import kernels
 
     saved = kernels.launch_snapshot()
     try:
-        assert len(saved) == 9 and kernels.all_launch_counts() == saved[:7]
-        delta = tuple(range(1, 10))
+        assert len(saved) == 10 and kernels.all_launch_counts() == saved[:7]
+        assert len(kernels.all_launch_counts()) == 7
+        assert kernels._COUNTERS[9] == (kernels.conv3x3_f32, "launches")
+        delta = tuple(range(1, 11))
         kernels.add_launches(delta)
         assert kernels.launches_since(saved) == delta
         assert (tnorm.layer_norm_relu.launches, tconv.conv3x3_same.launches,
-                tband.resize_band.launches, tnorm.layer_norm_relu.bias_backward_launches) == (
-            saved[0] + 1, saved[2] + 3, saved[6] + 7, saved[8] + 9)
+                tband.resize_band.launches, tnorm.layer_norm_relu.bias_backward_launches,
+                kernels.conv3x3_f32.launches) == (
+            saved[0] + 1, saved[2] + 3, saved[6] + 7, saved[8] + 9, saved[9] + 10)
         with pytest.raises(ValueError):
             kernels.add_launches(delta[:7])
         kernels.reset_launches()
-        assert kernels.launch_snapshot() == (0,) * 9
+        assert kernels.launch_snapshot() == (0,) * 10
     finally:
         kernels.reset_launches()
         kernels.add_launches(saved)
@@ -520,3 +524,177 @@ def test_k2_backward_refuses_what_the_kernels_do_not_take(recording_lib):
     with pytest.raises(ValueError, match="no kernel"):
         tconv.conv3x3_same_backward(x.to("meta"), w.to("meta"), x.to("meta"))
     assert recording_lib.calls == []
+
+
+# ---------------------------------------------------------------- K3
+tk3 = importlib.import_module("adunet_torch.kernels.conv3x3_f32")
+
+# (C_in, C_out) of the served flagship's 9 K3 shapes (PERF.md; chip_smoke.K3_SERVE)
+K3_PAIRS = [(64, 128), (128, 128), (128, 256), (256, 256), (256, 512), (512, 512), (512, 256),
+            (256, 128), (128, 64)]
+
+
+@pytest.mark.parametrize("cin, cout", K3_PAIRS)
+def test_k3_plain_matches_conv2d(cin, cout):
+    """K3's plain version (K2's channel-general 9-tap float32 sum) against
+    torch's ``F.conv2d`` in float64 at a tiny ragged image: outputs of unit
+    scale summed over 9 x C_in <= 4,608 float32 products, so within 1e-5."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(2, 5, 7, cin, generator=gen)
+    w = torch.randn(cout, cin, 3, 3, generator=gen) * (1.0 / (9 * cin)) ** 0.5
+    b = torch.randn(cout, generator=gen) * 0.1
+    with torch.no_grad():
+        got = tk3.conv3x3_f32(x, w, b)
+    want = F.conv2d(x.permute(0, 3, 1, 2).double(), w.double(), b.double(), padding=1)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, 7, cout)
+    np.testing.assert_allclose(got.numpy(), want.permute(0, 2, 3, 1).numpy(), atol=1e-5)
+    assert tk3.conv3x3_f32_plain is tconv.conv3x3_same_plain  # reused, not copied
+
+
+def test_k3_gate_takes_the_served_flagships_14_convs(monkeypatch):
+    """The served flagship's forward (float32, no gradient) sends 14 convs
+    to K3, at the 9 served channel pairs, and its 4 64 -> 64 convs to K2;
+    only enc0.conv0 (3 -> 64) and the 1x1 head go to the library."""
+    import torch.nn.functional as F
+
+    from adunet_torch.models import build_super_resolution_unet
+    from adunet_torch.nn import blocks
+
+    taken, library, k3 = [], [], blocks.conv3x3_f32
+    conv2d = F.conv2d
+    monkeypatch.setattr(blocks, "conv3x3_f32",
+                        lambda x, w, b: taken.append((x.shape[1], x.shape[3], w.shape[0]))
+                        or k3(x, w, b))
+    monkeypatch.setattr(F, "conv2d", lambda x, w, *a, **k: library.append(tuple(w.shape))
+                        or conv2d(x, w, *a, **k))
+    model, _ = build_super_resolution_unet(0.5, depth_override=3, device="cpu", seed=0)
+    before = tconv.conv3x3_same.launches
+    with torch.no_grad():
+        model.eval()(torch.rand(1, 256, 256, 3))
+    assert len(taken) == 14
+    assert sorted({(ci, co) for _, ci, co in taken}) == sorted(K3_PAIRS)
+    assert {(h, ci, co) for h, ci, co in taken} == {
+        (128, 64, 128), (128, 128, 128), (64, 128, 256), (64, 256, 256), (32, 256, 512),
+        (32, 512, 512), (64, 512, 256), (128, 256, 128), (256, 128, 64)}
+    assert sorted(library) == [(3, 64, 1, 1), (64, 3, 3, 3)]
+    assert tconv.conv3x3_same.launches == before  # the CPU counts no launch
+
+
+@pytest.mark.parametrize("x_shape, w_shape, dtype, grad, ok", [
+    ((8, 128, 128, 64), (128, 64, 3, 3), torch.float32, False, True),
+    ((8, 32, 32, 512), (512, 512, 3, 3), torch.float32, False, True),
+    ((8, 256, 256, 128), (64, 128, 3, 3), torch.float32, False, True),
+    ((1, 17, 40, 8), (192, 8, 3, 3), torch.float32, False, True),
+    ((8, 256, 256, 64), (64, 64, 3, 3), torch.float32, False, False),  # K2's
+    ((8, 256, 256, 3), (64, 3, 3, 3), torch.float32, False, False),  # C_in = 3
+    ((8, 256, 256, 64), (3, 64, 1, 1), torch.float32, False, False),  # 1x1
+    ((8, 64, 64, 12), (64, 12, 3, 3), torch.float32, False, False),  # C_in % 8
+    ((8, 64, 64, 64), (32, 64, 3, 3), torch.float32, False, False),  # C_out % 64
+    ((8, 64, 64, 128), (128, 64, 3, 3), torch.float32, False, False),  # channels disagree
+    ((8, 128, 128, 64), (128, 64, 3, 3), torch.bfloat16, False, False),
+    ((8, 128, 128, 64), (128, 64, 3, 3), torch.float32, True, False),  # a gradient wanted
+], ids=["served", "bottleneck", "dec0", "ragged", "k2", "rgb", "1x1", "cin", "cout",
+        "mismatch", "bf16", "grad"])
+def test_k3_gate(x_shape, w_shape, dtype, grad, ok):
+    x = torch.zeros(x_shape, dtype=dtype, device="meta")
+    w = torch.zeros(w_shape, device="meta", requires_grad=grad)
+    b = torch.zeros(w_shape[0], device="meta")
+    assert tk3.takes(x, w, b) == ok
+    with torch.no_grad():  # no gradient is wanted under no_grad, whatever requires one
+        assert tk3.takes(x, w, b) == (ok or grad)
+
+
+def test_k3_gate_refuses_the_space_mesh(monkeypatch):
+    """On a space mesh a 3x3 conv takes its neighbours' rows and runs VALID
+    in H: never K3, whose SAME padding would read zeros there."""
+    import torch.nn.functional as F
+
+    from adunet_torch.nn import blocks
+
+    class Edge:  # one process holds the whole image: its halo rows are zeros
+        def halo(self, x, rows):
+            return F.pad(x, (0, 0, 0, 0, rows, rows))
+
+    conv = blocks.Conv(64, 128, 3)
+    blocks.init_parameters(conv, 3)
+    x = torch.randn(1, 6, 10, 64, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = conv(x)
+        monkeypatch.setattr(blocks, "conv3x3_f32", lambda *a: pytest.fail("K3 on a space mesh"))
+        conv.space = Edge()
+        got = conv(x)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_k3_launch_is_one_c_call_with_the_parameters_as_held(recording_lib):
+    """A K3 launch is one C call handed x, the OIHW weight and the bias as
+    held (null for none), scratch for the pack (9 x C_in x C_out float32),
+    the output, the shape, the device index and the stream; it counts on
+    K3's counter alone."""
+    from adunet_torch import kernels
+
+    x = torch.zeros(2, 5, 7, 128)
+    w = torch.zeros(256, 128, 3, 3)
+    for b in (torch.zeros(256), None):
+        recording_lib.calls.clear()
+        before = kernels.launch_snapshot()
+        y = tk3._launch(x, w, b)
+        [(name, args)] = recording_lib.calls
+        assert name == "adunet_conv3x3_f32"
+        assert args[:3] == (x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr())
+        assert args[3] not in (None, x.data_ptr(), w.data_ptr(), y.data_ptr())
+        assert args[4:] == (y.data_ptr(), 2, 5, 7, 128, 256, -1, 1234)
+        assert (tuple(y.shape), y.dtype) == ((2, 5, 7, 256), torch.float32)
+        assert kernels.launches_since(before) == (0,) * 9 + (1,)
+    with pytest.raises(TypeError):
+        tk3._launch(x.double(), w, None)
+
+
+def test_k3_raises_where_a_gradient_is_wanted_or_the_shape_is_refused():
+    x = torch.zeros(1, 4, 4, 64)
+    w = torch.zeros(128, 64, 3, 3, requires_grad=True)
+    with pytest.raises(ValueError, match="no gradient"):
+        tk3.conv3x3_f32(x, w, None)
+    with pytest.raises(ValueError, match="unsupported"):
+        tk3.conv3x3_f32(torch.zeros(1, 16, 128, 64), torch.zeros(64, 64, 3, 3), None)
+    with pytest.raises(ValueError, match="no kernel"):
+        tk3.conv3x3_f32(x.to("meta"), w.detach().to("meta"), None)
+
+
+def test_k3_source_names_what_it_replaces_and_its_bound():
+    from pathlib import Path
+
+    k3 = (Path(tk3.__file__).resolve().parents[1] / "csrc" / "conv3x3_f32.cu").read_text()
+    assert "Replaces no TPU kernel" in k3 and "Bound on an H100: operations" in k3
+    assert "cp.async" in k3 and "no TF32" in k3
+
+
+def test_k3_kernel_names_fall_in_no_benchmark_class():
+    """The benchmark classes device time by kernel name: every ``__global__``
+    of K3's source, bare and as the profiler shows a template's instance, is
+    neither a library conv (``conv_lib_ms.serve``) nor K2 (``k2_roofline.serve``),
+    read from the benchmark's files as they are."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    root = Path(tk3.__file__).resolve().parents[2]
+
+    def metric(name):
+        spec = importlib.util.spec_from_file_location(
+            "metric_" + name.replace(".", "_"), root / "portbench" / "metrics" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    library, k2 = metric("conv_lib_ms.serve"), metric("k2_roofline.serve")
+    src = (root / "adunet_torch" / "csrc" / "conv3x3_f32.cu").read_text()
+    names = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(", src)
+    assert sorted(names) == ["conv3x3_f32_igemm_kernel", "pack_w3x3_f32_kernel"]
+    shown = [f"void adunet::(anonymous namespace)::{n}<128, 64>(float const*, float const*, "
+             f"float const*, float*, int, int, int, int, int, int)" for n in names]
+    for name in names + shown:
+        assert not library.is_library_conv(name), name
+        assert not any(s in name for s in k2.NAMES), name

@@ -359,3 +359,21 @@ def test_exported_resize_is_the_op():
     for dtype in (torch.float32, torch.bfloat16):
         torch.library.opcheck(torch.ops.adunet_torch.resize_band.default,
                               (x.to(dtype), 8, 9, "bilinear", True, dtype))
+
+
+@pytest.mark.parametrize("shape, cout", [((8, 32, 32, 256), 512), ((8, 256, 256, 128), 64),
+                                         ((1, 17, 40, 8), 192)])
+def test_k3_op_fake_kernel_gives_the_output_shape(shape, cout):
+    """While a program is traced, K3's op (``adunet_torch::conv3x3_f32``)
+    gives the output's shape and type from fake tensors, reading no data."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from adunet_torch.kernels import ops  # noqa: F401  (registers the op)
+
+    with FakeTensorMode():
+        x = torch.empty(shape)
+        y = torch.ops.adunet_torch.conv3x3_f32(x, torch.empty(cout, shape[-1], 3, 3),
+                                               torch.empty(cout))
+        y_nobias = torch.ops.adunet_torch.conv3x3_f32(x, torch.empty(cout, shape[-1], 3, 3), None)
+    assert tuple(y.shape) == tuple(y_nobias.shape) == (*shape[:3], cout)
+    assert y.dtype == torch.float32

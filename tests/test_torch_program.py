@@ -125,6 +125,22 @@ def test_ops_pass_opcheck():
         ops.conv3x3_c64(x[:, :8], w, b)
 
 
+@pytest.mark.parametrize("shape, cout", [((1, 6, 10, 64), 128), ((2, 5, 3, 256), 64),
+                                         ((1, 1, 1, 8), 192)])
+def test_k3_op_passes_opcheck(shape, cout):
+    """K3's op (``adunet_torch::conv3x3_f32``): its plain CPU kernel and its
+    fake kernel (the output's shape, read from no data) agree under
+    ``opcheck``, with a bias and without; a shape K3 refuses raises."""
+    gen = torch.Generator().manual_seed(cout)
+    x = torch.randn(*shape, generator=gen)
+    w = torch.randn(cout, shape[-1], 3, 3, generator=gen) * 0.05
+    b = torch.randn(cout, generator=gen)
+    torch.library.opcheck(ops.conv3x3_f32, (x, w, b))
+    torch.library.opcheck(ops.conv3x3_f32, (x, w, None))
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        ops.conv3x3_f32(x, w[:, :4], b)
+
+
 def test_eager_path_calls_no_op_and_export_does(monkeypatch, perturb_params):
     _, model, size = _jax_state("sr", perturb_params)
     x = torch.from_numpy(_tiles(size))
@@ -136,6 +152,7 @@ def test_eager_path_calls_no_op_and_export_does(monkeypatch, perturb_params):
 
     monkeypatch.setattr(torch.ops.adunet_torch, "layer_norm_relu", refuse)
     monkeypatch.setattr(torch.ops.adunet_torch, "conv3x3_c64", refuse)
+    monkeypatch.setattr(torch.ops.adunet_torch, "conv3x3_f32", refuse)
     with torch.no_grad():
         assert torch.equal(model(x), want)
     x.requires_grad_(True)
@@ -186,18 +203,22 @@ def test_sr_program_matches_jax(quantize, tmp_path, perturb_params):
 
 # the ops of the served flagship's program (scale 0.5, depth 3, batch 8 x 256
 # px), by node: a library conv keeps its bias in the conv there (K1's op
-# takes none), so the graph is the one programs have had since the resize op
+# takes none). K3's op holds the 14 float32 3x3 convs K2 refuses, with their
+# weights and biases as they are, so only enc0.conv0 (3 -> 64) and the 1x1
+# head are library convs: two ``aten.conv2d`` with a permute on either side
+# and a cast of their weight and bias each
 FLAGSHIP_OPS = {
-    "adunet_torch.conv3x3_c64.default": 4, "adunet_torch.layer_norm_relu.default": 16,
-    "adunet_torch.resize_band.default": 6, "aten._assert_tensor_metadata.default": 39,
+    "adunet_torch.conv3x3_c64.default": 4, "adunet_torch.conv3x3_f32.default": 14,
+    "adunet_torch.layer_norm_relu.default": 16,
+    "adunet_torch.resize_band.default": 6, "aten._assert_tensor_metadata.default": 11,
     "aten.add.Tensor": 1, "aten.cat.default": 3, "aten.clamp.default": 1,
-    "aten.conv2d.default": 16, "aten.maximum.default": 1, "aten.minimum.default": 1,
-    "aten.ones.default": 1, "aten.permute.default": 32, "aten.relu.default": 3,
-    "aten.to.dtype": 39, "aten.zeros.default": 1,
+    "aten.conv2d.default": 2, "aten.maximum.default": 1, "aten.minimum.default": 1,
+    "aten.ones.default": 1, "aten.permute.default": 4, "aten.relu.default": 3,
+    "aten.to.dtype": 11, "aten.zeros.default": 1,
 }
 FLAGSHIP_INT8_OPS = {**FLAGSHIP_OPS,
-                     "aten._assert_tensor_metadata.default": 59, "aten.mul.Tensor": 20,
-                     "aten.to.dtype": 59, "aten.view.default": 20}
+                     "aten._assert_tensor_metadata.default": 31, "aten.mul.Tensor": 20,
+                     "aten.to.dtype": 31, "aten.view.default": 20}
 
 
 @pytest.mark.parametrize("quantize", [None, "int8"])

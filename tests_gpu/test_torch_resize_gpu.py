@@ -167,13 +167,14 @@ def test_source_holds_no_atomic():
 
 
 def test_counter_is_the_last_of_the_wrappers(cuda):
-    """The resize's counter follows K1's and K2's six in the registry, so
-    ``all_launch_counts`` ends with it, and a resize counts there alone."""
+    """The resize's counter follows K1's and K2's six in the registry (K1's
+    two bias counters and K3's after it), so ``all_launch_counts`` ends with
+    it, and a resize counts there alone."""
     from adunet_torch import kernels
 
     assert kernels._COUNTERS[6] == (_band.resize_band, "launches")
-    assert len(kernels.launch_snapshot()) == 9 and len(kernels.all_launch_counts()) == 7
+    assert len(kernels.launch_snapshot()) == 10 and len(kernels.all_launch_counts()) == 7
     before = kernels.launch_snapshot()
     with torch.no_grad():
         resize_by_scale(torch.rand((1, 32, 32, 8), device="cuda"), 0.5)
-    assert kernels.launches_since(before) == (0,) * 6 + (1,) + (0,) * 2
+    assert kernels.launches_since(before) == (0,) * 6 + (1,) + (0,) * 3
